@@ -1,0 +1,103 @@
+"""Top-level Conformer CTC model: encoder -> LSTM decoder -> fp32 logits
+(counterpart of conformer_tpu/models/conformer.py).
+
+``Conformer(cfg, compute_dtype)(mels (B, T, n_mels), lengths) ->
+(logits (B, T', vocab) fp32, subsampled lengths)``. ``init_weights`` gives
+seeded random weights with the JAX package's initialiser families.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from conformer_tpu_torch.config import ModelConfig
+from conformer_tpu_torch.models.attention import RelativeMultiHeadAttention
+from conformer_tpu_torch.models.decoder import LSTMDecoder, LSTMLayer
+from conformer_tpu_torch.models.encoder import ConformerEncoder
+from conformer_tpu_torch.models.layers import (DTYPES, Conv2d, Dense,
+                                               DepthwiseConv1d, LayerNorm,
+                                               MaskedBatchNorm)
+from conformer_tpu_torch.utils.masking import padding_mask
+
+class Conformer(nn.Module):
+    def __init__(self, cfg: ModelConfig, compute_dtype: str = "float32"):
+        super().__init__()
+        if cfg.arch != "ctc":
+            raise NotImplementedError(
+                f"model.arch={cfg.arch!r} is not ported yet (only 'ctc')")
+        self.cfg = cfg
+        dtype = DTYPES[compute_dtype]
+        self.encoder = ConformerEncoder(cfg, dtype)
+        self.decoder = LSTMDecoder(cfg.d_model, cfg.vocab_size,
+                                   cfg.lstm_hidden_dim, cfg.n_lstm_layers, dtype)
+
+    def forward(self, mels: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        enc, out_lengths = self.encoder(mels, lengths)
+        frame_mask = None
+        if out_lengths is not None and self.cfg.decoder_norm_masked:
+            frame_mask = padding_mask(out_lengths, enc.shape[1])
+        logits = self.decoder(enc, frame_mask)
+        return logits.float(), out_lengths
+
+
+def _lecun_normal(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
+    """Truncated normal (2 std) with variance 1/fan_in, flax's lecun_normal."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    x = torch.randn(shape, generator=gen)
+    while True:
+        bad = x.abs() > 2.0
+        if not bad.any():
+            return x * std
+        x[bad] = torch.randn(int(bad.sum()), generator=gen)
+
+
+def _orthogonal(rows: int, cols: int, gen: torch.Generator) -> torch.Tensor:
+    a = torch.randn(max(rows, cols), min(rows, cols), generator=gen,
+                    dtype=torch.float64)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))[None, :]
+    return (q if rows >= cols else q.T).float()
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Seeded random weights drawn on the CPU (so every device gets the same
+    numbers): lecun-normal kernels, xavier-uniform attention biases, an
+    orthogonal LSTM recurrence, zero biases, unit norm scales."""
+    gen = torch.Generator().manual_seed(seed)
+    for mod in model.modules():
+        new = {}
+        if isinstance(mod, Dense):
+            new["weight"] = _lecun_normal(mod.weight.shape, mod.in_features, gen)
+            new["bias"] = torch.zeros_like(mod.bias)
+        elif isinstance(mod, Conv2d):
+            fan_in = mod.weight[0].numel()
+            new["weight"] = _lecun_normal(mod.weight.shape, fan_in, gen)
+            new["bias"] = torch.zeros_like(mod.bias)
+        elif isinstance(mod, DepthwiseConv1d):
+            new["weight"] = _lecun_normal(mod.weight.shape, mod.kernel_size, gen)
+            new["bias"] = torch.zeros_like(mod.bias)
+        elif isinstance(mod, RelativeMultiHeadAttention):
+            h, dh = mod.content_bias.shape
+            limit = math.sqrt(6.0 / (h + dh))
+            for name in ("content_bias", "position_bias"):
+                new[name] = (torch.rand((h, dh), generator=gen) * 2 - 1) * limit
+        elif isinstance(mod, LSTMLayer):
+            new["weight_ih"] = _lecun_normal(mod.weight_ih.shape,
+                                             mod.weight_ih.shape[1], gen)
+            new["bias_ih"] = torch.zeros_like(mod.bias_ih)
+            new["weight_hh"] = _orthogonal(mod.hidden_dim, 4 * mod.hidden_dim,
+                                           gen).T
+        elif isinstance(mod, (LayerNorm, MaskedBatchNorm)):
+            for name, p in mod.named_parameters(recurse=False):
+                new[name] = (torch.zeros_like(p) if name == "bias"
+                             else torch.ones_like(p))
+        for name, value in new.items():
+            getattr(mod, name).copy_(value)
+    return model

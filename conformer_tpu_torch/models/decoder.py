@@ -1,0 +1,71 @@
+"""LSTM decoder head: LSTM -> swish -> masked BatchNorm -> vocab projection
+(counterpart of conformer_tpu/models/decoder.py).
+
+The LSTM is a loop over time with the input projection hoisted out of it,
+in the compute dtype like the JAX scan (the cell state is carried in that
+dtype too). Gate order [i, f, g, o], torch's. Parameters carry
+``nn.LSTMCell``'s names; ``bias_hh`` is a zero buffer, since the JAX cell has
+one bias only.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from conformer_tpu_torch.models.layers import Dense, MaskedBatchNorm, swish
+
+
+class LSTMLayer(nn.Module):
+    def __init__(self, input_dim: int, hidden_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.hidden_dim, self.compute_dtype = hidden_dim, dtype
+        self.weight_ih = nn.Parameter(torch.empty(4 * hidden_dim, input_dim))
+        self.bias_ih = nn.Parameter(torch.zeros(4 * hidden_dim))
+        self.weight_hh = nn.Parameter(torch.empty(4 * hidden_dim, hidden_dim))
+        self.register_buffer("bias_hh", torch.zeros(4 * hidden_dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(L, B, D) time-major -> (L, B, H)."""
+        dt = self.compute_dtype
+        gates_x = F.linear(x.to(dt), self.weight_ih.to(dt),
+                           (self.bias_ih + self.bias_hh).to(dt))
+        w_hh = self.weight_hh.to(dt)
+        b = x.shape[1]
+        h = torch.zeros(b, self.hidden_dim, dtype=dt, device=x.device)
+        c = torch.zeros_like(h)
+        outs = []
+        for gx in gates_x:
+            i, f, g, o = torch.chunk(gx + h @ w_hh.T, 4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            outs.append(h)
+        if not outs:
+            return gates_x.new_zeros(0, b, self.hidden_dim)
+        return torch.stack(outs)
+
+
+class LSTMDecoder(nn.Module):
+    def __init__(self, d_model: int, vocab_size: int, hidden_dim: int = 640,
+                 n_layers: int = 1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.lstm = nn.ModuleList(
+            LSTMLayer(d_model if i == 0 else hidden_dim, hidden_dim, dtype)
+            for i in range(n_layers))
+        self.norm = MaskedBatchNorm(hidden_dim, dtype=dtype)
+        self.classifier = Dense(hidden_dim, vocab_size, dtype)
+
+    def forward(self, x: torch.Tensor,
+                frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, L, d_model) -> (B, L, vocab) unnormalised logits."""
+        x = x.transpose(0, 1)
+        for layer in self.lstm:
+            x = layer(x)
+        x = swish(x)
+        x = self.norm(x, mask=None if frame_mask is None else frame_mask.T,
+                      use_running_average=not self.training)
+        return self.classifier(x).transpose(0, 1)

@@ -1,0 +1,146 @@
+"""The PyTorch port stands alone: it imports nothing of JAX or of the JAX
+package, importing it builds nothing, its entry points refuse to fall back
+to the CPU quietly, and its kernel wrappers take the plain path only for
+CPU tensors."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "conformer_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "conformer_tpu"}
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_jax_or_jax_package_import_anywhere_in_the_port():
+    files = _port_files()
+    assert len(files) > 20
+    bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p)) & FORBIDDEN)
+           for p in files}
+    assert {k: v for k, v in bad.items() if v} == {}
+
+
+_BLOCKED_IMPORT = r'''
+import importlib, pkgutil, subprocess, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "orbax",
+                                  "conformer_tpu", "triton"}:
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+
+_popen = subprocess.Popen
+
+class NoCompiler(_popen):
+    def __init__(self, args, *rest, **kwargs):
+        if "nvcc" in str(args):
+            raise AssertionError(f"nvcc was started at import: {args}")
+        super().__init__(args, *rest, **kwargs)
+
+subprocess.Popen = NoCompiler
+import conformer_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(conformer_tpu_torch.__path__,
+                                               "conformer_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+from conformer_tpu_torch.ops.cuda import build
+assert build.BUILD_LOG == {} and build._loaded == {}
+print(len(names))
+'''
+
+
+def test_every_module_imports_with_jax_blocked_and_builds_nothing():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+
+
+def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
+    from conformer_tpu_torch.cli.infer import main
+    from conformer_tpu_torch.config import Config, ModelConfig
+    from conformer_tpu_torch.decode.pipeline import InferencePipeline
+    from conformer_tpu_torch.text.tokenizer import load_tokenizer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config(model=ModelConfig.tiny(370))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferencePipeline(cfg, load_tokenizer("vi"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--audio", str(tmp_path / "a.wav"), "--set", "model.n_blocks=1"])
+
+
+def test_unported_decoders_raise():
+    from conformer_tpu_torch.cli.infer import main
+    from conformer_tpu_torch.config import Config, ModelConfig
+    from conformer_tpu_torch.decode.pipeline import InferencePipeline
+    from conformer_tpu_torch.text.tokenizer import load_tokenizer
+
+    cfg = Config(model=ModelConfig.tiny(370))
+    for decode in ("beam", "beam_device"):
+        with pytest.raises(NotImplementedError):
+            InferencePipeline(cfg, load_tokenizer("vi"), decode=decode,
+                              device="cpu")
+    pipe = InferencePipeline(cfg, load_tokenizer("vi"), device="cpu")
+    with pytest.raises(NotImplementedError):
+        pipe.evaluate("manifest.csv")
+    for flag in (["--streaming"], ["--lm", "lm.arpa"]):
+        with pytest.raises(NotImplementedError):
+            main(["--audio", "a.wav", "--device", "cpu", *flag])
+
+
+def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
+    from conformer_tpu_torch.audio.mel import MelFrontend
+    from conformer_tpu_torch.ops import cuda
+    from conformer_tpu_torch.ops.cuda import sincos_attention as sa
+    from conformer_tpu_torch.ops.cuda.mel_frontend import logmel_fwd
+
+    cuda.reset_launch_counts()
+    g = torch.Generator().manual_seed(0)
+    qu, qv, k, v = (torch.randn(2, 9, 128, generator=g) for _ in range(4))
+    wh = sa.prep_pos_kernel(torch.randn(128, 128, generator=g) / 11.3, 2)
+    sin_t, cos_t = sa.sincos_tables(9, 128)
+    lengths = torch.tensor([9, 4], dtype=torch.int32)
+    out = sa.sincos_attention_fwd(qu, qv, k, v, wh, lengths, sin_t, cos_t)
+    assert torch.equal(out, sa.sincos_attention_plain(qu, qv, k, v, wh,
+                                                      lengths, sin_t, cos_t))
+    fe = MelFrontend()
+    logmel_fwd(torch.randn(2, 4000, generator=g), fe._dft, fe._fb, 160, 400,
+               23)
+    assert cuda.launch_counts() == {"sincos_attention_fwd": 0, "logmel_fwd": 0}
+    # Any other device has no plain path and no kernel: it raises.
+    meta = [x.to("meta") for x in (qu, qv, k, v, wh, lengths, sin_t, cos_t)]
+    with pytest.raises(ValueError, match="no kernel"):
+        sa.sincos_attention_fwd(*meta)
+
+
+def test_chip_smoke_refuses_to_run_without_a_gpu():
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
