@@ -9,17 +9,23 @@ Phases, each printing one JSON line:
 1. build   -- compile every kernel source in conformer_tpu_torch/csrc/ with
               nvcc (one process per source, all at once) into build/.
 2. kernels -- hold each kernel against its plain PyTorch version on the card
-              at the shapes the serving path gives it, and time the kernel,
-              the plain version and, where one exists, the one PyTorch call
-              that computes the same function.
+              at the shapes the serving and training paths give it (K1 with
+              and without dropout, K2 at rates 0 and 0.1, K3), and time the
+              kernel, the plain version, the bound and, where one exists,
+              the one PyTorch call that computes the same function.
 3. model   -- the production Config() model (17 blocks, d_model 512, 8
               heads, kernel 31, LSTM 640, vocab 370) with seeded random
-              weights, on 8 s and 24 s batches of 8: once through the
+              weights, on 8 s and 24 s batches of 8: a forward, and one
+              train step (dropout 0.1, SpecAugment, remat), once through the
               kernels, once through their plain versions.
 4. serve   -- WAV files of 3, 8, 16 and 24 s transcribed through
               ``conformer_tpu_torch.cli.infer.main(... --device cuda)`` in
               two batches; per-batch latency, RTF and the kernels' launch
               counts over that run.
+5. train   -- 16 WAVs (7.5 s and 23.5 s) trained on through
+              ``conformer_tpu_torch.cli.train.main(... --device cuda)`` for
+              4 steps with checkpoints, then resumed to step 6; per-step
+              time, audio-s/s, loss, grad norm, peak memory and launches.
 
 Then the card's name and power limit, the ``kernels`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
@@ -39,12 +45,21 @@ import tempfile
 import time
 from unittest import mock
 
-PHASES = ("build", "kernels", "model", "serve")
+PHASES = ("build", "kernels", "model", "serve", "train")
 OPTIONAL_PHASES = ("profile",)
 # Published dense peaks of one H100 SXM (NVIDIA data sheet) at 700 W.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 TOL_K1 = {"float32": 1e-4, "bfloat16": 3e-2}
+# K2: max |kernel - plain| over max |plain|, per gradient. fp32: summation
+# order only; bf16: ds, da and p_drop are rounded to bf16 before their
+# products and the outputs to bf16, and flipped roundings move a sum by bf16
+# ulps (2^-8 to 2^-7 relative), so 4 ulps of the largest gradient, as K1.
+TOL_K2 = {"float32": 1e-4, "bfloat16": 3e-2}
+# K1's row statistics, relative: fp32 sums in another order; bf16 also flips
+# roundings of alpha/beta, which move a score by a bf16 ulp of its term.
+TOL_STATS = {"float32": 1e-4, "bfloat16": 4e-3}
+DROPOUT_SEED = 1234567
 TOL_K3 = 1e-4
 DEVICE = "cuda"
 
@@ -95,10 +110,9 @@ def phase_build():
 # Phase 2: kernels against their plain versions.
 # ---------------------------------------------------------------------------
 
-def k1_case(torch, b: int, l: int, dtype, seed: int, time_it: bool):
-    """K1 at (b, l) packed, H = 8, dh = 64, D = 512."""
-    import numpy as np
-
+def _attention_inputs(torch, b: int, l: int, dtype, seed: int):
+    """Packed attention operands at H = 8, dh = 64, D = 512, scale folded
+    into qu/qv, key lengths full, partial and 0."""
     from conformer_tpu_torch.ops.cuda import sincos_attention as sa
 
     h, dh = 8, 64
@@ -108,48 +122,127 @@ def k1_case(torch, b: int, l: int, dtype, seed: int, time_it: bool):
     dev = torch.device(DEVICE)
     qu, qv, k, v = (mk(b, l, d).to(dev, dtype) for _ in range(4))
     wh = sa.prep_pos_kernel((mk(d, d) / math.sqrt(d)).to(dev, dtype), h)
-    # full, partial and empty rows
     lens = [l, l - 1, l // 2, 1, 0, l, 3 * l // 4, 7][:b]
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-    scale = 1.0 / math.sqrt(dh)
-    s = torch.tensor(scale, dtype=dtype, device=dev)
-    qu_s, qv_s = (qu * s).contiguous(), (qv * s).contiguous()
+    s = torch.tensor(1.0 / math.sqrt(dh), dtype=dtype, device=dev)
     sin_t, cos_t = sa.sincos_tables(l, d, dtype, dev)
-    args = (qu_s, qv_s, k, v, wh, lengths, sin_t, cos_t)
-    got = sa.sincos_attention_fwd(*args)
-    want = sa.sincos_attention_plain(*args)
+    dout = mk(b, l, d).to(dev, dtype)
+    return ((qu * s).contiguous(), (qv * s).contiguous(), k, v, wh, lengths,
+            sin_t, cos_t), dout
+
+
+def _augmented(torch, args):
+    """SDPA operands [qu | alpha | beta], [k | cos | sin], v per head, and
+    the key mask: the yardstick library call for K1 and K2 (never used by
+    the port)."""
+    qu_s, qv_s, k, v, wh, lengths, sin_t, cos_t = args
+    b, l, d = qu_s.shape
+    h, dh = wh.shape[0], wh.shape[1]
+    d2 = d // 2
+    split = lambda x: x.reshape(b, l, h, dh).transpose(1, 2)
+    a = torch.einsum("bhld,hdx->bhlx", split(qv_s).float(), wh.float())
+    sq, cq = sin_t.float(), cos_t.float()
+    alpha = (a[..., :d2] * sq + a[..., d2:] * cq).to(qu_s.dtype)
+    beta = (-a[..., :d2] * cq + a[..., d2:] * sq).to(qu_s.dtype)
+    q_aug = torch.cat([split(qu_s), alpha, beta], dim=-1).contiguous()
+    k_aug = torch.cat([split(k), cos_t.expand(b, h, l, d2),
+                       sin_t.expand(b, h, l, d2)], dim=-1).contiguous()
+    mask = (torch.arange(l, device=qu_s.device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    return q_aug, k_aug, split(v).contiguous(), mask
+
+
+def k1_case(torch, b: int, l: int, dtype, seed: int, time_it: bool,
+            rate: float = 0.0):
+    """K1 at (b, l), H = 8, dh = 64, D = 512; output and row statistics."""
+    from conformer_tpu_torch.ops.cuda import sincos_attention as sa
+
+    h, dh, d = 8, 64, 512
+    args, _ = _attention_inputs(torch, b, l, dtype, seed)
+    drop = (rate, DROPOUT_SEED, sa.hash_tq(l))
+    got, got_st = sa.sincos_attention_fwd(*args, *drop, stats=True)
+    want, want_st = sa.sincos_attention_plain(*args, *drop, stats=True)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
+    # the row max is exact; the row sum is summed online, tile by tile
+    st_err = float(((got_st - want_st).abs() / want_st.abs().clamp(min=1.0))
+                   .max())
     finite = bool(torch.isfinite(got.float()).all())
     name = "bfloat16" if dtype == torch.bfloat16 else "float32"
-    case = {"b": b, "l": l, "dtype": name, "max_abs_err": err,
-            "tolerance": TOL_K1[name], "finite": finite,
-            "ok": finite and err <= TOL_K1[name]}
+    case = {"b": b, "l": l, "dtype": name, "rate": rate, "max_abs_err": err,
+            "tolerance": TOL_K1[name], "stats_rel_err": st_err,
+            "stats_tolerance": TOL_STATS[name], "finite": finite,
+            "ok": finite and err <= TOL_K1[name] and st_err <= TOL_STATS[name]}
     if time_it:
         itemsize = torch.tensor([], dtype=dtype).element_size()
         flops = 2.0 * b * h * l * l * (dh + d + dh) + 2.0 * b * h * l * dh * d
         nbytes = (5 * b * l * d + h * dh * d + l * d) * itemsize + 4 * b
         bms, by = bound_ms(flops, nbytes, name)
-        # Yardstick: one SDPA call on the augmented operands
-        # [qu | alpha | beta] . [k | cos | sin]^T (never used by the port).
-        d2 = d // 2
-        split = lambda x: x.reshape(b, l, h, dh).transpose(1, 2)
-        a = torch.einsum("bhld,hdx->bhlx", split(qv_s).float(), wh.float())
-        sq, cq = sin_t.float(), cos_t.float()
-        alpha = (a[..., :d2] * sq + a[..., d2:] * cq).to(dtype)
-        beta = (-a[..., :d2] * cq + a[..., d2:] * sq).to(dtype)
-        q_aug = torch.cat([split(qu_s), alpha, beta], dim=-1).contiguous()
-        k_aug = torch.cat([split(k), cos_t.expand(b, h, l, d2),
-                           sin_t.expand(b, h, l, d2)], dim=-1).contiguous()
-        v_h = split(v).contiguous()
-        mask = (torch.arange(l, device=dev)[None, :]
-                < lengths[:, None])[:, None, None, :]
+        q_aug, k_aug, v_h, mask = _augmented(torch, args)
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-            q_aug, k_aug, v_h, attn_mask=mask, scale=1.0)
+            q_aug, k_aug, v_h, attn_mask=mask, scale=1.0,
+            dropout_p=rate)
         case.update({
-            "ms": cuda_ms(torch, lambda: sa.sincos_attention_fwd(*args)),
-            "plain_ms": cuda_ms(torch, lambda: sa.sincos_attention_plain(*args)),
+            "ms": cuda_ms(torch, lambda: sa.sincos_attention_fwd(*args, *drop)),
+            "plain_ms": cuda_ms(torch,
+                                lambda: sa.sincos_attention_plain(*args, *drop)),
             "library_ms": cuda_ms(torch, sdpa),
+            "bound_ms": bms, "bound_by": by,
+        })
+    return case
+
+
+def k2_case(torch, b: int, l: int, dtype, seed: int, rate: float,
+            time_it: bool):
+    """K2 against its plain version, each gradient's error relative to its
+    largest magnitude."""
+    from conformer_tpu_torch.ops.cuda import sincos_attention as sa
+
+    h, dh, d = 8, 64, 512
+    args, dout = _attention_inputs(torch, b, l, dtype, seed)
+    drop = (rate, DROPOUT_SEED, sa.hash_tq(l))
+    out, stats = sa.sincos_attention_fwd(*args, *drop, stats=True)
+    bwd_args = (*args, out, stats, dout, *drop)
+    got = sa.sincos_attention_bwd(*bwd_args)
+    want = sa.sincos_attention_bwd_plain(*bwd_args)
+    torch.cuda.synchronize()
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    rel, err = {}, 0.0
+    for key, g_, w_ in zip(("dqu", "dqv", "dk", "dv", "dwh"), got, want):
+        diff = float((g_.float() - w_.float()).abs().max())
+        rel[key] = diff / max(float(w_.float().abs().max()), 1e-30)
+        err = max(err, diff)
+    finite = all(bool(torch.isfinite(g_.float()).all()) for g_ in got)
+    case = {"b": b, "l": l, "dtype": name, "rate": rate, "max_abs_err": err,
+            "rel_err": rel,
+            "max_rel_err": max(rel.values()), "tolerance": TOL_K2[name],
+            "finite": finite,
+            "ok": finite and max(rel.values()) <= TOL_K2[name]}
+    if time_it:
+        itemsize = torch.tensor([], dtype=dtype).element_size()
+        flops = (2.0 * b * h * l * l * (2 * d + 5 * dh)
+                 + 3 * 2.0 * b * h * l * dh * d)
+        nbytes = ((10 * b * l * d + 2 * h * dh * d + l * d) * itemsize
+                  + 8 * b * h * l + 4 * b)
+        bms, by = bound_ms(flops, nbytes, name)
+        q_aug, k_aug, v_h, mask = _augmented(torch, args)
+        q_aug.requires_grad_(True)
+        k_aug.requires_grad_(True)
+        v_h.requires_grad_(True)
+        g_out = dout.reshape(b, l, h, dh).transpose(1, 2).contiguous()
+
+        def sdpa_fwd_bwd():
+            o = torch.nn.functional.scaled_dot_product_attention(
+                q_aug, k_aug, v_h, attn_mask=mask, scale=1.0, dropout_p=rate)
+            o.backward(g_out)
+
+        case.update({
+            "ms": cuda_ms(torch, lambda: sa.sincos_attention_bwd(*bwd_args)),
+            "plain_ms": cuda_ms(torch, lambda: sa.sincos_attention_bwd_plain(
+                *bwd_args), iters=5),
+            "library_ms": cuda_ms(torch, sdpa_fwd_bwd),
+            "library_call": "SDPA forward + backward on [qu|alpha|beta], "
+                            "[k|cos|sin], v",
             "bound_ms": bms, "bound_by": by,
         })
     return case
@@ -200,34 +293,51 @@ def k3_case(torch, b: int, n_samples: int, seed: int, time_it: bool):
 
 def phase_kernels(torch):
     """-> kernel entries for the final line; prints the phase line."""
+    shapes = [(199, torch.float32), (599, torch.float32),
+              (199, torch.bfloat16), (599, torch.bfloat16)]
     k1_cases = [k1_case(torch, 8, l, dt, seed=i, time_it=(dt == torch.bfloat16))
-                for i, (l, dt) in enumerate([(199, torch.float32),
-                                             (599, torch.float32),
-                                             (199, torch.bfloat16),
-                                             (599, torch.bfloat16)])]
+                for i, (l, dt) in enumerate(shapes)]
+    k1_drop = [k1_case(torch, 8, l, dt, seed=20 + i, rate=0.1,
+                       time_it=(dt == torch.bfloat16))
+               for i, (l, dt) in enumerate(shapes)]
+    k2_cases = [k2_case(torch, 8, l, dt, seed=30 + i, rate=rate,
+                        time_it=(dt == torch.bfloat16 and rate > 0))
+                for i, (l, dt) in enumerate(shapes) for rate in (0.0, 0.1)]
     k3_cases = [k3_case(torch, 8, 16 * 16000, seed=10, time_it=True),
                 k3_case(torch, 8, 24 * 16000, seed=11, time_it=True),
                 k3_case(torch, 3, 7321 * 17, seed=12, time_it=False)]
     emit({"phase": "kernels", "sincos_attention_fwd": k1_cases,
-          "logmel_fwd": k3_cases})
-    bad = [c for c in k1_cases + k3_cases if not c["ok"]]
+          "sincos_attention_fwd_dropout": k1_drop,
+          "sincos_attention_bwd": k2_cases, "logmel_fwd": k3_cases})
+    bad = [c for c in k1_cases + k1_drop + k2_cases + k3_cases if not c["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
-    main_k1 = k1_cases[3]            # bf16, B 8, L 599: the 24 s serve batch
-    main_k3 = k3_cases[1]            # B 8, 2401 frames: the 24 s serve batch
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    pick = lambda case, **extra: {**{k: case[k] for k in keys if k in case},
+                                  **extra}
+    main_k2 = k2_cases[7]            # bf16, L 599, rate 0.1: the 24 s train batch
     return [
         {"name": "sincos_attention_fwd", "route": "cuda",
          "source": "conformer_tpu_torch/csrc/sincos_attention.cu",
          "replaces": "conformer_tpu/ops/pallas/sincos_attention.py:181",
          "shape": "B=8 L=599 D=512 H=8 bfloat16",
-         **{k: main_k1[k] for k in keys}},
+         **pick(k1_cases[3])},
+        {"name": "sincos_attention_fwd_dropout", "route": "cuda",
+         "source": "conformer_tpu_torch/csrc/sincos_attention.cu",
+         "replaces": "conformer_tpu/ops/pallas/sincos_attention.py:157",
+         "shape": "B=8 L=599 D=512 H=8 bfloat16 rate=0.1",
+         **pick(k1_drop[3])},
+        {"name": "sincos_attention_bwd", "route": "cuda",
+         "source": "conformer_tpu_torch/csrc/sincos_attention_bwd.cu",
+         "replaces": "conformer_tpu/ops/pallas/sincos_attention.py:254",
+         "shape": "B=8 L=599 D=512 H=8 bfloat16 rate=0.1",
+         **pick(main_k2)},
         {"name": "logmel_fwd", "route": "cuda",
          "source": "conformer_tpu_torch/csrc/mel_frontend.cu",
          "replaces": "conformer_tpu/ops/pallas/mel_frontend.py:43",
          "shape": "B=8 n_frames=2401 float32",
-         **{k: main_k3[k] for k in keys}},
+         **pick(k3_cases[1])},
     ]
 
 
@@ -253,6 +363,8 @@ def _plain_versions():
 
     return [mock.patch.object(sa, "sincos_attention_fwd",
                               sa.sincos_attention_plain),
+            mock.patch.object(sa, "sincos_attention_bwd",
+                              sa.sincos_attention_bwd_plain),
             mock.patch.object(mel, "logmel_fwd", mf.logmel_plain)]
 
 
@@ -322,10 +434,94 @@ def phase_model(torch):
                             "plain_forward_ms": p_ms,
                             "launches": counts, "ok": ok})
         del model, forward
+    train_runs = [train_step_case(torch, dtype, seconds)
+                  for dtype in ("bfloat16", "float32") for seconds in (8, 24)]
     emit({"phase": "model", "config": "Config() production, seeded random "
-          "weights, B=8", "runs": results})
-    if not all(r["ok"] for r in results):
+          "weights, B=8", "runs": results, "train_steps": train_runs})
+    if not all(r["ok"] for r in results + train_runs):
         raise SystemExit("model phase failed")
+
+
+# One train step through the kernels against the plain versions: the loss
+# and grad norm relative to the plain run's, and per parameter max |dg| over
+# max |g|. fp32: the kernels agree with their plain versions to ~1e-6 per
+# call; bf16: flipped roundings (K2's are 4 ulps of a gradient) travel
+# through 17 blocks and their backward, as in the forward comparison above.
+TOL_TRAIN = {"bfloat16": {"loss": 2e-2, "grad_norm": 5e-2, "param": 0.25},
+             "float32": {"loss": 1e-4, "grad_norm": 1e-3, "param": 1e-2}}
+
+
+def _tokens(torch, b: int, n: int, seed: int):
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(1, 370, (b, n), generator=gen)
+    lengths = torch.tensor([n - 3 * i for i in range(b)])
+    tokens[torch.arange(n)[None, :] >= lengths[:, None]] = 0
+    return tokens, lengths
+
+
+def train_step_case(torch, dtype: str, seconds: int):
+    """One production train step (dropout 0.1 hash, SpecAugment, remat,
+    Adam at learning rate 0 so both runs see the same weights), through the
+    kernels and through their plain versions, with the same seeds."""
+    from conformer_tpu_torch.config import Config
+    from conformer_tpu_torch.models.conformer import Conformer, init_weights
+    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from conformer_tpu_torch.train.state import make_optimizer
+    from conformer_tpu_torch.train.steps import make_train_step
+
+    dev = torch.device(DEVICE)
+    cfg = Config().override(**{"optim.compute_dtype": dtype,
+                               "optim.learning_rate": 0.0})
+    model = init_weights(Conformer(cfg.model, dtype), seed=0).to(dev)
+    opt = make_optimizer(cfg.optim, model.parameters())
+    step = make_train_step(cfg, model, opt)
+    audio, lengths = _noise_batch(torch, 8, seconds, seed=100 + seconds)
+    tokens, token_lengths = _tokens(torch, 8, 60, seed=seconds)
+    args = [x.to(dev) for x in (audio, lengths, tokens, token_lengths)]
+    runs = {}
+    for name, patches in (("kernels", ()), ("plain", _plain_versions())):
+        reset_launch_counts()
+        metrics, ms = _run(torch, lambda: step(*args, 7), patches)
+        runs[name] = {"loss": float(metrics["loss"]),
+                      "grad_norm": float(metrics["grad_norm"]),
+                      "grads": {n: p.grad.detach().float().clone()
+                                for n, p in model.named_parameters()},
+                      "ms": ms, "launches": launch_counts()}
+    k, p = runs["kernels"], runs["plain"]
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    # Three kinds of parameter have an exact gradient of 0: the attention's
+    # key and position biases (softmax ignores a shift shared by a row's
+    # scores) and the depthwise conv's bias (the batch-statistics BatchNorm
+    # after it removes it). Theirs is rounding noise in both runs; it is
+    # reported against the grad norm instead.
+    zero = [n for n in p["grads"] if n.endswith(
+        ("attention.key.bias", "attention.pos.bias", "conv.depthwise.bias"))]
+    param_err = {n: float((k["grads"][n] - g).abs().max())
+                 / max(float(g.abs().max()), 1e-30)
+                 for n, g in p["grads"].items() if n not in zero}
+    zero_grad_max = max(float(k["grads"][n].abs().max()) for n in zero)
+    top = sorted(param_err, key=param_err.get, reverse=True)[:3]
+    worst = top[0]
+    tol = TOL_TRAIN[dtype]
+    n_blocks = cfg.model.n_blocks
+    ok = (all(torch.isfinite(torch.tensor([k["loss"], k["grad_norm"]])))
+          and rel(k["loss"], p["loss"]) <= tol["loss"]
+          and rel(k["grad_norm"], p["grad_norm"]) <= tol["grad_norm"]
+          and param_err[worst] <= tol["param"]
+          and k["launches"]["sincos_attention_fwd"] == 2 * n_blocks
+          and k["launches"]["sincos_attention_fwd_dropout"] == 2 * n_blocks
+          and k["launches"]["sincos_attention_bwd"] == n_blocks)
+    return {"dtype": dtype, "seconds": seconds, "loss": k["loss"],
+            "plain_loss": p["loss"], "grad_norm": k["grad_norm"],
+            "plain_grad_norm": p["grad_norm"],
+            "loss_rel_diff": rel(k["loss"], p["loss"]),
+            "grad_norm_rel_diff": rel(k["grad_norm"], p["grad_norm"]),
+            "max_param_rel_diff": param_err[worst],
+            "worst_params": {n: param_err[n] for n in top},
+            "zero_gradient_params": len(zero),
+            "zero_gradient_max_over_grad_norm": zero_grad_max / k["grad_norm"],
+            "tolerance": tol, "kernel_step_ms": k["ms"],
+            "plain_step_ms": p["ms"], "launches": k["launches"], "ok": ok}
 
 
 # ---------------------------------------------------------------------------
@@ -366,50 +562,153 @@ def phase_serve(torch, tmp: str):
           "launches": counts, "transcripts": len(rows) - 1})
     if rows[0] != ["path", "prediction"] or len(rows) != len(paths) + 1:
         raise SystemExit("serve phase wrote a malformed CSV")
-    if not all(counts.values()):
+    if not (counts["sincos_attention_fwd"] and counts["logmel_fwd"]):
         raise SystemExit(f"a kernel of the serving path never launched: {counts}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: train through the CLI, checkpoint, resume.
+# ---------------------------------------------------------------------------
+
+VI_WORDS = ("xin chào các bạn hôm nay trời rất đẹp chúng tôi đi học ở "
+            "trường người việt nam yêu quê hương đất nước một hai ba bốn "
+            "năm sáu bảy tám chín mười").split()
+TRAIN_SECONDS = [7.5] * 8 + [23.5] * 8
+
+
+def _transcript(rng, n_chars: int = 60) -> str:
+    words = []
+    while len(" ".join(words)) < n_chars:
+        words.append(VI_WORDS[rng.integers(len(VI_WORDS))])
+    return " ".join(words)
+
+
+def phase_train(torch, tmp: str):
+    """-> launch counts of the two driven runs."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from conformer_tpu_torch.cli import train
+    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    rng = np.random.default_rng(1)
+    manifest = os.path.join(tmp, "train.csv")
+    with open(manifest, "w", newline="", encoding="utf8") as f:
+        w = csv.writer(f)
+        w.writerow(["path", "text"])
+        for i, sec in enumerate(TRAIN_SECONDS):
+            path = os.path.join(tmp, f"train{i:02d}.wav")
+            wav = np.clip(rng.standard_normal(int(sec * 16000)) * 0.1, -1, 1)
+            wavfile.write(path, 16000, (wav * 32767).astype(np.int16))
+            w.writerow([path, _transcript(rng)])
+    ck = os.path.join(tmp, "ck")
+    argv = ["--train-manifest", manifest, "--checkpoint-dir", ck,
+            "--device", DEVICE, "--set", "data.batch_size=8",
+            "--set", "train.checkpoint_every_steps=2",
+            "--set", "train.log_every_steps=1",
+            "--set", "train.num_epochs=100"]
+    runs, total = [], {}
+    for num_steps in (4, 6):
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = train.main(argv + ["--set", f"train.num_steps={num_steps}"])
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+        steps = trainer.step - trainer.start_step
+        runs.append({"num_steps": num_steps, "start_step": trainer.start_step,
+                     "end_step": trainer.step, "wall_s": wall,
+                     "launches": counts,
+                     "launches_per_step": {k: v / max(steps, 1)
+                                           for k, v in counts.items()},
+                     "checkpoints": sorted(os.listdir(ck))})
+    with open(os.path.join(ck, "metrics.jsonl"), encoding="utf8") as f:
+        records = [json.loads(ln) for ln in f]
+    steps = [{"step": r["step"], "loss": r["train/ctc_loss"],
+              "grad_norm": r["train/grad_norm"],
+              "step_seconds": r["train/step_seconds"],
+              "audio_seconds": r["train/audio_seconds"],
+              "audio_s_per_s": r["train/audio_seconds"] / r["train/step_seconds"],
+              "peak_memory_gb": r.get("train/peak_memory_gb")}
+             for r in records if "train/ctc_loss" in r]
+    n_blocks = 17
+    ok = (runs[0]["start_step"] == 0 and runs[0]["end_step"] == 4
+          and runs[1]["start_step"] == 4 and runs[1]["end_step"] == 6
+          and [s_["step"] for s_ in steps] == [1, 2, 3, 4, 5, 6]
+          and all(math.isfinite(s_["loss"]) and math.isfinite(s_["grad_norm"])
+                  for s_ in steps)
+          and all(r["launches_per_step"]["sincos_attention_fwd"] == 2 * n_blocks
+                  and r["launches_per_step"]["sincos_attention_fwd_dropout"]
+                  == 2 * n_blocks
+                  and r["launches_per_step"]["sincos_attention_bwd"] == n_blocks
+                  and r["launches"]["logmel_fwd"] > 0 for r in runs))
+    emit({"phase": "train", "config": "Config() production (dropout 0.1 "
+          "hash, SpecAugment, remat, bf16, Adam), B=8, 7.5 s and 23.5 s WAVs",
+          "runs": runs, "steps": steps, "ok": ok})
+    if not ok:
+        raise SystemExit("train phase failed")
+    return total
 
 
 # ---------------------------------------------------------------------------
 # Optional phase: where the time of one 24 s forward goes.
 # ---------------------------------------------------------------------------
 
-def phase_profile(torch):
+def _profiled(torch, fn):
+    """-> (host wall ms, device busy ms, kernel rows) of one fn() call."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Kernel rows only: an aten op's row repeats the time of the kernels it
+    # launched, the port's own kernels have no aten op above them, and a
+    # range annotation (the optimizer's step) spans kernels already counted.
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not e.key.startswith("Optimizer.")]
+    total_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:15]
+    return {"wall_ms": wall_ms, "device_busy_ms": total_us / 1e3,
+            "device_idle_share": max(0.0, 1 - total_us / 1e3 / wall_ms),
+            "kernel_launches": sum(e.count for e in events),
+            "top": [{"name": e.key[:80],
+                     "device_ms": e.self_device_time_total / 1e3,
+                     "count": e.count} for e in top]}
+
+
+def phase_profile(torch):
+    """One bf16 forward (serving) and one bf16 train step (dropout 0.1,
+    SpecAugment, remat, Adam) of Config() at B = 8, 8 s and 24 s, warm."""
     from conformer_tpu_torch.config import Config
     from conformer_tpu_torch.models.conformer import Conformer, init_weights
-    from conformer_tpu_torch.train.steps import make_forward
+    from conformer_tpu_torch.train.state import make_optimizer
+    from conformer_tpu_torch.train.steps import make_forward, make_train_step
 
     cfg = Config()
     dev = torch.device(DEVICE)
-    model = init_weights(Conformer(cfg.model, "bfloat16"), 0).to(dev).eval()
+    model = init_weights(Conformer(cfg.model, "bfloat16"), 0).to(dev)
     forward = make_forward(cfg, model)
+    train = make_train_step(cfg, model, make_optimizer(cfg.optim,
+                                                       model.parameters()))
     out = {}
     for seconds in (8, 24):
         audio, lengths = _noise_batch(torch, 8, seconds, seed=seconds)
-        audio, lengths = audio.to(dev), lengths.to(dev)
-        forward(audio, lengths)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            forward(audio, lengths)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # Kernel rows only: an aten op's row repeats the time of the kernels
-        # it launched, and the port's own kernels have no aten op above them.
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_us = lambda e: e.self_device_time_total
-        total_us = sum(dev_us(e) for e in events)
-        top = sorted(events, key=dev_us, reverse=True)[:12]
-        out[f"{seconds}s"] = {
-            "wall_ms": wall_ms, "device_busy_ms": total_us / 1e3,
-            "device_idle_share": max(0.0, 1 - total_us / 1e3 / wall_ms),
-            "top": [{"name": e.key[:80], "device_ms": dev_us(e) / 1e3,
-                     "count": e.count} for e in top]}
+        tokens, token_lengths = _tokens(torch, 8, 60, seed=seconds)
+        args = [x.to(dev) for x in (audio, lengths, tokens, token_lengths)]
+        forward(*args[:2])
+        out[f"forward_{seconds}s"] = _profiled(torch, lambda: forward(*args[:2]))
+        train(*args, 0)
+        out[f"train_step_{seconds}s"] = _profiled(torch, lambda: train(*args, 1))
     emit({"phase": "profile", "config": "Config() bf16, B=8", **out})
 
 
@@ -439,18 +738,20 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    entries = []
+    entries, launches = [], {}
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
         entries = phase_kernels(torch)
     if "model" in phases:
         phase_model(torch)
-    if "serve" in phases:
-        with tempfile.TemporaryDirectory() as tmp:
-            counts = phase_serve(torch, tmp)
-        for entry in entries:
-            entry["launches"] = counts[entry["name"]]
+    for name, run in (("serve", phase_serve), ("train", phase_train)):
+        if name in phases:
+            with tempfile.TemporaryDirectory() as tmp:
+                for key, n in run(torch, tmp).items():
+                    launches[key] = launches.get(key, 0) + n
+    for entry in entries:
+        entry["launches"] = launches.get(entry["name"], 0)
     if "profile" in phases:
         phase_profile(torch)
     smi = subprocess.run(

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+from typing import Optional
 
 from conformer_tpu_torch.config import Config
 
@@ -31,8 +33,17 @@ def parse_value(raw: str):
 
 
 def load_config(args: argparse.Namespace) -> Config:
-    """--config (or the defaults), then the --set overrides."""
-    cfg = Config.from_json(args.config) if args.config else Config()
+    """--config wins; otherwise <checkpoint-dir>/config.json when the CLI has
+    a checkpoint directory and training wrote one (see save_config);
+    otherwise the defaults. Then the --set overrides."""
+    path = args.config
+    ck_dir = getattr(args, "checkpoint_dir", None)
+    if path is None and ck_dir:
+        cand = os.path.join(ck_dir, "config.json")
+        if os.path.exists(cand):
+            path = cand
+            print(f"[config] using {cand}")
+    cfg = Config.from_json(path) if path else Config()
     overrides = {}
     for item in args.overrides:
         if "=" not in item:
@@ -40,6 +51,15 @@ def load_config(args: argparse.Namespace) -> Config:
         key, raw = item.split("=", 1)
         overrides[key] = parse_value(raw)
     return cfg.override(**overrides) if overrides else cfg
+
+
+def save_config(cfg: Config, directory: Optional[str]) -> None:
+    """Write the composed config next to the checkpoints, so that a resumed
+    run and the other CLIs rebuild the same model."""
+    if not directory:
+        return
+    os.makedirs(directory, exist_ok=True)
+    cfg.to_json(os.path.join(directory, "config.json"))
 
 
 def load_tokenizer_from_args(args: argparse.Namespace, cfg: Config):

@@ -1,0 +1,81 @@
+"""Train the Conformer CTC model, on the GPU unless ``--device cpu`` is given.
+
+    python -m conformer_tpu_torch.cli.train --train-manifest data.csv \
+        --set train.num_epochs=10 --set data.batch_size=32
+
+The flags are those of ``conformer_tpu.cli.train`` plus ``--device``. The
+manifest is a CSV of (path, text) rows pointing at WAV files. Checkpoints,
+``config.json`` and ``metrics.jsonl`` go to ``--checkpoint-dir``; a second
+run with the same directory resumes from the newest checkpoint. Not ported
+yet, and refused: more than one device (``--dp``/``--tp``,
+``--multihost``), ``--init-encoder-from`` and ``--wandb``.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from conformer_tpu_torch.cli.common import (add_common_args, load_config,
+                                            load_tokenizer_from_args,
+                                            save_config)
+
+
+def main(argv=None):
+    """Run the CLI; returns the Trainer it used."""
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    add_common_args(p)
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel size (only 0 or 1: one device)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel size (only 1: one device)")
+    p.add_argument("--multihost", action="store_true",
+                   help="not ported: refused")
+    p.add_argument("--train-manifest", default=None)
+    p.add_argument("--val-manifest", default=None)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--wandb", action="store_true",
+                   help="not available: refused")
+    p.add_argument("--init-encoder-from", default=None,
+                   help="not ported: refused")
+    p.add_argument("--init-method", choices=["wav2vec2", "byol"], default=None)
+    args = p.parse_args(argv)
+
+    if args.dp > 1 or args.tp > 1 or args.multihost:
+        raise NotImplementedError(
+            "multi-device training (--dp, --tp, --multihost) is not ported "
+            "yet; train on one device")
+    if args.init_encoder_from:
+        raise NotImplementedError(
+            "--init-encoder-from: the pretraining transfer is not ported yet")
+    cfg = load_config(args)
+    overrides = {}
+    if args.train_manifest:
+        overrides["data.train_manifest"] = args.train_manifest
+    if args.val_manifest:
+        overrides["data.val_manifest"] = args.val_manifest
+    if args.checkpoint_dir:
+        overrides["train.checkpoint_dir"] = args.checkpoint_dir
+    if args.init_method:
+        overrides["train.init_encoder_method"] = args.init_method
+    if overrides:
+        cfg = cfg.override(**overrides)
+    if not cfg.data.train_manifest:
+        raise SystemExit("--train-manifest (or data.train_manifest) is required")
+    tokenizer = load_tokenizer_from_args(args, cfg)
+
+    from conformer_tpu_torch.decode.pipeline import resolve_device
+    from conformer_tpu_torch.train.logging import MetricsLogger
+    from conformer_tpu_torch.train.trainer import Trainer
+
+    resolve_device(args.device)       # no GPU and no --device cpu: raise now
+    logger = MetricsLogger(cfg.train.checkpoint_dir, use_wandb=args.wandb)
+    save_config(cfg, cfg.train.checkpoint_dir)
+    trainer = Trainer(cfg, tokenizer, logger=logger, device=args.device)
+    trainer.fit()
+    logger.close()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -1,16 +1,23 @@
 // Fused shift-free relative-position attention, forward, for Hopper (sm_90a).
 //
 // Replaces: conformer_tpu/ops/pallas/sincos_attention.py::_fwd_kernel (with
-// _scores), reached through _fwd_call and rel_attention_sincos_packed, at
-// dropout rate 0. Same function, packed (B, L, D) layout with head h in
-// columns [h*64, (h+1)*64):
+// _scores and, at a dropout rate above 0, _dropout_keep: K1-drop), reached
+// through _fwd_call and rel_attention_sincos_packed. Same function, packed
+// (B, L, D) layout with head h in columns [h*64, (h+1)*64):
 //   a      = qv_h . wh[h]                        (TQ, D), fp32 sums
 //   alpha  = T(a_s * sin_q + a_c * cos_q)        (TQ, D/2), rounded to T
 //   beta   = T(-a_s * cos_q + a_c * sin_q)
 //   s[i,j] = qu_i . k_j + alpha_i . cos_j + beta_i . sin_j   (fp32)
 //   s      = s where j < min(len_b, L) else float32.min      (a select)
-//   e      = exp(s - rowmax), out = (T(e) . v) / max(sum e, 1e-9)
-// The caller has folded the 1/sqrt(dh) scale into qu and qv.
+//   e      = exp(s - rowmax), l = sum e
+//   e'     = keep(i, j) ? e / (1 - rate) : 0        (dropout; e' = e at rate 0)
+//   out    = (T(e') . v) / max(l, 1e-9)
+// The caller has folded the 1/sqrt(dh) scale into qu and qv. When the
+// caller asks for them (training), each row's max and sum l go to `stats`
+// for the backward (sincos_attention_bwd.cu). The keep mask is the JAX
+// kernel's hash (sincos_attention_common.cuh), computed per element from the
+// fragment's (row, column) and never stored; at rate 0 the kernel is
+// instantiated without it.
 //
 // What bounds it on the H100: operations. Per (batch, head) the score
 // product has depth 64 + D (576 at D = 512) over L x L pairs, and the value
@@ -30,7 +37,7 @@
 // ever reaches device memory.
 //
 // Two kernels share that design:
-// - bfloat16 (the serving dtype): four warps, 16 query rows each, run every
+// - bfloat16 (serving and training): four warps, 16 query rows each, run every
 //   product (a = qv . wh, the scores, e . v) as mma.sync m16n8k16 with fp32
 //   accumulators; the probabilities go from the score accumulators straight
 //   into the A operand of the value product, in registers.
@@ -43,23 +50,24 @@
 // tile) are -inf and carry no weight. The ragged last query tile is
 // bounds-checked on load and store.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <float.h>
-#include <math.h>
-#include <stdint.h>
+#include "sincos_attention_common.cuh"
 
 namespace {
 
-constexpr int DH = 64;        // head width
+using namespace attn;
 constexpr int TQ = 64;        // query rows per CTA
 constexpr int TK = 64;        // keys per tile
-constexpr float NEG_INF = -FLT_MAX;  // float32.min, the JAX mask sentinel
 
-// Masked score of key `key`: -inf past L, float32.min past the length.
-__device__ __forceinline__ float mask_score(float s, int key, int len, int L) {
-  return key >= L ? -INFINITY : (key < len ? s : NEG_INF);
-}
+struct FwdArgs {
+  const void *qu, *qv, *k, *v, *wh, *sin_t, *cos_t;
+  const int* lengths;
+  void* out;
+  float* stats;  // (B, H, L, 2) [row max, row sum], or null
+  int B, L, H;
+  uint32_t seed, thresh;  // dropout: keep where hash >= thresh
+  float inv_keep;         // 1 / (1 - rate)
+  int tq;                 // the JAX kernel's q-tile rows, for the hash
+};
 
 // ---------------------------------------------------------------------------
 // bfloat16: tensor cores (mma.sync).
@@ -67,63 +75,17 @@ __device__ __forceinline__ float mask_score(float s, int key, int len, int L) {
 
 namespace tensor_core {
 
-using bf16 = __nv_bfloat16;
 constexpr int THREADS = 128;  // 4 warps x 16 query rows
 constexpr int KS = 72;        // padded row stride (bf16) of 64-wide tiles
 
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment (16 x 16, row-major) at rows r0.., cols k0.. of a tile with
-// row stride ld. g = lane / 4, t = lane % 4.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int ld,
-                                       int r0, int k0, int g, int t) {
-  const bf16* p = s + (r0 + g) * ld + k0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B fragment (16 x 8, column-major) from a tile stored [n][k], row stride ld.
-__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1,
-                                       const bf16* s, int ld, int n0, int k0,
-                                       int g, int t) {
-  const bf16* p = s + (n0 + g) * ld + k0 + 2 * t;
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
-
-// Store the 8 values of a 16-byte vector as column `col` of rows r0..r0+7
-// of a [row][KS] tile (a transposing store).
-__device__ __forceinline__ void store_column(bf16* s, int r0, int col,
-                                             const uint4& x) {
-  const bf16* e = reinterpret_cast<const bf16*>(&x);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) s[(r0 + i) * KS + col] = e[i];
-}
-
+template <bool DROP>
 __global__ void __launch_bounds__(THREADS)
 fwd_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
            const bf16* __restrict__ k, const bf16* __restrict__ v,
            const bf16* __restrict__ wh, const bf16* __restrict__ sin_t,
            const bf16* __restrict__ cos_t, const int* __restrict__ lengths,
-           bf16* __restrict__ out, int L, int H) {
+           bf16* __restrict__ out, float* __restrict__ stats, int L, int H,
+           uint32_t seed, uint32_t thresh, float inv_keep, int tq) {
   const int D = H * DH, D2 = D / 2, QS = DH + D + 8;
   extern __shared__ uint4 smem_tc[];
   bf16* s_q = reinterpret_cast<bf16*>(smem_tc);  // TQ x QS: [qu|alpha|beta]
@@ -161,8 +123,8 @@ fwd_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
     for (int i = tid; i < DH * 8; i += THREADS) {
       const int d = i / 8, x = (i % 8) * 8;
       const bf16* w = whh + (size_t)d * D + c0 + x;
-      store_column(s_a, x, d, *reinterpret_cast<const uint4*>(w));
-      store_column(s_b, x, d, *reinterpret_cast<const uint4*>(w + D2));
+      store_column(s_a, KS, x, d, *reinterpret_cast<const uint4*>(w));
+      store_column(s_b, KS, x, d, *reinterpret_cast<const uint4*>(w + D2));
     }
     __syncthreads();
     float as[8][4], ac[8][4];
@@ -207,6 +169,11 @@ fwd_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
   for (int n = 0; n < 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  uint32_t rh[2] = {0u, 0u};  // dropout hash of this thread's two rows
+  if (DROP) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) rh[r] = row_hash(seed, b, h, q0 + wr + g + 8 * r, tq);
+  }
 
   for (int j0 = 0; j0 < L; j0 += TK) {
     float s[8][4];
@@ -234,7 +201,7 @@ fwd_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
           }
         }
         *reinterpret_cast<uint4*>(s_a + j * KS + c) = x;
-        if (ch == 0) store_column(s_b, c, j, xv);
+        if (ch == 0) store_column(s_b, KS, c, j, xv);
       }
       __syncthreads();
 #pragma unroll
@@ -273,8 +240,9 @@ fwd_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
         o[n][2 * r + 1] *= corr;
       }
     }
-    // e = exp(s - m): fp32 into the row sums, rounded to bf16 as the A
-    // fragments of the value product (n-tiles 2kk, 2kk+1 = keys 16kk..).
+    // e = exp(s - m): fp32 into the row sums, then dropped and rescaled,
+    // rounded to bf16 as the A fragments of the value product (n-tiles 2kk,
+    // 2kk+1 = keys 16kk..).
     uint32_t p[4][4];
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
@@ -283,6 +251,12 @@ fwd_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
       for (int i = 0; i < 4; ++i) e[i] = expf(s[n][i] - m_new[i / 2]);
       l_run[0] += e[0] + e[1];
       l_run[1] += e[2] + e[3];
+      if (DROP) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          e[i] = keep(rh[i / 2], j0 + n * 8 + 2 * t + (i % 2), thresh)
+                     ? e[i] * inv_keep : 0.f;
+      }
       p[n / 2][2 * (n % 2)] = pack(e[0], e[1]);
       p[n / 2][2 * (n % 2) + 1] = pack(e[2], e[3]);
     }
@@ -303,6 +277,11 @@ fwd_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const int q = q0 + wr + g + 8 * r;
     if (q >= L) continue;
+    if (stats != nullptr && t == 0) {
+      float* st = stats + (((size_t)b * H + h) * L + q) * 2;
+      st[0] = m_run[r];
+      st[1] = l;
+    }
     const float inv = 1.f / fmaxf(l, 1e-9f);
     bf16* dst = out + (row0 + q) * D + col_h + 2 * t;
 #pragma unroll
@@ -312,22 +291,20 @@ fwd_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
   }
 }
 
-int launch(const void* qu, const void* qv, const void* k, const void* v,
-           const void* wh, const void* sin_t, const void* cos_t,
-           const void* lengths, void* out, int B, int L, int H,
-           cudaStream_t stream) {
-  const int D = H * DH;
+template <bool DROP>
+int launch(const FwdArgs& a, cudaStream_t stream) {
+  const int D = a.H * DH;
   const size_t smem = sizeof(bf16) * ((size_t)TQ * (DH + D + 8) + 2 * 64 * KS);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fwd_kernel<DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((L + TQ - 1) / TQ, H, B);
-  fwd_kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(qu), static_cast<const bf16*>(qv),
-      static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(wh), static_cast<const bf16*>(sin_t),
-      static_cast<const bf16*>(cos_t), static_cast<const int*>(lengths),
-      static_cast<bf16*>(out), L, H);
+  const dim3 grid((a.L + TQ - 1) / TQ, a.H, a.B);
+  fwd_kernel<DROP><<<grid, THREADS, smem, stream>>>(
+      static_cast<const bf16*>(a.qu), static_cast<const bf16*>(a.qv),
+      static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<const bf16*>(a.wh), static_cast<const bf16*>(a.sin_t),
+      static_cast<const bf16*>(a.cos_t), a.lengths, static_cast<bf16*>(a.out),
+      a.stats, a.L, a.H, a.seed, a.thresh, a.inv_keep, a.tq);
   return cudaGetLastError();
 }
 
@@ -354,12 +331,14 @@ __device__ __forceinline__ float sum16(float x) {
   return x;
 }
 
+template <bool DROP>
 __global__ void __launch_bounds__(THREADS)
 fwd_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
            const float* __restrict__ k, const float* __restrict__ v,
            const float* __restrict__ wh, const float* __restrict__ sin_t,
            const float* __restrict__ cos_t, const int* __restrict__ lengths,
-           float* __restrict__ out, int L, int H) {
+           float* __restrict__ out, float* __restrict__ stats, int L, int H,
+           uint32_t seed, uint32_t thresh, float inv_keep, int tq) {
   const int D = H * DH, D2 = D / 2, QS = DH + D + 1;
   extern __shared__ float4 smem4[];
   float* s_q = reinterpret_cast<float*>(smem4);  // TQ x QS: [qu|alpha|beta]
@@ -439,10 +418,12 @@ fwd_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
   const int n_chunks = 1 + D / 64;   // [k | cos (D2/64) | sin (D2/64)]
   const int cos_chunks = D2 / 64;
   float m_run[4], l_run[4], acc[4][4];
+  uint32_t rh[4];  // dropout hash of this thread's four rows
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     m_run[r] = -INFINITY;
     l_run[r] = 0.f;
+    rh[r] = DROP ? row_hash(seed, b, h, q0 + ty + 16 * r, tq) : 0u;
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
   }
@@ -501,8 +482,10 @@ fwd_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
       float psum = 0.f;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const float e = expf(s[r][c] - m_new);
+        float e = expf(s[r][c] - m_new);
         psum += e;
+        if (DROP)
+          e = keep(rh[r], j0 + tx + 16 * c, thresh) ? e * inv_keep : 0.f;
         s_t2[(ty + 16 * r) * SP + tx + 16 * c] = e;
         acc[r][c] *= corr;
       }
@@ -527,6 +510,11 @@ fwd_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
   for (int r = 0; r < 4; ++r) {
     const int q = q0 + ty + 16 * r;
     if (q >= L) continue;
+    if (stats != nullptr && tx == 0) {
+      float* st = stats + (((size_t)b * H + h) * L + q) * 2;
+      st[0] = m_run[r];
+      st[1] = l_run[r];
+    }
     const float inv = 1.f / fmaxf(l_run[r], 1e-9f);
 #pragma unroll
     for (int c = 0; c < 4; ++c)
@@ -534,22 +522,21 @@ fwd_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
   }
 }
 
-int launch(const void* qu, const void* qv, const void* k, const void* v,
-           const void* wh, const void* sin_t, const void* cos_t,
-           const void* lengths, void* out, int B, int L, int H,
-           cudaStream_t stream) {
-  const int D = H * DH;
+template <bool DROP>
+int launch(const FwdArgs& a, cudaStream_t stream) {
+  const int D = a.H * DH;
   const size_t smem = sizeof(float) * ((size_t)TQ * (DH + D + 1) + 3 * 64 * SP);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fwd_kernel<DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((L + TQ - 1) / TQ, H, B);
-  fwd_kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(qu), static_cast<const float*>(qv),
-      static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(wh), static_cast<const float*>(sin_t),
-      static_cast<const float*>(cos_t), static_cast<const int*>(lengths),
-      static_cast<float*>(out), L, H);
+  const dim3 grid((a.L + TQ - 1) / TQ, a.H, a.B);
+  fwd_kernel<DROP><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(a.qu), static_cast<const float*>(a.qv),
+      static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+      static_cast<const float*>(a.wh), static_cast<const float*>(a.sin_t),
+      static_cast<const float*>(a.cos_t), a.lengths,
+      static_cast<float*>(a.out), a.stats, a.L, a.H, a.seed, a.thresh,
+      a.inv_keep, a.tq);
   return cudaGetLastError();
 }
 
@@ -563,20 +550,28 @@ extern "C" const char* sincos_attention_error_string(int err) {
 
 // qu, qv, k, v, out: (B, L, H*64); wh: (H, 64, H*64); sin_t, cos_t:
 // (L, H*32); all of one dtype (0 = float32, 1 = bfloat16), contiguous and
-// 16-byte aligned, on the current device. lengths: (B,) int32. H*32 must be
-// a multiple of 64. Returns a cudaError_t.
+// 16-byte aligned, on the current device. lengths: (B,) int32. stats: null,
+// or (B, H, L, 2) float32 for each row's max and sum. Dropout keeps an
+// element where its hash is >= thresh (0: no dropout, and no hash work),
+// scaled by inv_keep; seed and tq as the JAX kernel hashes them. H*32 must
+// be a multiple of 64. Returns a cudaError_t.
 extern "C" int sincos_attention_fwd(const void* qu, const void* qv,
                                     const void* k, const void* v,
                                     const void* wh, const void* sin_t,
                                     const void* cos_t, const void* lengths,
-                                    void* out, int B, int L, int H, int dtype,
-                                    void* stream) {
+                                    void* out, void* stats, int B, int L, int H,
+                                    int dtype, uint32_t seed, uint32_t thresh,
+                                    float inv_keep, int tq, void* stream) {
+  const FwdArgs a{qu, qv, k, v, wh, sin_t, cos_t,
+                  static_cast<const int*>(lengths), out,
+                  static_cast<float*>(stats), B, L, H, seed, thresh, inv_keep,
+                  tq};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool drop = thresh != 0u;
   if (dtype == 0)
-    return cuda_core::launch(qu, qv, k, v, wh, sin_t, cos_t, lengths, out, B, L,
-                             H, s);
+    return drop ? cuda_core::launch<true>(a, s) : cuda_core::launch<false>(a, s);
   if (dtype == 1)
-    return tensor_core::launch(qu, qv, k, v, wh, sin_t, cos_t, lengths, out, B,
-                               L, H, s);
+    return drop ? tensor_core::launch<true>(a, s)
+                : tensor_core::launch<false>(a, s);
   return cudaErrorInvalidValue;
 }

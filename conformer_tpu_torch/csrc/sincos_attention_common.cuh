@@ -1,0 +1,130 @@
+// Pieces shared by the fused attention's forward (sincos_attention.cu, K1)
+// and backward (sincos_attention_bwd.cu, K2): the masking rule, the
+// dropout hash, and the bf16 mma.sync fragment helpers.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace attn {
+
+constexpr int DH = 64;        // head width
+constexpr float NEG_INF = -FLT_MAX;  // float32.min, the JAX mask sentinel
+
+// Masked score of key `key`: -inf past L, float32.min past the length.
+__device__ __forceinline__ float mask_score(float s, int key, int len, int L) {
+  return key >= L ? -INFINITY : (key < len ? s : NEG_INF);
+}
+
+// ---------------------------------------------------------------------------
+// Dropout: conformer_tpu/ops/pallas/sincos_attention.py::_dropout_keep, bit
+// for bit. The JAX kernel hashes (seed, batch, head, q-tile index qi, row in
+// the tile, column) for its own q-tile rows tq; here tq is an argument and
+// every query row q maps to qi = q / tq and row = q % tq, whatever tiling
+// these kernels use. row_hash folds everything but the column.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t row_hash(uint32_t seed, int b, int h,
+                                             int q, int tq) {
+  const uint32_t qi = (uint32_t)(q / tq), r = (uint32_t)(q % tq);
+  return seed * 0x9E3779B9u + (uint32_t)b * 0x85EBCA6Bu +
+         (uint32_t)h * 0xC2B2AE35u + qi * 0x27D4EB2Fu + r * 0x01000193u;
+}
+
+// True where the element of (row hash, key) is kept: P = 1 - rate.
+__device__ __forceinline__ bool keep(uint32_t row, int key, uint32_t thresh) {
+  uint32_t x = row + (uint32_t)key;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x >= thresh;
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16 mma.sync m16n8k16 (fp32 accumulators). Fragment layout, with
+// g = lane / 4 and t = lane % 4:
+//   A (16 x 16, row-major): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
+//                           a3 (g+8, 2t+8..)
+//   B (16 x 8, k x n):      b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g)
+//   C (16 x 8):             c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A fragment at rows r0.., cols k0.. of a row-major tile with row stride ld.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int ld,
+                                       int r0, int k0, int g, int t) {
+  const bf16* p = s + (r0 + g) * ld + k0 + 2 * t;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * ld);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * ld + 8);
+}
+
+// A fragment of X^T, where X is stored [k][m] with row stride ld: rows
+// m0.., depth k0.. of the transposed tile.
+__device__ __forceinline__ void load_a_t(uint32_t (&a)[4], const bf16* s,
+                                         int ld, int m0, int k0, int g, int t) {
+  const bf16* p = s + (k0 + 2 * t) * ld + m0 + g;
+  a[0] = pack_raw(p[0], p[ld]);
+  a[1] = pack_raw(p[8], p[ld + 8]);
+  a[2] = pack_raw(p[8 * ld], p[9 * ld]);
+  a[3] = pack_raw(p[8 * ld + 8], p[9 * ld + 8]);
+}
+
+// B fragment from a tile stored [n][k] with row stride ld.
+__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1,
+                                       const bf16* s, int ld, int n0, int k0,
+                                       int g, int t) {
+  const bf16* p = s + (n0 + g) * ld + k0 + 2 * t;
+  b0 = ld32(p);
+  b1 = ld32(p + 8);
+}
+
+// B fragment from a tile stored [k][n] with row stride ld.
+__device__ __forceinline__ void load_b_t(uint32_t& b0, uint32_t& b1,
+                                         const bf16* s, int ld, int n0, int k0,
+                                         int g, int t) {
+  const bf16* p = s + (k0 + 2 * t) * ld + n0 + g;
+  b0 = pack_raw(p[0], p[ld]);
+  b1 = pack_raw(p[8 * ld], p[9 * ld]);
+}
+
+// Store the 8 values of a 16-byte vector as column `col` of rows r0..r0+7
+// of a [row][ld] tile (a transposing store).
+__device__ __forceinline__ void store_column(bf16* s, int ld, int r0, int col,
+                                             const uint4& x) {
+  const bf16* e = reinterpret_cast<const bf16*>(&x);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[(r0 + i) * ld + col] = e[i];
+}
+
+}  // namespace attn

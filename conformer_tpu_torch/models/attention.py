@@ -3,18 +3,21 @@
 
 score = ((q+u).k^T + rel_shift((q+v).p^T)) / sqrt(d_head), PAD keys masked
 to float32.min before an fp32 softmax. ``impl='pallas'`` takes the fused
-shift-free kernel K1 (``ops/cuda/sincos_attention.py``) in the packed
-(B, L, D) layout; ``impl='xla'`` is the dense (B, H, L, L) rel-shift path.
+shift-free kernels (``ops/cuda/sincos_attention.py``: K1 forward with its
+in-kernel dropout mask, K2 backward) in the packed (B, L, D) layout;
+``impl='xla'`` is the dense (B, H, L, L) rel-shift path. Dropout, as in the
+JAX module, drops the attention probabilities and the module's output.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from conformer_tpu_torch.models.dropout import Dropout
 from conformer_tpu_torch.models.layers import Dense, LayerNorm
 from conformer_tpu_torch.ops.cuda.sincos_attention import (
     prep_pos_kernel, rel_attention_sincos_packed)
@@ -24,10 +27,12 @@ from conformer_tpu_torch.ops.rel_shift import rel_shift
 class RelativeMultiHeadAttention(nn.Module):
     def __init__(self, d_model: int, n_heads: int,
                  dtype: torch.dtype = torch.float32, impl: str = "xla",
-                 score_dtype: torch.dtype = torch.float32):
+                 score_dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.0, dropout_impl: str = "hash"):
         super().__init__()
         if impl not in ("xla", "pallas"):
             raise ValueError(f"unknown attention_impl {impl!r}")
+        self.dropout = Dropout(dropout_rate, dropout_impl)
         self.d_model, self.n_heads = d_model, n_heads
         self.compute_dtype, self.impl, self.score_dtype = dtype, impl, score_dtype
         dh = d_model // n_heads
@@ -43,9 +48,12 @@ class RelativeMultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, pos_emb: Optional[torch.Tensor],
                 mask: Optional[torch.Tensor] = None,
-                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                lengths: Optional[torch.Tensor] = None,
+                seed: Optional[Sequence[int]] = None) -> torch.Tensor:
         """x: (B, L, D); pos_emb: (2L-1, D) (xla path only); mask:
-        (B, 1, 1, L) True at PAD; lengths: (B,) valid keys."""
+        (B, 1, 1, L) True at PAD; lengths: (B,) valid keys; seed: the
+        probability dropout's seed words, or None. The kernel path hashes
+        with the first word as its int32 seed."""
         b, l, _ = x.shape
         h, dh = self.n_heads, self.d_model // self.n_heads
         dt = self.compute_dtype
@@ -59,8 +67,10 @@ class RelativeMultiHeadAttention(nn.Module):
         if self.impl == "pallas":
             # self.pos.weight is (out, in); the flax kernel is (in, out).
             wh = prep_pos_kernel(self.pos.weight.to(dt).T, h)
+            rate = self.dropout.rate if seed is not None else 0.0
             context = rel_attention_sincos_packed(
-                q + u.reshape(-1), q + vb.reshape(-1), k, v, wh, lengths, scale)
+                q + u.reshape(-1), q + vb.reshape(-1), k, v, wh, lengths, scale,
+                rate, seed[0] & 0x7FFFFFFF if rate > 0.0 else 0)
         else:
             q = q.reshape(b, l, h, dh)
             k = k.reshape(b, l, h, dh)
@@ -75,7 +85,7 @@ class RelativeMultiHeadAttention(nn.Module):
             scores = ((content + rel_shift(pos)) * scale).to(f32)
             if mask is not None:
                 scores = torch.where(mask, torch.finfo(f32).min, scores)
-            weights = torch.softmax(scores, dim=-1)
+            weights = self.dropout(torch.softmax(scores, dim=-1), seed)
             context = torch.einsum("bhlm,bmhd->blhd", weights.to(dt).to(f32),
                                    v.to(f32))
         context = context.reshape(b, l, self.d_model).to(dt)
@@ -87,13 +97,21 @@ class MHSAModule(nn.Module):
 
     def __init__(self, d_model: int, n_heads: int,
                  dtype: torch.dtype = torch.float32, impl: str = "xla",
-                 score_dtype: torch.dtype = torch.float32):
+                 score_dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.0, dropout_impl: str = "hash"):
         super().__init__()
         self.norm = LayerNorm(d_model, dtype)
-        self.attention = RelativeMultiHeadAttention(d_model, n_heads, dtype,
-                                                    impl, score_dtype)
+        self.attention = RelativeMultiHeadAttention(
+            d_model, n_heads, dtype, impl, score_dtype, dropout_rate,
+            dropout_impl)
+        self.dropout = Dropout(dropout_rate, dropout_impl)
 
     def forward(self, x: torch.Tensor, pos_emb: Optional[torch.Tensor],
                 mask: Optional[torch.Tensor] = None,
-                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.attention(self.norm(x), pos_emb, mask, lengths)
+                lengths: Optional[torch.Tensor] = None,
+                seeds: Optional[Sequence] = None) -> torch.Tensor:
+        """seeds: None, or the seed words of (the probabilities, the
+        output)."""
+        s_attn, s_out = seeds if seeds is not None else (None, None)
+        x = self.attention(self.norm(x), pos_emb, mask, lengths, s_attn)
+        return self.dropout(x, s_out)

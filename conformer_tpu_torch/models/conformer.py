@@ -2,7 +2,8 @@
 (counterpart of conformer_tpu/models/conformer.py).
 
 ``Conformer(cfg, compute_dtype)(mels (B, T, n_mels), lengths) ->
-(logits (B, T', vocab) fp32, subsampled lengths)``. ``init_weights`` gives
+(logits (B, T', vocab) fp32, subsampled lengths)``; in ``train()`` mode with
+a ``dropout_seed`` it drops as the JAX train model does. ``init_weights`` gives
 seeded random weights with the JAX package's initialiser families.
 """
 
@@ -36,9 +37,13 @@ class Conformer(nn.Module):
                                    cfg.lstm_hidden_dim, cfg.n_lstm_layers, dtype)
 
     def forward(self, mels: torch.Tensor,
-                lengths: Optional[torch.Tensor] = None
+                lengths: Optional[torch.Tensor] = None,
+                dropout_seed: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        enc, out_lengths = self.encoder(mels, lengths)
+        """dropout_seed: None (no dropout) or the seed of this forward's
+        dropout masks (models/encoder.py). BatchNorm uses batch statistics
+        in training mode."""
+        enc, out_lengths = self.encoder(mels, lengths, dropout_seed)
         frame_mask = None
         if out_lengths is not None and self.cfg.decoder_norm_masked:
             frame_mask = padding_mask(out_lengths, enc.shape[1])

@@ -7,17 +7,21 @@
   output flattened as (B, T', F' * C) like the JAX (B, T', F', C) layout.
 
 Parameters are fp32 and are cast to the compute dtype at use, as flax does
-with ``dtype=bf16, param_dtype=fp32``. Dropout is absent: this package
-serves, and the JAX modules drop nothing at inference.
+with ``dtype=bf16, param_dtype=fp32``. Dropout sites are where the JAX
+modules have them (models/dropout.py): after the FFN's swish and its output,
+and after the conv module's output. Each takes its seed words from the
+caller; with none (evaluation) it drops nothing.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from conformer_tpu_torch.models.dropout import Dropout
 
 # Config dtype names (optim.compute_dtype, model.attention_score_dtype).
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -59,14 +63,20 @@ class LayerNorm(nn.LayerNorm):
 
 class FeedForwardModule(nn.Module):
     def __init__(self, d_model: int, expansion: int = 4,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout_rate: float = 0.0,
+                 dropout_impl: str = "hash"):
         super().__init__()
         self.norm = LayerNorm(d_model, dtype)
         self.hidden = Dense(d_model, expansion * d_model, dtype)
         self.out = Dense(expansion * d_model, d_model, dtype)
+        self.dropout = Dropout(dropout_rate, dropout_impl)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.out(swish(self.hidden(self.norm(x))))
+    def forward(self, x: torch.Tensor,
+                seeds: Optional[Sequence] = None) -> torch.Tensor:
+        """seeds: None, or the seed words of its two dropout sites."""
+        s_hidden, s_out = seeds if seeds is not None else (None, None)
+        x = self.dropout(swish(self.hidden(self.norm(x))), s_hidden)
+        return self.dropout(self.out(x), s_out)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -74,12 +84,15 @@ class MaskedBatchNorm(nn.Module):
 
     Normalises with the biased batch variance; the running statistics take
     the unbiased estimate with momentum 0.1 (torch BatchNorm1d semantics),
-    updated only in training mode."""
+    updated only in training mode and while ``update_stats`` is set (a
+    checkpointed block clears it for the recomputation in the backward, so
+    the statistics move once per forward)."""
 
     def __init__(self, features: int, momentum: float = 0.1,
                  epsilon: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.momentum, self.epsilon, self.compute_dtype = momentum, epsilon, dtype
+        self.update_stats = True
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -105,7 +118,7 @@ class MaskedBatchNorm(nn.Module):
             count = torch.clamp(count, min=1.0)
             mean = total / count
             var = torch.clamp(total_sq / count - mean * mean, min=0.0)
-            if self.training:
+            if self.training and self.update_stats:
                 with torch.no_grad():
                     unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
                     self.mean.mul_(1 - self.momentum).add_(self.momentum * mean)
@@ -146,7 +159,8 @@ class DepthwiseConv1d(nn.Module):
 class ConvolutionModule(nn.Module):
     def __init__(self, channels: int, kernel_size: int,
                  conv_norm: str = "batch", conv_impl: str = "xla",
-                 mask_pad: bool = True, dtype: torch.dtype = torch.float32):
+                 mask_pad: bool = True, dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.0, dropout_impl: str = "hash"):
         super().__init__()
         if conv_norm != "batch":
             raise NotImplementedError(
@@ -157,10 +171,12 @@ class ConvolutionModule(nn.Module):
         self.depthwise = DepthwiseConv1d(channels, kernel_size, conv_impl, dtype)
         self.bn = MaskedBatchNorm(channels, dtype=dtype)
         self.pointwise2 = Dense(channels, channels, dtype)
+        self.dropout = Dropout(dropout_rate, dropout_impl)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-        """x: (B, L, C); mask: (B, L) True at valid frames."""
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                seed: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """x: (B, L, C); mask: (B, L) True at valid frames; seed: the output
+        dropout's seed words, or None."""
         x = glu(self.pointwise1(self.norm(x)), dim=-1)
         if not self.mask_pad:
             mask = None
@@ -169,7 +185,7 @@ class ConvolutionModule(nn.Module):
                                                             device=x.device))
         x = self.depthwise(x)
         x = self.bn(x, mask=mask, use_running_average=not self.training)
-        return self.pointwise2(swish(x))
+        return self.dropout(self.pointwise2(swish(x)), seed)
 
 
 class Conv2d(nn.Conv2d):

@@ -1,10 +1,18 @@
-"""Greedy CTC decoding (counterpart of conformer_tpu/ops/ctc.py).
+"""CTC loss and greedy CTC decoding (counterpart of conformer_tpu/ops/ctc.py).
 
-Argmax per frame, then the reference's collapse rules: blank and ``<UNK>``
-frames are dropped *without* updating the previous-token state, so a token
-repeated across a blank gap is still collapsed. Vectorised with a cummax
-forward fill; returns fixed-shape left-packed token buffers and counts.
-The CTC loss comes with the training slice.
+Loss: fp32 log-softmax, blank 0, each sequence's negative log-likelihood
+divided by its label length, then a mean over the rows that ``row_mask``
+keeps (dummy padding rows are left out). The dynamic program is
+``F.ctc_loss(reduction="none")``: the JAX one is an XLA scan, not a Pallas
+kernel. ``zero_infinity`` zeroes a row no alignment fits (more labels than
+frames); the JAX lattice uses a finite log-zero (-1e5), so there such a row
+keeps a loss of about 1e5 instead (ROADMAP.md, faults).
+
+Greedy decoding: argmax per frame, then the reference's collapse rules:
+blank and ``<UNK>`` frames are dropped *without* updating the previous-token
+state, so a token repeated across a blank gap is still collapsed. Vectorised
+with a cummax forward fill; returns fixed-shape left-packed token buffers
+and counts.
 """
 
 from __future__ import annotations
@@ -12,8 +20,27 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from conformer_tpu_torch.utils.masking import padding_mask
+
+
+def ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor,
+             labels: torch.Tensor, label_lengths: torch.Tensor,
+             blank_id: int = 0, zero_infinity: bool = True,
+             row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean CTC loss. logits: (B, T, V) unnormalised; logit_lengths: (B,);
+    labels: (B, N) int; label_lengths: (B,); row_mask: optional (B,) bool,
+    rows where False are left out of the mean."""
+    log_probs = torch.log_softmax(logits.float(), dim=-1).transpose(0, 1)
+    per_seq = F.ctc_loss(log_probs, labels.long(), logit_lengths.long(),
+                         label_lengths.long(), blank=blank_id,
+                         reduction="none", zero_infinity=zero_infinity)
+    per_seq = per_seq / torch.clamp(label_lengths.float(), min=1.0)
+    if row_mask is not None:
+        w = row_mask.float()
+        return (per_seq * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return per_seq.mean()
 
 
 def greedy_collapse(ids: torch.Tensor, lengths: Optional[torch.Tensor] = None,

@@ -23,7 +23,7 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-KERNEL_SOURCES = ("sincos_attention", "mel_frontend")
+KERNEL_SOURCES = ("sincos_attention", "sincos_attention_bwd", "mel_frontend")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -66,12 +66,14 @@ def _start(name: str) -> "tuple[subprocess.Popen, Path, Path, float]":
     return proc, tmp, out, time.perf_counter()
 
 
-def _finish(name: str, proc, tmp: Path, out: Path, t0: float) -> None:
+def _finish(name: str, proc, tmp: Path, out: Path, t0: float) -> str:
+    """-> "" on success, else the compiler's log."""
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        return f"nvcc failed for {name}.cu:\n{log}"
     os.replace(tmp, out)
     BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+    return ""
 
 
 def build_all(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, dict]:
@@ -85,8 +87,9 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, dict]:
                 BUILD_LOG.setdefault(name, {"seconds": 0.0, "ptxas": ""})
             else:
                 pending.append((name, *_start(name)))
-        for name, proc, tmp, out, t0 in pending:
-            _finish(name, proc, tmp, out, t0)
+        errors = [_finish(*job) for job in pending]
+    if any(errors):
+        raise RuntimeError("\n".join(e for e in errors if e))
     return BUILD_LOG
 
 

@@ -1,4 +1,5 @@
-"""Fused shift-free relative-position attention (forward), kernel K1.
+"""Fused shift-free relative-position attention: forward K1 (with its
+in-kernel dropout mask K1-drop) and backward K2.
 
 Counterpart of ``conformer_tpu/ops/pallas/sincos_attention.py``. The
 Transformer-XL position score ``qv_i . p(i - j)`` is rewritten with the
@@ -7,11 +8,24 @@ angle-addition identity as ``alpha_i . cos(j w) + beta_i . sin(j w)``, where
 row's sin/cos: two products against constant (L, D/2) tables instead of a
 (B, H, L, 2L-1) score tensor and a rel-shift.
 
-``sincos_attention_fwd`` is the kernel wrapper: a CPU tensor takes the plain
-PyTorch version ``sincos_attention_plain``; a CUDA tensor launches the
-hand-written kernel in ``csrc/sincos_attention.cu`` (which says what bounds
-it on the H100) or raises. Dropout on the probabilities is not implemented
-yet: it comes with the backward kernel.
+Kernel wrappers, each with a plain PyTorch version of the same signature:
+
+- ``sincos_attention_fwd`` (K1, ``csrc/sincos_attention.cu``): the output
+  and, for the backward, each query row's softmax max and sum;
+- ``sincos_attention_bwd`` (K2, ``csrc/sincos_attention_bwd.cu``): dqu, dqv,
+  dk, dv and the gradient of the per-head position operand.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises. ``rel_attention_sincos_packed`` is the public entry: under autograd
+it runs both through one ``torch.autograd.Function``, otherwise (serving,
+``torch.inference_mode``) just the forward.
+
+Dropout on the probabilities is the JAX kernel's stateless hash
+(``_dropout_keep``): the mask of query row i, key j depends on the seed, the
+batch row, the head, the JAX q-tile index ``i // tq`` and the row in that
+tile ``i % tq``, for the JAX kernel's tile rows ``tq`` (``hash_tq``), so
+forward and backward regenerate the same mask and it never exists in device
+memory.
 """
 
 from __future__ import annotations
@@ -22,6 +36,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from conformer_tpu_torch.models.dropout import M32, finalize, mul32, threshold
 from conformer_tpu_torch.ops.cuda import build
 
 NEG_INF = float(np.finfo(np.float32).min)
@@ -40,9 +55,12 @@ def sincos_tables(length: int, d_model: int, dtype=torch.float32,
         inv_freq = np.exp(np.arange(0, d_model, 2, dtype=np.float64)
                           * -(np.log(10000.0) / d_model))
         ang = np.arange(length, dtype=np.float64)[:, None] * inv_freq[None, :]
-        _tables[key] = tuple(torch.from_numpy(f(ang)).to(device=device,
-                                                         dtype=dtype)
-                             for f in (np.sin, np.cos))
+        # normal tensors even when first built while serving, so that a
+        # later training step may save them for its backward
+        with torch.inference_mode(False):
+            _tables[key] = tuple(torch.from_numpy(f(ang)).to(device=device,
+                                                             dtype=dtype)
+                                 for f in (np.sin, np.cos))
     sin_t, cos_t = _tables[key]
     return sin_t[:length], cos_t[:length]
 
@@ -50,7 +68,8 @@ def sincos_tables(length: int, d_model: int, dtype=torch.float32,
 def prep_pos_kernel(pos_kernel: torch.Tensor, n_heads: int) -> torch.Tensor:
     """(D, D) position-projection kernel (flax (in, out) layout) -> (H, dh, D)
     per-head operand with the embedding axis permuted to
-    [sin coefficients (D/2) | cos coefficients (D/2)]."""
+    [sin coefficients (D/2) | cos coefficients (D/2)]. Differentiable, so
+    the operand's gradient flows back to the kernel."""
     d = pos_kernel.shape[0]
     dh = d // n_heads
     wh = pos_kernel.reshape(d, n_heads, dh).permute(1, 2, 0)
@@ -60,35 +79,128 @@ def prep_pos_kernel(pos_kernel: torch.Tensor, n_heads: int) -> torch.Tensor:
     return wh[:, :, perm].contiguous()
 
 
-def sincos_attention_plain(qu, qv, k, v, wh, lengths, sin_t, cos_t):
-    """Plain PyTorch version of the kernel, rounding where it rounds.
+def auto_tq(l: int) -> int:
+    """The JAX kernel's default q-tile rows: the padded length when it fits
+    256, else 128 (``_auto_tq``)."""
+    l_pad = ((l + 127) // 128) * 128
+    return l_pad if l_pad <= 256 else 128
 
-    qu/qv/k/v: (B, L, D) packed, head h in columns [h*dh, (h+1)*dh), with the
-    score scale already folded into qu/qv; wh: (H, dh, D); lengths: (B,)
-    int; sin_t/cos_t: (L, D/2) in the input dtype. Products take fp32 sums
-    of the input-dtype operands; alpha/beta and the probabilities are
-    rounded to the input dtype before their products. -> (B, L, D)."""
+
+def hash_tq(l: int, tq: Optional[int] = None) -> int:
+    """The q-tile rows the JAX kernel hashes with for length ``l``:
+    ``min(tq or auto, round_up(l, 8))``."""
+    return min(tq or auto_tq(l), ((l + 7) // 8) * 8)
+
+
+def dropout_keep(seed: int, b: int, h: int, rows: int, cols: int, tq: int,
+                 rate: float, device="cpu") -> torch.Tensor:
+    """(b, h, rows, cols) keep mask of the attention probabilities, bit for
+    bit the JAX kernel's ``_dropout_keep`` over all its q-tiles: element
+    (bi, hi, i, j) hashes (seed, bi, hi, i // tq, i % tq, j)."""
+    i64 = dict(dtype=torch.int64, device=device)
+    bi = torch.arange(b, **i64).view(b, 1, 1, 1)
+    hi = torch.arange(h, **i64).view(1, h, 1, 1)
+    i = torch.arange(rows, **i64).view(1, 1, rows, 1)
+    col = torch.arange(cols, **i64).view(1, 1, 1, cols)
+    base = (mul32(torch.tensor(int(seed) & M32, **i64), 0x9E3779B9)
+            + mul32(bi, 0x85EBCA6B) + mul32(hi, 0xC2B2AE35)
+            + mul32(i // tq, 0x27D4EB2F)) & M32
+    x = (base + col + mul32(i % tq, 0x01000193)) & M32
+    return finalize(x) >= threshold(rate)
+
+
+def _split_f32(x: torch.Tensor, h: int) -> torch.Tensor:
+    b, l, d = x.shape
+    return x.reshape(b, l, h, d // h).transpose(1, 2).float()
+
+
+def _scores_plain(qu, qv, k, wh, lengths, sin_t, cos_t):
+    """-> (masked fp32 scores (B, H, L, L), fp32 sin, cos) as the kernels
+    compute them: alpha/beta rounded to the input dtype, masked keys at
+    float32.min."""
     b, l, d = qu.shape
-    h, dh = wh.shape[0], wh.shape[1]
+    h = wh.shape[0]
     d2 = d // 2
-    dt = v.dtype
-    f32 = torch.float32
-    split = lambda x: x.reshape(b, l, h, dh).transpose(1, 2).to(f32)
-    qu_, qv_, k_, v_ = split(qu), split(qv), split(k), split(v)
-    sq, cq = sin_t.to(f32), cos_t.to(f32)
-    content = qu_ @ k_.transpose(-1, -2)                      # (B,H,L,L)
-    a = torch.einsum("bhld,hdx->bhlx", qv_, wh.to(f32))       # (B,H,L,D)
+    dt = qu.dtype
+    sq, cq = sin_t.float(), cos_t.float()
+    content = _split_f32(qu, h) @ _split_f32(k, h).transpose(-1, -2)
+    a = torch.einsum("bhld,hdx->bhlx", _split_f32(qv, h), wh.float())
     a_s, a_c = a[..., :d2], a[..., d2:]
-    alpha = (a_s * sq + a_c * cq).to(dt).to(f32)
-    beta = (-a_s * cq + a_c * sq).to(dt).to(f32)
+    alpha = (a_s * sq + a_c * cq).to(dt).float()
+    beta = (-a_s * cq + a_c * sq).to(dt).float()
     scores = content + alpha @ cq.T + beta @ sq.T
     length = torch.clamp(lengths.to(torch.int64), max=l)
     valid = torch.arange(l, device=qu.device)[None, :] < length[:, None]
-    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
-    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    return torch.where(valid[:, None, None, :], scores, NEG_INF), sq, cq
+
+
+def sincos_attention_plain(qu, qv, k, v, wh, lengths, sin_t, cos_t,
+                           rate: float = 0.0, seed: int = 0, tq: int = 0,
+                           stats: bool = False):
+    """Plain PyTorch version of K1, rounding where it rounds.
+
+    qu/qv/k/v: (B, L, D) packed, head h in columns [h*dh, (h+1)*dh), with the
+    score scale already folded into qu/qv; wh: (H, dh, D); lengths: (B,)
+    int; sin_t/cos_t: (L, D/2) in the input dtype; rate/seed/tq: the
+    probability dropout (``tq`` 0 = ``hash_tq(L)``). Products take fp32 sums
+    of the input-dtype operands; alpha/beta and the (dropped, rescaled)
+    probabilities are rounded to the input dtype before their products, and
+    the row sum is over the undropped probabilities. -> out (B, L, D), and
+    with ``stats`` also (B, H, L, 2) fp32 [row max, row sum]."""
+    b, l, d = qu.shape
+    h = wh.shape[0]
+    dt = v.dtype
+    scores, _, _ = _scores_plain(qu, qv, k, wh, lengths, sin_t, cos_t)
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
     s = e.sum(dim=-1, keepdim=True)
-    out = (e.to(dt).to(f32) @ v_) * (1.0 / torch.clamp(s, min=1e-9))
-    return out.transpose(1, 2).reshape(b, l, d).to(dt)
+    if rate > 0.0:
+        keep = dropout_keep(seed, b, h, l, l, tq or hash_tq(l), rate,
+                            qu.device)
+        e = torch.where(keep, e * (1.0 / (1.0 - rate)), 0.0)
+    out = (e.to(dt).float() @ _split_f32(v, h)) * (1.0 / torch.clamp(s, min=1e-9))
+    out = out.transpose(1, 2).reshape(b, l, d).to(dt)
+    if stats:
+        return out, torch.cat([m, s], dim=-1)
+    return out
+
+
+def sincos_attention_bwd_plain(qu, qv, k, v, wh, lengths, sin_t, cos_t, out,
+                               stats, dout, rate: float = 0.0, seed: int = 0,
+                               tq: int = 0):
+    """Plain PyTorch version of K2, following the JAX ``_bwd_kernel``'s math
+    and rounding in whole-row form (``out`` and ``stats`` are not needed:
+    the probabilities and delta = sum p * dp are recomputed).
+    -> (dqu, dqv, dk, dv) (B, L, D) and dwh (H, dh, D), in the input dtype."""
+    b, l, d = qu.shape
+    h, dh = wh.shape[0], wh.shape[1]
+    d2 = d // 2
+    dt = qu.dtype
+    scores, sq, cq = _scores_plain(qu, qv, k, wh, lengths, sin_t, cos_t)
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    p = e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-9)
+    do = _split_f32(dout, h)
+    dov = do @ _split_f32(v, h).transpose(-1, -2)
+    if rate > 0.0:
+        keep = dropout_keep(seed, b, h, l, l, tq or hash_tq(l), rate,
+                            qu.device)
+        inv = 1.0 / (1.0 - rate)
+        dp = torch.where(keep, dov * inv, 0.0)
+        p_drop = torch.where(keep, p * inv, 0.0)
+    else:
+        dp, p_drop = dov, p
+    delta = (p * dp).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta)).to(dt).float()
+    dv = p_drop.to(dt).float().transpose(-1, -2) @ do
+    dqu = ds @ _split_f32(k, h)
+    dk = ds.transpose(-1, -2) @ _split_f32(qu, h)
+    dalpha, dbeta = ds @ cq, ds @ sq
+    da = torch.cat([dalpha * sq - dbeta * cq, dalpha * cq + dbeta * sq],
+                   dim=-1).to(dt).float()                     # (B, H, L, D)
+    dqv = torch.einsum("bhlx,hdx->bhld", da, wh.float())
+    dwh = torch.einsum("bhld,bhlx->hdx", _split_f32(qv, h), da)
+    pack = lambda x: x.transpose(1, 2).reshape(b, l, d).to(dt)
+    return pack(dqu), pack(dqv), pack(dk), pack(dv), dwh.to(dt)
 
 
 def _check(name: str, x: torch.Tensor, shape, dtype, device) -> None:
@@ -103,12 +215,8 @@ def _check(name: str, x: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def sincos_attention_fwd(qu, qv, k, v, wh, lengths, sin_t, cos_t):
-    """Kernel wrapper: same arguments and result as sincos_attention_plain.
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``sincos_attention_fwd.launches``) or raise."""
-    if qu.device.type == "cpu":
-        return sincos_attention_plain(qu, qv, k, v, wh, lengths, sin_t, cos_t)
+def _check_common(qu, qv, k, v, wh, lengths, sin_t, cos_t):
+    """Shapes, dtypes and layout the kernels take. -> (b, l, h, dtype code)."""
     if qu.device.type != "cuda":
         raise ValueError(f"no kernel for device {qu.device}")
     b, l, d = qu.shape
@@ -125,42 +233,145 @@ def sincos_attention_fwd(qu, qv, k, v, wh, lengths, sin_t, cos_t):
     _check("sin_t", sin_t, (l, d // 2), dt, dev)
     _check("cos_t", cos_t, (l, d // 2), dt, dev)
     _check("lengths", lengths, (b,), torch.int32, dev)
+    return b, l, h, _DTYPE_CODES[dt]
+
+
+def _dropout_args(rate: float, seed: int, tq: int, l: int):
+    """(threshold, 1/(1-rate) as fp32, seed as uint32, tq) for the kernels;
+    rate 0 sends a zero threshold and takes the kernels' no-dropout path."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    if rate == 0.0:
+        return 0, 1.0, 0, 1
+    return threshold(rate), 1.0 / (1.0 - rate), int(seed) & M32, tq or hash_tq(l)
+
+
+def sincos_attention_fwd(qu, qv, k, v, wh, lengths, sin_t, cos_t,
+                         rate: float = 0.0, seed: int = 0, tq: int = 0,
+                         stats: bool = False):
+    """Kernel wrapper (K1): same arguments and result as
+    sincos_attention_plain. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (counted in ``sincos_attention_fwd.launches``) or
+    raise."""
+    if qu.device.type == "cpu":
+        return sincos_attention_plain(qu, qv, k, v, wh, lengths, sin_t, cos_t,
+                                      rate, seed, tq, stats)
+    b, l, h, code = _check_common(qu, qv, k, v, wh, lengths, sin_t, cos_t)
+    thresh, inv_keep, seed32, tq = _dropout_args(rate, seed, tq, l)
     out = torch.empty_like(qu)
+    st = (torch.empty((b, h, l, 2), dtype=torch.float32, device=qu.device)
+          if stats else None)
     lib = build.load("sincos_attention")
     fn = lib.sincos_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                   + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(qu.device):
+        stream = torch.cuda.current_stream(qu.device).cuda_stream
         err = fn(qu.data_ptr(), qv.data_ptr(), k.data_ptr(), v.data_ptr(),
                  wh.data_ptr(), sin_t.data_ptr(), cos_t.data_ptr(),
-                 lengths.data_ptr(), out.data_ptr(), b, l, h,
-                 _DTYPE_CODES[dt], stream)
+                 lengths.data_ptr(), out.data_ptr(),
+                 st.data_ptr() if st is not None else None, b, l, h, code,
+                 seed32, thresh, inv_keep, tq, stream)
     build.check(lib, "sincos_attention", err)
     sincos_attention_fwd.launches += 1
-    return out
+    if thresh:
+        sincos_attention_fwd.dropout_launches += 1
+    return (out, st) if stats else out
 
 
 sincos_attention_fwd.launches = 0
+sincos_attention_fwd.dropout_launches = 0   # of those, with dropout (K1-drop)
+
+
+def sincos_attention_bwd(qu, qv, k, v, wh, lengths, sin_t, cos_t, out, stats,
+                         dout, rate: float = 0.0, seed: int = 0, tq: int = 0):
+    """Kernel wrapper (K2): same arguments and result as
+    sincos_attention_bwd_plain. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (counted in ``sincos_attention_bwd.launches``)
+    or raise. ``out`` and ``stats`` are K1's output and row statistics."""
+    if qu.device.type == "cpu":
+        return sincos_attention_bwd_plain(qu, qv, k, v, wh, lengths, sin_t,
+                                          cos_t, out, stats, dout, rate,
+                                          seed, tq)
+    b, l, h, code = _check_common(qu, qv, k, v, wh, lengths, sin_t, cos_t)
+    d = h * 64
+    dev, dt = qu.device, qu.dtype
+    _check("out", out, (b, l, d), dt, dev)
+    _check("dout", dout, (b, l, d), dt, dev)
+    _check("stats", stats, (b, h, l, 2), torch.float32, dev)
+    thresh, inv_keep, seed32, tq = _dropout_args(rate, seed, tq, l)
+    dqu, dqv, dk, dv = (torch.empty_like(qu) for _ in range(4))
+    dwh = torch.empty_like(wh)
+    lib = build.load("sincos_attention_bwd")
+    size = lib.sincos_attention_bwd_scratch_bytes
+    size.restype = ctypes.c_longlong
+    size.argtypes = [ctypes.c_int] * 4
+    # Scratch: the library says how many bytes it needs for these shapes.
+    scratch = torch.empty(int(size(b, l, h, code)), dtype=torch.uint8,
+                          device=dev)
+    run = lib.sincos_attention_bwd
+    run.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 4
+                    + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+                       ctypes.c_int, ctypes.c_void_p])
+    run.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = run(*(x.data_ptr() for x in (
+            qu, qv, k, v, wh, sin_t, cos_t, lengths, out, stats, dout,
+            dqu, dqv, dk, dv, dwh, scratch)), b, l, h, code,
+            seed32, thresh, inv_keep, tq, stream)
+    build.check(lib, "sincos_attention_bwd", err)
+    sincos_attention_bwd.launches += 1
+    return dqu, dqv, dk, dv, dwh
+
+
+sincos_attention_bwd.launches = 0
+
+
+class SincosAttention(torch.autograd.Function):
+    """K1 forward, K2 backward (their plain versions on CPU tensors). The
+    wrappers are looked up at call time, so a caller can route both through
+    their plain versions by patching this module's names."""
+
+    @staticmethod
+    def forward(ctx, qu, qv, k, v, wh, lengths, sin_t, cos_t, rate, seed, tq):
+        out, stats = sincos_attention_fwd(qu, qv, k, v, wh, lengths, sin_t,
+                                          cos_t, rate, seed, tq, stats=True)
+        ctx.save_for_backward(qu, qv, k, v, wh, lengths, sin_t, cos_t, out,
+                              stats)
+        ctx.dropout = (rate, seed, tq)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = ctx.saved_tensors
+        grads = sincos_attention_bwd(*saved, dout.contiguous(), *ctx.dropout)
+        return (*grads, None, None, None, None, None, None)
 
 
 def rel_attention_sincos_packed(qu, qv, k, v, wh, lengths: Optional[torch.Tensor],
-                                scale: float, dropout_rate: float = 0.0):
+                                scale: float, dropout_rate: float = 0.0,
+                                seed: int = 0, tq: Optional[int] = None):
     """Fused shift-free relative attention, packed (B, L, D) layout.
 
     qu = q + content_bias, qv = q + position_bias; k, v: (B, L, D); wh:
-    (H, dh, D) from prep_pos_kernel; lengths: (B,) valid key counts or None.
-    The scale, rounded to qu's dtype, is folded into qu/qv, and the sin/cos
-    tables are cast to that dtype, as the JAX wrapper does."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout needs the backward kernel (training slice)")
+    (H, dh, D) from prep_pos_kernel; lengths: (B,) valid key counts or None;
+    seed: the int32 dropout seed; tq: the JAX kernel's q-tile rows (None =
+    auto), which the dropout mask depends on. The scale, rounded to qu's
+    dtype, is folded into qu/qv outside the kernels, so autograd restores it
+    in dqu/dqv, and the sin/cos tables are cast to that dtype, as the JAX
+    wrapper does."""
     b, l, d = qu.shape
     s = torch.tensor(scale, dtype=qu.dtype).item()   # a host scalar: no copy
     sin_t, cos_t = sincos_tables(l, d, qu.dtype, qu.device)
     if lengths is None:
         lengths = torch.full((b,), l, dtype=torch.int32, device=qu.device)
-    return sincos_attention_fwd((qu * s).contiguous(), (qv * s).contiguous(),
-                                k.contiguous(), v.contiguous(), wh,
-                                lengths.to(torch.int32).contiguous(),
-                                sin_t, cos_t)
+    args = ((qu * s).contiguous(), (qv * s).contiguous(), k.contiguous(),
+            v.contiguous(), wh, lengths.to(torch.int32).contiguous(),
+            sin_t, cos_t, float(dropout_rate), int(seed), hash_tq(l, tq))
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (qu, qv, k, v, wh)):
+        return SincosAttention.apply(*args)
+    return sincos_attention_fwd(*args)

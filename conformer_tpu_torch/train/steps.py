@@ -1,8 +1,11 @@
-"""Forward and eval steps: audio -> log-mels -> model -> logits / greedy tokens
-(counterpart of the serving half of conformer_tpu/train/steps.py).
+"""Train, forward and eval steps: audio -> log-mels -> (SpecAugment) -> model
+-> CTC loss / greedy tokens (counterpart of conformer_tpu/train/steps.py,
+CTC family).
 
 PyTorch runs eagerly, so a "step" is a plain function over a model that
-holds its weights. The train step comes with the training slice.
+holds its weights (and, for training, an optimizer from train/state.py).
+Mixed precision as in the JAX package: the compute dtype (bf16 by default)
+in the model, fp32 parameters, fp32 logits and CTC loss.
 """
 
 from __future__ import annotations
@@ -11,20 +14,78 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from conformer_tpu_torch.audio.augment import spec_augment
 from conformer_tpu_torch.audio.mel import MelFrontend
 from conformer_tpu_torch.config import Config
-from conformer_tpu_torch.ops.ctc import greedy_decode
+from conformer_tpu_torch.ops.ctc import ctc_loss, greedy_decode
+from conformer_tpu_torch.train.state import Optimizer
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of train step ``step``: SpecAugment's draws, then
+    the dropout seeds. Seeded by (seed, step), so a resumed run draws what
+    an uninterrupted one would have."""
+    return torch.Generator().manual_seed(
+        ((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
+
+
+def make_train_step(cfg: Config, model: torch.nn.Module, optimizer: Optimizer,
+                    frontend: Optional[MelFrontend] = None) -> Callable:
+    """-> step(audio (B, S) fp32, audio_lengths (B,), tokens (B, N),
+    token_lengths (B,), step_index) -> {loss, grad_norm, audio_seconds} as
+    device scalars. Order: log-mels (no gradient) -> SpecAugment -> model in
+    training mode -> CTC over the rows with a transcript -> backward ->
+    optimizer. ``optim.accum_steps > 1`` runs that many micro-batches in
+    sequence, averages their gradients and threads the BatchNorm statistics
+    through them in order."""
+    device = next(model.parameters()).device
+    frontend = frontend or MelFrontend(cfg.audio, device=device)
+    accum = max(cfg.optim.accum_steps, 1)
+    sr = cfg.audio.sample_rate
+
+    def step(audio: torch.Tensor, audio_lengths: torch.Tensor,
+             tokens: torch.Tensor, token_lengths: torch.Tensor,
+             step_index: int) -> Dict[str, torch.Tensor]:
+        model.train()
+        gen = step_generator(cfg.train.seed, step_index)
+        with torch.no_grad():
+            mels = frontend(audio)
+        mel_lengths = frontend.frame_lengths(audio_lengths)
+        mels = spec_augment(gen, mels, cfg.augment, mel_lengths)
+        seeds = torch.randint(0, 2 ** 62, (accum,), generator=gen).tolist()
+        b = audio.shape[0]
+        if b % accum:
+            raise ValueError(f"batch {b} does not split into {accum} "
+                             "micro-batches")
+        m = b // accum
+        optimizer.zero_grad()
+        loss_sum = torch.zeros((), device=audio.device)
+        for i in range(accum):
+            sl = slice(i * m, (i + 1) * m)
+            logits, out_lengths = model(mels[sl], mel_lengths[sl],
+                                        dropout_seed=seeds[i])
+            loss = ctc_loss(logits, out_lengths, tokens[sl], token_lengths[sl],
+                            row_mask=token_lengths[sl] > 0)
+            (loss / accum).backward()
+            loss_sum = loss_sum + loss.detach()
+        grad_norm = optimizer.step()
+        return {"loss": loss_sum / accum, "grad_norm": grad_norm,
+                "audio_seconds": audio_lengths.sum() / sr}
+
+    return step
 
 
 def make_forward(cfg: Config, model: torch.nn.Module,
                  frontend: Optional[MelFrontend] = None) -> Callable:
     """-> forward(audio (B, S) fp32, audio_lengths (B,)) -> (logits fp32
-    (B, T', V), lengths (B,)), on the model's device, without autograd."""
+    (B, T', V), lengths (B,)), on the model's device, without autograd and
+    with the running BatchNorm statistics."""
     device = next(model.parameters()).device
     frontend = frontend or MelFrontend(cfg.audio, device=device)
 
     @torch.inference_mode()
     def forward(audio: torch.Tensor, audio_lengths: torch.Tensor):
+        model.eval()
         mels = frontend(audio)
         return model(mels, frontend.frame_lengths(audio_lengths))
 
@@ -34,17 +95,25 @@ def make_forward(cfg: Config, model: torch.nn.Module,
 def make_eval_step(cfg: Config, model: torch.nn.Module,
                    frontend: Optional[MelFrontend] = None,
                    unk_id: Optional[int] = None) -> Callable:
-    """-> step(audio, audio_lengths) -> {tokens, counts, log_probs, lengths}:
-    collapsed greedy tokens on the device, text assembly left to the host."""
+    """-> step(audio, audio_lengths[, tokens, token_lengths]) -> {tokens,
+    counts, log_probs, lengths} (+ ``loss`` when transcripts are given, over
+    the rows that have one): collapsed greedy tokens on the device, text
+    assembly left to the host."""
     forward = make_forward(cfg, model, frontend)
 
     @torch.inference_mode()
-    def step(audio: torch.Tensor, audio_lengths: torch.Tensor
+    def step(audio: torch.Tensor, audio_lengths: torch.Tensor,
+             tokens: Optional[torch.Tensor] = None,
+             token_lengths: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
         logits, out_lengths = forward(audio, audio_lengths)
-        tokens, counts = greedy_decode(logits, out_lengths, unk_id=unk_id)
-        return {"tokens": tokens, "counts": counts,
-                "log_probs": torch.log_softmax(logits, dim=-1),
-                "lengths": out_lengths}
+        ids, counts = greedy_decode(logits, out_lengths, unk_id=unk_id)
+        out = {"tokens": ids, "counts": counts,
+               "log_probs": torch.log_softmax(logits, dim=-1),
+               "lengths": out_lengths}
+        if tokens is not None:
+            out["loss"] = ctc_loss(logits, out_lengths, tokens, token_lengths,
+                                   row_mask=token_lengths > 0)
+        return out
 
     return step

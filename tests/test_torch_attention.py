@@ -4,8 +4,11 @@ JAX package on the CPU.
 K1: ``sincos_attention_fwd`` (its plain version on CPU tensors) against
 ``rel_attention_sincos_packed(..., interpret=True)``, the Pallas kernel run
 in interpret mode, at H = 2, dh = 64, with key lengths full, partial and 0;
-atol 2e-5, the forward tolerance tests/test_pallas.py uses. Modules: both
-attention impls against flax with the same weights, atol 1e-5 (fp32)."""
+atol 2e-5, the forward tolerance tests/test_pallas.py uses; with dropout,
+the same at the JAX kernel's tile rows. K2: the plain backward against
+``jax.vjp`` of the same call, atol 1e-5. Modules: both attention impls
+against flax with the same weights, outputs and parameter gradients, atol
+1e-5 (fp32)."""
 
 import jax
 import jax.numpy as jnp
@@ -84,13 +87,73 @@ def test_plain_version_bf16_rounds_like_the_jax_reference_math():
                                atol=1.6e-2)
 
 
-def test_dropout_is_refused_until_the_backward_kernel_lands():
-    qu, qv, k, v, kernel = (torch.from_numpy(x)
-                            for x in _inputs(1, 8, 2, 64, 0))
-    with pytest.raises(NotImplementedError):
-        tsa.rel_attention_sincos_packed(qu, qv, k, v,
-                                        tsa.prep_pos_kernel(kernel, 2), None,
-                                        0.125, dropout_rate=0.1)
+def _packed_call(rate, tq, lengths, qu, qv, k, v, kernel, h, scale):
+    """(JAX output, its vjp) of the Pallas kernels in interpret mode."""
+    def f(qu, qv, k, v, wh):
+        return jsa.rel_attention_sincos_packed(
+            qu, qv, k, v, wh, jnp.asarray(lengths), scale, rate,
+            jnp.int32(7), tq=tq, interpret=True)
+    wh = jsa.prep_pos_kernel(jnp.asarray(kernel), h)
+    return jax.vjp(f, *(jnp.asarray(x) for x in (qu, qv, k, v)), wh)
+
+
+@pytest.mark.parametrize("b,l,h,dh,tq,lengths", [
+    (3, 50, 2, 64, 32, [50, 20, 0]),        # partial last tile of 32 rows
+    (3, 50, 2, 64, None, [50, 20, 0]),      # auto tile: one of 56 rows
+    (1, 300, 2, 16, None, [300]),           # L > 256: auto tiles of 128
+])
+def test_plain_forward_with_dropout_matches_pallas_interpret(b, l, h, dh, tq,
+                                                             lengths):
+    qu, qv, k, v, kernel = _inputs(b, l, h, dh, seed=l)
+    scale = 1.0 / np.sqrt(dh)
+    want, _ = _packed_call(0.3, tq, np.array(lengths, np.int32), qu, qv, k, v,
+                           kernel, h, scale)
+    t = torch.from_numpy
+    got = tsa.rel_attention_sincos_packed(
+        t(qu), t(qv), t(k), t(v), tsa.prep_pos_kernel(t(kernel), h),
+        t(np.array(lengths, np.int32)), scale, dropout_rate=0.3, seed=7, tq=tq)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_plain_backward_matches_jax_vjp(rate):
+    """The autograd Function's plain path (plain forward, plain backward)
+    against jax.vjp of the interpret-mode kernels, including the gradient
+    of the (D, D) position kernel through prep_pos_kernel; atol 1e-5 as
+    tests/test_pallas.py::test_fused_backward_parity."""
+    h, dh, l = 2, 64, 50
+    lengths = np.array([50, 20, 0], np.int32)
+    qu, qv, k, v, kernel = _inputs(3, l, h, dh, seed=11)
+    g = np.random.default_rng(12).standard_normal(qu.shape).astype(np.float32)
+    scale = 1.0 / np.sqrt(dh)
+    _, vjp = _packed_call(rate, 32, lengths, qu, qv, k, v, kernel, h, scale)
+    jgrads = vjp(jnp.asarray(g))
+    j_kernel = jax.vjp(lambda K: jsa.prep_pos_kernel(K, h),
+                       jnp.asarray(kernel))[1](jgrads[4])[0]
+    ts = [torch.tensor(x, requires_grad=True) for x in (qu, qv, k, v, kernel)]
+    before = launch_counts()
+    out = tsa.rel_attention_sincos_packed(
+        *ts[:4], tsa.prep_pos_kernel(ts[4], h), torch.from_numpy(lengths),
+        scale, dropout_rate=rate, seed=7, tq=32)
+    (out * torch.from_numpy(g)).sum().backward()
+    assert launch_counts() == before                   # CPU: no launch
+    for got, want in zip(ts, [*jgrads[:4], j_kernel]):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(want),
+                                   atol=1e-5)
+
+
+def test_inference_takes_the_forward_only():
+    """Without autograd (serving) no row statistics are made and no
+    backward is recorded; the result equals the autograd path's."""
+    qu, qv, k, v, kernel = (torch.from_numpy(x) for x in _inputs(1, 8, 2, 64, 0))
+    wh = tsa.prep_pos_kernel(kernel, 2)
+    with torch.inference_mode():
+        served = tsa.rel_attention_sincos_packed(qu, qv, k, v, wh, None, 0.125)
+    assert served.grad_fn is None
+    trained = tsa.rel_attention_sincos_packed(qu.requires_grad_(), qv, k, v,
+                                              wh, None, 0.125)
+    assert type(trained.grad_fn).__name__ == "SincosAttentionBackward"
+    np.testing.assert_array_equal(served.numpy(), trained.detach().numpy())
 
 
 def _flax_attention(module_cls, impl, d, h, x, pos, mask, seed):
@@ -129,6 +192,43 @@ def test_attention_modules_match_flax(impl, module):
     with torch.no_grad():
         got = tmod(torch.from_numpy(x), tpos, tmask)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_attention_module_gradients_match_flax(impl):
+    """Every parameter's gradient, the position kernel's (through the
+    kernel path's prep_pos_kernel) included; the position bias, which the
+    kernel path does not read, gets none here and a zero one in JAX (the
+    optimizer fills it with zeros, train/state.py)."""
+    b, l, d, h = 2, 29, 128, 2
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((b, l, d)).astype(np.float32)
+    g = rng.standard_normal((b, l, d)).astype(np.float32)
+    pos = relative_positional_encoding(l, d)
+    mask = attention_pad_mask(jnp.asarray(np.array([29, 11], np.int32)), l)
+    m = jattn.RelativeMultiHeadAttention(d, h, 0.0, jnp.float32, impl)
+    variables, _ = _flax_attention(jattn.RelativeMultiHeadAttention, impl, d,
+                                   h, jnp.asarray(x), pos, mask, seed=6)
+    jgrads = jax.grad(lambda p: jnp.sum(m.apply({"params": p}, jnp.asarray(x),
+                                                pos, mask) * g))(
+        variables["params"])
+    tmod = tattn.RelativeMultiHeadAttention(d, h, impl=impl)
+    tmod.load_state_dict(block_part_to_state_dict(variables, "mhsa/attention"))
+    tpos = torch.from_numpy(np.asarray(pos)) if impl == "xla" else None
+    out = tmod(torch.from_numpy(x), tpos, torch.from_numpy(np.array(mask)))
+    (out * torch.from_numpy(g)).sum().backward()
+    want = block_part_to_state_dict({"params": jax.tree_util.tree_map(
+        np.asarray, jgrads)}, "mhsa/attention")
+    for name, p in tmod.named_parameters():
+        if p.grad is None:
+            assert impl == "pallas" and name == "pos.bias"
+            assert not want[name].any()
+            continue
+        # 1e-5 of the gradient's own scale: they reach ~20 here, and fp32
+        # sums over B*L rows are taken in another order
+        scale = max(1.0, float(want[name].abs().max()))
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
+                                   atol=1e-5 * scale, rtol=1e-5, err_msg=name)
 
 
 def test_both_impls_agree_in_the_port():

@@ -131,11 +131,22 @@ def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
     fe = MelFrontend()
     logmel_fwd(torch.randn(2, 4000, generator=g), fe._dft, fe._fb, 160, 400,
                23)
-    assert cuda.launch_counts() == {"sincos_attention_fwd": 0, "logmel_fwd": 0}
+    dout = torch.randn(2, 9, 128, generator=g)
+    grads = sa.sincos_attention_bwd(qu, qv, k, v, wh, lengths, sin_t, cos_t,
+                                    out, None, dout, 0.1, 7, 16)
+    want = sa.sincos_attention_bwd_plain(qu, qv, k, v, wh, lengths, sin_t,
+                                         cos_t, out, None, dout, 0.1, 7, 16)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
+    assert cuda.launch_counts() == {"sincos_attention_fwd": 0,
+                                    "sincos_attention_bwd": 0,
+                                    "logmel_fwd": 0,
+                                    "sincos_attention_fwd_dropout": 0}
     # Any other device has no plain path and no kernel: it raises.
     meta = [x.to("meta") for x in (qu, qv, k, v, wh, lengths, sin_t, cos_t)]
     with pytest.raises(ValueError, match="no kernel"):
         sa.sincos_attention_fwd(*meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        sa.sincos_attention_bwd(*meta, meta[0], None, meta[0])
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():
