@@ -12,7 +12,10 @@ Phases, each printing one JSON line:
               at the shapes the serving and training paths give it (K1 with
               and without dropout, K2 at rates 0 and 0.1, K3), and time the
               kernel, the plain version, the bound and, where one exists,
-              the one PyTorch call that computes the same function.
+              the one PyTorch call that computes the same function; bf16
+              K2 at its longest L, and one key past it (must raise).
+   tolerance -- K1 and K2 again over 8 more seeds: each check's largest
+              reading beside its limit.
 3. model   -- the production Config() model (17 blocks, d_model 512, 8
               heads, kernel 31, LSTM 640, vocab 370) with seeded random
               weights, on 8 s and 24 s batches of 8: a forward, and one
@@ -45,20 +48,27 @@ import tempfile
 import time
 from unittest import mock
 
-PHASES = ("build", "kernels", "model", "serve", "train")
+PHASES = ("build", "kernels", "tolerance", "model", "serve", "train")
 OPTIONAL_PHASES = ("profile",)
 # Published dense peaks of one H100 SXM (NVIDIA data sheet) at 700 W.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 TOL_K1 = {"float32": 1e-4, "bfloat16": 3e-2}
-# K2: max |kernel - plain| over max |plain|, per gradient. fp32: summation
-# order only; bf16: ds, da and p_drop are rounded to bf16 before their
-# products and the outputs to bf16, and flipped roundings move a sum by bf16
-# ulps (2^-8 to 2^-7 relative), so 4 ulps of the largest gradient, as K1.
+# K2, per gradient: max |kernel - plain| over each (batch row, head) slice
+# (dwh: each head) against that slice's own max |plain|, the scale floored
+# at K2_FLOOR of the gradient's max, so that no row sets the scale of
+# another (a row with one key has a dv of up to ~100, a full row ~0.5).
+# fp32: summation order only; bf16: ds, da and p_drop are rounded to bf16
+# before their products and the outputs to bf16, and a flipped rounding
+# moves a value by one bf16 ulp, 2^-8 to 2^-7 of a slice's max: 4 ulps.
 TOL_K2 = {"float32": 1e-4, "bfloat16": 3e-2}
+K2_FLOOR = 1e-3
+K2_GRADS = ("dqu", "dqv", "dk", "dv", "dwh")
 # K1's row statistics, relative: fp32 sums in another order; bf16 also flips
 # roundings of alpha/beta, which move a score by a bf16 ulp of its term.
 TOL_STATS = {"float32": 1e-4, "bfloat16": 4e-3}
+# The tolerance phase runs K1 and K2 again over these seeds.
+SWEEP_SEEDS = tuple(range(200, 208))
 DROPOUT_SEED = 1234567
 TOL_K3 = 1e-4
 DEVICE = "cuda"
@@ -192,37 +202,69 @@ def k1_case(torch, b: int, l: int, dtype, seed: int, time_it: bool,
     return case
 
 
+def _slices(x, key: str, h: int):
+    """|x| with one row per (batch row, head) slice of a (B, L, D)
+    gradient, or per head of dwh (H, dh, D)."""
+    x = x.float().abs()
+    if key == "dwh":
+        return x.reshape(x.shape[0], -1)
+    b, l, d = x.shape
+    return x.reshape(b, l, h, d // h).transpose(1, 2).reshape(b * h, -1)
+
+
+def k2_rel_err(got, want, key: str, h: int) -> float:
+    """max over slices of max |got - want| / max(max |want| in the slice,
+    K2_FLOOR * max |want|)."""
+    diff = _slices(got.float() - want.float(), key, h).amax(dim=1)
+    scale = _slices(want, key, h).amax(dim=1)
+    floor = max(float(scale.max()) * K2_FLOOR, 1e-30)
+    return float((diff / scale.clamp(min=floor)).max())
+
+
 def k2_case(torch, b: int, l: int, dtype, seed: int, rate: float,
             time_it: bool):
-    """K2 against its plain version, each gradient's error relative to its
-    largest magnitude."""
+    """K2 against its plain version, each gradient held per slice
+    (k2_rel_err), and two controls that must exceed the limit: the kernel's
+    gradients with slice (batch row 0, a full row; head 0) scaled by
+    1 + 2 * limit, and, with dropout, the plain backward under another
+    seed."""
     from conformer_tpu_torch.ops.cuda import sincos_attention as sa
 
     h, dh, d = 8, 64, 512
     args, dout = _attention_inputs(torch, b, l, dtype, seed)
     drop = (rate, DROPOUT_SEED, sa.hash_tq(l))
     out, stats = sa.sincos_attention_fwd(*args, *drop, stats=True)
-    bwd_args = (*args, out, stats, dout, *drop)
+    bwd_args = (*args, stats, dout, *drop)
     got = sa.sincos_attention_bwd(*bwd_args)
     want = sa.sincos_attention_bwd_plain(*bwd_args)
     torch.cuda.synchronize()
     name = "bfloat16" if dtype == torch.bfloat16 else "float32"
-    rel, err = {}, 0.0
-    for key, g_, w_ in zip(("dqu", "dqv", "dk", "dv", "dwh"), got, want):
-        diff = float((g_.float() - w_.float()).abs().max())
-        rel[key] = diff / max(float(w_.float().abs().max()), 1e-30)
-        err = max(err, diff)
+    tol = TOL_K2[name]
+    rel, controls, err = {}, {}, 0.0
+    for key, g_, w_ in zip(K2_GRADS, got, want):
+        err = max(err, float((g_.float() - w_.float()).abs().max()))
+        rel[key] = k2_rel_err(g_, w_, key, h)
+        scaled = g_.float().clone()
+        (scaled[0] if key == "dwh"
+         else scaled.view(b, l, h, dh)[0, :, 0]).mul_(1 + 2 * tol)
+        controls[f"{key}_slice_scaled"] = k2_rel_err(scaled, w_, key, h)
+    if rate > 0:
+        other = sa.sincos_attention_bwd_plain(*args, stats, dout, rate,
+                                              DROPOUT_SEED + 1, drop[2])
+        controls["other_seed"] = max(k2_rel_err(g_, o_, key, h) for key, g_, o_
+                                     in zip(K2_GRADS, got, other))
     finite = all(bool(torch.isfinite(g_.float()).all()) for g_ in got)
     case = {"b": b, "l": l, "dtype": name, "rate": rate, "max_abs_err": err,
             "rel_err": rel,
-            "max_rel_err": max(rel.values()), "tolerance": TOL_K2[name],
-            "finite": finite,
-            "ok": finite and max(rel.values()) <= TOL_K2[name]}
+            "max_rel_err": max(rel.values()), "tolerance": tol,
+            "controls": controls, "finite": finite,
+            "ok": (finite and max(rel.values()) <= tol
+                   and min(controls.values()) > tol)}
     if time_it:
         itemsize = torch.tensor([], dtype=dtype).element_size()
         flops = (2.0 * b * h * l * l * (2 * d + 5 * dh)
                  + 3 * 2.0 * b * h * l * dh * d)
-        nbytes = ((10 * b * l * d + 2 * h * dh * d + l * d) * itemsize
+        nbytes = ((9 * b * l * d + 2 * h * dh * d + l * d) * itemsize
                   + 8 * b * h * l + 4 * b)
         bms, by = bound_ms(flops, nbytes, name)
         q_aug, k_aug, v_h, mask = _augmented(torch, args)
@@ -246,6 +288,26 @@ def k2_case(torch, b: int, l: int, dtype, seed: int, rate: float,
             "bound_ms": bms, "bound_by": by,
         })
     return case
+
+
+def k2_length_limit(torch):
+    """bf16 K2 keeps ds for every key in shared memory: at the longest L it
+    takes (768 at H = 8) it must agree with its plain version, and one key
+    further it must raise ValueError before launching."""
+    from conformer_tpu_torch.ops.cuda import sincos_attention as sa
+
+    at_limit = k2_case(torch, 1, 768, torch.bfloat16, seed=40, rate=0.1,
+                       time_it=False)
+    args, dout = _attention_inputs(torch, 1, 769, torch.bfloat16, seed=41)
+    stats = torch.zeros(1, 8, 769, 2, device=DEVICE)
+    try:
+        sa.sincos_attention_bwd(*args, stats, dout)
+        message = None
+    except ValueError as e:
+        message = str(e)
+    return {"at_768": at_limit, "error_at_769": message,
+            "ok": at_limit["ok"] and message is not None
+            and "L <= 768" in message}
 
 
 def k3_case(torch, b: int, n_samples: int, seed: int, time_it: bool):
@@ -303,13 +365,16 @@ def phase_kernels(torch):
     k2_cases = [k2_case(torch, 8, l, dt, seed=30 + i, rate=rate,
                         time_it=(dt == torch.bfloat16 and rate > 0))
                 for i, (l, dt) in enumerate(shapes) for rate in (0.0, 0.1)]
+    limit = k2_length_limit(torch)
     k3_cases = [k3_case(torch, 8, 16 * 16000, seed=10, time_it=True),
                 k3_case(torch, 8, 24 * 16000, seed=11, time_it=True),
                 k3_case(torch, 3, 7321 * 17, seed=12, time_it=False)]
     emit({"phase": "kernels", "sincos_attention_fwd": k1_cases,
           "sincos_attention_fwd_dropout": k1_drop,
-          "sincos_attention_bwd": k2_cases, "logmel_fwd": k3_cases})
-    bad = [c for c in k1_cases + k1_drop + k2_cases + k3_cases if not c["ok"]]
+          "sincos_attention_bwd": k2_cases,
+          "sincos_attention_bwd_length_limit": limit, "logmel_fwd": k3_cases})
+    bad = [c for c in k1_cases + k1_drop + k2_cases + [limit] + k3_cases
+           if not c["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -339,6 +404,37 @@ def phase_kernels(torch):
          "shape": "B=8 n_frames=2401 float32",
          **pick(k3_cases[1])},
     ]
+
+
+def phase_tolerance(torch):
+    """K1 and K2 again at every shape, dtype and rate of the kernels phase,
+    over SWEEP_SEEDS: each check's largest reading beside its limit, and the
+    smallest reading of K2's controls (which must exceed it)."""
+    rows = []
+    for l, dt in [(199, torch.float32), (599, torch.float32),
+                  (199, torch.bfloat16), (599, torch.bfloat16)]:
+        name = "bfloat16" if dt == torch.bfloat16 else "float32"
+        for rate in (0.0, 0.1):
+            k1 = [k1_case(torch, 8, l, dt, seed, False, rate)
+                  for seed in SWEEP_SEEDS]
+            k2 = [k2_case(torch, 8, l, dt, seed, rate, False)
+                  for seed in SWEEP_SEEDS]
+            rows.append({
+                "l": l, "dtype": name, "rate": rate,
+                "k1_max_abs_err": max(c["max_abs_err"] for c in k1),
+                "k1_tolerance": TOL_K1[name],
+                "k1_stats_rel_err": max(c["stats_rel_err"] for c in k1),
+                "k1_stats_tolerance": TOL_STATS[name],
+                "k2_rel_err": {key: max(c["rel_err"][key] for c in k2)
+                               for key in K2_GRADS},
+                "k2_tolerance": TOL_K2[name],
+                "k2_controls_min": min(min(c["controls"].values())
+                                       for c in k2),
+                "ok": all(c["ok"] for c in k1 + k2)})
+    emit({"phase": "tolerance", "seeds": list(SWEEP_SEEDS), "cases": rows})
+    if not all(r["ok"] for r in rows):
+        raise SystemExit("a kernel disagrees with its plain version at "
+                         "another seed")
 
 
 # ---------------------------------------------------------------------------
@@ -447,8 +543,14 @@ def phase_model(torch):
 # max |g|. fp32: the kernels agree with their plain versions to ~1e-6 per
 # call; bf16: flipped roundings (K2's are 4 ulps of a gradient) travel
 # through 17 blocks and their backward, as in the forward comparison above.
-TOL_TRAIN = {"bfloat16": {"loss": 2e-2, "grad_norm": 5e-2, "param": 0.25},
-             "float32": {"loss": 1e-4, "grad_norm": 1e-3, "param": 1e-2}}
+# The parameters whose exact gradient is 0 are held against the grad norm:
+# 1e-6 of it is ~1 % of an average element's share (~1e-4 over ~1e8
+# parameters), so a K2 whose dk no longer sums to 0 over the keys (the key
+# bias's gradient) fails.
+TOL_TRAIN = {"bfloat16": {"loss": 2e-2, "grad_norm": 5e-2, "param": 0.25,
+                          "zero_gradient": 1e-6},
+             "float32": {"loss": 1e-4, "grad_norm": 1e-3, "param": 1e-2,
+                         "zero_gradient": 1e-6}}
 
 
 def _tokens(torch, b: int, n: int, seed: int):
@@ -493,7 +595,7 @@ def train_step_case(torch, dtype: str, seconds: int):
     # key and position biases (softmax ignores a shift shared by a row's
     # scores) and the depthwise conv's bias (the batch-statistics BatchNorm
     # after it removes it). Theirs is rounding noise in both runs; it is
-    # reported against the grad norm instead.
+    # held against the grad norm instead.
     zero = [n for n in p["grads"] if n.endswith(
         ("attention.key.bias", "attention.pos.bias", "conv.depthwise.bias"))]
     param_err = {n: float((k["grads"][n] - g).abs().max())
@@ -508,6 +610,7 @@ def train_step_case(torch, dtype: str, seconds: int):
           and rel(k["loss"], p["loss"]) <= tol["loss"]
           and rel(k["grad_norm"], p["grad_norm"]) <= tol["grad_norm"]
           and param_err[worst] <= tol["param"]
+          and zero_grad_max / k["grad_norm"] <= tol["zero_gradient"]
           and k["launches"]["sincos_attention_fwd"] == 2 * n_blocks
           and k["launches"]["sincos_attention_fwd_dropout"] == 2 * n_blocks
           and k["launches"]["sincos_attention_bwd"] == n_blocks)
@@ -743,6 +846,8 @@ def main(argv=None) -> int:
         phase_build()
     if "kernels" in phases:
         entries = phase_kernels(torch)
+    if "tolerance" in phases:
+        phase_tolerance(torch)
     if "model" in phases:
         phase_model(torch)
     for name, run in (("serve", phase_serve), ("train", phase_train)):

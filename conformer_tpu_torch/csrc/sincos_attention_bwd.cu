@@ -9,7 +9,7 @@
 // `stats`, and keep the forward's dropout mask, regenerated from the hash:
 //   p     = exp(s - m) / max(l, 1e-9)                  fp32
 //   dp    = keep . (dO . v^T) / (1 - rate)
-//   delta = sum_j p . dp  = dO . O                     (per row)
+//   delta = sum_j p . dp                               (per row)
 //   ds    = T(p . (dp - delta))
 //   dv    = T(p_drop)^T . dO,  p_drop = keep . p / (1 - rate)
 //   dqu   = ds . k,  dk = ds^T . qu
@@ -18,8 +18,10 @@
 //   dqv   = da . wh^T,  dwh = sum over batch rows of qv^T . da
 // T is the input dtype. dqu/dqv come out in T; dk, dv and dwh are summed in
 // fp32 and cast once at the end, as the JAX kernel keeps them in fp32 refs.
-// delta is taken as dO . O (K1's output): the same sum as sum p . dp, which
-// needs the whole row before any ds, without a second sweep over the keys.
+// delta is summed as the JAX kernel sums it, not taken as dO . O with K1's
+// output: that O carries p_drop rounded to bf16 and every O a summation
+// order of its own, and where p piles onto one key (a row of length 1)
+// the true ds is exactly 0 and dO . O leaves a residue in it.
 //
 // What bounds it on the H100: operations. Per (batch, head) the backward
 // recomputes the score product (depth 64 + D over L x L pairs) and adds the
@@ -33,10 +35,12 @@
 // - q_pass, one CTA per (64-row query tile, head, batch row): builds
 //   [qu | alpha | beta] as K1 does (and writes alpha | beta to scratch for
 //   k_pass), walks the keys 64 at a time recomputing scores and the mask,
-//   and keeps the tile's ds for all keys in shared memory (L <= 768). dqu
-//   accumulates in registers during the sweep; then dalpha/dbeta = ds . [cos
-//   | sin] 64 columns at a time, da, dqv = da . wh^T, and the CTA's dwh
-//   partial qv^T . da, written in fp32 to scratch.
+//   once for delta (written to scratch for k_pass) and once for ds, and
+//   keeps the tile's ds for all keys in shared memory (L <= 768 at H = 8:
+//   sincos_attention_bwd_max_len). dqu accumulates in registers during the
+//   second sweep; then dalpha/dbeta = ds . [cos | sin] 64 columns at a time,
+//   da, dqv = da . wh^T, and the CTA's dwh partial qv^T . da, written in
+//   fp32 to scratch.
 // - k_pass, one CTA per (64-key tile, head, batch row): holds [k | cos |
 //   sin] of its keys in shared memory and walks the query tiles, computing
 //   the transposed scores s^T = [k | cos | sin] . [qu | alpha | beta]^T,
@@ -51,9 +55,11 @@
 //
 // float32 (the reference dtype) stays on CUDA-core FMAs, so fp32 inputs keep
 // fp32 products, in a simpler design that materialises ds and p_drop (B, H,
-// L, L) in scratch: prep (alpha | beta and delta), scores (ds and p_drop per
-// 64 x 64 tile, no reduction), then every contraction as a launch of one
-// strided batched fp32 GEMM, and combine (da).
+// L, L) in scratch: prep (alpha | beta), scores (p and dp per 64 x 64 tile),
+// rows (delta per row, then ds and p_drop in place), then every contraction
+// as a launch of one strided batched fp32 GEMM, and combine (da).
+
+#include <limits.h>
 
 #include "sincos_attention_common.cuh"
 
@@ -66,7 +72,6 @@ constexpr int TK = 64;  // keys per tile
 struct BwdArgs {
   const void *qu, *qv, *k, *v, *wh, *sin_t, *cos_t;
   const int* lengths;
-  const void* out;
   const float* stats;  // (B, H, L, 2): K1's row max and row sum
   const void* dout;
   void *dqu, *dqv, *dk, *dv, *dwh;
@@ -92,8 +97,77 @@ constexpr int KS = 72;        // padded row stride (bf16) of 64-wide tiles
 inline size_t q_pass_smem(int L, int H) {
   const int D = H * DH, LK = (L + TK - 1) / TK * TK;
   return sizeof(bf16) * ((size_t)TQ * (DH + D + 8) + (size_t)TQ * (LK + 8) +
-                         6 * 64 * KS) +
-         sizeof(float) * TQ;
+                         6 * 64 * KS);
+}
+
+// q_pass's key tile j0: the scores s = [qu | alpha | beta] . [k | cos | sin]^T
+// (s_q, row stride DH + D + 8) and dov = dO . v^T of the warp's 16 query
+// rows, unmasked; leaves the tile's v in s_v and its k transposed in s_kt.
+__device__ __forceinline__ void score_tile(const BwdArgs& a, const bf16* s_q,
+                                           bf16* s_a, bf16* s_v, bf16* s_kt,
+                                           const uint32_t (&dof)[4][4], int j0,
+                                           int b, int h, float (&s)[8][4],
+                                           float (&dov)[8][4]) {
+  const int L = a.L, D = a.H * DH, D2 = D / 2, QS = DH + D + 8;
+  const int n_chunks = 1 + D / 64, cos_chunks = D2 / 64;
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* sin_t = static_cast<const bf16*>(a.sin_t);
+  const bf16* cos_t = static_cast<const bf16*>(a.cos_t);
+  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wr = (tid / 32) * 16;
+  const size_t row0 = (size_t)b * L;
+  const int col_h = h * DH;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = dov[n][e] = 0.f;
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    __syncthreads();
+    for (int i = tid; i < TK * 8; i += THREADS) {
+      const int j = i / 8, c = (i % 8) * 8, key = j0 + j;
+      uint4 x = zero, xv = zero;
+      if (key < L) {
+        if (ch == 0) {
+          const size_t off = (row0 + key) * D + col_h + c;
+          x = *reinterpret_cast<const uint4*>(k + off);
+          xv = *reinterpret_cast<const uint4*>(v + off);
+        } else if (ch <= cos_chunks) {
+          x = *reinterpret_cast<const uint4*>(
+              cos_t + (size_t)key * D2 + (ch - 1) * 64 + c);
+        } else {
+          x = *reinterpret_cast<const uint4*>(
+              sin_t + (size_t)key * D2 + (ch - 1 - cos_chunks) * 64 + c);
+        }
+      }
+      *reinterpret_cast<uint4*>(s_a + j * KS + c) = x;
+      if (ch == 0) {
+        *reinterpret_cast<uint4*>(s_v + j * KS + c) = xv;
+        store_column(s_kt, KS, c, j, x);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t af[4];
+      load_a(af, s_q, QS, wr, ch * 64 + kk * 16, g, t);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        uint32_t b0, b1;
+        load_b(b0, b1, s_a, KS, n * 8, kk * 16, g, t);
+        mma(s[n], af, b0, b1);
+      }
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      uint32_t b0, b1;
+      load_b(b0, b1, s_v, KS, n * 8, kk * 16, g, t);
+      mma(dov[n], dof[kk], b0, b1);
+    }
 }
 
 inline size_t k_pass_smem(int H) {
@@ -117,16 +191,12 @@ q_pass(BwdArgs a, bf16* __restrict__ ab, float* __restrict__ delta_buf,
   bf16* s_do = s_qv + 64 * KS;                  // dO tile [row][d]
   bf16* s_kt = s_do + 64 * KS;                  // key tile transposed [d][key]
   bf16* s_v = s_kt + 64 * KS;                   // value tile [key][d]
-  float* s_delta = reinterpret_cast<float*>(s_v + 64 * KS);
 
   const bf16* qu = static_cast<const bf16*>(a.qu);
   const bf16* qv = static_cast<const bf16*>(a.qv);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
   const bf16* wh = static_cast<const bf16*>(a.wh);
   const bf16* sin_t = static_cast<const bf16*>(a.sin_t);
   const bf16* cos_t = static_cast<const bf16*>(a.cos_t);
-  const bf16* out = static_cast<const bf16*>(a.out);
   const bf16* dout = static_cast<const bf16*>(a.dout);
 
   const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
@@ -137,7 +207,7 @@ q_pass(BwdArgs a, bf16* __restrict__ ab, float* __restrict__ delta_buf,
   const int col_h = h * DH;
   const uint4 zero = make_uint4(0, 0, 0, 0);
 
-  // 1. qu, qv, dO tiles (zeros past L); delta = dO . O per row.
+  // 1. qu, qv, dO tiles (zeros past L).
   for (int i = tid; i < TQ * DH / 8; i += THREADS) {
     const int r = i / 8, c = (i % 8) * 8, q = q0 + r;
     uint4 xu = zero, xv = zero, xd = zero;
@@ -150,21 +220,6 @@ q_pass(BwdArgs a, bf16* __restrict__ ab, float* __restrict__ delta_buf,
     *reinterpret_cast<uint4*>(s_q + r * QS + c) = xu;
     *reinterpret_cast<uint4*>(s_qv + r * KS + c) = xv;
     *reinterpret_cast<uint4*>(s_do + r * KS + c) = xd;
-  }
-  {
-    const int r = tid / 2, c0 = (tid % 2) * 32, q = q0 + r;
-    float acc = 0.f;
-    if (q < L) {
-      const bf16* po = out + (row0 + q) * D + col_h + c0;
-      const bf16* pd = dout + (row0 + q) * D + col_h + c0;
-      for (int c = 0; c < 32; ++c)
-        acc += __bfloat162float(pd[c]) * __bfloat162float(po[c]);
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (tid % 2 == 0) {
-      s_delta[r] = acc;
-      if (q < L) delta_buf[bh * L + q] = acc;
-    }
   }
   __syncthreads();
   uint32_t qa[4][4];
@@ -222,11 +277,15 @@ q_pass(BwdArgs a, bf16* __restrict__ ab, float* __restrict__ delta_buf,
           *reinterpret_cast<const uint4*>(s_q + r * QS + DH + c);
   }
 
-  // 3. Key sweep: scores, p, dp, ds (kept in s_ds), dqu += ds . k.
+  // 3. Two sweeps over the keys. The first sums delta = sum_j p . dp per row,
+  // as the JAX kernel does; dO . O would take K1's bf16-rounded p_drop (at
+  // rate 0.1 a lone p = 1 becomes 1.109375, not 1.1111) and bias delta
+  // wherever p piles onto a few keys. The second forms ds (kept in s_ds) and
+  // dqu += ds . k.
   uint32_t dof[4][4];
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) load_a(dof[kk], s_do, KS, wr, kk * 16, g, t);
-  float m_r[2], l_r[2], dl_r[2];
+  float m_r[2], l_r[2], dl_r[2] = {0.f, 0.f};
   bool ok_r[2];
   uint32_t rh[2] = {0u, 0u};
 #pragma unroll
@@ -235,11 +294,31 @@ q_pass(BwdArgs a, bf16* __restrict__ ab, float* __restrict__ delta_buf,
     ok_r[r] = q < L;
     m_r[r] = ok_r[r] ? a.stats[(bh * L + q) * 2] : 0.f;
     l_r[r] = ok_r[r] ? fmaxf(a.stats[(bh * L + q) * 2 + 1], 1e-9f) : 1.f;
-    dl_r[r] = s_delta[row];
     if (DROP) rh[r] = row_hash(a.seed, b, h, q, a.tq);
   }
   const int len = min(a.lengths[b], L);
-  const int n_chunks = 1 + D / 64, cos_chunks = D2 / 64;
+  float s[8][4], dov[8][4];
+  for (int j0 = 0; j0 < L; j0 += TK) {
+    score_tile(a, s_q, s_a, s_v, s_kt, dof, j0, b, h, s, dov);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2, key = j0 + n * 8 + 2 * t + (e % 2);
+        const float sc = mask_score(s[n][e], key, len, L);
+        const float p = ok_r[r] ? expf(sc - m_r[r]) / l_r[r] : 0.f;
+        float dp = dov[n][e];
+        if (DROP) dp = keep(rh[r], key, a.thresh) ? dp * a.inv_keep : 0.f;
+        dl_r[r] += p * dp;
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // the four lanes of a row hold its partials
+    dl_r[r] += __shfl_xor_sync(0xffffffffu, dl_r[r], 1);
+    dl_r[r] += __shfl_xor_sync(0xffffffffu, dl_r[r], 2);
+    const int q = q0 + wr + g + 8 * r;
+    if (t == 0 && q < L) delta_buf[bh * L + q] = dl_r[r];
+  }
   float dq[8][4];
 #pragma unroll
   for (int n = 0; n < 8; ++n)
@@ -247,61 +326,7 @@ q_pass(BwdArgs a, bf16* __restrict__ ab, float* __restrict__ delta_buf,
     for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
 
   for (int j0 = 0; j0 < L; j0 += TK) {
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      __syncthreads();
-      for (int i = tid; i < TK * 8; i += THREADS) {
-        const int j = i / 8, c = (i % 8) * 8, key = j0 + j;
-        uint4 x = zero, xv = zero;
-        if (key < L) {
-          if (ch == 0) {
-            const size_t off = (row0 + key) * D + col_h + c;
-            x = *reinterpret_cast<const uint4*>(k + off);
-            xv = *reinterpret_cast<const uint4*>(v + off);
-          } else if (ch <= cos_chunks) {
-            x = *reinterpret_cast<const uint4*>(
-                cos_t + (size_t)key * D2 + (ch - 1) * 64 + c);
-          } else {
-            x = *reinterpret_cast<const uint4*>(
-                sin_t + (size_t)key * D2 + (ch - 1 - cos_chunks) * 64 + c);
-          }
-        }
-        *reinterpret_cast<uint4*>(s_a + j * KS + c) = x;
-        if (ch == 0) {
-          *reinterpret_cast<uint4*>(s_v + j * KS + c) = xv;
-          store_column(s_kt, KS, c, j, x);
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t af[4];
-        load_a(af, s_q, QS, wr, ch * 64 + kk * 16, g, t);
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          uint32_t b0, b1;
-          load_b(b0, b1, s_a, KS, n * 8, kk * 16, g, t);
-          mma(s[n], af, b0, b1);
-        }
-      }
-    }
-    float dov[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dov[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, s_v, KS, n * 8, kk * 16, g, t);
-        mma(dov[n], dof[kk], b0, b1);
-      }
+    score_tile(a, s_q, s_a, s_v, s_kt, dof, j0, b, h, s, dov);
     uint32_t pds[4][4];
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
@@ -714,9 +739,9 @@ namespace cuda_core {
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 constexpr int SP = 65;        // padded stride of 64-wide staging tiles
 
-// alpha | beta of one 64-row query tile to `ab`, and delta = dO . O.
+// alpha | beta of one 64-row query tile to `ab`.
 __global__ void __launch_bounds__(THREADS)
-prep(BwdArgs a, float* __restrict__ ab, float* __restrict__ delta_buf) {
+prep(BwdArgs a, float* __restrict__ ab) {
   const int L = a.L, H = a.H, D = H * DH, D2 = D / 2;
   extern __shared__ float smem_p[];
   float* s_qv = smem_p;          // 64 x SP each
@@ -726,25 +751,11 @@ prep(BwdArgs a, float* __restrict__ ab, float* __restrict__ delta_buf) {
   const float* wh = static_cast<const float*>(a.wh);
   const float* sin_t = static_cast<const float*>(a.sin_t);
   const float* cos_t = static_cast<const float*>(a.cos_t);
-  const float* out = static_cast<const float*>(a.out);
-  const float* dout = static_cast<const float*>(a.dout);
   const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const size_t row0 = (size_t)b * L, bh = (size_t)b * H + h;
   const int col_h = h * DH;
 
-  {  // delta: four threads per row
-    const int r = tid / 4, c0 = (tid % 4) * 16, q = q0 + r;
-    float acc = 0.f;
-    if (q < L)
-      for (int c = 0; c < 16; ++c) {
-        const size_t off = (row0 + q) * D + col_h + c0 + c;
-        acc += dout[off] * out[off];
-      }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    if (tid % 4 == 0 && q < L) delta_buf[bh * L + q] = acc;
-  }
   for (int i = tid; i < TQ * DH; i += THREADS) {
     const int r = i / DH, d = i % DH, q = q0 + r;
     s_qv[r * SP + d] = q < L ? qv[(row0 + q) * D + col_h + d] : 0.f;
@@ -812,11 +823,11 @@ __device__ __forceinline__ void chunk_fma(float (&acc)[4][4], const float* s_q,
   }
 }
 
-// One 64 x 64 (query, key) tile: scores, p, dp -> ds and p_drop.
+// One 64 x 64 (query, key) tile: scores -> p (to p_out) and dp (to dp_out).
 template <bool DROP>
 __global__ void __launch_bounds__(THREADS)
-scores(BwdArgs a, const float* __restrict__ ab, const float* __restrict__ delta_buf,
-       float* __restrict__ ds_out, float* __restrict__ pd_out) {
+scores(BwdArgs a, const float* __restrict__ ab, float* __restrict__ dp_out,
+       float* __restrict__ p_out) {
   const int L = a.L, H = a.H, D = H * DH, D2 = D / 2;
   __shared__ float s_q[64 * SP], s_k[64 * SP];
   const float* qu = static_cast<const float*>(a.qu);
@@ -870,23 +881,39 @@ scores(BwdArgs a, const float* __restrict__ ab, const float* __restrict__ delta_
     if (q >= L) continue;
     const float m = a.stats[(bh * L + q) * 2];
     const float l = fmaxf(a.stats[(bh * L + q) * 2 + 1], 1e-9f);
-    const float dl = delta_buf[bh * L + q];
     const uint32_t rh = DROP ? row_hash(a.seed, b, h, q, a.tq) : 0u;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int key = k0 + tx + 16 * c;
       if (key >= L) continue;
-      const float p = expf(mask_score(s[r][c], key, len, L) - m) / l;
-      float dp = dov[r][c], pd = p;
-      if (DROP) {
-        const bool kp = keep(rh, key, a.thresh);
-        dp = kp ? dp * a.inv_keep : 0.f;
-        pd = kp ? p * a.inv_keep : 0.f;
-      }
+      float dp = dov[r][c];
+      if (DROP) dp = keep(rh, key, a.thresh) ? dp * a.inv_keep : 0.f;
       const size_t off = (bh * L + q) * L + key;
-      ds_out[off] = p * (dp - dl);
-      pd_out[off] = pd;
+      dp_out[off] = dp;
+      p_out[off] = expf(mask_score(s[r][c], key, len, L) - m) / l;
     }
+  }
+}
+
+// One warp per row (b, h, q) of the (B, H, L, L) scratch: delta = sum_j p .
+// dp in a fixed order, then in place ds = p . (dp - delta) over dp and
+// p_drop over p.
+template <bool DROP>
+__global__ void rows(BwdArgs a, float* __restrict__ ds, float* __restrict__ pd) {
+  const int L = a.L, H = a.H, lane = threadIdx.x % 32;
+  const size_t row = (size_t)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  if (row >= (size_t)a.B * H * L) return;  // whole warps only
+  const int q = row % L, h = (row / L) % H, b = row / ((size_t)L * H);
+  float* dsr = ds + row * L;
+  float* pdr = pd + row * L;
+  float delta = 0.f;
+  for (int j = lane; j < L; j += 32) delta += pdr[j] * dsr[j];
+  for (int o = 16; o > 0; o >>= 1) delta += __shfl_xor_sync(0xffffffffu, delta, o);
+  const uint32_t rh = DROP ? row_hash(a.seed, b, h, q, a.tq) : 0u;
+  for (int j = lane; j < L; j += 32) {
+    const float p = pdr[j];
+    dsr[j] = p * (dsr[j] - delta);
+    if (DROP) pdr[j] = keep(rh, j, a.thresh) ? p * a.inv_keep : 0.f;
   }
 }
 
@@ -971,18 +998,18 @@ __global__ void combine(const float* __restrict__ dab, const float* __restrict__
 }
 
 struct Scratch {
-  float *ab, *delta, *ds, *pd, *dab, *da;
+  float *ab, *ds, *pd, *dab, *da;
 };
 
 inline size_t scratch_layout(int B, int L, int H, char* base, Scratch* s) {
   const size_t D = (size_t)H * DH, rows = (size_t)B * H * L;
-  const size_t sizes[6] = {align256(4 * rows * D), align256(4 * rows),
-                           align256(4 * rows * L), align256(4 * rows * L),
-                           align256(4 * rows * D), align256(4 * rows * D)};
+  const size_t sizes[5] = {align256(4 * rows * D), align256(4 * rows * L),
+                           align256(4 * rows * L), align256(4 * rows * D),
+                           align256(4 * rows * D)};
   size_t off = 0;
-  for (int i = 0; i < 6; ++i) {
+  for (int i = 0; i < 5; ++i) {
     if (s != nullptr) {
-      float** ptrs[6] = {&s->ab, &s->delta, &s->ds, &s->pd, &s->dab, &s->da};
+      float** ptrs[5] = {&s->ab, &s->ds, &s->pd, &s->dab, &s->da};
       *ptrs[i] = reinterpret_cast<float*>(base + off);
     }
     off += sizes[i];
@@ -1001,12 +1028,13 @@ int launch(const BwdArgs& a, void* scratch, cudaStream_t stream) {
   int err = cudaFuncSetAttribute(
       prep, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_prep);
   if (err) return err;
-  prep<<<dim3(nq, H, B), THREADS, smem_prep, stream>>>(a, s.ab, s.delta);
+  prep<<<dim3(nq, H, B), THREADS, smem_prep, stream>>>(a, s.ab);
   if ((err = cudaGetLastError())) return err;
-  scores<DROP><<<dim3(nk, nq, B * H), THREADS, 0, stream>>>(a, s.ab, s.delta,
-                                                             s.ds, s.pd);
-  err = cudaGetLastError();
-  if (err) return err;
+  scores<DROP><<<dim3(nk, nq, B * H), THREADS, 0, stream>>>(a, s.ab, s.ds, s.pd);
+  if ((err = cudaGetLastError())) return err;
+  const size_t n_rows = (size_t)B * H * L;
+  rows<DROP><<<(unsigned)((n_rows + 7) / 8), 256, 0, stream>>>(a, s.ds, s.pd);
+  if ((err = cudaGetLastError())) return err;
   const float* qu = static_cast<const float*>(a.qu);
   const float* qv = static_cast<const float*>(a.qv);
   const float* k = static_cast<const float*>(a.k);
@@ -1058,6 +1086,22 @@ extern "C" const char* sincos_attention_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// The longest L sincos_attention_bwd takes at H heads on the current device:
+// bfloat16's query pass keeps ds for every key in shared memory. -1 when
+// the device cannot be queried.
+extern "C" int sincos_attention_bwd_max_len(int H, int dtype) {
+  if (dtype == 0) return INT_MAX;
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return -1;
+  if (tensor_core::k_pass_smem(H) > (size_t)optin) return 0;
+  int L = 0;
+  while (tensor_core::q_pass_smem(L + TK, H) <= (size_t)optin) L += TK;
+  return L;
+}
+
 // Bytes of device scratch sincos_attention_bwd needs for these shapes.
 extern "C" long long sincos_attention_bwd_scratch_bytes(int B, int L, int H,
                                                         int dtype) {
@@ -1065,21 +1109,22 @@ extern "C" long long sincos_attention_bwd_scratch_bytes(int B, int L, int H,
   return (long long)tensor_core::scratch_layout(B, L, H, nullptr, nullptr);
 }
 
-// qu, qv, k, v, out, dout, dqu, dqv, dk, dv: (B, L, H*64); wh, dwh:
+// qu, qv, k, v, dout, dqu, dqv, dk, dv: (B, L, H*64); wh, dwh:
 // (H, 64, H*64); sin_t, cos_t: (L, H*32); all of one dtype (0 = float32,
 // 1 = bfloat16), contiguous, 16-byte aligned, on the current device.
 // lengths: (B,) int32; stats: (B, H, L, 2) float32 from the forward;
 // scratch: sincos_attention_bwd_scratch_bytes bytes. Dropout as in the
-// forward (thresh 0: none). bfloat16 needs L <= 768. Returns a cudaError_t.
+// forward (thresh 0: none). L at most sincos_attention_bwd_max_len(H,
+// dtype). Returns a cudaError_t.
 extern "C" int sincos_attention_bwd(
     const void* qu, const void* qv, const void* k, const void* v,
     const void* wh, const void* sin_t, const void* cos_t, const void* lengths,
-    const void* out, const void* stats, const void* dout, void* dqu,
+    const void* stats, const void* dout, void* dqu,
     void* dqv, void* dk, void* dv, void* dwh, void* scratch, int B, int L,
     int H, int dtype, uint32_t seed, uint32_t thresh, float inv_keep, int tq,
     void* stream) {
   const BwdArgs a{qu, qv, k, v, wh, sin_t, cos_t,
-                  static_cast<const int*>(lengths), out,
+                  static_cast<const int*>(lengths),
                   static_cast<const float*>(stats), dout, dqu, dqv, dk, dv,
                   dwh, B, L, H, seed, thresh, inv_keep, tq};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -165,12 +165,12 @@ def sincos_attention_plain(qu, qv, k, v, wh, lengths, sin_t, cos_t,
     return out
 
 
-def sincos_attention_bwd_plain(qu, qv, k, v, wh, lengths, sin_t, cos_t, out,
+def sincos_attention_bwd_plain(qu, qv, k, v, wh, lengths, sin_t, cos_t,
                                stats, dout, rate: float = 0.0, seed: int = 0,
                                tq: int = 0):
     """Plain PyTorch version of K2, following the JAX ``_bwd_kernel``'s math
-    and rounding in whole-row form (``out`` and ``stats`` are not needed:
-    the probabilities and delta = sum p * dp are recomputed).
+    and rounding in whole-row form (``stats`` is not needed: the
+    probabilities and delta = sum p * dp are recomputed).
     -> (dqu, dqv, dk, dv) (B, L, D) and dwh (H, dh, D), in the input dtype."""
     b, l, d = qu.shape
     h, dh = wh.shape[0], wh.shape[1]
@@ -285,26 +285,37 @@ sincos_attention_fwd.launches = 0
 sincos_attention_fwd.dropout_launches = 0   # of those, with dropout (K1-drop)
 
 
-def sincos_attention_bwd(qu, qv, k, v, wh, lengths, sin_t, cos_t, out, stats,
+def sincos_attention_bwd(qu, qv, k, v, wh, lengths, sin_t, cos_t, stats,
                          dout, rate: float = 0.0, seed: int = 0, tq: int = 0):
     """Kernel wrapper (K2): same arguments and result as
     sincos_attention_bwd_plain. CPU tensors take the plain version; CUDA
     tensors launch the kernel (counted in ``sincos_attention_bwd.launches``)
-    or raise. ``out`` and ``stats`` are K1's output and row statistics."""
+    or raise. ``stats`` are K1's row statistics."""
     if qu.device.type == "cpu":
         return sincos_attention_bwd_plain(qu, qv, k, v, wh, lengths, sin_t,
-                                          cos_t, out, stats, dout, rate,
+                                          cos_t, stats, dout, rate,
                                           seed, tq)
     b, l, h, code = _check_common(qu, qv, k, v, wh, lengths, sin_t, cos_t)
     d = h * 64
     dev, dt = qu.device, qu.dtype
-    _check("out", out, (b, l, d), dt, dev)
     _check("dout", dout, (b, l, d), dt, dev)
     _check("stats", stats, (b, h, l, 2), torch.float32, dev)
     thresh, inv_keep, seed32, tq = _dropout_args(rate, seed, tq, l)
+    lib = build.load("sincos_attention_bwd")
+    max_len = lib.sincos_attention_bwd_max_len
+    max_len.restype = ctypes.c_int
+    max_len.argtypes = [ctypes.c_int] * 2
+    with torch.cuda.device(dev):
+        limit = max_len(h, code)
+    if limit < 0:
+        raise RuntimeError(f"cannot query the shared memory of {dev}")
+    if l > limit:
+        raise ValueError(
+            f"the {dt} attention backward keeps ds for every key in shared "
+            f"memory and takes L <= {limit} at H = {h} on this device; "
+            f"got L = {l}")
     dqu, dqv, dk, dv = (torch.empty_like(qu) for _ in range(4))
     dwh = torch.empty_like(wh)
-    lib = build.load("sincos_attention_bwd")
     size = lib.sincos_attention_bwd_scratch_bytes
     size.restype = ctypes.c_longlong
     size.argtypes = [ctypes.c_int] * 4
@@ -312,14 +323,14 @@ def sincos_attention_bwd(qu, qv, k, v, wh, lengths, sin_t, cos_t, out, stats,
     scratch = torch.empty(int(size(b, l, h, code)), dtype=torch.uint8,
                           device=dev)
     run = lib.sincos_attention_bwd
-    run.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 4
+    run.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
                     + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
                        ctypes.c_int, ctypes.c_void_p])
     run.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = run(*(x.data_ptr() for x in (
-            qu, qv, k, v, wh, sin_t, cos_t, lengths, out, stats, dout,
+            qu, qv, k, v, wh, sin_t, cos_t, lengths, stats, dout,
             dqu, dqv, dk, dv, dwh, scratch)), b, l, h, code,
             seed32, thresh, inv_keep, tq, stream)
     build.check(lib, "sincos_attention_bwd", err)
@@ -339,8 +350,7 @@ class SincosAttention(torch.autograd.Function):
     def forward(ctx, qu, qv, k, v, wh, lengths, sin_t, cos_t, rate, seed, tq):
         out, stats = sincos_attention_fwd(qu, qv, k, v, wh, lengths, sin_t,
                                           cos_t, rate, seed, tq, stats=True)
-        ctx.save_for_backward(qu, qv, k, v, wh, lengths, sin_t, cos_t, out,
-                              stats)
+        ctx.save_for_backward(qu, qv, k, v, wh, lengths, sin_t, cos_t, stats)
         ctx.dropout = (rate, seed, tq)
         return out
 

@@ -133,9 +133,9 @@ def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
                23)
     dout = torch.randn(2, 9, 128, generator=g)
     grads = sa.sincos_attention_bwd(qu, qv, k, v, wh, lengths, sin_t, cos_t,
-                                    out, None, dout, 0.1, 7, 16)
+                                    None, dout, 0.1, 7, 16)
     want = sa.sincos_attention_bwd_plain(qu, qv, k, v, wh, lengths, sin_t,
-                                         cos_t, out, None, dout, 0.1, 7, 16)
+                                         cos_t, None, dout, 0.1, 7, 16)
     assert all(torch.equal(a, b) for a, b in zip(grads, want))
     assert cuda.launch_counts() == {"sincos_attention_fwd": 0,
                                     "sincos_attention_bwd": 0,
@@ -146,7 +146,7 @@ def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
     with pytest.raises(ValueError, match="no kernel"):
         sa.sincos_attention_fwd(*meta)
     with pytest.raises(ValueError, match="no kernel"):
-        sa.sincos_attention_bwd(*meta, meta[0], None, meta[0])
+        sa.sincos_attention_bwd(*meta, None, meta[0])
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():
@@ -155,3 +155,28 @@ def test_chip_smoke_refuses_to_run_without_a_gpu():
                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_holds_each_attention_gradient_slice_to_its_own_scale():
+    """chip_smoke's K2 check: a row whose gradient is 100x another's sets no
+    scale for it, so a wrong slice of a full row fails however small."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    g = torch.Generator().manual_seed(0)
+    want = torch.randn(2, 5, 8, generator=g) * 0.1       # B 2, L 5, H 2, dh 4
+    want[1, 0] *= 100.0                                   # a short row's key
+    assert chip_smoke.k2_rel_err(want, want, "dv", 2) == 0.0
+    got = want.clone()
+    got.view(2, 5, 2, 4)[0, :, 0] = 0.0                   # batch row 0, head 0
+    whole_tensor = float((got - want).abs().max() / want.abs().max())
+    assert whole_tensor < chip_smoke.TOL_K2["bfloat16"]  # one scale passes it
+    assert chip_smoke.k2_rel_err(got, want, "dv", 2) == pytest.approx(1.0)
+    dwh = torch.randn(2, 4, 8, generator=g)               # (H, dh, D)
+    dwh[1] *= 100.0
+    off = dwh.clone()
+    off[0] *= 1.01
+    assert chip_smoke.k2_rel_err(off, dwh, "dwh", 2) == pytest.approx(0.01,
+                                                                      rel=1e-3)
