@@ -10,17 +10,22 @@ Phases, each printing one JSON line:
               nvcc (one process per source, all at once) into build/.
 2. kernels -- hold each kernel against its plain PyTorch version on the card
               at the shapes the serving and training paths give it (K1 with
-              and without dropout, K2 at rates 0 and 0.1, K3), and time the
-              kernel, the plain version, the bound and, where one exists,
-              the one PyTorch call that computes the same function; bf16
-              K2 at its longest L, and one key past it (must raise).
+              and without dropout, K2 at rates 0 and 0.1, K3, the depthwise
+              conv K4a/K4b and its autograd Function at K 31 and 4, K5 for
+              every op), and time the kernel, the plain version, the bound
+              and, where one exists, the one PyTorch call that computes the
+              same function; bf16 K2 at its longest L, and one key past it
+              (must raise); K4a at L 2400; K5's per-pass slopes through
+              ``conformer_tpu_torch.tools.bench_vpu_pass.main``.
    tolerance -- K1 and K2 again over 8 more seeds: each check's largest
               reading beside its limit.
 3. model   -- the production Config() model (17 blocks, d_model 512, 8
               heads, kernel 31, LSTM 640, vocab 370) with seeded random
-              weights, on 8 s and 24 s batches of 8: a forward, and one
-              train step (dropout 0.1, SpecAugment, remat), once through the
-              kernels, once through their plain versions.
+              weights, on 8 s and 24 s batches of 8, with the depthwise conv
+              through F.conv1d (conv_impl xla) and through K4 (pallas): a
+              forward, and one train step (dropout 0.1, SpecAugment, remat),
+              once through the kernels, once through their plain versions;
+              and an fp32 forward of both conv_impls on the same weights.
 4. serve   -- WAV files of 3, 8, 16 and 24 s transcribed through
               ``conformer_tpu_torch.cli.infer.main(... --device cuda)`` in
               two batches; per-batch latency, RTF and the kernels' launch
@@ -29,6 +34,12 @@ Phases, each printing one JSON line:
               ``conformer_tpu_torch.cli.train.main(... --device cuda)`` for
               4 steps with checkpoints, then resumed to step 6; per-step
               time, audio-s/s, loss, grad norm, peak memory and launches.
+6. evaluate -- with conv_impl pallas: the train phase's WAVs trained on for
+              2 steps through ``cli.train`` with a validation manifest
+              (validation every 2 steps), the checkpoint evaluated through
+              ``cli.test.main(... --device cuda)`` (WER, CER, loss, results
+              CSV), again through the plain versions (the loss must agree),
+              and the validation WAVs served through ``cli.infer``.
 
 Then the card's name and power limit, the ``kernels`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
@@ -48,7 +59,8 @@ import tempfile
 import time
 from unittest import mock
 
-PHASES = ("build", "kernels", "tolerance", "model", "serve", "train")
+PHASES = ("build", "kernels", "tolerance", "model", "serve", "train",
+          "evaluate")
 OPTIONAL_PHASES = ("profile",)
 # Published dense peaks of one H100 SXM (NVIDIA data sheet) at 700 W.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -71,6 +83,19 @@ TOL_STATS = {"float32": 1e-4, "bfloat16": 4e-3}
 SWEEP_SEEDS = tuple(range(200, 208))
 DROPOUT_SEED = 1234567
 TOL_K3 = 1e-4
+# K4a rounds after every product and add exactly as its plain version does:
+# it must be equal; the reading is the largest difference in units in the
+# last place of the dtype, and one is the most PERF.md may explain.
+TOL_K4A_ULPS = 1
+# K4b's fp32 sums run in another order than the plain version's: max |diff|
+# over max |dw|; rounded to bf16, one bf16 ulp per element.
+TOL_K4B = 1e-5
+TOL_K4B_BF16_ULPS = 1
+# The autograd Function against autograd through the plain per-tap loop,
+# per gradient, max |diff| over max |grad|: fp32 sums in another order;
+# bf16 also rounds each sum in another order (31 rounded adds).
+TOL_K4_GRAD = {"float32": 1e-5, "bfloat16": 2e-2}
+TOL_K5 = 1e-5
 DEVICE = "cuda"
 
 
@@ -278,13 +303,18 @@ def k2_case(torch, b: int, l: int, dtype, seed: int, rate: float,
                 q_aug, k_aug, v_h, attn_mask=mask, scale=1.0, dropout_p=rate)
             o.backward(g_out)
 
+        out_aug = torch.nn.functional.scaled_dot_product_attention(
+            q_aug, k_aug, v_h, attn_mask=mask, scale=1.0, dropout_p=rate)
+        sdpa_bwd = lambda: torch.autograd.grad(
+            out_aug, (q_aug, k_aug, v_h), g_out, retain_graph=True)
         case.update({
             "ms": cuda_ms(torch, lambda: sa.sincos_attention_bwd(*bwd_args)),
             "plain_ms": cuda_ms(torch, lambda: sa.sincos_attention_bwd_plain(
                 *bwd_args), iters=5),
-            "library_ms": cuda_ms(torch, sdpa_fwd_bwd),
-            "library_call": "SDPA forward + backward on [qu|alpha|beta], "
+            "library_ms": cuda_ms(torch, sdpa_bwd),
+            "library_call": "SDPA backward alone on [qu|alpha|beta], "
                             "[k|cos|sin], v",
+            "library_fwd_bwd_ms": cuda_ms(torch, sdpa_fwd_bwd),
             "bound_ms": bms, "bound_by": by,
         })
     return case
@@ -353,8 +383,186 @@ def k3_case(torch, b: int, n_samples: int, seed: int, time_it: bool):
     return case
 
 
+def _dtype_name(torch, dtype) -> str:
+    return "bfloat16" if dtype == torch.bfloat16 else "float32"
+
+
+def ulps(torch, got, want) -> float:
+    """Largest |got - want| in units in the last place of want's dtype at
+    want's magnitude (float32 24 significand bits, bfloat16 8)."""
+    bits = 8 if want.dtype == torch.bfloat16 else 24
+    _, exp = torch.frexp(want.float())
+    ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32), exp - bits)
+    return float(((got.float() - want.float()).abs() / ulp).max())
+
+
+def _conv_inputs(torch, b: int, l: int, c: int, k: int, dtype, seed: int):
+    gen = torch.Generator().manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=gen).to(DEVICE, dtype)
+    return mk(b, l, c), (torch.randn(k, c, generator=gen) / math.sqrt(k)).to(
+        DEVICE, dtype), mk(c), mk(b, l, c)
+
+
+def k4a_case(torch, b: int, l: int, dtype, seed: int, time_it: bool,
+             c: int = 512, k: int = 31):
+    """K4a at (b, l, c), k taps, same pad: equal to its plain version."""
+    import torch.nn.functional as F
+
+    from conformer_tpu_torch.ops.cuda import depthwise_conv as dc
+
+    x, w, bias, _ = _conv_inputs(torch, b, l, c, k, dtype, seed)
+    pad = (k - 1) // 2
+    before = dc.depthwise_conv_fwd.launches
+    got = dc.depthwise_conv_fwd(x, w, bias, pad)
+    launched = dc.depthwise_conv_fwd.launches - before
+    want = dc.depthwise_conv_plain(x, w, bias, pad)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(got.float()).all())
+    ulp = ulps(torch, got, want)
+    case = {"b": b, "l": l, "c": c, "k": k, "dtype": _dtype_name(torch, dtype),
+            "equal": bool(torch.equal(got, want)),
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "max_ulps": ulp, "tolerance_ulps": TOL_K4A_ULPS,
+            "launched": launched, "finite": finite,
+            "ok": finite and launched == 1 and ulp <= TOL_K4A_ULPS}
+    if time_it:
+        itemsize = x.element_size()
+        flops = 2.0 * b * l * c * k
+        nbytes = (2 * b * l * c + k * c + c) * itemsize
+        bms, by = bound_ms(flops, nbytes, case["dtype"])
+        w_conv = w.t().unsqueeze(1).contiguous()          # (C, 1, K)
+        conv = lambda: F.conv1d(x.transpose(1, 2), w_conv, bias, padding=pad,
+                                groups=c)
+        case.update({
+            "ms": cuda_ms(torch, lambda: dc.depthwise_conv_fwd(x, w, bias, pad)),
+            "plain_ms": cuda_ms(torch, lambda: dc.depthwise_conv_plain(
+                x, w, bias, pad), iters=5),
+            "library_ms": cuda_ms(torch, conv),
+            "library_call": "F.conv1d(groups=C) on x.transpose(1, 2)",
+            "bound_ms": bms, "bound_by": by})
+    return case
+
+
+def k4b_case(torch, b: int, l: int, dtype, seed: int, time_it: bool,
+             c: int = 512, k: int = 31):
+    """K4b (fp32 dw) against its plain version, relative to max |dw|, and
+    rounded to bf16 within one bf16 ulp per element."""
+    from conformer_tpu_torch.ops.cuda import depthwise_conv as dc
+
+    x, _, _, g = _conv_inputs(torch, b, l, c, k, dtype, seed)
+    pad = (k - 1) // 2
+    got = dc.depthwise_conv_dw(x, g, k, pad)
+    want = dc.depthwise_conv_dw_plain(x, g, k, pad)
+    torch.cuda.synchronize()
+    rel = float((got - want).abs().max() / want.abs().max())
+    bf16_ulps = ulps(torch, got.to(torch.bfloat16), want.to(torch.bfloat16))
+    finite = bool(torch.isfinite(got).all())
+    case = {"b": b, "l": l, "c": c, "k": k, "dtype": _dtype_name(torch, dtype),
+            "max_abs_err": float((got - want).abs().max()), "rel_err": rel,
+            "tolerance": TOL_K4B, "bf16_max_ulps": bf16_ulps,
+            "bf16_tolerance_ulps": TOL_K4B_BF16_ULPS, "finite": finite,
+            "ok": (finite and got.dtype == torch.float32 and rel <= TOL_K4B
+                   and bf16_ulps <= TOL_K4B_BF16_ULPS)}
+    if time_it:
+        itemsize = x.element_size()
+        flops = 2.0 * b * l * c * k
+        nbytes = 2 * b * l * c * itemsize + 4 * k * c
+        bms, by = bound_ms(flops, nbytes, case["dtype"])
+        w_conv = torch.zeros(c, 1, k, device=DEVICE, dtype=dtype)
+        xt, gt = x.transpose(1, 2), g.transpose(1, 2)
+        weight_grad = lambda: torch.ops.aten.convolution_backward(
+            gt, xt, w_conv, None, [1], [pad], [1], False, [0], c,
+            [False, True, False])
+        case.update({
+            "ms": cuda_ms(torch, lambda: dc.depthwise_conv_dw(x, g, k, pad)),
+            "plain_ms": cuda_ms(torch, lambda: dc.depthwise_conv_dw_plain(
+                x, g, k, pad), iters=5),
+            "library_ms": cuda_ms(torch, weight_grad),
+            "library_call": "aten.convolution_backward, weight gradient only",
+            "bound_ms": bms, "bound_by": by})
+    return case
+
+
+def k4_grad_case(torch, k: int, dtype, seed: int, b: int = 8, l: int = 599,
+                 c: int = 512):
+    """The autograd Function (K4a forward and dx, K4b dw) against autograd
+    through the plain per-tap loop, per gradient, relative to its max. At
+    even k, a control: dx under the forward's left pad (the JAX ``_bwd``)
+    must miss."""
+    from conformer_tpu_torch.ops.cuda import depthwise_conv as dc
+
+    x, w, bias, g = _conv_inputs(torch, b, l, c, k, dtype, seed)
+    pad = (k - 1) // 2
+    grads = []
+    for fn in (lambda *a: dc.depthwise_conv1d(*a),
+               lambda *a: dc.depthwise_conv_plain(*a, pad)):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+        fn(*leaves).backward(g)
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    name = _dtype_name(torch, dtype)
+    rel = {key: float((a.float() - e.float()).abs().max()
+                      / e.float().abs().max())
+           for key, a, e in zip(("dx", "dw", "db"), *grads)}
+    case = {"k": k, "b": b, "l": l, "c": c, "dtype": name, "rel_err": rel,
+            "tolerance": TOL_K4_GRAD[name],
+            "ok": max(rel.values()) <= TOL_K4_GRAD[name]}
+    if k % 2 == 0:
+        shifted = dc.depthwise_conv_fwd(
+            g, w.flip(0).contiguous(), torch.zeros_like(bias), pad)
+        exact = grads[1][0]
+        case["control_forward_pad_dx_rel_err"] = float(
+            (shifted.float() - exact.float()).abs().max()
+            / exact.float().abs().max())
+        case["ok"] = case["ok"] and (case["control_forward_pad_dx_rel_err"]
+                                     > TOL_K4_GRAD[name])
+    return case
+
+
+def k5_checks(torch):
+    """K5 for every op at n = 4 on the production tile against its plain
+    version (relative), then the per-pass slopes through the benchmark's
+    main() with the launch counts set to 0 just before. -> (phase entry,
+    kernels-line entry, launches of the benchmark run)."""
+    from conformer_tpu_torch.ops.cuda.vpu_pass import (OPS, vpu_pass,
+                                                       vpu_pass_plain)
+    from conformer_tpu_torch.tools import bench_vpu_pass as bench
+
+    x = bench.tile_input(bench.ROWS, bench.COLS, bench.GRID)
+    checks = {}
+    for op in OPS:
+        got = vpu_pass(x, op, 4, bench.ROWS)
+        want = vpu_pass_plain(x, op, 4)
+        torch.cuda.synchronize()
+        rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+        checks[op] = {"rel_err": rel, "ok": rel <= TOL_K5
+                      and bool(torch.isfinite(got).all())}
+    vpu_pass.launches = 0
+    slopes = bench.main()
+    launches = vpu_pass.launches
+    n, elems = bench.N_HI, x.numel()
+    clock = bench.max_sm_clock_hz()
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ops_ms = n * bench.pass_bound_s("add", elems, clock, n_sms) * 1e3
+    bytes_ms = 8.0 * elems / PEAK_BYTES_PER_S * 1e3
+    entry = {"op": "add", "n": n, "shape": "(256, 199) x 448 fp32",
+             "max_abs_err": float((vpu_pass(x, "add", n, bench.ROWS)
+                                   - vpu_pass_plain(x, "add", n)).abs().max()),
+             "ms": slopes["add"][f"ms_n{n}"],
+             "plain_ms": cuda_ms(torch, lambda: vpu_pass_plain(x, "add", n),
+                                 iters=3),
+             "bound_ms": max(ops_ms, bytes_ms),
+             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+             "library_ms": None}
+    phase = {"checks_n4": checks, "tolerance": TOL_K5, "slopes": slopes,
+             "sm_clock_mhz": clock / 1e6, "sms": n_sms,
+             "ok": all(c["ok"] for c in checks.values())}
+    return phase, entry, launches
+
+
 def phase_kernels(torch):
-    """-> kernel entries for the final line; prints the phase line."""
+    """-> (kernel entries for the final line, launches of the runs driven
+    here); prints the phase line."""
     shapes = [(199, torch.float32), (599, torch.float32),
               (199, torch.bfloat16), (599, torch.bfloat16)]
     k1_cases = [k1_case(torch, 8, l, dt, seed=i, time_it=(dt == torch.bfloat16))
@@ -369,11 +577,27 @@ def phase_kernels(torch):
     k3_cases = [k3_case(torch, 8, 16 * 16000, seed=10, time_it=True),
                 k3_case(torch, 8, 24 * 16000, seed=11, time_it=True),
                 k3_case(torch, 3, 7321 * 17, seed=12, time_it=False)]
+    conv_shapes = [(l, dt) for dt in (torch.float32, torch.bfloat16)
+                   for l in (199, 599)]
+    k4a_cases = [k4a_case(torch, 8, l, dt, seed=50 + i, time_it=True)
+                 for i, (l, dt) in enumerate(conv_shapes)]
+    # past the JAX kernel's 12 MB VMEM budget, where it falls back to XLA
+    k4a_long = k4a_case(torch, 8, 2400, torch.float32, seed=55, time_it=False)
+    k4b_cases = [k4b_case(torch, 8, l, dt, seed=60 + i, time_it=True)
+                 for i, (l, dt) in enumerate(conv_shapes)]
+    k4_grads = [k4_grad_case(torch, k, dt, seed=70 + k)
+                for k in (31, 4) for dt in (torch.float32, torch.bfloat16)]
+    k5, k5_entry, k5_launches = k5_checks(torch)
     emit({"phase": "kernels", "sincos_attention_fwd": k1_cases,
           "sincos_attention_fwd_dropout": k1_drop,
           "sincos_attention_bwd": k2_cases,
-          "sincos_attention_bwd_length_limit": limit, "logmel_fwd": k3_cases})
+          "sincos_attention_bwd_length_limit": limit, "logmel_fwd": k3_cases,
+          "depthwise_conv_fwd": k4a_cases,
+          "depthwise_conv_fwd_l2400": k4a_long,
+          "depthwise_conv_dw": k4b_cases, "depthwise_conv1d_grads": k4_grads,
+          "vpu_pass": k5})
     bad = [c for c in k1_cases + k1_drop + k2_cases + [limit] + k3_cases
+           + k4a_cases + [k4a_long] + k4b_cases + k4_grads + [k5]
            if not c["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
@@ -397,13 +621,28 @@ def phase_kernels(torch):
          "source": "conformer_tpu_torch/csrc/sincos_attention_bwd.cu",
          "replaces": "conformer_tpu/ops/pallas/sincos_attention.py:254",
          "shape": "B=8 L=599 D=512 H=8 bfloat16 rate=0.1",
-         **pick(main_k2)},
+         **pick(main_k2),
+         "library_fwd_bwd_ms": main_k2["library_fwd_bwd_ms"]},
         {"name": "logmel_fwd", "route": "cuda",
          "source": "conformer_tpu_torch/csrc/mel_frontend.cu",
          "replaces": "conformer_tpu/ops/pallas/mel_frontend.py:43",
          "shape": "B=8 n_frames=2401 float32",
          **pick(k3_cases[1])},
-    ]
+        {"name": "depthwise_conv_fwd", "route": "cuda",
+         "source": "conformer_tpu_torch/csrc/depthwise_conv.cu",
+         "replaces": "conformer_tpu/ops/pallas/depthwise_conv.py:39",
+         "shape": "B=8 L=599 C=512 K=31 bfloat16",
+         **pick(k4a_cases[3])},
+        {"name": "depthwise_conv_dw", "route": "cuda",
+         "source": "conformer_tpu_torch/csrc/depthwise_conv.cu",
+         "replaces": "conformer_tpu/ops/pallas/depthwise_conv.py:85",
+         "shape": "B=8 L=599 C=512 K=31 bfloat16",
+         **pick(k4b_cases[3])},
+        {"name": "vpu_pass", "route": "cuda",
+         "source": "conformer_tpu_torch/csrc/vpu_pass.cu",
+         "replaces": "tools/bench_vpu_pass.py:33",
+         **k5_entry},
+    ], {"vpu_pass": k5_launches}
 
 
 def phase_tolerance(torch):
@@ -454,6 +693,7 @@ def _noise_batch(torch, b: int, seconds: float, seed: int):
 def _plain_versions():
     """Route the model through the kernels' plain versions (on the card)."""
     from conformer_tpu_torch.audio import mel
+    from conformer_tpu_torch.ops.cuda import depthwise_conv as dc
     from conformer_tpu_torch.ops.cuda import mel_frontend as mf
     from conformer_tpu_torch.ops.cuda import sincos_attention as sa
 
@@ -461,7 +701,11 @@ def _plain_versions():
                               sa.sincos_attention_plain),
             mock.patch.object(sa, "sincos_attention_bwd",
                               sa.sincos_attention_bwd_plain),
-            mock.patch.object(mel, "logmel_fwd", mf.logmel_plain)]
+            mock.patch.object(mel, "logmel_fwd", mf.logmel_plain),
+            mock.patch.object(dc, "depthwise_conv_fwd",
+                              dc.depthwise_conv_plain),
+            mock.patch.object(dc, "depthwise_conv_dw",
+                              dc.depthwise_conv_dw_plain)]
 
 
 def _run(torch, fn, patches=()):
@@ -486,55 +730,87 @@ TOL_MODEL = {"bfloat16": {"max_abs_rel": 0.25, "token_agreement": 0.95},
              "float32": {"max_abs": 1e-3, "token_agreement": 0.999}}
 
 
+def _forward_case(torch, cfg, forward, dtype: str, seconds: int):
+    """One forward of an 8-row batch through the kernels (counted) and
+    through their plain versions."""
+    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    dev = torch.device(DEVICE)
+    audio, lengths = _noise_batch(torch, 8, seconds, seed=seconds)
+    audio, lengths = audio.to(dev), lengths.to(dev)
+    forward(audio, lengths)                       # warm-up
+    reset_launch_counts()
+    (k_logits, k_len), k_ms = _run(torch, lambda: forward(audio, lengths))
+    counts = launch_counts()
+    (p_logits, p_len), p_ms = _run(torch, lambda: forward(audio, lengths),
+                                   _plain_versions())
+    valid = (torch.arange(k_logits.shape[1], device=dev)[None, :]
+             < k_len[:, None])
+    agree = float((k_logits.argmax(-1) == p_logits.argmax(-1))[valid]
+                  .float().mean())
+    diff = float((k_logits - p_logits).abs().max())
+    scale = float(p_logits.abs().max())
+    tol = TOL_MODEL[dtype]
+    n_blocks = cfg.model.n_blocks
+    pallas = cfg.model.conv_impl == "pallas"
+    ok = (bool(torch.isfinite(k_logits).all())
+          and torch.equal(k_len, p_len)
+          and tuple(k_logits.shape) == (8, (seconds * 50 - 1) // 2, 370)
+          and agree >= tol["token_agreement"]
+          and (diff <= tol["max_abs"] if "max_abs" in tol
+               else diff <= tol["max_abs_rel"] * scale)
+          and counts["sincos_attention_fwd"] == n_blocks
+          and counts["depthwise_conv_fwd"] == (n_blocks if pallas else 0)
+          and counts["logmel_fwd"] == (1 if seconds >= 16 else 0))
+    return k_logits, {"dtype": dtype, "conv_impl": cfg.model.conv_impl,
+                      "seconds": seconds, "logits_shape": list(k_logits.shape),
+                      "max_abs_diff": diff, "max_abs_logit": scale,
+                      "token_agreement": agree, "tolerance": tol,
+                      "kernel_forward_ms": k_ms, "plain_forward_ms": p_ms,
+                      "launches": counts, "ok": ok}
+
+
 def phase_model(torch):
     from conformer_tpu_torch.config import Config
     from conformer_tpu_torch.models.conformer import Conformer, init_weights
-    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from conformer_tpu_torch.train.steps import make_forward
 
     dev = torch.device(DEVICE)
-    results = []
+    results, impl_diffs = [], []
     for dtype in ("bfloat16", "float32"):
-        cfg = Config().override(**{"optim.compute_dtype": dtype})
-        model = init_weights(Conformer(cfg.model, dtype), seed=0).to(dev).eval()
-        forward = make_forward(cfg, model)
-        for seconds in (8, 24):
-            audio, lengths = _noise_batch(torch, 8, seconds, seed=seconds)
-            audio, lengths = audio.to(dev), lengths.to(dev)
-            forward(audio, lengths)                       # warm-up
-            reset_launch_counts()
-            (k_logits, k_len), k_ms = _run(torch, lambda: forward(audio, lengths))
-            counts = launch_counts()
-            (p_logits, p_len), p_ms = _run(torch, lambda: forward(audio, lengths),
-                                           _plain_versions())
-            valid = (torch.arange(k_logits.shape[1], device=dev)[None, :]
-                     < k_len[:, None])
-            agree = float((k_logits.argmax(-1) == p_logits.argmax(-1))[valid]
-                          .float().mean())
-            diff = float((k_logits - p_logits).abs().max())
-            scale = float(p_logits.abs().max())
-            tol = TOL_MODEL[dtype]
-            ok = (bool(torch.isfinite(k_logits).all())
-                  and torch.equal(k_len, p_len)
-                  and tuple(k_logits.shape) == (8, (seconds * 50 - 1) // 2, 370)
-                  and agree >= tol["token_agreement"]
-                  and (diff <= tol["max_abs"] if "max_abs" in tol
-                       else diff <= tol["max_abs_rel"] * scale)
-                  and counts["sincos_attention_fwd"] == cfg.model.n_blocks
-                  and counts["logmel_fwd"] == (1 if seconds >= 16 else 0))
-            results.append({"dtype": dtype, "seconds": seconds,
-                            "logits_shape": list(k_logits.shape),
-                            "max_abs_diff": diff, "max_abs_logit": scale,
-                            "token_agreement": agree, "tolerance": tol,
-                            "kernel_forward_ms": k_ms,
-                            "plain_forward_ms": p_ms,
-                            "launches": counts, "ok": ok})
-        del model, forward
+        logits = {}
+        state = None
+        for impl in ("xla", "pallas"):
+            cfg = Config().override(**{"optim.compute_dtype": dtype,
+                                       "model.conv_impl": impl})
+            model = init_weights(Conformer(cfg.model, dtype), seed=0)
+            if state is None:
+                state = model.state_dict()
+            model.load_state_dict(state)           # the same weights
+            model = model.to(dev).eval()
+            forward = make_forward(cfg, model)
+            for seconds in (8, 24):
+                logits[impl, seconds], case = _forward_case(
+                    torch, cfg, forward, dtype, seconds)
+                results.append(case)
+            del model, forward
+        if dtype == "float32":
+            # the same function by two routes: F.conv1d's depthwise conv and K4a
+            for seconds in (8, 24):
+                diff = float((logits["pallas", seconds]
+                              - logits["xla", seconds]).abs().max())
+                tol = TOL_MODEL["float32"]["max_abs"]
+                impl_diffs.append({"seconds": seconds, "max_abs_diff": diff,
+                                   "tolerance": tol, "ok": diff <= tol})
+        del logits
     train_runs = [train_step_case(torch, dtype, seconds)
                   for dtype in ("bfloat16", "float32") for seconds in (8, 24)]
+    train_runs += [train_step_case(torch, dtype, 24, conv_impl="pallas")
+                   for dtype in ("bfloat16", "float32")]
     emit({"phase": "model", "config": "Config() production, seeded random "
-          "weights, B=8", "runs": results, "train_steps": train_runs})
-    if not all(r["ok"] for r in results + train_runs):
+          "weights, B=8", "runs": results,
+          "float32_pallas_vs_xla_conv": impl_diffs, "train_steps": train_runs})
+    if not all(r["ok"] for r in results + impl_diffs + train_runs):
         raise SystemExit("model phase failed")
 
 
@@ -561,10 +837,12 @@ def _tokens(torch, b: int, n: int, seed: int):
     return tokens, lengths
 
 
-def train_step_case(torch, dtype: str, seconds: int):
+def train_step_case(torch, dtype: str, seconds: int, conv_impl: str = "xla"):
     """One production train step (dropout 0.1 hash, SpecAugment, remat,
     Adam at learning rate 0 so both runs see the same weights), through the
-    kernels and through their plain versions, with the same seeds."""
+    kernels and through their plain versions, with the same seeds. Under
+    remat K4a runs three times per block (forward, recomputation, dx) and
+    K4b once."""
     from conformer_tpu_torch.config import Config
     from conformer_tpu_torch.models.conformer import Conformer, init_weights
     from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
@@ -573,7 +851,8 @@ def train_step_case(torch, dtype: str, seconds: int):
 
     dev = torch.device(DEVICE)
     cfg = Config().override(**{"optim.compute_dtype": dtype,
-                               "optim.learning_rate": 0.0})
+                               "optim.learning_rate": 0.0,
+                               "model.conv_impl": conv_impl})
     model = init_weights(Conformer(cfg.model, dtype), seed=0).to(dev)
     opt = make_optimizer(cfg.optim, model.parameters())
     step = make_train_step(cfg, model, opt)
@@ -613,8 +892,13 @@ def train_step_case(torch, dtype: str, seconds: int):
           and zero_grad_max / k["grad_norm"] <= tol["zero_gradient"]
           and k["launches"]["sincos_attention_fwd"] == 2 * n_blocks
           and k["launches"]["sincos_attention_fwd_dropout"] == 2 * n_blocks
-          and k["launches"]["sincos_attention_bwd"] == n_blocks)
-    return {"dtype": dtype, "seconds": seconds, "loss": k["loss"],
+          and k["launches"]["sincos_attention_bwd"] == n_blocks
+          and k["launches"]["depthwise_conv_fwd"]
+          == (3 * n_blocks if conv_impl == "pallas" else 0)
+          and k["launches"]["depthwise_conv_dw"]
+          == (n_blocks if conv_impl == "pallas" else 0))
+    return {"dtype": dtype, "conv_impl": conv_impl, "seconds": seconds,
+            "loss": k["loss"],
             "plain_loss": p["loss"], "grad_norm": k["grad_norm"],
             "plain_grad_norm": p["grad_norm"],
             "loss_rel_diff": rel(k["loss"], p["loss"]),
@@ -687,24 +971,33 @@ def _transcript(rng, n_chars: int = 60) -> str:
     return " ".join(words)
 
 
-def phase_train(torch, tmp: str):
-    """-> launch counts of the two driven runs."""
+def _write_manifest(tmp: str, name: str, seconds, seed: int):
+    """Seeded noise WAVs of the given lengths with Vietnamese transcripts,
+    and a (path, text) CSV of them. -> (manifest path, WAV paths)."""
     import numpy as np
     from scipy.io import wavfile
 
-    from conformer_tpu_torch.cli import train
-    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
-
-    rng = np.random.default_rng(1)
-    manifest = os.path.join(tmp, "train.csv")
+    rng = np.random.default_rng(seed)
+    manifest = os.path.join(tmp, f"{name}.csv")
+    paths = []
     with open(manifest, "w", newline="", encoding="utf8") as f:
         w = csv.writer(f)
         w.writerow(["path", "text"])
-        for i, sec in enumerate(TRAIN_SECONDS):
-            path = os.path.join(tmp, f"train{i:02d}.wav")
+        for i, sec in enumerate(seconds):
+            path = os.path.join(tmp, f"{name}{i:02d}.wav")
             wav = np.clip(rng.standard_normal(int(sec * 16000)) * 0.1, -1, 1)
             wavfile.write(path, 16000, (wav * 32767).astype(np.int16))
             w.writerow([path, _transcript(rng)])
+            paths.append(path)
+    return manifest, paths
+
+
+def phase_train(torch, tmp: str):
+    """-> launch counts of the two driven runs."""
+    from conformer_tpu_torch.cli import train
+    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    manifest, _ = _write_manifest(tmp, "train", TRAIN_SECONDS, seed=1)
     ck = os.path.join(tmp, "ck")
     argv = ["--train-manifest", manifest, "--checkpoint-dir", ck,
             "--device", DEVICE, "--set", "data.batch_size=8",
@@ -757,6 +1050,103 @@ def phase_train(torch, tmp: str):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: conv_impl pallas through training with validation, the evaluate
+# CLI and serving.
+# ---------------------------------------------------------------------------
+
+VAL_SECONDS = [7.5] * 3 + [23.5] * 3
+PALLAS = ["--set", "model.conv_impl=pallas"]
+
+
+def phase_evaluate(torch, tmp: str):
+    """-> launch counts of the driven runs (training, evaluation through the
+    kernels, serving)."""
+    from conformer_tpu_torch.cli import infer, train
+    from conformer_tpu_torch.cli import test as cli_test
+    from conformer_tpu_torch.config import DataConfig
+    from conformer_tpu_torch.data.dataset import BucketedLoader, ManifestDataset
+    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from conformer_tpu_torch.text.tokenizer import load_tokenizer
+
+    train_csv, _ = _write_manifest(tmp, "train", TRAIN_SECONDS, seed=1)
+    val_csv, val_paths = _write_manifest(tmp, "val", VAL_SECONDS, seed=2)
+    ck = os.path.join(tmp, "ck")
+    # the loader's eval batches of the validation set: (all, >= 16 s)
+    batches = [b.audio.shape[1] for b in BucketedLoader(
+        ManifestDataset(val_csv), load_tokenizer("vi"),
+        DataConfig(batch_size=8), training=False).epoch(0)]
+    n_val, n_long = len(batches), sum(s >= 16 * 16000 for s in batches)
+    n_blocks = 17
+
+    total, runs = {}, {}
+
+    def driven(name, fn):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        runs[name] = {"wall_s": time.perf_counter() - t0,
+                      "launches": launch_counts()}
+        for key, n in runs[name]["launches"].items():
+            total[key] = total.get(key, 0) + n
+        return out
+
+    trainer = driven("train", lambda: train.main(
+        ["--train-manifest", train_csv, "--val-manifest", val_csv,
+         "--checkpoint-dir", ck, "--device", DEVICE, *PALLAS,
+         "--set", "data.batch_size=8", "--set", "train.num_steps=2",
+         "--set", "train.val_every_steps=2", "--set", "train.log_every_steps=1",
+         "--set", "train.num_epochs=100"]))
+    with open(os.path.join(ck, "metrics.jsonl"), encoding="utf8") as f:
+        records = [json.loads(ln) for ln in f]
+    val = [r for r in records if "val/loss" in r]
+    results = os.path.join(tmp, "results.csv")
+    argv = ["--manifest", val_csv, "--checkpoint-dir", ck, "--device", DEVICE,
+            *PALLAS, "--results", results]
+    metrics = driven("test", lambda: cli_test.main(argv))
+    with open(results, newline="", encoding="utf8") as f:
+        rows = list(csv.reader(f))
+    plain, plain_ms = _run(torch, lambda: cli_test.main(argv),
+                           _plain_versions())
+    driven("serve", lambda: infer.main(["--audio", *val_paths, "--device",
+                                        DEVICE, *PALLAS, "--batch-size", "8"]))
+    rel = abs(metrics["loss"] - plain["loss"]) / abs(plain["loss"])
+    tol = TOL_TRAIN["bfloat16"]["loss"]
+    # Training: 2 steps (K4a 3 per block per step under remat, K4b 1), and
+    # validation at step 2 and again at the epoch's end, 17 K4a/K1 each.
+    n_eval = 2 * n_val
+    t, e, s_ = (runs[k]["launches"] for k in ("train", "test", "serve"))
+    launches_ok = {
+        "train": (t["depthwise_conv_fwd"] == 2 * 3 * n_blocks + n_eval * n_blocks
+                  and t["depthwise_conv_dw"] == 2 * n_blocks
+                  and t["sincos_attention_fwd"]
+                  == 2 * 2 * n_blocks + n_eval * n_blocks
+                  and t["sincos_attention_bwd"] == 2 * n_blocks
+                  and t["logmel_fwd"] > 0),
+        "test": (e["depthwise_conv_fwd"] == n_val * n_blocks
+                 and e["sincos_attention_fwd"] == n_val * n_blocks
+                 and e["depthwise_conv_dw"] == 0
+                 and e["logmel_fwd"] == n_long > 0),
+        "serve": (s_["depthwise_conv_fwd"] == n_blocks
+                  and s_["sincos_attention_fwd"] == n_blocks)}
+    ok = (trainer.step == 2 and len(val) == 2
+          and all(math.isfinite(r["val/loss"]) for r in val)
+          and all(math.isfinite(metrics[k]) for k in ("wer", "cer", "loss"))
+          and rows[0] == ["label", "prediction"]
+          and len(rows) == len(VAL_SECONDS) + 1
+          and rel <= tol and all(launches_ok.values()))
+    emit({"phase": "evaluate", "config": "Config() production, "
+          "conv_impl pallas, B=8; train 16 WAVs (7.5 s, 23.5 s) for 2 steps, "
+          "validate and evaluate 6 WAVs", "val_batches": n_val,
+          "val_records": val, "metrics": metrics, "plain_metrics": plain,
+          "plain_test_ms": plain_ms, "loss_rel_diff": rel,
+          "loss_tolerance": tol, "results_rows": len(rows) - 1,
+          "runs": runs, "launches_ok": launches_ok, "ok": ok})
+    if not ok:
+        raise SystemExit("evaluate phase failed")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Optional phase: where the time of one 24 s forward goes.
 # ---------------------------------------------------------------------------
 
@@ -786,33 +1176,45 @@ def _profiled(torch, fn):
             "kernel_launches": sum(e.count for e in events),
             "top": [{"name": e.key[:80],
                      "device_ms": e.self_device_time_total / 1e3,
-                     "count": e.count} for e in top]}
+                     "count": e.count} for e in top],
+            # the convolutions' rows: PyTorch's, cuDNN's and the depthwise kernels K4
+            "conv_rows": [{"name": e.key[:80],
+                           "device_ms": e.self_device_time_total / 1e3,
+                           "count": e.count} for e in events
+                          if "conv" in e.key.lower()]}
 
 
 def phase_profile(torch):
     """One bf16 forward (serving) and one bf16 train step (dropout 0.1,
-    SpecAugment, remat, Adam) of Config() at B = 8, 8 s and 24 s, warm."""
+    SpecAugment, remat, Adam) of Config() at B = 8, 8 s and 24 s, warm,
+    with the depthwise conv through F.conv1d (conv_impl xla) and through K4
+    (pallas)."""
     from conformer_tpu_torch.config import Config
     from conformer_tpu_torch.models.conformer import Conformer, init_weights
     from conformer_tpu_torch.train.state import make_optimizer
     from conformer_tpu_torch.train.steps import make_forward, make_train_step
 
-    cfg = Config()
     dev = torch.device(DEVICE)
-    model = init_weights(Conformer(cfg.model, "bfloat16"), 0).to(dev)
-    forward = make_forward(cfg, model)
-    train = make_train_step(cfg, model, make_optimizer(cfg.optim,
-                                                       model.parameters()))
     out = {}
-    for seconds in (8, 24):
-        audio, lengths = _noise_batch(torch, 8, seconds, seed=seconds)
-        tokens, token_lengths = _tokens(torch, 8, 60, seed=seconds)
-        args = [x.to(dev) for x in (audio, lengths, tokens, token_lengths)]
-        forward(*args[:2])
-        out[f"forward_{seconds}s"] = _profiled(torch, lambda: forward(*args[:2]))
-        train(*args, 0)
-        out[f"train_step_{seconds}s"] = _profiled(torch, lambda: train(*args, 1))
-    emit({"phase": "profile", "config": "Config() bf16, B=8", **out})
+    for impl in ("xla", "pallas"):
+        cfg = Config().override(**{"model.conv_impl": impl})
+        model = init_weights(Conformer(cfg.model, "bfloat16"), 0).to(dev)
+        forward = make_forward(cfg, model)
+        train = make_train_step(cfg, model, make_optimizer(cfg.optim,
+                                                           model.parameters()))
+        for seconds in (8, 24):
+            audio, lengths = _noise_batch(torch, 8, seconds, seed=seconds)
+            tokens, token_lengths = _tokens(torch, 8, 60, seed=seconds)
+            args = [x.to(dev) for x in (audio, lengths, tokens, token_lengths)]
+            forward(*args[:2])
+            out[f"{impl}_forward_{seconds}s"] = _profiled(
+                torch, lambda: forward(*args[:2]))
+            train(*args, 0)
+            out[f"{impl}_train_step_{seconds}s"] = _profiled(
+                torch, lambda: train(*args, 1))
+        del model, forward, train
+    emit({"phase": "profile", "config": "Config() bf16, B=8, conv_impl "
+          "xla and pallas", **out})
 
 
 # ---------------------------------------------------------------------------
@@ -845,12 +1247,13 @@ def main(argv=None) -> int:
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
-        entries = phase_kernels(torch)
+        entries, launches = phase_kernels(torch)
     if "tolerance" in phases:
         phase_tolerance(torch)
     if "model" in phases:
         phase_model(torch)
-    for name, run in (("serve", phase_serve), ("train", phase_train)):
+    for name, run in (("serve", phase_serve), ("train", phase_train),
+                      ("evaluate", phase_evaluate)):
         if name in phases:
             with tempfile.TemporaryDirectory() as tmp:
                 for key, n in run(torch, tmp).items():

@@ -67,3 +67,11 @@ def load_tokenizer_from_args(args: argparse.Namespace, cfg: Config):
     from conformer_tpu_torch.text.tokenizer import load_tokenizer
 
     return load_tokenizer(args.tokenizer or cfg.train.tokenizer_path or "vi")
+
+
+def refuse_lm_decode(args: argparse.Namespace, cfg: Config) -> None:
+    """``--lm`` or a configured LM asks for LM-fused beam search, which is
+    not ported yet: raise."""
+    if args.lm or cfg.decode.lm_path or cfg.decode.device_lm_path:
+        raise NotImplementedError(
+            "LM-fused beam decode is not ported yet (a later slice)")

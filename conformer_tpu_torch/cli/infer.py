@@ -15,7 +15,8 @@ import argparse
 import csv
 
 from conformer_tpu_torch.cli.common import (add_common_args, load_config,
-                                            load_tokenizer_from_args)
+                                            load_tokenizer_from_args,
+                                            refuse_lm_decode)
 
 
 def read_manifest(path: str):
@@ -61,9 +62,7 @@ def main(argv=None):
         raise NotImplementedError(
             "--streaming: streaming decode is not ported yet (a later slice)")
     cfg = load_config(args)
-    if args.lm or cfg.decode.lm_path or cfg.decode.device_lm_path:
-        raise NotImplementedError(
-            "LM-fused beam decode is not ported yet (a later slice)")
+    refuse_lm_decode(args, cfg)
     decode = "greedy" if args.decode == "auto" else args.decode
     tokenizer = load_tokenizer_from_args(args, cfg)
 

@@ -1,14 +1,17 @@
-"""Inference pipeline: weights -> batched greedy transcription
-(counterpart of conformer_tpu/decode/pipeline.py, greedy decode only).
+"""Inference pipeline: weights -> batched greedy transcription and
+evaluation (counterpart of conformer_tpu/decode/pipeline.py, greedy decode
+only).
 
 Runs on the CUDA device unless the caller passes ``device="cpu"``; with no
 CUDA device and no explicit CPU it raises. Weights come from a
 ``torch.save``d state dict (``conformer_tpu_torch.convert`` writes one from
-a JAX checkpoint) or, with none, from a seeded random init.
+a JAX checkpoint), from the newest checkpoint that training wrote to a
+checkpoint directory, or, with neither, from a seeded random init.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -18,8 +21,11 @@ import torch
 from conformer_tpu_torch.audio.io import load_audio, split_segment
 from conformer_tpu_torch.audio.mel import MelFrontend
 from conformer_tpu_torch.config import Config
+from conformer_tpu_torch.data.dataset import BucketedLoader, ManifestDataset
 from conformer_tpu_torch.models.conformer import Conformer, init_weights
+from conformer_tpu_torch.text.metrics import cer, wer
 from conformer_tpu_torch.text.tokenizer import GraphemeTokenizer
+from conformer_tpu_torch.train.checkpoint import CheckpointManager
 from conformer_tpu_torch.train.steps import make_eval_step
 
 
@@ -33,7 +39,8 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 class InferencePipeline:
-    """Builds the model on ``device`` and transcribes batches greedily.
+    """Builds the model on ``device``, transcribes batches greedily and
+    evaluates manifests.
 
     ``batch_log`` records one entry per batch: its size, its audio seconds,
     the padded seconds the model ran on and the wall seconds it took (the
@@ -41,21 +48,31 @@ class InferencePipeline:
 
     def __init__(self, cfg: Config, tokenizer: GraphemeTokenizer,
                  weights: Optional[str] = None, decode: str = "greedy",
-                 device="cuda", seed: int = 0):
+                 device="cuda", seed: int = 0,
+                 checkpoint_dir: Optional[str] = None):
         if decode != "greedy":
             raise NotImplementedError(
                 f"decode={decode!r}: beam search (host and device) and LM "
                 "fusion are not ported yet; only 'greedy' runs")
+        if weights and checkpoint_dir:
+            raise ValueError("give weights or checkpoint_dir, not both")
         self.device = resolve_device(device)
         cfg = cfg.override(**{"model.vocab_size": tokenizer.vocab_size})
         self.cfg, self.tok, self.decode = cfg, tokenizer, decode
         model = Conformer(cfg.model, cfg.optim.compute_dtype)
+        ckpt = (CheckpointManager(checkpoint_dir)
+                if checkpoint_dir and os.path.isdir(checkpoint_dir) else None)
         if weights:
             state = torch.load(weights, map_location="cpu")
             model.load_state_dict(state)
             print(f"[infer] loaded weights from {weights}")
+        elif ckpt is not None and ckpt.latest_step() is not None:
+            step, _ = ckpt.restore(model)
+            print(f"[infer] restored step {step} from {checkpoint_dir}")
         else:
-            print(f"[infer] WARNING: no weights given; seeded random weights "
+            where = f"no checkpoint in {checkpoint_dir}" if checkpoint_dir \
+                else "no weights given"
+            print(f"[infer] WARNING: {where}; seeded random weights "
                   f"(seed {seed})")
             init_weights(model, seed)
         self.model = model.to(self.device).eval()
@@ -70,13 +87,19 @@ class InferencePipeline:
         return [self.tok.collapsed_ids_to_text(tokens[i], counts[i])
                 for i in range(len(counts))]
 
-    def transcribe_batch(self, audio: np.ndarray, audio_lengths: np.ndarray
-                         ) -> List[str]:
-        """audio (B, S) float32 zero-padded; audio_lengths (B,) samples."""
+    def _run_batch(self, audio: np.ndarray, audio_lengths: np.ndarray,
+                   tokens: Optional[np.ndarray] = None,
+                   token_lengths: Optional[np.ndarray] = None
+                   ) -> Tuple[dict, List[str]]:
+        """One eval step on the device -> (its outputs, texts); logs the
+        batch in ``batch_log``."""
         t0 = time.perf_counter()
-        out = self.eval_step(
-            torch.from_numpy(np.ascontiguousarray(audio, np.float32)).to(self.device),
-            torch.from_numpy(np.asarray(audio_lengths, np.int64)).to(self.device))
+        to = lambda a, dt: torch.from_numpy(
+            np.ascontiguousarray(a, dt)).to(self.device)
+        args = [to(audio, np.float32), to(audio_lengths, np.int64)]
+        if tokens is not None:
+            args += [to(tokens, np.int64), to(token_lengths, np.int64)]
+        out = self.eval_step(*args)
         texts = self.texts_from_out(out)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -86,7 +109,12 @@ class InferencePipeline:
             "audio_s": float(np.sum(audio_lengths)) / sr,
             "padded_s": float(audio.shape[1]) / sr,
             "seconds": time.perf_counter() - t0})
-        return texts
+        return out, texts
+
+    def transcribe_batch(self, audio: np.ndarray, audio_lengths: np.ndarray
+                         ) -> List[str]:
+        """audio (B, S) float32 zero-padded; audio_lengths (B,) samples."""
+        return self._run_batch(audio, audio_lengths)[1]
 
     def transcribe_files(self, paths: Sequence[str], batch_size: int = 8,
                          channel: Optional[int] = None,
@@ -152,7 +180,30 @@ class InferencePipeline:
             stitched.extend(words)
         return " ".join(stitched)
 
-    def evaluate(self, manifest: str, batch_size: Optional[int] = None):
-        raise NotImplementedError(
-            "evaluate (WER/CER with the CTC loss) comes with the training "
-            "slice: the CTC loss and the bucketed data loader are not ported")
+    def evaluate(self, manifest: str, batch_size: Optional[int] = None
+                 ) -> Tuple[dict, List[Tuple[str, str]]]:
+        """-> (metrics {loss, wer, cer}, [(ref, hyp), ...]) over a CSV
+        manifest of (path, text) rows: the mean eval-step CTC loss over the
+        batches, and corpus WER/CER x100 against the cleaned, upper-cased
+        transcripts. Rows without a transcript count in no metric."""
+        data_cfg = self.cfg.data
+        ds = ManifestDataset(manifest, self.cfg.audio.sample_rate,
+                             num_examples=data_cfg.num_examples)
+        loader = BucketedLoader(ds, self.tok, data_cfg, training=False,
+                                batch_size=batch_size or data_cfg.batch_size)
+        refs, hyps, losses = [], [], []
+        for batch in loader.epoch(0):
+            out, texts = self._run_batch(batch.audio, batch.audio_lengths,
+                                         batch.tokens, batch.token_lengths)
+            losses.append(float(out["loss"]))
+            for i, ref_text in enumerate(batch.texts or []):
+                if not ref_text:
+                    continue
+                refs.append(self.tok.clean_text(ref_text.upper()))
+                hyps.append(texts[i])
+        metrics = {
+            "loss": float(np.mean(losses)) if losses else float("nan"),
+            "wer": wer(hyps, refs) * 100 if refs else float("nan"),
+            "cer": cer(hyps, refs) * 100 if refs else float("nan"),
+        }
+        return metrics, list(zip(refs, hyps))

@@ -22,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from conformer_tpu_torch.models.dropout import Dropout
+from conformer_tpu_torch.ops.cuda.depthwise_conv import depthwise_conv1d
 
 # Config dtype names (optim.compute_dtype, model.attention_score_dtype).
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -131,23 +132,26 @@ class DepthwiseConv1d(nn.Module):
     """Depthwise same-pad conv1d over (B, L, C). Weight (C, 1, K), bias (C,).
 
     ``impl='xla'`` is ``F.conv1d(groups=C)``, as the JAX package leaves it to
-    XLA; the Pallas kernel (``impl='pallas'``) is not ported yet."""
+    XLA; ``impl='pallas'`` runs the depthwise-conv kernels K4a/K4b
+    (``ops/cuda/depthwise_conv.py``), which round in the compute dtype after
+    every product and add as the Pallas kernel does. Both take the same
+    parameters."""
 
     def __init__(self, channels: int, kernel_size: int, impl: str = "xla",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if impl == "pallas":
-            raise NotImplementedError(
-                "conv_impl='pallas' needs the depthwise-conv kernel K4 "
-                "(conformer_tpu/ops/pallas/depthwise_conv.py), not ported yet")
-        if impl != "xla":
-            raise ValueError(f"unknown conv_impl {impl!r}")
+        if impl not in ("xla", "pallas"):
+            raise ValueError(f"unknown conv_impl {impl!r}; 'xla' or 'pallas'")
+        self.impl = impl
         self.kernel_size, self.compute_dtype = kernel_size, dtype
         self.weight = nn.Parameter(torch.empty(channels, 1, kernel_size))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.impl == "pallas":
+            return depthwise_conv1d(x.to(dt), self.weight[:, 0].t().to(dt),
+                                    self.bias.to(dt))
         k = self.kernel_size
         left = (k - 1) // 2
         xt = F.pad(x.to(dt).transpose(1, 2), (left, k - 1 - left))

@@ -9,11 +9,15 @@ from __future__ import annotations
 
 from typing import Dict
 
+from conformer_tpu_torch.ops.cuda.depthwise_conv import (depthwise_conv_dw,
+                                                         depthwise_conv_fwd)
 from conformer_tpu_torch.ops.cuda.mel_frontend import logmel_fwd
 from conformer_tpu_torch.ops.cuda.sincos_attention import (
     sincos_attention_bwd, sincos_attention_fwd)
+from conformer_tpu_torch.ops.cuda.vpu_pass import vpu_pass
 
-WRAPPERS = (sincos_attention_fwd, sincos_attention_bwd, logmel_fwd)
+WRAPPERS = (sincos_attention_fwd, sincos_attention_bwd, logmel_fwd,
+            depthwise_conv_fwd, depthwise_conv_dw, vpu_pass)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -23,7 +23,8 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-KERNEL_SOURCES = ("sincos_attention", "sincos_attention_bwd", "mel_frontend")
+KERNEL_SOURCES = ("sincos_attention", "sincos_attention_bwd", "mel_frontend",
+                  "depthwise_conv", "vpu_pass")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

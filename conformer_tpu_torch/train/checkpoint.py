@@ -49,15 +49,16 @@ class CheckpointManager:
         for old in self.steps()[:-self.keep] if self.keep > 0 else []:
             os.remove(self._path(old))
 
-    def restore(self, model: torch.nn.Module, optimizer,
+    def restore(self, model: torch.nn.Module, optimizer=None,
                 step: Optional[int] = None) -> Tuple[int, int]:
         """Load the checkpoint of ``step`` (default: the newest) into model
-        and optimizer. -> (step, epoch)."""
+        and, when given, optimizer. -> (step, epoch)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         device = next(model.parameters()).device
         payload = torch.load(self._path(step), map_location=device)
         model.load_state_dict(payload["model"])
-        optimizer.load_state_dict(payload["optimizer"])
+        if optimizer is not None:
+            optimizer.load_state_dict(payload["optimizer"])
         return int(payload["step"]), int(payload["epoch"])

@@ -81,6 +81,7 @@ def test_every_module_imports_with_jax_blocked_and_builds_nothing():
 
 
 def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
+    from conformer_tpu_torch.cli import test as cli_test
     from conformer_tpu_torch.cli.infer import main
     from conformer_tpu_torch.config import Config, ModelConfig
     from conformer_tpu_torch.decode.pipeline import InferencePipeline
@@ -92,9 +93,13 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
         InferencePipeline(cfg, load_tokenizer("vi"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--audio", str(tmp_path / "a.wav"), "--set", "model.n_blocks=1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_test.main(["--manifest", str(tmp_path / "m.csv"),
+                       "--set", "model.n_blocks=1"])
 
 
 def test_unported_decoders_raise():
+    from conformer_tpu_torch.cli import test as cli_test
     from conformer_tpu_torch.cli.infer import main
     from conformer_tpu_torch.config import Config, ModelConfig
     from conformer_tpu_torch.decode.pipeline import InferencePipeline
@@ -105,12 +110,16 @@ def test_unported_decoders_raise():
         with pytest.raises(NotImplementedError):
             InferencePipeline(cfg, load_tokenizer("vi"), decode=decode,
                               device="cpu")
-    pipe = InferencePipeline(cfg, load_tokenizer("vi"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        pipe.evaluate("manifest.csv")
     for flag in (["--streaming"], ["--lm", "lm.arpa"]):
         with pytest.raises(NotImplementedError):
             main(["--audio", "a.wav", "--device", "cpu", *flag])
+    tiny = ["--set", "model.n_blocks=1", "--set", "model.d_model=64",
+            "--set", "model.n_heads=2", "--set", "model.kernel_size=7"]
+    for flag in (["--decode", "beam"], ["--decode", "beam_device"],
+                 ["--decode", "beam_auto"], ["--lm", "lm.arpa"]):
+        with pytest.raises(NotImplementedError):
+            cli_test.main(["--manifest", "m.csv", "--device", "cpu", *tiny,
+                           *flag])
 
 
 def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
@@ -118,6 +127,9 @@ def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
     from conformer_tpu_torch.ops import cuda
     from conformer_tpu_torch.ops.cuda import sincos_attention as sa
     from conformer_tpu_torch.ops.cuda.mel_frontend import logmel_fwd
+
+    from conformer_tpu_torch.ops.cuda import depthwise_conv as dc
+    from conformer_tpu_torch.ops.cuda.vpu_pass import vpu_pass, vpu_pass_plain
 
     cuda.reset_launch_counts()
     g = torch.Generator().manual_seed(0)
@@ -137,9 +149,19 @@ def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
     want = sa.sincos_attention_bwd_plain(qu, qv, k, v, wh, lengths, sin_t,
                                          cos_t, None, dout, 0.1, 7, 16)
     assert all(torch.equal(a, b) for a, b in zip(grads, want))
+    w, bias = torch.randn(7, 128, generator=g), torch.randn(128, generator=g)
+    assert torch.equal(dc.depthwise_conv_fwd(qu, w, bias, 3),
+                       dc.depthwise_conv_plain(qu, w, bias, 3))
+    assert torch.equal(dc.depthwise_conv_dw(qu, dout, 7, 3),
+                       dc.depthwise_conv_dw_plain(qu, dout, 7, 3))
+    assert torch.equal(vpu_pass(qu[0], "exp", 2, 9),
+                       vpu_pass_plain(qu[0], "exp", 2))
     assert cuda.launch_counts() == {"sincos_attention_fwd": 0,
                                     "sincos_attention_bwd": 0,
                                     "logmel_fwd": 0,
+                                    "depthwise_conv_fwd": 0,
+                                    "depthwise_conv_dw": 0,
+                                    "vpu_pass": 0,
                                     "sincos_attention_fwd_dropout": 0}
     # Any other device has no plain path and no kernel: it raises.
     meta = [x.to("meta") for x in (qu, qv, k, v, wh, lengths, sin_t, cos_t)]
@@ -147,6 +169,12 @@ def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
         sa.sincos_attention_fwd(*meta)
     with pytest.raises(ValueError, match="no kernel"):
         sa.sincos_attention_bwd(*meta, None, meta[0])
+    with pytest.raises(ValueError, match="no kernel"):
+        dc.depthwise_conv_fwd(meta[0], w.to("meta"), bias.to("meta"), 3)
+    with pytest.raises(ValueError, match="no kernel"):
+        dc.depthwise_conv_dw(meta[0], meta[0], 7, 3)
+    with pytest.raises(ValueError, match="no kernel"):
+        vpu_pass(meta[0][0], "add", 1, 9)
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():

@@ -119,8 +119,43 @@ def test_convolution_module_matches_flax(mask_pad, training):
 
 
 def test_depthwise_pallas_impl_names_the_missing_kernel():
-    with pytest.raises(NotImplementedError, match="K4"):
-        tl.DepthwiseConv1d(8, 7, impl="pallas")
+    """impl='pallas' runs the ported kernel K4a (its plain version on the
+    CPU) and matches the flax layer with its Pallas kernel in interpret
+    mode: fp32 within 1e-5, bf16 bit for bit; the same weights serve
+    impl='xla'. An impl that names no kernel raises."""
+    from unittest import mock
+
+    from conformer_tpu.ops.pallas import depthwise_conv as jdc
+
+    x = _x(2, 19, 24)
+    orig = jdc.depthwise_conv1d
+    for dtype in ("float32", "bfloat16"):
+        m = jl.DepthwiseConv1d(24, 7, impl="pallas", dtype=jnp.dtype(dtype))
+        with mock.patch.object(jdc, "depthwise_conv1d",
+                               lambda x_, w, b, *_: orig(x_, w, b, True, True)):
+            params = _perturb(m.init(jax.random.PRNGKey(0),
+                                     jnp.asarray(x, dtype))["params"], 9)
+            want = m.apply({"params": params}, jnp.asarray(x, dtype))
+        state = {"weight": torch.from_numpy(
+                     np.array(params["kernel"].transpose(2, 1, 0))),
+                 "bias": torch.from_numpy(np.array(params["bias"]))}
+        t = tl.DepthwiseConv1d(24, 7, impl="pallas",
+                               dtype=getattr(torch, dtype))
+        t.load_state_dict(state)
+        with torch.no_grad():
+            got = t(torch.from_numpy(x)).float().numpy()
+        want = np.asarray(want.astype(jnp.float32))
+        if dtype == "bfloat16":
+            np.testing.assert_array_equal(got, want)
+            continue
+        np.testing.assert_allclose(got, want, **TOL)
+        xla = tl.DepthwiseConv1d(24, 7, impl="xla")
+        xla.load_state_dict(state)
+        with torch.no_grad():
+            np.testing.assert_allclose(xla(torch.from_numpy(x)).numpy(), got,
+                                       **TOL)
+    with pytest.raises(ValueError, match="conv_impl"):
+        tl.DepthwiseConv1d(8, 7, impl="cudnn")
 
 
 @pytest.mark.parametrize("impl", ["conv2d", "separable"])
