@@ -10,11 +10,13 @@ Phases, each printing one JSON line:
               nvcc (one process per source, all at once) into build/.
 2. kernels -- hold each kernel against its plain PyTorch version on the card
               at the shapes the serving and training paths give it (K1 with
-              and without dropout, K2 at rates 0 and 0.1, K3, the depthwise
+              and without dropout, and bf16 K1 at the lengths
+              K1_EDGE_LENGTHS, K2 at rates 0 and 0.1, K3, the depthwise
               conv K4a/K4b and its autograd Function at K 31 and 4, K5 for
               every op), and time the kernel, the plain version, the bound
               and, where one exists, the one PyTorch call that computes the
-              same function; bf16 K2 at its longest L, and one key past it
+              same function (SDPA under each backend that takes it, the
+              fastest as the yardstick); bf16 K2 at its longest L, and one key past it
               (must raise); K4a at L 2400; K5's per-pass slopes through
               ``conformer_tpu_torch.tools.bench_vpu_pass.main``.
    tolerance -- K1 and K2 again over 8 more seeds: each check's largest
@@ -82,6 +84,12 @@ TOL_STATS = {"float32": 1e-4, "bfloat16": 4e-3}
 # The tolerance phase runs K1 and K2 again over these seeds.
 SWEEP_SEEDS = tuple(range(200, 208))
 DROPOUT_SEED = 1234567
+# bf16 K1 at lengths that cross its 128-row query tiles and 64-key tiles.
+K1_EDGE_LENGTHS = (1, 63, 65, 127, 129, 257, 768)
+# SDPA backends timed as the attention kernels' yardstick (flash attention
+# takes no head width of 576 and no mask); each that accepts the call is
+# timed, and the fastest is library_ms.
+SDPA_BACKENDS = ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
 TOL_K3 = 1e-4
 # K4a rounds after every product and add exactly as its plain version does:
 # it must be equal; the reading is the largest difference in units in the
@@ -104,18 +112,31 @@ def emit(obj) -> None:
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms, by CUDA events over `iters` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """Mean device time of fn() in ms, by CUDA events over `iters` calls
+    queued behind a spin kernel (``tools.timing.device_ms``), so that a
+    wrapper's host time does not stand in for its kernel's."""
+    from conformer_tpu_torch.tools.timing import device_ms
+
+    return device_ms(fn, iters, warmup)
+
+
+def sdpa_times(torch, setup, iters: int = 20):
+    """-> ({backend: ms}, fastest backend) of the call that ``setup()``
+    returns, set up and timed under each of SDPA_BACKENDS that accepts it."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times = {}
+    for name in SDPA_BACKENDS:
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)), \
+                    warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # why the others refuse
+                times[name.lower()] = cuda_ms(torch, setup(), iters=iters)
+        except RuntimeError:       # the backend refuses these operands
+            continue
+    return times, min(times, key=times.get)
 
 
 def bound_ms(flops: float, nbytes: float, dtype: str) -> "tuple[float, str]":
@@ -217,11 +238,13 @@ def k1_case(torch, b: int, l: int, dtype, seed: int, time_it: bool,
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
             q_aug, k_aug, v_h, attn_mask=mask, scale=1.0,
             dropout_p=rate)
+        backends, best = sdpa_times(torch, lambda: sdpa)
         case.update({
             "ms": cuda_ms(torch, lambda: sa.sincos_attention_fwd(*args, *drop)),
             "plain_ms": cuda_ms(torch,
                                 lambda: sa.sincos_attention_plain(*args, *drop)),
-            "library_ms": cuda_ms(torch, sdpa),
+            "library_ms": backends[best], "library_backend": best,
+            "library_backends_ms": backends,
             "bound_ms": bms, "bound_by": by,
         })
     return case
@@ -298,23 +321,31 @@ def k2_case(torch, b: int, l: int, dtype, seed: int, rate: float,
         v_h.requires_grad_(True)
         g_out = dout.reshape(b, l, h, dh).transpose(1, 2).contiguous()
 
-        def sdpa_fwd_bwd():
-            o = torch.nn.functional.scaled_dot_product_attention(
-                q_aug, k_aug, v_h, attn_mask=mask, scale=1.0, dropout_p=rate)
-            o.backward(g_out)
-
-        out_aug = torch.nn.functional.scaled_dot_product_attention(
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
             q_aug, k_aug, v_h, attn_mask=mask, scale=1.0, dropout_p=rate)
-        sdpa_bwd = lambda: torch.autograd.grad(
-            out_aug, (q_aug, k_aug, v_h), g_out, retain_graph=True)
+
+        def sdpa_fwd_bwd():
+            sdpa().backward(g_out)
+
+        def sdpa_bwd():
+            # the forward runs under the backend being timed, which then
+            # serves its backward
+            out_aug = sdpa()
+            return lambda: torch.autograd.grad(
+                out_aug, (q_aug, k_aug, v_h), g_out, retain_graph=True)
+
+        backends, best = sdpa_times(torch, sdpa_bwd)
+        both, best_both = sdpa_times(torch, lambda: sdpa_fwd_bwd)
         case.update({
             "ms": cuda_ms(torch, lambda: sa.sincos_attention_bwd(*bwd_args)),
             "plain_ms": cuda_ms(torch, lambda: sa.sincos_attention_bwd_plain(
                 *bwd_args), iters=5),
-            "library_ms": cuda_ms(torch, sdpa_bwd),
+            "library_ms": backends[best], "library_backend": best,
+            "library_backends_ms": backends,
             "library_call": "SDPA backward alone on [qu|alpha|beta], "
                             "[k|cos|sin], v",
-            "library_fwd_bwd_ms": cuda_ms(torch, sdpa_fwd_bwd),
+            "library_fwd_bwd_ms": both[best_both],
+            "library_fwd_bwd_backends_ms": both,
             "bound_ms": bms, "bound_by": by,
         })
     return case
@@ -570,6 +601,9 @@ def phase_kernels(torch):
     k1_drop = [k1_case(torch, 8, l, dt, seed=20 + i, rate=0.1,
                        time_it=(dt == torch.bfloat16))
                for i, (l, dt) in enumerate(shapes)]
+    k1_edges = [k1_case(torch, 8, l, torch.bfloat16, seed=80 + i, rate=rate,
+                        time_it=False)
+                for i, l in enumerate(K1_EDGE_LENGTHS) for rate in (0.0, 0.1)]
     k2_cases = [k2_case(torch, 8, l, dt, seed=30 + i, rate=rate,
                         time_it=(dt == torch.bfloat16 and rate > 0))
                 for i, (l, dt) in enumerate(shapes) for rate in (0.0, 0.1)]
@@ -590,19 +624,20 @@ def phase_kernels(torch):
     k5, k5_entry, k5_launches = k5_checks(torch)
     emit({"phase": "kernels", "sincos_attention_fwd": k1_cases,
           "sincos_attention_fwd_dropout": k1_drop,
+          "sincos_attention_fwd_edges": k1_edges,
           "sincos_attention_bwd": k2_cases,
           "sincos_attention_bwd_length_limit": limit, "logmel_fwd": k3_cases,
           "depthwise_conv_fwd": k4a_cases,
           "depthwise_conv_fwd_l2400": k4a_long,
           "depthwise_conv_dw": k4b_cases, "depthwise_conv1d_grads": k4_grads,
           "vpu_pass": k5})
-    bad = [c for c in k1_cases + k1_drop + k2_cases + [limit] + k3_cases
+    bad = [c for c in k1_cases + k1_drop + k1_edges + k2_cases + [limit] + k3_cases
            + k4a_cases + [k4a_long] + k4b_cases + k4_grads + [k5]
            if not c["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms", "library_backend")
     pick = lambda case, **extra: {**{k: case[k] for k in keys if k in case},
                                   **extra}
     main_k2 = k2_cases[7]            # bf16, L 599, rate 0.1: the 24 s train batch

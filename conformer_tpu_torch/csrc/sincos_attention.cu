@@ -19,44 +19,86 @@
 // fragment's (row, column) and never stored; at rate 0 the kernel is
 // instantiated without it.
 //
-// What bounds it on the H100: operations. Per (batch, head) the score
+// What it replaces on the card: the earlier bf16 kernel (one CTA per 64
+// query rows, four warps on mma.sync, every 64 x 64 chunk loaded by the
+// warps themselves between two __syncthreads, V transposed by scalar
+// stores), 13x its bound at B 8, L 599.
+//
+// What bounds it on the H100. Operations: per (batch, head) the score
 // product has depth 64 + D (576 at D = 512) over L x L pairs, and the value
-// product depth L; 2*B*H*L^2*(64 + D + 64) FLOPs against ~5*B*L*D inputs and
-// outputs: ~1000 FLOP/byte at L = 599, far above the bf16 machine balance
-// (~295 FLOP/byte). So the products belong on the tensor cores.
+// product depth L: 2*B*H*L^2*(64 + D + 64) + 2*B*H*L*64*D FLOPs, 31.9 GFLOP
+// at B = 8, L = 599, H = 8, or 32 us at 989 TFLOP/s. Device memory is far
+// below that (~5*B*L*D inputs and outputs, ~1000 FLOP/byte). Next come
+// L2 and shared memory. 512 of the 576 score columns are the
+// [cos_j | sin_j] rows, the same for every batch row and head, so every CTA
+// streams them (and its k and v) from L2 once per key: 1.25 KB per key,
+// 0.26 GB per call at L 599 with 128-row query tiles (0.51 GB with 64-row
+// ones). And a wgmma with both operands in shared memory reads A and B for
+// every product: at m64n64k16 that is 4 KB per 32 tensor-core cycles, the
+// SM's whole 128 B per cycle, so two warpgroups could not both run at
+// the tensor-core rate.
 //
-// Design. The TPU kernel ran all heads and several batch rows per program
-// to amortise grid-step dispatch; on the GPU the CTAs run in parallel, so
-// the grid is one CTA per (64-row query tile, head, batch row): B*H*L/64
-// CTAs, 640 at B = 8, L = 599. Each CTA builds its augmented query tile
-// [qu | alpha | beta] (64 x 576) once in shared memory, then walks the keys
-// 64 at a time with an online softmax. A key tile's scores are the single
-// product of that tile with [k_j | cos_j | sin_j], streamed through shared
-// memory in 64-deep chunks; the cos/sin rows are the same for every batch
-// row and head, so they stay in L2. No L x L score or probability tensor
-// ever reaches device memory.
+// Design (bfloat16, the serving and training path), one CTA per (128 query
+// rows, head, batch row), 384 threads in three warpgroups:
+// - 128 query rows per CTA, two consumer warpgroups of 64 rows each (one
+//   wgmma M tile), so each key streamed from L2 serves 128 rows. The
+//   augmented query tile [qu | alpha | beta] (128 x 576 bf16, 144 KB) stays
+//   in shared memory for the whole key walk, in 64-column panels in
+//   wgmma's 128-byte-swizzled K-major layout.
+// - 128 keys per tile: the score product is m64n128k16, which reads 6 KB
+//   per 64 cycles (96 B per cycle), and a query panel is read once per 128
+//   keys instead of once per 64.
+// - A TMA ring of STAGES stages of 128 rows x 64 bf16 (16 KB each, 80 KB),
+//   fed by one producer thread through full/empty mbarrier pairs, so copies
+//   overlap the products. The producer streams qv (stage 0, a 64-row box
+//   per consumer), the per-head position weights wh[h] (a sin and a cos
+//   64-column chunk per stage), then for every key tile k, the cos chunks,
+//   the sin chunks and v. qu arrives by TMA straight into the query tile.
+//   k, v, qu and qv have 3-D maps over (B, L, D), so TMA fills zeros past
+//   each batch row's L instead of reading the next row; cos, sin (L, D/2)
+//   and wh (H*64, D) have 2-D maps. Scores of keys >= L still go through
+//   mask_score. The maps come from cuTensorMapEncodeTiled through
+//   cudaGetDriverEntryPoint, so the library needs no -lcuda.
+// - wgmma for every product: a = qv . wh (SS, m64n64k16, wh MN-major), the
+//   scores (SS, 36 steps per key tile from the query panels and the
+//   streamed chunks), and e' . v (RS: the probabilities go from the score
+//   accumulators into A fragments in registers; v is read MN-major, so no
+//   transposing copy). Each chunk's wgmma group is committed as it is
+//   issued and its ring stage released once the next group is in flight.
+// - setmaxnreg moves registers from the producer warpgroup to the consumers.
+// - The softmax runs on ex2.approx, log2 e folded in after the subtraction:
+//   2^((s - m) * log2 e). A row of length 0 has m = float32.min and every
+//   s - m = 0; keys past L give -inf and weight 0.
+// tools/probe_attention_fwd.py times the kernel beside variants without the
+// products, without the copies, and with 64-row query tiles. On the H100
+// the products and the softmax bound it (without the copies it keeps ~95 %
+// of its time, without the products ~70 %): the two warpgroups take the same
+// stages and run in step, so the tensor cores idle through their softmax.
 //
-// Two kernels share that design:
-// - bfloat16 (serving and training): four warps, 16 query rows each, run every
-//   product (a = qv . wh, the scores, e . v) as mma.sync m16n8k16 with fp32
-//   accumulators; the probabilities go from the score accumulators straight
-//   into the A operand of the value product, in registers.
-// - float32: CUDA-core FMAs (16 x 16 threads, 4 x 4 outputs each), so fp32
-//   inputs keep fp32 products (TF32 would not hold the fp32 tolerance).
+// Shared memory per CTA: (1 + D/64) * 16 KB of query tile + 80 KB of ring
+// + 1 KB of alignment: 225 KB at D = 512, one CTA per SM. The bf16 kernel
+// takes D <= 512 (H <= 8 at dh 64): the query tile of a wider model does
+// not fit beside the ring, and the launch returns cudaErrorInvalidValue.
+//
+// float32 (not on the production path): CUDA-core FMAs (16 x 16 threads,
+// 4 x 4 outputs each), one CTA per (64 query rows, head, batch row), so fp32
+// inputs keep fp32 products (TF32 would not hold the fp32 tolerance).
 //
 // Masking follows the JAX kernel exactly: masked keys take the finite
 // float32.min through a select, so a row of length 0 has every score equal
 // and gets uniform weights over all L keys. Keys past L (the ragged last
 // tile) are -inf and carry no weight. The ragged last query tile is
-// bounds-checked on load and store.
+// bounds-checked on store.
+
+#include <cuda.h>
 
 #include "sincos_attention_common.cuh"
 
 namespace {
 
 using namespace attn;
-constexpr int TQ = 64;        // query rows per CTA
-constexpr int TK = 64;        // keys per tile
+constexpr int TQ = 64;        // query rows per CTA (float32)
+constexpr int TK = 64;        // keys per tile (float32)
 
 struct FwdArgs {
   const void *qu, *qv, *k, *v, *wh, *sin_t, *cos_t;
@@ -70,245 +112,520 @@ struct FwdArgs {
 };
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync).
+// bfloat16: TMA ring, wgmma, 128-row query tiles.
 // ---------------------------------------------------------------------------
 
-namespace tensor_core {
+namespace hopper {
 
-constexpr int THREADS = 128;  // 4 warps x 16 query rows
-constexpr int KS = 72;        // padded row stride (bf16) of 64-wide tiles
+constexpr int CONSUMERS = 2;          // consumer warpgroups, 64 query rows each
+constexpr int BM = 64 * CONSUMERS;    // query rows per CTA
+constexpr int BN = 128;               // keys per tile
+constexpr int BOX = 64 * 64 * 2;      // bytes of a 64-row box of 64 bf16 columns
+constexpr int STAGE = BN * 64 * 2;    // bytes of one ring stage: 128 rows
+constexpr int STAGES = 5;             // ring stages (80 KB)
+constexpr int PANEL = BM * 128;       // bytes of one 64-column query panel
+constexpr int THREADS = 128 * (CONSUMERS + 1);  // the last warpgroup produces
+
+struct Maps {
+  CUtensorMap qu, qv;         // (B, L, D), 64-row boxes
+  CUtensorMap k, v;           // (B, L, D), BN-row boxes
+  CUtensorMap wh;             // (H*64, D), 64-row boxes
+  CUtensorMap cos_t, sin_t;   // (L, D/2), BN-row boxes
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One box of a 2-D or 3-D tensor map into shared memory, counted on `bar`.
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+      "r"(c1) : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+      "r"(c1), "r"(c2) : "memory");
+}
+
+// wgmma shared-memory descriptors of a 1024-byte-aligned tile with 128-byte
+// swizzled rows (TMA's CU_TENSOR_MAP_SWIZZLE_128B). K-major: rows are M or N,
+// 64 K values each; a k16 step advances 32 bytes along the row. MN-major:
+// rows are K, 64 M or N values each; a k16 step advances 16 rows (2048
+// bytes). 8-row groups lie 1024 bytes apart (the stride field); with 64
+// columns there is one swizzle atom across, so the leading field is unused
+// by K-major tiles and set to the same 1024 bytes for MN-major ones.
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (64ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accesses of accumulators across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x N, fp32) += A (64 x 16 at desc a, K-major) . B (16 x N at desc b;
+// TB 0: K-major, 1: MN-major), N = 64 or 128. Accumulator layout per warp w
+// of the warpgroup, g = lane / 4, t = lane % 4: d[4j + i] is row
+// 16w + g + 8(i/2), column 8j + 2t + (i%2).
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %35, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %34;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "n"(TB), "r"(1));
+}
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %67, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, %66;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "n"(TB), "r"(1));
+}
+
+// d (64 x 64) += A (64 x 16 in registers: a[0..3] as mma.sync's m16n8k16 A
+// fragment of the warp's 16 rows) . B (16 x 64 at desc b).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TB), "r"(1));
+}
+
+// 2^x on the special-function unit (x = -inf gives 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The ring's position: stage and the parity of its current round.
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next() {
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// Producer: wait until the ring's next stage is free and arm its full
+// barrier for `bytes`. -> (the stage's address, its full barrier); the
+// caller copies into it and moves the ring on.
+__device__ __forceinline__ uint2 claim(const Ring& r, uint32_t full,
+                                       uint32_t empty, uint32_t ring,
+                                       int bytes) {
+  bar_wait(empty + 8 * r.stage, r.phase ^ 1u);
+  const uint32_t bar = full + 8 * r.stage;
+  bar_expect(bar, bytes);
+  return make_uint2(ring + r.stage * STAGE, bar);
+}
+
+// Consumer: wait until the stage has arrived. -> its address.
+__device__ __forceinline__ uint32_t take(Ring& r, uint32_t full, uint32_t ring,
+                                         int& stage) {
+  bar_wait(full + 8 * r.stage, r.phase);
+  stage = r.stage;
+  r.next();
+  return ring + stage * STAGE;
+}
+
+// Consumer: this warp is done with the stage (every consumer warp's
+// arrival frees it).
+__device__ __forceinline__ void release(uint32_t empty, int stage) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) bar_arrive(empty + 8 * stage);
+}
 
 template <bool DROP>
-__global__ void __launch_bounds__(THREADS)
-fwd_kernel(const bf16* __restrict__ qu, const bf16* __restrict__ qv,
-           const bf16* __restrict__ k, const bf16* __restrict__ v,
-           const bf16* __restrict__ wh, const bf16* __restrict__ sin_t,
+__global__ void __launch_bounds__(THREADS, 1)
+fwd_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ sin_t,
            const bf16* __restrict__ cos_t, const int* __restrict__ lengths,
            bf16* __restrict__ out, float* __restrict__ stats, int L, int H,
            uint32_t seed, uint32_t thresh, float inv_keep, int tq) {
-  const int D = H * DH, D2 = D / 2, QS = DH + D + 8;
-  extern __shared__ uint4 smem_tc[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem_tc);  // TQ x QS: [qu|alpha|beta]
-  bf16* s_a = s_q + TQ * QS;  // 64 x KS: qv | wh sin half^T | key chunk
-  bf16* s_b = s_a + 64 * KS;  // 64 x KS: wh cos half^T | v^T
+  constexpr float LOG2E = 1.4426950408889634f;
+  const int D = H * DH, D2 = D / 2, n_half = D2 / 64;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * STAGES + 1];
+  // The query tile: 1 + D/64 panels of BM rows x 64 columns, [qu | alpha |
+  // beta]; then the ring. Both 1024-byte aligned for the 128-byte swizzle.
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t q_tile = (raw + 1023u) & ~1023u;
+  uint8_t* q_ptr = smem_raw + (q_tile - raw);
+  const uint32_t ring = q_tile + (1 + D / 64) * PANEL;
+  const uint32_t full = smem_u32(bars), empty = full + 8 * STAGES,
+                 q_full = full + 16 * STAGES;
 
-  const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int wr = (tid / 32) * 16;  // this warp's first row in the tile
-  const size_t row0 = (size_t)b * L;
-  const int col_h = h * DH;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  // 1. qu into s_q[:, 0:64], qv into s_a; zeros past L.
-  for (int i = tid; i < TQ * DH / 8; i += THREADS) {
-    const int r = i / 8, c = (i % 8) * 8, q = q0 + r;
-    uint4 xu = zero, xv = zero;
-    if (q < L) {
-      const size_t off = (row0 + q) * D + col_h + c;
-      xu = *reinterpret_cast<const uint4*>(qu + off);
-      xv = *reinterpret_cast<const uint4*>(qv + off);
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid / 128;
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      bar_init(full + 8 * i, 1);
+      bar_init(empty + 8 * i, 4 * CONSUMERS);  // every consumer warp
     }
-    *reinterpret_cast<uint4*>(s_q + r * QS + c) = xu;
-    *reinterpret_cast<uint4*>(s_a + r * KS + c) = xv;
+    bar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  uint32_t qa[4][4];  // qv A fragments of this warp's rows, depth 0..63
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) load_a(qa[kk], s_a, KS, wr, kk * 16, g, t);
 
-  // 2. alpha and beta, 64 coefficient columns of each half at a time.
-  const bf16* whh = wh + (size_t)h * DH * D;
-  for (int c0 = 0; c0 < D2; c0 += 64) {
-    __syncthreads();
-    for (int i = tid; i < DH * 8; i += THREADS) {
-      const int d = i / 8, x = (i % 8) * 8;
-      const bf16* w = whh + (size_t)d * D + c0 + x;
-      store_column(s_a, KS, x, d, *reinterpret_cast<const uint4*>(w));
-      store_column(s_b, KS, x, d, *reinterpret_cast<const uint4*>(w + D2));
-    }
-    __syncthreads();
-    float as[8][4], ac[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) as[n][e] = ac[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, s_a, KS, n * 8, kk * 16, g, t);
-        mma(as[n], qa[kk], b0, b1);
-        load_b(b0, b1, s_b, KS, n * 8, kk * 16, g, t);
-        mma(ac[n], qa[kk], b0, b1);
+  if (wg == CONSUMERS) {
+    // Producer: one thread issues every copy, in the order the consumers
+    // take them.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == CONSUMERS * 128) {
+      const int col_h = h * DH;
+      bar_expect(q_full, CONSUMERS * BOX);
+      for (int i = 0; i < CONSUMERS; ++i)
+        tma_3d(q_tile + i * BOX, &maps.qu, q_full, col_h, q0 + 64 * i, b);
+      Ring r;
+      // stage 0: qv, a 64-row box per consumer warpgroup
+      uint2 st = claim(r, full, empty, ring, CONSUMERS * BOX);
+      for (int i = 0; i < CONSUMERS; ++i)
+        tma_3d(st.x + i * BOX, &maps.qv, st.y, col_h, q0 + 64 * i, b);
+      r.next();
+      // wh[h], 64 coefficient columns of the sin half and of the cos half
+      for (int c = 0; c < n_half; ++c) {
+        st = claim(r, full, empty, ring, 2 * BOX);
+        tma_2d(st.x, &maps.wh, st.y, c * 64, col_h);
+        tma_2d(st.x + BOX, &maps.wh, st.y, D2 + c * 64, col_h);
+        r.next();
       }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = wr + g + 8 * (e / 2), q = q0 + row;
-        const int x = c0 + n * 8 + 2 * t + (e % 2);
-        float sq = 0.f, cq = 0.f;
-        if (q < L) {
-          sq = __bfloat162float(sin_t[(size_t)q * D2 + x]);
-          cq = __bfloat162float(cos_t[(size_t)q * D2 + x]);
+      // per key tile: k, the cos chunks, the sin chunks, v
+      for (int j0 = 0; j0 < L; j0 += BN) {
+        st = claim(r, full, empty, ring, STAGE);
+        tma_3d(st.x, &maps.k, st.y, col_h, j0, b);
+        r.next();
+        for (int c = 0; c < 2 * n_half; ++c) {
+          st = claim(r, full, empty, ring, STAGE);
+          tma_2d(st.x, c < n_half ? &maps.cos_t : &maps.sin_t, st.y,
+                 (c % n_half) * 64, j0);
+          r.next();
         }
-        const float a_s = as[n][e], a_c = ac[n][e];
-        s_q[row * QS + DH + x] = __float2bfloat16_rn(a_s * sq + a_c * cq);
-        s_q[row * QS + DH + D2 + x] = __float2bfloat16_rn(-a_s * cq + a_c * sq);
+        st = claim(r, full, empty, ring, STAGE);
+        tma_3d(st.x, &maps.v, st.y, col_h, j0, b);
+        r.next();
       }
-  }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int r_lo = 16 * ((tid % 128) / 32) + g;  // rows r_lo, r_lo + 8
+    const int qw = q0 + wg * 64;  // this warpgroup's first query row
+    const int wrow = wg * 64;     // ... and its first row in the panels
+    Ring r;
+    int st;
 
-  // 3. Key tiles with an online softmax. Rows g and g + 8 of the warp's 16
-  // are this thread's; m, l are per row, l summed over the quad at the end.
-  const int len = min(lengths[b], L);
-  const int n_chunks = 1 + D / 64;  // [k | cos (D2/64) | sin (D2/64)]
-  const int cos_chunks = D2 / 64;
-  float o[8][4], m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+    // 1. a = qv . wh[h] on wgmma, 64 coefficient columns of each half at a
+    // time; alpha and beta rounded into the query panels 1.. and
+    // 1 + D/128.. . The ring's stage 0 holds qv, until every chunk is done.
+    const uint32_t qv_tile = take(r, full, ring, st) + wg * BOX;
+    for (int c = 0; c < n_half; ++c) {
+      const uint32_t wh_sin = take(r, full, ring, st), wh_cos = wh_sin + BOX;
+      float as[32], ac[32];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+      for (int i = 0; i < 32; ++i) as[i] = ac[i] = 0.f;
+      fence_acc(as);
+      fence_acc(ac);
+      wgmma_fence();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  uint32_t rh[2] = {0u, 0u};  // dropout hash of this thread's two rows
-  if (DROP) {
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<1>(as, desc_k(qv_tile + 32 * kk), desc_mn(wh_sin + 2048 * kk));
 #pragma unroll
-    for (int r = 0; r < 2; ++r) rh[r] = row_hash(seed, b, h, q0 + wr + g + 8 * r, tq);
-  }
-
-  for (int j0 = 0; j0 < L; j0 += TK) {
-    float s[8][4];
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<1>(ac, desc_k(qv_tile + 32 * kk), desc_mn(wh_cos + 2048 * kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(as);
+      fence_acc(ac);
+      release(empty, st);
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      __syncthreads();
-      for (int i = tid; i < TK * 8; i += THREADS) {
-        const int j = i / 8, c = (i % 8) * 8, key = j0 + j;
-        uint4 x = zero, xv = zero;
-        if (key < L) {
-          if (ch == 0) {
-            const size_t off = (row0 + key) * D + col_h + c;
-            x = *reinterpret_cast<const uint4*>(k + off);
-            xv = *reinterpret_cast<const uint4*>(v + off);
-          } else if (ch <= cos_chunks) {
-            x = *reinterpret_cast<const uint4*>(
-                cos_t + (size_t)key * D2 + (ch - 1) * 64 + c);
-          } else {
-            x = *reinterpret_cast<const uint4*>(
-                sin_t + (size_t)key * D2 + (ch - 1 - cos_chunks) * 64 + c);
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = r_lo + 8 * hf, q = qw + row;
+          const int x = c * 64 + j * 8 + 2 * t;
+          float2 sq = make_float2(0.f, 0.f), cq = sq;
+          if (q < L) {
+            sq = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                sin_t + (size_t)q * D2 + x));
+            cq = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                cos_t + (size_t)q * D2 + x));
           }
+          const float s0 = as[4 * j + 2 * hf], s1 = as[4 * j + 2 * hf + 1];
+          const float c0 = ac[4 * j + 2 * hf], c1 = ac[4 * j + 2 * hf + 1];
+          const int off = (wrow + row) * 128 + ((j ^ (row & 7)) << 4) + 4 * t;
+          *reinterpret_cast<uint32_t*>(q_ptr + (1 + c) * PANEL + off) =
+              pack(s0 * sq.x + c0 * cq.x, s1 * sq.y + c1 * cq.y);
+          *reinterpret_cast<uint32_t*>(q_ptr + (1 + n_half + c) * PANEL + off) =
+              pack(-s0 * cq.x + c0 * sq.x, -s1 * cq.y + c1 * sq.y);
         }
-        *reinterpret_cast<uint4*>(s_a + j * KS + c) = x;
-        if (ch == 0) store_column(s_b, KS, c, j, xv);
-      }
-      __syncthreads();
+    }
+    release(empty, 0);
+    // alpha/beta were written by this warpgroup's threads through the
+    // generic proxy; wgmma reads them through the async proxy.
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    bar_wait(q_full, 0);
+
+    // 2. Key tiles with an online softmax. Rows r_lo and r_lo + 8 are this
+    // thread's; m, l are per row, l summed over the quad at the end.
+    const int len = min(lengths[b], L);
+    const int n_chunks = 1 + D / 64;  // [k | cos (D2/64) | sin (D2/64)]
+    const uint32_t q_rows = q_tile + wrow * 128;
+    float o[32], m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t a[4];
-        load_a(a, s_q, QS, wr, ch * 64 + kk * 16, g, t);
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    uint32_t rh[2] = {0u, 0u};
+    if (DROP) {
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          uint32_t b0, b1;
-          load_b(b0, b1, s_a, KS, n * 8, kk * 16, g, t);
-          mma(s[n], a, b0, b1);
-        }
-      }
+      for (int i = 0; i < 2; ++i)
+        rh[i] = row_hash(seed, b, h, qw + r_lo + 8 * i, tq);
     }
 
-    float tmax[2] = {-INFINITY, -INFINITY};
+    for (int j0 = 0; j0 < L; j0 += BN) {
+      float s[64];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+      for (int i = 0; i < 64; ++i) s[i] = 0.f;
+      fence_acc(s);
+      int prev = -1;
+      for (int ch = 0; ch < n_chunks; ++ch) {
+        const uint32_t a = q_rows + ch * PANEL, kt = take(r, full, ring, st);
+        wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = mask_score(s[n][e], j0 + n * 8 + 2 * t + (e % 2), len, L);
-        tmax[e / 2] = fmaxf(tmax[e / 2], s[n][e]);
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<0>(s, desc_k(a + 32 * kk), desc_k(kt + 32 * kk));
+        wgmma_commit();
+        if (prev >= 0) {
+          wgmma_wait<1>();  // the previous chunk's products are done
+          release(empty, prev);
+        }
+        prev = st;
       }
-    float m_new[2];
+      wgmma_wait<0>();
+      fence_acc(s);
+      release(empty, prev);
+
+      float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
-      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
-      m_new[r] = fmaxf(m_run[r], tmax[r]);
-      const float corr = expf(m_run[r] - m_new[r]);
-      m_run[r] = m_new[r];
-      l_run[r] *= corr;
+      for (int j = 0; j < 16; ++j)
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        o[n][2 * r] *= corr;
-        o[n][2 * r + 1] *= corr;
+        for (int i = 0; i < 4; ++i) {
+          s[4 * j + i] = mask_score(s[4 * j + i], j0 + 8 * j + 2 * t + (i % 2),
+                                    len, L);
+          tmax[i / 2] = fmaxf(tmax[i / 2], s[4 * j + i]);
+        }
+      float m_new[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        tmax[hf] = fmaxf(tmax[hf], __shfl_xor_sync(0xffffffffu, tmax[hf], 1));
+        tmax[hf] = fmaxf(tmax[hf], __shfl_xor_sync(0xffffffffu, tmax[hf], 2));
+        m_new[hf] = fmaxf(m_run[hf], tmax[hf]);
+        // key 0 is in the first tile, so m_new is finite and this is
+        // exp2(-inf) = 0 there
+        const float corr = exp2_approx((m_run[hf] - m_new[hf]) * LOG2E);
+        m_run[hf] = m_new[hf];
+        l_run[hf] *= corr;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[4 * j + 2 * hf] *= corr;
+          o[4 * j + 2 * hf + 1] *= corr;
+        }
       }
-    }
-    // e = exp(s - m): fp32 into the row sums, then dropped and rescaled,
-    // rounded to bf16 as the A fragments of the value product (n-tiles 2kk,
-    // 2kk+1 = keys 16kk..).
-    uint32_t p[4][4];
+      // e = exp(s - m): fp32 into the row sums, then dropped and rescaled,
+      // rounded to bf16 as the A fragments of the value product (keys
+      // 16kk.. are column groups 2kk and 2kk + 1).
+      uint32_t p[8][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      float e[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) e[i] = expf(s[n][i] - m_new[i / 2]);
-      l_run[0] += e[0] + e[1];
-      l_run[1] += e[2] + e[3];
-      if (DROP) {
+      for (int j = 0; j < 16; ++j) {
+        float e[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          e[i] = keep(rh[i / 2], j0 + n * 8 + 2 * t + (i % 2), thresh)
-                     ? e[i] * inv_keep : 0.f;
+          e[i] = exp2_approx((s[4 * j + i] - m_new[i / 2]) * LOG2E);
+        l_run[0] += e[0] + e[1];
+        l_run[1] += e[2] + e[3];
+        if (DROP) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            e[i] = keep(rh[i / 2], j0 + 8 * j + 2 * t + (i % 2), thresh)
+                       ? e[i] * inv_keep : 0.f;
+        }
+        p[j / 2][2 * (j % 2)] = pack(e[0], e[1]);
+        p[j / 2][2 * (j % 2) + 1] = pack(e[2], e[3]);
       }
-      p[n / 2][2 * (n % 2)] = pack(e[0], e[1]);
-      p[n / 2][2 * (n % 2) + 1] = pack(e[2], e[3]);
+      const uint32_t vt = take(r, full, ring, st);
+      fence_acc(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_rs<1>(o, p[kk], desc_mn(vt + 2048 * kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(o);
+      release(empty, st);
     }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, s_b, KS, n * 8, kk * 16, g, t);
-        mma(o[n], p[kk], b0, b1);
-      }
-  }
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_run[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const int q = q0 + wr + g + 8 * r;
-    if (q >= L) continue;
-    if (stats != nullptr && t == 0) {
-      float* st = stats + (((size_t)b * H + h) * L + q) * 2;
-      st[0] = m_run[r];
-      st[1] = l;
-    }
-    const float inv = 1.f / fmaxf(l, 1e-9f);
-    bf16* dst = out + (row0 + q) * D + col_h + 2 * t;
+    for (int hf = 0; hf < 2; ++hf) {
+      float l = l_run[hf];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int q = qw + r_lo + 8 * hf;
+      if (q >= L) continue;
+      if (stats != nullptr && t == 0) {
+        float* sp = stats + (((size_t)b * H + h) * L + q) * 2;
+        sp[0] = m_run[hf];
+        sp[1] = l;
+      }
+      const float inv = 1.f / fmaxf(l, 1e-9f);
+      bf16* dst = out + ((size_t)b * L + q) * D + h * DH + 2 * t;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<uint32_t*>(dst + n * 8) =
-          pack(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + j * 8) =
+            pack(o[4 * j + 2 * hf] * inv, o[4 * j + 2 * hf + 1] * inv);
+    }
   }
+}
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 map of `rank` dims (innermost first, row strides in bytes) with
+// boxes of 64 columns x `rows` rows (x 1), 128-byte swizzle, zeros out of
+// bounds.
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int rank,
+            const cuuint64_t* dims, const cuuint64_t* strides, int rows) {
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1}, unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+            const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <bool DROP>
 int launch(const FwdArgs& a, cudaStream_t stream) {
-  const int D = a.H * DH;
-  const size_t smem = sizeof(bf16) * ((size_t)TQ * (DH + D + 8) + 2 * 64 * KS);
+  const int D = a.H * DH, D2 = D / 2;
+  // qv (stage 0) and every wh chunk pair are in the ring before stage 0 is
+  // released: 1 + D/128 <= STAGES.
+  if (1 + D / 128 > STAGES || D2 % 64 != 0) return cudaErrorInvalidValue;
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  Maps m;
+  const cuuint64_t packed[3] = {(cuuint64_t)D, (cuuint64_t)a.L, (cuuint64_t)a.B};
+  const cuuint64_t packed_strides[2] = {(cuuint64_t)D * 2,
+                                        (cuuint64_t)a.L * D * 2};
+  const cuuint64_t wh_dims[2] = {(cuuint64_t)D, (cuuint64_t)a.H * DH};
+  const cuuint64_t wh_strides[1] = {(cuuint64_t)D * 2};
+  const cuuint64_t tab[2] = {(cuuint64_t)D2, (cuuint64_t)a.L};
+  const cuuint64_t tab_strides[1] = {(cuuint64_t)D2 * 2};
+  if (!(encode(fn, &m.qu, a.qu, 3, packed, packed_strides, 64) &&
+        encode(fn, &m.qv, a.qv, 3, packed, packed_strides, 64) &&
+        encode(fn, &m.k, a.k, 3, packed, packed_strides, BN) &&
+        encode(fn, &m.v, a.v, 3, packed, packed_strides, BN) &&
+        encode(fn, &m.wh, a.wh, 2, wh_dims, wh_strides, 64) &&
+        encode(fn, &m.cos_t, a.cos_t, 2, tab, tab_strides, BN) &&
+        encode(fn, &m.sin_t, a.sin_t, 2, tab, tab_strides, BN)))
+    return cudaErrorInvalidValue;
+  const size_t smem = 1024 + (size_t)(1 + D / 64) * PANEL + (size_t)STAGES * STAGE;
   cudaError_t err = cudaFuncSetAttribute(
       fwd_kernel<DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.L + TQ - 1) / TQ, a.H, a.B);
+  const dim3 grid((a.L + BM - 1) / BM, a.H, a.B);
   fwd_kernel<DROP><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(a.qu), static_cast<const bf16*>(a.qv),
-      static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-      static_cast<const bf16*>(a.wh), static_cast<const bf16*>(a.sin_t),
-      static_cast<const bf16*>(a.cos_t), a.lengths, static_cast<bf16*>(a.out),
-      a.stats, a.L, a.H, a.seed, a.thresh, a.inv_keep, a.tq);
+      m, static_cast<const bf16*>(a.sin_t), static_cast<const bf16*>(a.cos_t),
+      a.lengths, static_cast<bf16*>(a.out), a.stats, a.L, a.H, a.seed,
+      a.thresh, a.inv_keep, a.tq);
   return cudaGetLastError();
 }
 
-}  // namespace tensor_core
+}  // namespace hopper
 
 // ---------------------------------------------------------------------------
 // float32: CUDA-core FMAs.
@@ -571,7 +888,6 @@ extern "C" int sincos_attention_fwd(const void* qu, const void* qv,
   if (dtype == 0)
     return drop ? cuda_core::launch<true>(a, s) : cuda_core::launch<false>(a, s);
   if (dtype == 1)
-    return drop ? tensor_core::launch<true>(a, s)
-                : tensor_core::launch<false>(a, s);
+    return drop ? hopper::launch<true>(a, s) : hopper::launch<false>(a, s);
   return cudaErrorInvalidValue;
 }

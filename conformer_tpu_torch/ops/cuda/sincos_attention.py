@@ -257,6 +257,10 @@ def sincos_attention_fwd(qu, qv, k, v, wh, lengths, sin_t, cos_t,
         return sincos_attention_plain(qu, qv, k, v, wh, lengths, sin_t, cos_t,
                                       rate, seed, tq, stats)
     b, l, h, code = _check_common(qu, qv, k, v, wh, lengths, sin_t, cos_t)
+    if qu.dtype == torch.bfloat16 and h * 64 > 512:
+        raise ValueError(f"the bfloat16 attention forward keeps a 128-row "
+                         f"query tile of width 64 + D in shared memory and "
+                         f"takes D <= 512; got D = {h * 64}")
     thresh, inv_keep, seed32, tq = _dropout_args(rate, seed, tq, l)
     out = torch.empty_like(qu)
     st = (torch.empty((b, h, l, 2), dtype=torch.float32, device=qu.device)

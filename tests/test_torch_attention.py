@@ -35,11 +35,17 @@ def _inputs(b, l, h, dh, seed):
     return qu, qv, k, v, kernel
 
 
-@pytest.mark.parametrize("l,tq,lengths", [(37, 16, [37, 20, 0]),
-                                          (150, None, [150, 0, 93])])
+@pytest.mark.parametrize("l,tq,lengths", [
+    (37, 16, [37, 20, 0]),
+    (150, None, [150, 0, 93]),
+    # across the card kernel's 128-row query and 64-key tiles; rows of
+    # length 0 (uniform weights) and 1
+    (129, None, [1, 0]),
+    (257, None, [0, 1]),
+])
 def test_kernel_plain_version_matches_pallas_interpret(l, tq, lengths):
     h, dh = 2, 64
-    qu, qv, k, v, kernel = _inputs(3, l, h, dh, seed=l)
+    qu, qv, k, v, kernel = _inputs(len(lengths), l, h, dh, seed=l)
     lengths = np.array(lengths, np.int32)
     scale = 1.0 / np.sqrt(dh)
     want = jsa.rel_attention_sincos_packed(
@@ -101,6 +107,8 @@ def _packed_call(rate, tq, lengths, qu, qv, k, v, kernel, h, scale):
     (3, 50, 2, 64, 32, [50, 20, 0]),        # partial last tile of 32 rows
     (3, 50, 2, 64, None, [50, 20, 0]),      # auto tile: one of 56 rows
     (1, 300, 2, 16, None, [300]),           # L > 256: auto tiles of 128
+    (2, 129, 2, 64, None, [1, 0]),          # rows of length 1 and 0
+    (2, 257, 2, 64, None, [0, 1]),
 ])
 def test_plain_forward_with_dropout_matches_pallas_interpret(b, l, h, dh, tq,
                                                              lengths):

@@ -208,3 +208,29 @@ def test_chip_smoke_holds_each_attention_gradient_slice_to_its_own_scale():
     off[0] *= 1.01
     assert chip_smoke.k2_rel_err(off, dwh, "dwh", 2) == pytest.approx(0.01,
                                                                       rel=1e-3)
+
+
+def test_chip_smoke_times_sdpa_under_each_backend_that_takes_the_call(
+        monkeypatch):
+    """chip_smoke's yardstick: SDPA is set up and timed under each backend,
+    a backend that refuses the call is left out, and the fastest is named.
+    On the CPU only the math backend takes SDPA; a stand-in clock gives the
+    refusing backends no time to report."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    ran = []
+
+    def fake_ms(torch_, fn, iters=20, warmup=3):
+        fn()
+        ran.append(torch.backends.cuda.math_sdp_enabled())
+        return 0.5
+
+    monkeypatch.setattr(chip_smoke, "cuda_ms", fake_ms)
+    q = torch.randn(1, 2, 5, 8)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, q, q)
+    times, best = chip_smoke.sdpa_times(torch, lambda: sdpa)
+    assert times == {"math": 0.5} and best == "math"
+    assert ran == [True]
