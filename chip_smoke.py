@@ -16,8 +16,9 @@ Phases, each printing one JSON line:
               every op), and time the kernel, the plain version, the bound
               and, where one exists, the one PyTorch call that computes the
               same function (SDPA under each backend that takes it, the
-              fastest as the yardstick); bf16 K2 at its longest L, and one key past it
-              (must raise); K4a at L 2400; K5's per-pass slopes through
+              fastest as the yardstick); bf16 K2 at L 768, 769 and
+              L_LONG, and two K2 calls that must give the same bits;
+              K4a at L 2400; K5's per-pass slopes through
               ``conformer_tpu_torch.tools.bench_vpu_pass.main``.
    tolerance -- K1 and K2 again over 8 more seeds: each check's largest
               reading beside its limit.
@@ -86,6 +87,8 @@ SWEEP_SEEDS = tuple(range(200, 208))
 DROPOUT_SEED = 1234567
 # bf16 K1 at lengths that cross its 128-row query tiles and 64-key tiles.
 K1_EDGE_LENGTHS = (1, 63, 65, 127, 129, 257, 768)
+# bf16 K2 past the earlier design's limit of 768: ~48 s of audio.
+L_LONG = 1200
 # SDPA backends timed as the attention kernels' yardstick (flash attention
 # takes no head width of 576 and no mask); each that accepts the call is
 # timed, and the fastest is library_ms.
@@ -347,28 +350,53 @@ def k2_case(torch, b: int, l: int, dtype, seed: int, rate: float,
             "library_fwd_bwd_ms": both[best_both],
             "library_fwd_bwd_backends_ms": both,
             "bound_ms": bms, "bound_by": by,
+            "scratch_bytes": sa.bwd_scratch_bytes(b, l, h, dtype),
         })
     return case
 
 
-def k2_length_limit(torch):
-    """bf16 K2 keeps ds for every key in shared memory: at the longest L it
-    takes (768 at H = 8) it must agree with its plain version, and one key
-    further it must raise ValueError before launching."""
+def k2_long_lengths(torch):
+    """bf16 K2 has no length limit: it agrees with its plain version per
+    slice at L 768 and 769 (where the earlier design's shared-memory limit
+    fell) and at L_LONG, ~48 s of audio, with one row ragged."""
     from conformer_tpu_torch.ops.cuda import sincos_attention as sa
 
-    at_limit = k2_case(torch, 1, 768, torch.bfloat16, seed=40, rate=0.1,
-                       time_it=False)
-    args, dout = _attention_inputs(torch, 1, 769, torch.bfloat16, seed=41)
-    stats = torch.zeros(1, 8, 769, 2, device=DEVICE)
-    try:
-        sa.sincos_attention_bwd(*args, stats, dout)
-        message = None
-    except ValueError as e:
-        message = str(e)
-    return {"at_768": at_limit, "error_at_769": message,
-            "ok": at_limit["ok"] and message is not None
-            and "L <= 768" in message}
+    cases = [k2_case(torch, 1, 768, torch.bfloat16, seed=40, rate=0.1,
+                     time_it=False),
+             k2_case(torch, 1, 769, torch.bfloat16, seed=41, rate=0.1,
+                     time_it=False),
+             k2_case(torch, 2, L_LONG, torch.bfloat16, seed=42, rate=0.1,
+                     time_it=False)]
+    return {"cases": cases, "scratch_bytes_l%d_b2" % L_LONG:
+            sa.bwd_scratch_bytes(2, L_LONG, 8, torch.bfloat16),
+            "ok": all(c["ok"] for c in cases)}
+
+
+def same_bits(torch, first, second) -> bool:
+    """True when two tuples of tensors hold the same bits, NaNs included."""
+    return len(first) == len(second) and all(
+        a.shape == b.shape and a.dtype == b.dtype
+        and torch.equal(a.contiguous().view(torch.uint8),
+                        b.contiguous().view(torch.uint8))
+        for a, b in zip(first, second))
+
+
+def k2_determinism(torch):
+    """Two K2 calls on the same inputs (B 8, L 599, rate 0.1) give the same
+    bits in all five gradients, bf16 and fp32: no atomics, fixed sum
+    orders."""
+    from conformer_tpu_torch.ops.cuda import sincos_attention as sa
+
+    runs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args, dout = _attention_inputs(torch, 8, 599, dtype, seed=43)
+        drop = (0.1, DROPOUT_SEED, sa.hash_tq(599))
+        _, stats = sa.sincos_attention_fwd(*args, *drop, stats=True)
+        first = sa.sincos_attention_bwd(*args, stats, dout, *drop)
+        second = sa.sincos_attention_bwd(*args, stats, dout, *drop)
+        torch.cuda.synchronize()
+        runs[_dtype_name(torch, dtype)] = same_bits(torch, first, second)
+    return {"same_bits": runs, "ok": all(runs.values())}
 
 
 def k3_case(torch, b: int, n_samples: int, seed: int, time_it: bool):
@@ -605,9 +633,10 @@ def phase_kernels(torch):
                         time_it=False)
                 for i, l in enumerate(K1_EDGE_LENGTHS) for rate in (0.0, 0.1)]
     k2_cases = [k2_case(torch, 8, l, dt, seed=30 + i, rate=rate,
-                        time_it=(dt == torch.bfloat16 and rate > 0))
+                        time_it=(dt == torch.bfloat16))
                 for i, (l, dt) in enumerate(shapes) for rate in (0.0, 0.1)]
-    limit = k2_length_limit(torch)
+    long_k2 = k2_long_lengths(torch)
+    deterministic = k2_determinism(torch)
     k3_cases = [k3_case(torch, 8, 16 * 16000, seed=10, time_it=True),
                 k3_case(torch, 8, 24 * 16000, seed=11, time_it=True),
                 k3_case(torch, 3, 7321 * 17, seed=12, time_it=False)]
@@ -626,12 +655,15 @@ def phase_kernels(torch):
           "sincos_attention_fwd_dropout": k1_drop,
           "sincos_attention_fwd_edges": k1_edges,
           "sincos_attention_bwd": k2_cases,
-          "sincos_attention_bwd_length_limit": limit, "logmel_fwd": k3_cases,
+          "sincos_attention_bwd_long": long_k2,
+          "sincos_attention_bwd_determinism": deterministic,
+          "logmel_fwd": k3_cases,
           "depthwise_conv_fwd": k4a_cases,
           "depthwise_conv_fwd_l2400": k4a_long,
           "depthwise_conv_dw": k4b_cases, "depthwise_conv1d_grads": k4_grads,
           "vpu_pass": k5})
-    bad = [c for c in k1_cases + k1_drop + k1_edges + k2_cases + [limit] + k3_cases
+    bad = [c for c in k1_cases + k1_drop + k1_edges + k2_cases
+           + [long_k2, deterministic] + k3_cases
            + k4a_cases + [k4a_long] + k4b_cases + k4_grads + [k5]
            if not c["ok"]]
     if bad:

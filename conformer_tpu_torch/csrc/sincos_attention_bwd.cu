@@ -30,28 +30,48 @@
 // ~11*B*L*D inputs and outputs; at L = 599 that is ~1500 FLOP/byte, far above
 // the bf16 machine balance, so the products belong on the tensor cores.
 //
-// Design (bfloat16, the training dtype): three kernels on one stream, every
-// product on mma.sync m16n8k16 with fp32 accumulators.
-// - q_pass, one CTA per (64-row query tile, head, batch row): builds
-//   [qu | alpha | beta] as K1 does (and writes alpha | beta to scratch for
-//   k_pass), walks the keys 64 at a time recomputing scores and the mask,
-//   once for delta (written to scratch for k_pass) and once for ds, and
-//   keeps the tile's ds for all keys in shared memory (L <= 768 at H = 8:
-//   sincos_attention_bwd_max_len). dqu accumulates in registers during the
-//   second sweep; then dalpha/dbeta = ds . [cos | sin] 64 columns at a time,
-//   da, dqv = da . wh^T, and the CTA's dwh partial qv^T . da, written in
-//   fp32 to scratch.
-// - k_pass, one CTA per (64-key tile, head, batch row): holds [k | cos |
-//   sin] of its keys in shared memory and walks the query tiles, computing
-//   the transposed scores s^T = [k | cos | sin] . [qu | alpha | beta]^T,
-//   the mask, p and ds again, and accumulates dk and dv in registers: no
-//   atomics, each key row is written once.
-// - reduce_dwh sums the dwh partials over batch rows and query tiles in a
-//   fixed order and casts.
-// Masking follows the forward: keys past the length take float32.min, keys
-// past L are -inf, so a row of length 0 has uniform weights in the
-// backward too. Rows past L of the ragged last query tile are zero in every
-// operand and their p is forced to 0 before any contraction over queries.
+// Design (bfloat16, the training dtype): four kernels on one stream, every
+// product on wgmma, every tile brought by TMA (the helpers of hopper.cuh)
+// into a ring of 16 KB stages that one producer thread fills and the
+// consumer warps release through full/empty mbarrier pairs. ds and p_drop
+// go through device memory, so nothing grows with L in shared memory and
+// any L runs.
+// - q_pass, one CTA per (128 query rows, head, batch row), two consumer
+//   warpgroups of 64 rows and a producer warpgroup, as K1: the query tile
+//   [qu | alpha | beta] in swizzled panels, the keys' k, cos, sin, v
+//   streamed per 128-key tile; scores on m64n128k16 (SS), dO . v^T on
+//   m64n128k16 with dO's fragments in registers (RS). Two sweeps over the
+//   keys recompute both: the first sums delta, the second writes ds and
+//   p_drop rounded to bf16 to a (B*H, L, LP) scratch each (LP = L rounded
+//   up to 8) and accumulates dqu += ds . k (RS, k streamed again, MN-major).
+// - k_pass, one CTA per (128 keys, head, batch row): dk = ds^T . qu and
+//   dv = p_drop^T . dO over 64-query tiles of the scratch; the boxes of ds
+//   and p_drop are read MN-major as a transposed A, so no copy transposes
+//   them, and the scores are not recomputed.
+// - da_pass, one CTA per (128 query rows, head, batch row): per 64
+//   coefficient columns, dalpha | dbeta = ds . [cos | sin] over 64-key
+//   tiles (ds K-major, the tables MN-major), the rotation into da rounded
+//   to bf16 (to a (B*H, L, D) scratch), and dqv += da . wh^T from da's
+//   fragments in registers.
+// - dwh_pass, one CTA per (64 columns, head): dwh = qv^T . da over every
+//   batch row and 64-query tile in a fixed order.
+// No atomics: every sum runs in a fixed order, so two calls give the same
+// bits. 3-D tensor maps over (B, L, D) and (B*H, L, L) give zeros past each
+// row's L, so the ragged last tiles need no masking in the products; rows
+// past L get p = 0 and are never stored. Masking follows the forward: keys
+// past the length take float32.min, keys past L are -inf, so a row of
+// length 0 has uniform weights in the backward too. p uses ex2.approx with
+// log2 e folded in after s - m, as K1 does. Scratch: 2 * B*H*L*LP + B*H*L*D
+// bf16 (sincos_attention_bwd_scratch_bytes). The bf16 kernels take
+// D <= 512 (q_pass keeps K1's query tile), like K1.
+// tools/probe_attention_bwd.py times the four launches one by one and the
+// whole beside variants without the products, without the copies and
+// without q_pass's stores. On the H100 at B 8, L 599 no one of them bounds
+// it (each variant keeps 84-91 % of the time): q_pass takes ~58 % (K1's
+// softmax-bound key loop twice, both warpgroups in step, plus the hash and
+// the stores), da_pass ~27 % (ds four times and the tables once per CTA
+// from L2). A key pass that recomputes the scores instead of reading ds and
+// p_drop (the probe's recompute_k) takes ~5x k_pass's time.
 //
 // float32 (the reference dtype) stays on CUDA-core FMAs, so fp32 inputs keep
 // fp32 products, in a simpler design that materialises ds and p_drop (B, H,
@@ -59,15 +79,14 @@
 // rows (delta per row, then ds and p_drop in place), then every contraction
 // as a launch of one strided batched fp32 GEMM, and combine (da).
 
-#include <limits.h>
-
+#include "hopper.cuh"
 #include "sincos_attention_common.cuh"
 
 namespace {
 
 using namespace attn;
-constexpr int TQ = 64;  // query rows per tile
-constexpr int TK = 64;  // keys per tile
+constexpr int TQ = 64;  // query rows per tile (float32)
+constexpr int TK = 64;  // keys per tile (float32)
 
 struct BwdArgs {
   const void *qu, *qv, *k, *v, *wh, *sin_t, *cos_t;
@@ -86,649 +105,739 @@ __host__ __device__ inline size_t align256(size_t n) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync).
+// bfloat16: TMA rings, wgmma, ds and p_drop through device memory.
 // ---------------------------------------------------------------------------
 
-namespace tensor_core {
+namespace hopper {
 
-constexpr int THREADS = 128;  // 4 warps x 16 rows
-constexpr int KS = 72;        // padded row stride (bf16) of 64-wide tiles
+using namespace sm90;
 
-inline size_t q_pass_smem(int L, int H) {
-  const int D = H * DH, LK = (L + TK - 1) / TK * TK;
-  return sizeof(bf16) * ((size_t)TQ * (DH + D + 8) + (size_t)TQ * (LK + 8) +
-                         6 * 64 * KS);
-}
+constexpr int CONSUMERS = 2;          // consumer warpgroups, 64 rows each
+constexpr int BM = 64 * CONSUMERS;    // query rows (q_pass, da_pass) or keys (k_pass) per CTA
+constexpr int BN = 128;               // keys per tile of q_pass
+constexpr int BOX = 64 * 64 * 2;      // bytes of a 64-row box of 64 bf16 columns
+constexpr int STAGE = 2 * BOX;        // bytes of one ring stage
+constexpr int PANEL = BM * 128;       // bytes of one 64-column query panel
+constexpr int THREADS = 128 * (CONSUMERS + 1);  // the last warpgroup produces
+constexpr int Q_STAGES = 5;   // q_pass's ring, beside the query panels (80 KB)
+constexpr int STAGES = 12;    // the other kernels' rings (192 KB)
+using QRing = RingOf<Q_STAGES, STAGE>;
+using Ring = RingOf<STAGES, STAGE>;
 
-// q_pass's key tile j0: the scores s = [qu | alpha | beta] . [k | cos | sin]^T
-// (s_q, row stride DH + D + 8) and dov = dO . v^T of the warp's 16 query
-// rows, unmasked; leaves the tile's v in s_v and its k transposed in s_kt.
-__device__ __forceinline__ void score_tile(const BwdArgs& a, const bf16* s_q,
-                                           bf16* s_a, bf16* s_v, bf16* s_kt,
-                                           const uint32_t (&dof)[4][4], int j0,
-                                           int b, int h, float (&s)[8][4],
-                                           float (&dov)[8][4]) {
-  const int L = a.L, D = a.H * DH, D2 = D / 2, QS = DH + D + 8;
-  const int n_chunks = 1 + D / 64, cos_chunks = D2 / 64;
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
-  const bf16* sin_t = static_cast<const bf16*>(a.sin_t);
-  const bf16* cos_t = static_cast<const bf16*>(a.cos_t);
-  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int wr = (tid / 32) * 16;
-  const size_t row0 = (size_t)b * L;
-  const int col_h = h * DH;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = dov[n][e] = 0.f;
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    __syncthreads();
-    for (int i = tid; i < TK * 8; i += THREADS) {
-      const int j = i / 8, c = (i % 8) * 8, key = j0 + j;
-      uint4 x = zero, xv = zero;
-      if (key < L) {
-        if (ch == 0) {
-          const size_t off = (row0 + key) * D + col_h + c;
-          x = *reinterpret_cast<const uint4*>(k + off);
-          xv = *reinterpret_cast<const uint4*>(v + off);
-        } else if (ch <= cos_chunks) {
-          x = *reinterpret_cast<const uint4*>(
-              cos_t + (size_t)key * D2 + (ch - 1) * 64 + c);
-        } else {
-          x = *reinterpret_cast<const uint4*>(
-              sin_t + (size_t)key * D2 + (ch - 1 - cos_chunks) * 64 + c);
-        }
-      }
-      *reinterpret_cast<uint4*>(s_a + j * KS + c) = x;
-      if (ch == 0) {
-        *reinterpret_cast<uint4*>(s_v + j * KS + c) = xv;
-        store_column(s_kt, KS, c, j, x);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t af[4];
-      load_a(af, s_q, QS, wr, ch * 64 + kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, s_a, KS, n * 8, kk * 16, g, t);
-        mma(s[n], af, b0, b1);
-      }
-    }
-  }
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      uint32_t b0, b1;
-      load_b(b0, b1, s_v, KS, n * 8, kk * 16, g, t);
-      mma(dov[n], dof[kk], b0, b1);
-    }
-}
-
-inline size_t k_pass_smem(int H) {
-  const int D = H * DH;
-  return sizeof(bf16) * ((size_t)TK * (DH + D + 8) + 3 * 64 * KS) +
-         sizeof(float) * 3 * TQ + sizeof(uint32_t) * TQ;
-}
-
-template <bool DROP>
-__global__ void __launch_bounds__(THREADS)
-q_pass(BwdArgs a, bf16* __restrict__ ab, float* __restrict__ delta_buf,
-       float* __restrict__ part) {
-  const int L = a.L, H = a.H, D = H * DH, D2 = D / 2, QS = DH + D + 8;
-  const int LK = (L + TK - 1) / TK * TK, DSS = LK + 8;
-  extern __shared__ uint4 smem_q[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem_q);  // TQ x QS [qu|alpha|beta], later [qu|da]
-  bf16* s_ds = s_q + TQ * QS;                   // TQ x DSS: ds for every key
-  bf16* s_a = s_ds + TQ * DSS;                  // staging
-  bf16* s_b = s_a + 64 * KS;                    // staging
-  bf16* s_qv = s_b + 64 * KS;                   // qv tile [row][d]
-  bf16* s_do = s_qv + 64 * KS;                  // dO tile [row][d]
-  bf16* s_kt = s_do + 64 * KS;                  // key tile transposed [d][key]
-  bf16* s_v = s_kt + 64 * KS;                   // value tile [key][d]
-
-  const bf16* qu = static_cast<const bf16*>(a.qu);
-  const bf16* qv = static_cast<const bf16*>(a.qv);
-  const bf16* wh = static_cast<const bf16*>(a.wh);
-  const bf16* sin_t = static_cast<const bf16*>(a.sin_t);
-  const bf16* cos_t = static_cast<const bf16*>(a.cos_t);
-  const bf16* dout = static_cast<const bf16*>(a.dout);
-
-  const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int wr = (tid / 32) * 16;
-  const size_t row0 = (size_t)b * L;
-  const size_t bh = (size_t)b * H + h;
-  const int col_h = h * DH;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  // 1. qu, qv, dO tiles (zeros past L).
-  for (int i = tid; i < TQ * DH / 8; i += THREADS) {
-    const int r = i / 8, c = (i % 8) * 8, q = q0 + r;
-    uint4 xu = zero, xv = zero, xd = zero;
-    if (q < L) {
-      const size_t off = (row0 + q) * D + col_h + c;
-      xu = *reinterpret_cast<const uint4*>(qu + off);
-      xv = *reinterpret_cast<const uint4*>(qv + off);
-      xd = *reinterpret_cast<const uint4*>(dout + off);
-    }
-    *reinterpret_cast<uint4*>(s_q + r * QS + c) = xu;
-    *reinterpret_cast<uint4*>(s_qv + r * KS + c) = xv;
-    *reinterpret_cast<uint4*>(s_do + r * KS + c) = xd;
-  }
-  __syncthreads();
-  uint32_t qa[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) load_a(qa[kk], s_qv, KS, wr, kk * 16, g, t);
-
-  // 2. alpha and beta into s_q, as K1 computes them.
-  const bf16* whh = wh + (size_t)h * DH * D;
-  for (int c0 = 0; c0 < D2; c0 += 64) {
-    __syncthreads();
-    for (int i = tid; i < DH * 8; i += THREADS) {
-      const int d = i / 8, x = (i % 8) * 8;
-      const bf16* w = whh + (size_t)d * D + c0 + x;
-      store_column(s_a, KS, x, d, *reinterpret_cast<const uint4*>(w));
-      store_column(s_b, KS, x, d, *reinterpret_cast<const uint4*>(w + D2));
-    }
-    __syncthreads();
-    float as[8][4], ac[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) as[n][e] = ac[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, s_a, KS, n * 8, kk * 16, g, t);
-        mma(as[n], qa[kk], b0, b1);
-        load_b(b0, b1, s_b, KS, n * 8, kk * 16, g, t);
-        mma(ac[n], qa[kk], b0, b1);
-      }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = wr + g + 8 * (e / 2), q = q0 + row;
-        const int x = c0 + n * 8 + 2 * t + (e % 2);
-        float sq = 0.f, cq = 0.f;
-        if (q < L) {
-          sq = __bfloat162float(sin_t[(size_t)q * D2 + x]);
-          cq = __bfloat162float(cos_t[(size_t)q * D2 + x]);
-        }
-        const float a_s = as[n][e], a_c = ac[n][e];
-        s_q[row * QS + DH + x] = __float2bfloat16_rn(a_s * sq + a_c * cq);
-        s_q[row * QS + DH + D2 + x] = __float2bfloat16_rn(-a_s * cq + a_c * sq);
-      }
-  }
-  __syncthreads();
-  bf16* abh = ab + bh * L * D;
-  for (int i = tid; i < TQ * D / 8; i += THREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8, q = q0 + r;
-    if (q < L)
-      *reinterpret_cast<uint4*>(abh + (size_t)q * D + c) =
-          *reinterpret_cast<const uint4*>(s_q + r * QS + DH + c);
-  }
-
-  // 3. Two sweeps over the keys. The first sums delta = sum_j p . dp per row,
-  // as the JAX kernel does; dO . O would take K1's bf16-rounded p_drop (at
-  // rate 0.1 a lone p = 1 becomes 1.109375, not 1.1111) and bias delta
-  // wherever p piles onto a few keys. The second forms ds (kept in s_ds) and
-  // dqu += ds . k.
-  uint32_t dof[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) load_a(dof[kk], s_do, KS, wr, kk * 16, g, t);
-  float m_r[2], l_r[2], dl_r[2] = {0.f, 0.f};
-  bool ok_r[2];
-  uint32_t rh[2] = {0u, 0u};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = wr + g + 8 * r, q = q0 + row;
-    ok_r[r] = q < L;
-    m_r[r] = ok_r[r] ? a.stats[(bh * L + q) * 2] : 0.f;
-    l_r[r] = ok_r[r] ? fmaxf(a.stats[(bh * L + q) * 2 + 1], 1e-9f) : 1.f;
-    if (DROP) rh[r] = row_hash(a.seed, b, h, q, a.tq);
-  }
-  const int len = min(a.lengths[b], L);
-  float s[8][4], dov[8][4];
-  for (int j0 = 0; j0 < L; j0 += TK) {
-    score_tile(a, s_q, s_a, s_v, s_kt, dof, j0, b, h, s, dov);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e / 2, key = j0 + n * 8 + 2 * t + (e % 2);
-        const float sc = mask_score(s[n][e], key, len, L);
-        const float p = ok_r[r] ? expf(sc - m_r[r]) / l_r[r] : 0.f;
-        float dp = dov[n][e];
-        if (DROP) dp = keep(rh[r], key, a.thresh) ? dp * a.inv_keep : 0.f;
-        dl_r[r] += p * dp;
-      }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {  // the four lanes of a row hold its partials
-    dl_r[r] += __shfl_xor_sync(0xffffffffu, dl_r[r], 1);
-    dl_r[r] += __shfl_xor_sync(0xffffffffu, dl_r[r], 2);
-    const int q = q0 + wr + g + 8 * r;
-    if (t == 0 && q < L) delta_buf[bh * L + q] = dl_r[r];
-  }
-  float dq[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-
-  for (int j0 = 0; j0 < L; j0 += TK) {
-    score_tile(a, s_q, s_a, s_v, s_kt, dof, j0, b, h, s, dov);
-    uint32_t pds[4][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e / 2, key = j0 + n * 8 + 2 * t + (e % 2);
-        const float sc = mask_score(s[n][e], key, len, L);
-        const float p = ok_r[r] ? expf(sc - m_r[r]) / l_r[r] : 0.f;
-        float dp = dov[n][e];
-        if (DROP) dp = keep(rh[r], key, a.thresh) ? dp * a.inv_keep : 0.f;
-        ds[e] = p * (dp - dl_r[r]);
-      }
-      pds[n / 2][2 * (n % 2)] = pack(ds[0], ds[1]);
-      pds[n / 2][2 * (n % 2) + 1] = pack(ds[2], ds[3]);
-      *reinterpret_cast<uint32_t*>(s_ds + (wr + g) * DSS + j0 + n * 8 + 2 * t) =
-          pds[n / 2][2 * (n % 2)];
-      *reinterpret_cast<uint32_t*>(s_ds + (wr + g + 8) * DSS + j0 + n * 8 +
-                                   2 * t) = pds[n / 2][2 * (n % 2) + 1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, s_kt, KS, n * 8, kk * 16, g, t);
-        mma(dq[n], pds[kk], b0, b1);
-      }
-  }
-  bf16* dqu = static_cast<bf16*>(a.dqu);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int q = q0 + wr + g + 8 * r;
-    if (q >= L) continue;
-    bf16* dst = dqu + (row0 + q) * D + col_h + 2 * t;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<uint32_t*>(dst + n * 8) = pack(dq[n][2 * r], dq[n][2 * r + 1]);
-  }
-
-  // 4. dalpha, dbeta = ds . [cos | sin], 64 columns at a time -> da in s_q.
-  for (int c0 = 0; c0 < D2; c0 += 64) {
-    float da[8][4], db[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) da[n][e] = db[n][e] = 0.f;
-    for (int j0 = 0; j0 < LK; j0 += TK) {
-      __syncthreads();
-      for (int i = tid; i < TK * 8; i += THREADS) {
-        const int j = i / 8, x = (i % 8) * 8, key = j0 + j;
-        uint4 xc = zero, xs = zero;
-        if (key < L) {
-          xc = *reinterpret_cast<const uint4*>(cos_t + (size_t)key * D2 + c0 + x);
-          xs = *reinterpret_cast<const uint4*>(sin_t + (size_t)key * D2 + c0 + x);
-        }
-        store_column(s_a, KS, x, j, xc);   // [column][key]
-        store_column(s_b, KS, x, j, xs);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t af[4];
-        load_a(af, s_ds, DSS, wr, j0 + kk * 16, g, t);
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          uint32_t b0, b1;
-          load_b(b0, b1, s_a, KS, n * 8, kk * 16, g, t);
-          mma(da[n], af, b0, b1);
-          load_b(b0, b1, s_b, KS, n * 8, kk * 16, g, t);
-          mma(db[n], af, b0, b1);
-        }
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = wr + g + 8 * (e / 2), q = q0 + row;
-        const int x = c0 + n * 8 + 2 * t + (e % 2);
-        float sq = 0.f, cq = 0.f;
-        if (q < L) {
-          sq = __bfloat162float(sin_t[(size_t)q * D2 + x]);
-          cq = __bfloat162float(cos_t[(size_t)q * D2 + x]);
-        }
-        s_q[row * QS + DH + x] = __float2bfloat16_rn(da[n][e] * sq - db[n][e] * cq);
-        s_q[row * QS + DH + D2 + x] =
-            __float2bfloat16_rn(da[n][e] * cq + db[n][e] * sq);
-      }
-  }
-
-  // 5. dqv = da . wh^T (wh[h] is stored [d][x]: the B operand as it is).
-  float dqv[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqv[n][e] = 0.f;
-  for (int x0 = 0; x0 < D; x0 += 64) {
-    __syncthreads();
-    for (int i = tid; i < DH * 8; i += THREADS) {
-      const int d = i / 8, c = (i % 8) * 8;
-      *reinterpret_cast<uint4*>(s_a + d * KS + c) =
-          *reinterpret_cast<const uint4*>(whh + (size_t)d * D + x0 + c);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t af[4];
-      load_a(af, s_q, QS, wr, DH + x0 + kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, s_a, KS, n * 8, kk * 16, g, t);
-        mma(dqv[n], af, b0, b1);
-      }
-    }
-  }
-  bf16* dqv_out = static_cast<bf16*>(a.dqv);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int q = q0 + wr + g + 8 * r;
-    if (q >= L) continue;
-    bf16* dst = dqv_out + (row0 + q) * D + col_h + 2 * t;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<uint32_t*>(dst + n * 8) =
-          pack(dqv[n][2 * r], dqv[n][2 * r + 1]);
-  }
-
-  // 6. This CTA's dwh partial qv^T . da (64 x D), fp32, to scratch. Warp w
-  // owns d rows 16w..16w+15; both operands are read transposed.
-  float* pt = part + (bh * gridDim.x + blockIdx.x) * (size_t)DH * D;
-  for (int x0 = 0; x0 < D; x0 += 64) {
-    float acc[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t af[4];
-      load_a_t(af, s_qv, KS, wr, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b0, b1;
-        load_b_t(b0, b1, s_q + DH, QS, x0 + n * 8, kk * 16, g, t);
-        mma(acc[n], af, b0, b1);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int d = wr + g + 8 * r, x = x0 + n * 8 + 2 * t;
-        *reinterpret_cast<float2*>(pt + (size_t)d * D + x) =
-            make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
-      }
-  }
-}
-
-template <bool DROP>
-__global__ void __launch_bounds__(THREADS)
-k_pass(BwdArgs a, const bf16* __restrict__ ab,
-       const float* __restrict__ delta_buf) {
-  const int L = a.L, H = a.H, D = H * DH, D2 = D / 2, QS = DH + D + 8;
-  extern __shared__ uint4 smem_k[];
-  bf16* s_k = reinterpret_cast<bf16*>(smem_k);  // TK x QS [k | cos | sin]
-  bf16* s_a = s_k + TK * QS;                    // query-side chunk [q][64]
-  bf16* s_qu = s_a + 64 * KS;                   // qu tile [q][d]
-  bf16* s_do = s_qu + 64 * KS;                  // dO tile [q][d]
-  float* s_st = reinterpret_cast<float*>(s_do + 64 * KS);  // TQ x (m, l, delta)
-  uint32_t* s_rh = reinterpret_cast<uint32_t*>(s_st + 3 * TQ);
-
-  const bf16* qu = static_cast<const bf16*>(a.qu);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
-  const bf16* sin_t = static_cast<const bf16*>(a.sin_t);
-  const bf16* cos_t = static_cast<const bf16*>(a.cos_t);
-  const bf16* dout = static_cast<const bf16*>(a.dout);
-
-  const int k0 = blockIdx.x * TK, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int wr = (tid / 32) * 16;
-  const size_t row0 = (size_t)b * L;
-  const size_t bh = (size_t)b * H + h;
-  const int col_h = h * DH;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  // 1. This tile's keys: [k | cos | sin] in s_k, v fragments in registers.
-  const int w8 = (DH + D) / 8;
-  for (int i = tid; i < TK * w8; i += THREADS) {
-    const int j = i / w8, c = (i % w8) * 8, key = k0 + j;
-    uint4 x = zero;
-    if (key < L) {
-      if (c < DH)
-        x = *reinterpret_cast<const uint4*>(k + (row0 + key) * D + col_h + c);
-      else if (c < DH + D2)
-        x = *reinterpret_cast<const uint4*>(cos_t + (size_t)key * D2 + c - DH);
-      else
-        x = *reinterpret_cast<const uint4*>(sin_t + (size_t)key * D2 + c - DH - D2);
-    }
-    *reinterpret_cast<uint4*>(s_k + j * QS + c) = x;
-  }
-  for (int i = tid; i < TK * DH / 8; i += THREADS) {
-    const int j = i / 8, c = (i % 8) * 8, key = k0 + j;
-    uint4 x = zero;
-    if (key < L)
-      x = *reinterpret_cast<const uint4*>(v + (row0 + key) * D + col_h + c);
-    *reinterpret_cast<uint4*>(s_a + j * KS + c) = x;
-  }
-  __syncthreads();
-  uint32_t va[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) load_a(va[kk], s_a, KS, wr, kk * 16, g, t);
-
-  const int len = min(a.lengths[b], L);
-  int kj[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) kj[r] = k0 + wr + g + 8 * r;
-  float dk[8][4], dv[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  const bf16* abh = ab + bh * L * D;
-  const int n_chunks = 1 + D / 64;
-
-  // 2. Query tiles.
-  for (int q0 = 0; q0 < L; q0 += TQ) {
-    __syncthreads();
-    for (int i = tid; i < TQ * DH / 8; i += THREADS) {
-      const int r = i / 8, c = (i % 8) * 8, q = q0 + r;
-      uint4 xu = zero, xd = zero;
-      if (q < L) {
-        const size_t off = (row0 + q) * D + col_h + c;
-        xu = *reinterpret_cast<const uint4*>(qu + off);
-        xd = *reinterpret_cast<const uint4*>(dout + off);
-      }
-      *reinterpret_cast<uint4*>(s_qu + r * KS + c) = xu;
-      *reinterpret_cast<uint4*>(s_do + r * KS + c) = xd;
-    }
-    if (tid < TQ) {
-      const int q = q0 + tid;
-      const bool ok = q < L;
-      s_st[3 * tid] = ok ? a.stats[(bh * L + q) * 2] : 0.f;
-      s_st[3 * tid + 1] = ok ? fmaxf(a.stats[(bh * L + q) * 2 + 1], 1e-9f) : 1.f;
-      s_st[3 * tid + 2] = ok ? delta_buf[bh * L + q] : 0.f;
-      s_rh[tid] = DROP ? row_hash(a.seed, b, h, q, a.tq) : 0u;
-    }
-    // s^T = [k | cos | sin] . [qu | alpha | beta]^T (keys x queries)
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      if (ch > 0) {
-        __syncthreads();
-        for (int i = tid; i < TQ * 8; i += THREADS) {
-          const int r = i / 8, c = (i % 8) * 8, q = q0 + r;
-          uint4 x = zero;
-          if (q < L)
-            x = *reinterpret_cast<const uint4*>(abh + (size_t)q * D + (ch - 1) * 64 + c);
-          *reinterpret_cast<uint4*>(s_a + r * KS + c) = x;
-        }
-      }
-      __syncthreads();
-      const bf16* bsrc = ch == 0 ? s_qu : s_a;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t af[4];
-        load_a(af, s_k, QS, wr, ch * 64 + kk * 16, g, t);
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          uint32_t b0, b1;
-          load_b(b0, b1, bsrc, KS, n * 8, kk * 16, g, t);
-          mma(s[n], af, b0, b1);
-        }
-      }
-    }
-    // (dO . v^T)^T = v . dO^T
-    float dov[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dov[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, s_do, KS, n * 8, kk * 16, g, t);
-        mma(dov[n], va[kk], b0, b1);
-      }
-    uint32_t pa[4][4], dsa[4][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      float pv[4], dsv[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kj[e / 2], il = n * 8 + 2 * t + (e % 2), q = q0 + il;
-        const float sc = mask_score(s[n][e], key, len, L);
-        const float p = q < L ? expf(sc - s_st[3 * il]) / s_st[3 * il + 1] : 0.f;
-        float dp = dov[n][e], pd = p;
-        if (DROP) {
-          const bool kp = keep(s_rh[il], key, a.thresh);
-          dp = kp ? dp * a.inv_keep : 0.f;
-          pd = kp ? p * a.inv_keep : 0.f;
-        }
-        dsv[e] = p * (dp - s_st[3 * il + 2]);
-        pv[e] = pd;
-      }
-      pa[n / 2][2 * (n % 2)] = pack(pv[0], pv[1]);
-      pa[n / 2][2 * (n % 2) + 1] = pack(pv[2], pv[3]);
-      dsa[n / 2][2 * (n % 2)] = pack(dsv[0], dsv[1]);
-      dsa[n / 2][2 * (n % 2) + 1] = pack(dsv[2], dsv[3]);
-    }
-    // dv += p_drop^T . dO, dk += ds^T . qu (dO, qu read transposed)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b0, b1;
-        load_b_t(b0, b1, s_do, KS, n * 8, kk * 16, g, t);
-        mma(dv[n], pa[kk], b0, b1);
-        load_b_t(b0, b1, s_qu, KS, n * 8, kk * 16, g, t);
-        mma(dk[n], dsa[kk], b0, b1);
-      }
-  }
-  bf16* dk_out = static_cast<bf16*>(a.dk);
-  bf16* dv_out = static_cast<bf16*>(a.dv);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (kj[r] >= L) continue;
-    const size_t off = (row0 + kj[r]) * D + col_h + 2 * t;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      *reinterpret_cast<uint32_t*>(dk_out + off + n * 8) =
-          pack(dk[n][2 * r], dk[n][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dv_out + off + n * 8) =
-          pack(dv[n][2 * r], dv[n][2 * r + 1]);
-    }
-  }
-}
-
-// dwh[h] = sum over (batch row, query tile) of the partials, in fixed order.
-__global__ void reduce_dwh(const float* __restrict__ part, bf16* __restrict__ dwh,
-                           int B, int H, int nq, int n) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x, h = blockIdx.y;
-  if (idx >= n) return;
-  float acc = 0.f;
-  for (int b = 0; b < B; ++b)
-    for (int qt = 0; qt < nq; ++qt)
-      acc += part[(((size_t)b * H + h) * nq + qt) * n + idx];
-  dwh[(size_t)h * n + idx] = __float2bfloat16_rn(acc);
-}
-
-struct Scratch {
-  bf16* ab;
-  float* delta;
-  float* part;
+struct QMaps {                // q_pass: K1's operands
+  CUtensorMap qu, qv;         // (B, L, D), 64-row boxes
+  CUtensorMap k, v;           // (B, L, D), BN-row boxes
+  CUtensorMap wh;             // (H*64, D), 64-row boxes
+  CUtensorMap cos_t, sin_t;   // (L, D/2), BN-row boxes
+};
+struct KMaps {                // k_pass
+  CUtensorMap ds, pd;         // (B*H, L, L) scratch, 64-row boxes
+  CUtensorMap qu, dout;       // (B, L, D), 64-row boxes
+};
+struct AMaps {                // da_pass
+  CUtensorMap ds;             // (B*H, L, L), 64-row boxes
+  CUtensorMap cos_t, sin_t;   // (L, D/2), 64-row boxes
+  CUtensorMap wh;             // (H*64, D), 64-row boxes
+};
+struct WMaps {                // dwh_pass
+  CUtensorMap qv;             // (B, L, D), 64-row boxes
+  CUtensorMap da;             // (B*H, L, D) scratch, 64-row boxes
 };
 
-inline size_t scratch_layout(int B, int L, int H, char* base, Scratch* s) {
-  const size_t D = (size_t)H * DH, nq = (L + TQ - 1) / TQ;
-  const size_t n_ab = align256(sizeof(bf16) * B * H * L * D);
-  const size_t n_delta = align256(sizeof(float) * B * H * L);
-  const size_t n_part = align256(sizeof(float) * B * H * nq * DH * D);
-  if (s != nullptr) {
-    s->ab = reinterpret_cast<bf16*>(base);
-    s->delta = reinterpret_cast<float*>(base + n_ab);
-    s->part = reinterpret_cast<float*>(base + n_ab + n_delta);
+__device__ __forceinline__ void init_ring(uint32_t full, uint32_t empty,
+                                          int stages, int releasers) {
+  for (int i = 0; i < stages; ++i) {
+    bar_init(full + 8 * i, 1);
+    bar_init(empty + 8 * i, releasers);
   }
-  return n_ab + n_delta + n_part;
+}
+
+// q_pass's products for one key tile: the scores s = [qu | alpha | beta] .
+// [k | cos | sin]^T (m64n128k16, the query panels against the streamed
+// chunks, as K1) and dov = dO . v^T (dO's A fragments from registers, v
+// K-major), both unmasked, each stage released once its products are done.
+__device__ __forceinline__ void tile_products(QRing& r, uint32_t full,
+                                              uint32_t empty, uint32_t ring,
+                                              uint32_t q_rows, int n_chunks,
+                                              const uint32_t (&dof)[4][4],
+                                              float (&s)[64], float (&dov)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = dov[i] = 0.f;
+  fence_acc(s);
+  fence_acc(dov);
+  int st, prev = -1;
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const uint32_t a = q_rows + ch * PANEL, kt = take(r, full, ring, st);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0>(s, desc_k(a + 32 * kk), desc_k(kt + 32 * kk));
+    wgmma_commit();
+    if (prev >= 0) {
+      wgmma_wait<1>();  // the previous chunk's products are done
+      release(empty, prev);
+    }
+    prev = st;
+  }
+  const uint32_t vt = take(r, full, ring, st);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(dov, dof[kk], desc_k(vt + 32 * kk));
+  wgmma_commit();
+  wgmma_wait<1>();
+  release(empty, prev);
+  wgmma_wait<0>();
+  fence_acc(s);
+  fence_acc(dov);
+  release(empty, st);
+}
+
+// One CTA per (128 query rows, head, batch row). Builds [qu | alpha |
+// beta] as K1 does, then sweeps the keys twice, recomputing the scores and
+// dO . v^T: the first sweep sums delta = sum_j p . dp per row, the second
+// forms ds and p_drop, writes both rounded to bf16 to the (B*H, L, LP)
+// scratch and accumulates dqu += ds . k (k streamed again after v, read
+// MN-major).
+template <bool DROP>
+__global__ void __launch_bounds__(THREADS, 1)
+q_pass(const __grid_constant__ QMaps maps, const BwdArgs a,
+       bf16* __restrict__ ds_out, bf16* __restrict__ pd_out, int LP) {
+  constexpr float LOG2E = 1.4426950408889634f;
+  const int L = a.L, H = a.H, D = H * DH, D2 = D / 2, n_half = D2 / 64;
+  const bf16* sin_t = static_cast<const bf16*>(a.sin_t);
+  const bf16* cos_t = static_cast<const bf16*>(a.cos_t);
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * Q_STAGES + 1];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t q_tile = (raw + 1023u) & ~1023u;
+  uint8_t* q_ptr = smem_raw + (q_tile - raw);
+  const uint32_t ring = q_tile + (1 + D / 64) * PANEL;
+  const uint32_t full = smem_u32(bars), empty = full + 8 * Q_STAGES,
+                 q_full = full + 16 * Q_STAGES;
+
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid / 128;
+  if (tid == 0) {
+    init_ring(full, empty, Q_STAGES, 4 * CONSUMERS);
+    bar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == CONSUMERS * 128) {
+      const int col_h = h * DH;
+      bar_expect(q_full, CONSUMERS * BOX);
+      for (int i = 0; i < CONSUMERS; ++i)
+        tma_3d(q_tile + i * BOX, &maps.qu, q_full, col_h, q0 + 64 * i, b);
+      QRing r;
+      uint2 st = claim(r, full, empty, ring, CONSUMERS * BOX);
+      for (int i = 0; i < CONSUMERS; ++i)
+        tma_3d(st.x + i * BOX, &maps.qv, st.y, col_h, q0 + 64 * i, b);
+      r.next();
+      for (int c = 0; c < n_half; ++c) {
+        st = claim(r, full, empty, ring, 2 * BOX);
+        tma_2d(st.x, &maps.wh, st.y, c * 64, col_h);
+        tma_2d(st.x + BOX, &maps.wh, st.y, D2 + c * 64, col_h);
+        r.next();
+      }
+      // per key tile and sweep: k, the cos chunks, the sin chunks, v, and
+      // in the second sweep k again
+      for (int sweep = 0; sweep < 2; ++sweep)
+        for (int j0 = 0; j0 < L; j0 += BN) {
+          st = claim(r, full, empty, ring, STAGE);
+          tma_3d(st.x, &maps.k, st.y, col_h, j0, b);
+          r.next();
+          for (int c = 0; c < 2 * n_half; ++c) {
+            st = claim(r, full, empty, ring, STAGE);
+            tma_2d(st.x, c < n_half ? &maps.cos_t : &maps.sin_t, st.y,
+                   (c % n_half) * 64, j0);
+            r.next();
+          }
+          st = claim(r, full, empty, ring, STAGE);
+          tma_3d(st.x, &maps.v, st.y, col_h, j0, b);
+          r.next();
+          if (sweep == 1) {
+            st = claim(r, full, empty, ring, STAGE);
+            tma_3d(st.x, &maps.k, st.y, col_h, j0, b);
+            r.next();
+          }
+        }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int r_lo = 16 * ((tid % 128) / 32) + g;  // rows r_lo, r_lo + 8
+    const int qw = q0 + wg * 64;  // this warpgroup's first query row
+    const int wrow = wg * 64;     // ... and its first row in the panels
+    QRing r;
+    int st;
+
+    // 1. a = qv . wh[h] and alpha, beta into the query panels, as K1.
+    const uint32_t qv_tile = take(r, full, ring, st) + wg * BOX;
+    for (int c = 0; c < n_half; ++c) {
+      const uint32_t wh_sin = take(r, full, ring, st), wh_cos = wh_sin + BOX;
+      float as[32], ac[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) as[i] = ac[i] = 0.f;
+      fence_acc(as);
+      fence_acc(ac);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<1>(as, desc_k(qv_tile + 32 * kk), desc_mn(wh_sin + 2048 * kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<1>(ac, desc_k(qv_tile + 32 * kk), desc_mn(wh_cos + 2048 * kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(as);
+      fence_acc(ac);
+      release(empty, st);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = r_lo + 8 * hf, q = qw + row;
+          const int x = c * 64 + j * 8 + 2 * t;
+          float2 sq = make_float2(0.f, 0.f), cq = sq;
+          if (q < L) {
+            sq = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                sin_t + (size_t)q * D2 + x));
+            cq = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                cos_t + (size_t)q * D2 + x));
+          }
+          const float s0 = as[4 * j + 2 * hf], s1 = as[4 * j + 2 * hf + 1];
+          const float c0 = ac[4 * j + 2 * hf], c1 = ac[4 * j + 2 * hf + 1];
+          const int off = (wrow + row) * 128 + ((j ^ (row & 7)) << 4) + 4 * t;
+          *reinterpret_cast<uint32_t*>(q_ptr + (1 + c) * PANEL + off) =
+              pack(s0 * sq.x + c0 * cq.x, s1 * sq.y + c1 * cq.y);
+          *reinterpret_cast<uint32_t*>(q_ptr + (1 + n_half + c) * PANEL + off) =
+              pack(-s0 * cq.x + c0 * sq.x, -s1 * cq.y + c1 * sq.y);
+        }
+    }
+    release(empty, 0);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    bar_wait(q_full, 0);
+
+    // 2. Row statistics of this thread's rows r_lo, r_lo + 8 (K1's max and
+    // sum; rows past L take p = 0), and dO of the warp's 16 rows as the A
+    // fragments of dO . v^T.
+    const int len = min(a.lengths[b], L);
+    const int n_chunks = 1 + D / 64;
+    const uint32_t q_rows = q_tile + wrow * 128;
+    const size_t bh = (size_t)b * H + h;
+    float m_r[2], il_r[2], dl[2] = {0.f, 0.f};
+    bool ok[2];
+    uint32_t rh[2] = {0u, 0u};
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int q = qw + r_lo + 8 * hf;
+      ok[hf] = q < L;
+      m_r[hf] = ok[hf] ? a.stats[(bh * L + q) * 2] : 0.f;
+      il_r[hf] = ok[hf] ? 1.f / fmaxf(a.stats[(bh * L + q) * 2 + 1], 1e-9f) : 0.f;
+      if (DROP) rh[hf] = row_hash(a.seed, b, h, q, a.tq);
+    }
+    const bf16* dout = static_cast<const bf16*>(a.dout);
+    uint32_t dof[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int q = qw + r_lo + 8 * (i % 2);
+        dof[kk][i] = q < L ? ld32(dout + ((size_t)b * L + q) * D + h * DH +
+                                  16 * kk + 8 * (i / 2) + 2 * t)
+                           : 0u;
+      }
+
+    // 3. First sweep: delta = sum_j p . dp in fp32, as the JAX kernel sums
+    // it (dO . O would take K1's bf16-rounded p_drop and leave a residue
+    // where ds is exactly 0, as in a row of length 1).
+    float s[64], dov[64];
+    for (int j0 = 0; j0 < L; j0 += BN) {
+      tile_products(r, full, empty, ring, q_rows, n_chunks, dof, s, dov);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int hf = i / 2, key = j0 + 8 * j + 2 * t + (i % 2);
+          const float sc = mask_score(s[4 * j + i], key, len, L);
+          const float p =
+              ok[hf] ? exp2_approx((sc - m_r[hf]) * LOG2E) * il_r[hf] : 0.f;
+          float dp = dov[4 * j + i];
+          if (DROP) dp = keep(rh[hf], key, a.thresh) ? dp * a.inv_keep : 0.f;
+          dl[hf] += p * dp;
+        }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {  // the quad's four lanes hold a row
+      dl[hf] += __shfl_xor_sync(0xffffffffu, dl[hf], 1);
+      dl[hf] += __shfl_xor_sync(0xffffffffu, dl[hf], 2);
+    }
+
+    // 4. Second sweep: ds = T(p . (dp - delta)) and p_drop = T(keep . p /
+    // (1 - rate)) to scratch; dqu += ds . k.
+    float dq[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+    bf16* ds_row[2];
+    bf16* pd_row[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const size_t off = (bh * L + qw + r_lo + 8 * hf) * (size_t)LP;
+      ds_row[hf] = ds_out + off;
+      pd_row[hf] = pd_out + off;
+    }
+    for (int j0 = 0; j0 < L; j0 += BN) {
+      tile_products(r, full, empty, ring, q_rows, n_chunks, dof, s, dov);
+      uint32_t dsa[8][4];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float dsv[4], pdv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int hf = i / 2, key = j0 + 8 * j + 2 * t + (i % 2);
+          const float sc = mask_score(s[4 * j + i], key, len, L);
+          const float p =
+              ok[hf] ? exp2_approx((sc - m_r[hf]) * LOG2E) * il_r[hf] : 0.f;
+          float dp = dov[4 * j + i], pd = p;
+          if (DROP) {
+            const bool kp = keep(rh[hf], key, a.thresh);
+            dp = kp ? dp * a.inv_keep : 0.f;
+            pd = kp ? p * a.inv_keep : 0.f;
+          }
+          dsv[i] = p * (dp - dl[hf]);
+          pdv[i] = pd;
+        }
+        // keys 16kk.. are column groups 2kk and 2kk + 1 of the A fragments
+        dsa[j / 2][2 * (j % 2)] = pack(dsv[0], dsv[1]);
+        dsa[j / 2][2 * (j % 2) + 1] = pack(dsv[2], dsv[3]);
+        const int key = j0 + 8 * j + 2 * t;  // even; LP > L when L is odd
+        if (key < L) {
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            if (ok[hf]) {
+              *reinterpret_cast<uint32_t*>(ds_row[hf] + key) =
+                  dsa[j / 2][2 * (j % 2) + hf];
+              *reinterpret_cast<uint32_t*>(pd_row[hf] + key) =
+                  pack(pdv[2 * hf], pdv[2 * hf + 1]);
+            }
+        }
+      }
+      const uint32_t kt = take(r, full, ring, st);
+      fence_acc(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) wgmma_rs<1>(dq, dsa[kk], desc_mn(kt + 2048 * kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dq);
+      release(empty, st);
+    }
+    bf16* dqu = static_cast<bf16*>(a.dqu);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int q = qw + r_lo + 8 * hf;
+      if (q >= L) continue;
+      bf16* dst = dqu + ((size_t)b * L + q) * D + h * DH + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + j * 8) =
+            pack(dq[4 * j + 2 * hf], dq[4 * j + 2 * hf + 1]);
+    }
+  }
+}
+
+// One CTA per (128 keys, head, batch row), 64 keys per consumer warpgroup:
+// dk = ds^T . qu and dv = p_drop^T . dO over 64-query tiles of the scratch,
+// the ds and p_drop boxes read MN-major as A (transposed), qu and dO
+// MN-major as B. Query rows past L are zero in every box (TMA's fill).
+__global__ void __launch_bounds__(THREADS, 1)
+k_pass(const __grid_constant__ KMaps maps, const BwdArgs a) {
+  const int L = a.L, D = a.H * DH;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * STAGES];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full = smem_u32(bars), empty = full + 8 * STAGES;
+  const int k0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * a.H + h, tid = threadIdx.x, wg = tid / 128;
+  if (tid == 0) {
+    init_ring(full, empty, STAGES, 4 * CONSUMERS);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    if (tid == CONSUMERS * 128) {
+      Ring r;
+      for (int q0 = 0; q0 < L; q0 += 64) {
+        uint2 st = claim(r, full, empty, ring, STAGE);
+        tma_3d(st.x, &maps.qu, st.y, h * DH, q0, b);
+        tma_3d(st.x + BOX, &maps.dout, st.y, h * DH, q0, b);
+        r.next();
+        for (int m = 0; m < 2; ++m) {  // ds, then p_drop
+          st = claim(r, full, empty, ring, STAGE);
+          for (int i = 0; i < CONSUMERS; ++i)
+            tma_3d(st.x + i * BOX, m == 0 ? &maps.ds : &maps.pd, st.y,
+                   k0 + 64 * i, q0, bh);
+          r.next();
+        }
+      }
+    }
+  } else {
+    const int lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int r_lo = 16 * ((tid % 128) / 32) + g;
+    float dk[32], dv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+    fence_acc(dk);
+    fence_acc(dv);
+    Ring r;
+    int prev[3] = {-1, -1, -1};
+    for (int q0 = 0; q0 < L; q0 += 64) {
+      int cur[3];
+      const uint32_t ops = take(r, full, ring, cur[0]);  // [qu | dO]
+      const uint32_t dst = take(r, full, ring, cur[1]) + wg * BOX;
+      const uint32_t pdt = take(r, full, ring, cur[2]) + wg * BOX;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<1, 1>(dk, desc_mn(dst + 2048 * kk), desc_mn(ops + 2048 * kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<1, 1>(dv, desc_mn(pdt + 2048 * kk),
+                       desc_mn(ops + BOX + 2048 * kk));
+      wgmma_commit();
+      if (prev[0] >= 0) {
+        wgmma_wait<1>();  // the previous tile's products are done
+#pragma unroll
+        for (int i = 0; i < 3; ++i) release(empty, prev[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < 3; ++i) prev[i] = cur[i];
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 3; ++i) release(empty, prev[i]);
+    fence_acc(dk);
+    fence_acc(dv);
+    bf16* dk_out = static_cast<bf16*>(a.dk);
+    bf16* dv_out = static_cast<bf16*>(a.dv);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int key = k0 + wg * 64 + r_lo + 8 * hf;
+      if (key >= L) continue;
+      const size_t off = ((size_t)b * L + key) * D + h * DH + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dk_out + off + j * 8) =
+            pack(dk[4 * j + 2 * hf], dk[4 * j + 2 * hf + 1]);
+        *reinterpret_cast<uint32_t*>(dv_out + off + j * 8) =
+            pack(dv[4 * j + 2 * hf], dv[4 * j + 2 * hf + 1]);
+      }
+    }
+  }
+}
+
+// One CTA per (128 query rows, head, batch row). For each 64 coefficient
+// columns c of the sin and cos halves: [dalpha | dbeta] = ds . [cos | sin]
+// over 64-key tiles (ds K-major as A, the tables MN-major as B), the
+// rotation into da rounded to bf16 (to scratch, for dwh_pass), and dqv +=
+// da . wh^T with da's A fragments from registers and wh[h] K-major.
+__global__ void __launch_bounds__(THREADS, 1)
+da_pass(const __grid_constant__ AMaps maps, const BwdArgs a,
+        bf16* __restrict__ da_out) {
+  const int L = a.L, H = a.H, D = H * DH, D2 = D / 2, n_half = D2 / 64;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * STAGES];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full = smem_u32(bars), empty = full + 8 * STAGES;
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h, tid = threadIdx.x, wg = tid / 128;
+  if (tid == 0) {
+    init_ring(full, empty, STAGES, 4 * CONSUMERS);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    if (tid == CONSUMERS * 128) {
+      Ring r;
+      // per 64 columns: the key tiles' ds and [cos | sin], then wh[h]'s
+      // sin and cos chunks (no stage is held across the key loop)
+      for (int c = 0; c < n_half; ++c) {
+        uint2 st;
+        for (int j0 = 0; j0 < L; j0 += 64) {
+          st = claim(r, full, empty, ring, STAGE);
+          for (int i = 0; i < CONSUMERS; ++i)
+            tma_3d(st.x + i * BOX, &maps.ds, st.y, j0, q0 + 64 * i, bh);
+          r.next();
+          st = claim(r, full, empty, ring, STAGE);
+          tma_2d(st.x, &maps.cos_t, st.y, c * 64, j0);
+          tma_2d(st.x + BOX, &maps.sin_t, st.y, c * 64, j0);
+          r.next();
+        }
+        st = claim(r, full, empty, ring, STAGE);
+        tma_2d(st.x, &maps.wh, st.y, c * 64, h * DH);
+        tma_2d(st.x + BOX, &maps.wh, st.y, D2 + c * 64, h * DH);
+        r.next();
+      }
+    }
+  } else {
+    const bf16* sin_t = static_cast<const bf16*>(a.sin_t);
+    const bf16* cos_t = static_cast<const bf16*>(a.cos_t);
+    const int lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int r_lo = 16 * ((tid % 128) / 32) + g;
+    const int qw = q0 + wg * 64;
+    float dqv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqv[i] = 0.f;
+    fence_acc(dqv);
+    Ring r;
+    int s_w;
+    for (int c = 0; c < n_half; ++c) {
+      float dal[32], dbe[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dal[i] = dbe[i] = 0.f;
+      fence_acc(dal);
+      fence_acc(dbe);
+      int prev_a = -1, prev_t = -1;
+      for (int j0 = 0; j0 < L; j0 += 64) {
+        int s_a, s_t;
+        const uint32_t at = take(r, full, ring, s_a) + wg * BOX;
+        const uint32_t tt = take(r, full, ring, s_t);  // cos | sin
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<1>(dal, desc_k(at + 32 * kk), desc_mn(tt + 2048 * kk));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<1>(dbe, desc_k(at + 32 * kk), desc_mn(tt + BOX + 2048 * kk));
+        wgmma_commit();
+        if (prev_a >= 0) {
+          wgmma_wait<1>();  // the previous tile's products are done
+          release(empty, prev_a);
+          release(empty, prev_t);
+        }
+        prev_a = s_a;
+        prev_t = s_t;
+      }
+      wgmma_wait<0>();
+      release(empty, prev_a);
+      release(empty, prev_t);
+      fence_acc(dal);
+      fence_acc(dbe);
+      // da_s = T(dalpha . sin_q - dbeta . cos_q), da_c = T(dalpha . cos_q +
+      // dbeta . sin_q), as A fragments (columns 16kk.. are groups 2kk and
+      // 2kk + 1) and to scratch
+      uint32_t fs[4][4], fc[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int q = qw + r_lo + 8 * hf, x = c * 64 + 8 * j + 2 * t;
+          float2 sq = make_float2(0.f, 0.f), cq = sq;
+          if (q < L) {
+            sq = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                sin_t + (size_t)q * D2 + x));
+            cq = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                cos_t + (size_t)q * D2 + x));
+          }
+          const float a0 = dal[4 * j + 2 * hf], a1 = dal[4 * j + 2 * hf + 1];
+          const float b0 = dbe[4 * j + 2 * hf], b1 = dbe[4 * j + 2 * hf + 1];
+          const uint32_t us = pack(a0 * sq.x - b0 * cq.x, a1 * sq.y - b1 * cq.y);
+          const uint32_t uc = pack(a0 * cq.x + b0 * sq.x, a1 * cq.y + b1 * sq.y);
+          fs[j / 2][2 * (j % 2) + hf] = us;
+          fc[j / 2][2 * (j % 2) + hf] = uc;
+          if (q < L) {
+            bf16* dst = da_out + ((size_t)bh * L + q) * D + x;
+            *reinterpret_cast<uint32_t*>(dst) = us;
+            *reinterpret_cast<uint32_t*>(dst + D2) = uc;
+          }
+        }
+      const uint32_t wt = take(r, full, ring, s_w);  // wh[h] sin | cos chunk
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(dqv, fs[kk], desc_k(wt + 32 * kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<0>(dqv, fc[kk], desc_k(wt + BOX + 32 * kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      release(empty, s_w);
+    }
+    fence_acc(dqv);
+    bf16* dqv_out = static_cast<bf16*>(a.dqv);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int q = qw + r_lo + 8 * hf;
+      if (q >= L) continue;
+      bf16* dst = dqv_out + ((size_t)b * L + q) * D + h * DH + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + j * 8) =
+            pack(dqv[4 * j + 2 * hf], dqv[4 * j + 2 * hf + 1]);
+    }
+  }
+}
+
+// One CTA per (64 columns of D, head): dwh[h][:, cols] = sum over batch
+// rows and 64-query tiles, in that fixed order, of qv_h^T . da (qv read
+// MN-major as A, da MN-major as B), one consumer warpgroup.
+constexpr int W_THREADS = 256;
+
+__global__ void __launch_bounds__(W_THREADS, 1)
+dwh_pass(const __grid_constant__ WMaps maps, const BwdArgs a) {
+  const int L = a.L, H = a.H, D = H * DH;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * STAGES];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full = smem_u32(bars), empty = full + 8 * STAGES;
+  const int x0 = blockIdx.x * 64, h = blockIdx.y;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    init_ring(full, empty, STAGES, 4);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 128) {
+    if (tid == 128) {
+      Ring r;
+      for (int b = 0; b < a.B; ++b)
+        for (int q0 = 0; q0 < L; q0 += 64) {
+          const uint2 st = claim(r, full, empty, ring, STAGE);
+          tma_3d(st.x, &maps.qv, st.y, h * DH, q0, b);
+          tma_3d(st.x + BOX, &maps.da, st.y, x0, q0, b * H + h);
+          r.next();
+        }
+    }
+  } else {
+    const int lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int r_lo = 16 * (tid / 32) + g;
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    fence_acc(acc);
+    Ring r;
+    int st, prev = -1;
+    for (int b = 0; b < a.B; ++b)
+      for (int q0 = 0; q0 < L; q0 += 64) {
+        const uint32_t tile = take(r, full, ring, st);  // [qv | da]
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<1, 1>(acc, desc_mn(tile + 2048 * kk),
+                         desc_mn(tile + BOX + 2048 * kk));
+        wgmma_commit();
+        if (prev >= 0) {
+          wgmma_wait<1>();  // the previous tile's product is done
+          release(empty, prev);
+        }
+        prev = st;
+      }
+    wgmma_wait<0>();
+    release(empty, prev);
+    fence_acc(acc);
+    bf16* dwh = static_cast<bf16*>(a.dwh);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      bf16* dst = dwh + ((size_t)h * DH + r_lo + 8 * hf) * D + x0 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + j * 8) =
+            pack(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
+    }
+  }
+}
+
+inline int padded_len(int L) { return (L + 7) / 8 * 8; }
+
+struct Scratch {
+  bf16 *ds, *pd, *da;
+};
+
+// ds and p_drop (B*H, L, LP) with rows padded to LP (16-byte TMA strides),
+// da (B*H, L, D).
+inline size_t scratch_layout(int B, int L, int H, char* base, Scratch* s) {
+  const size_t rows = (size_t)B * H * L;
+  const size_t n_sq = align256(sizeof(bf16) * rows * padded_len(L));
+  const size_t n_da = align256(sizeof(bf16) * rows * H * DH);
+  if (s != nullptr) {
+    s->ds = reinterpret_cast<bf16*>(base);
+    s->pd = reinterpret_cast<bf16*>(base + n_sq);
+    s->da = reinterpret_cast<bf16*>(base + 2 * n_sq);
+  }
+  return 2 * n_sq + n_da;
+}
+
+template <class K>
+int set_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 template <bool DROP>
 int launch(const BwdArgs& a, void* scratch, cudaStream_t stream) {
+  const int B = a.B, L = a.L, H = a.H, D = H * DH, D2 = D / 2, LP = padded_len(L);
+  // qv (stage 0) and every wh chunk pair are in q_pass's ring before stage
+  // 0 is released: 1 + D/128 <= Q_STAGES.
+  if (1 + D / 128 > Q_STAGES || D2 % 64 != 0) return cudaErrorInvalidValue;
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
   Scratch s;
-  scratch_layout(a.B, a.L, a.H, static_cast<char*>(scratch), &s);
-  const int nq = (a.L + TQ - 1) / TQ, nk = (a.L + TK - 1) / TK;
-  const size_t smem_q = q_pass_smem(a.L, a.H), smem_k = k_pass_smem(a.H);
-  cudaError_t err = cudaFuncSetAttribute(
-      q_pass<DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      k_pass<DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_k);
-  if (err != cudaSuccess) return err;
-  q_pass<DROP><<<dim3(nq, a.H, a.B), THREADS, smem_q, stream>>>(a, s.ab, s.delta,
-                                                                s.part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  k_pass<DROP><<<dim3(nk, a.H, a.B), THREADS, smem_k, stream>>>(a, s.ab, s.delta);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int n = DH * a.H * DH;
-  reduce_dwh<<<dim3((n + 255) / 256, a.H), 256, 0, stream>>>(
-      s.part, static_cast<bf16*>(a.dwh), a.B, a.H, nq, n);
+  scratch_layout(B, L, H, static_cast<char*>(scratch), &s);
+  const cuuint64_t packed[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t packed_strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
+  const cuuint64_t wh_dims[2] = {(cuuint64_t)D, (cuuint64_t)H * DH};
+  const cuuint64_t wh_strides[1] = {(cuuint64_t)D * 2};
+  const cuuint64_t tab[2] = {(cuuint64_t)D2, (cuuint64_t)L};
+  const cuuint64_t tab_strides[1] = {(cuuint64_t)D2 * 2};
+  const cuuint64_t sq[3] = {(cuuint64_t)L, (cuuint64_t)L, (cuuint64_t)B * H};
+  const cuuint64_t sq_strides[2] = {(cuuint64_t)LP * 2, (cuuint64_t)L * LP * 2};
+  const cuuint64_t da_dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)B * H};
+  QMaps qm;
+  KMaps km;
+  AMaps am;
+  WMaps wm;
+  if (!(encode(fn, &qm.qu, a.qu, 3, packed, packed_strides, 64) &&
+        encode(fn, &qm.qv, a.qv, 3, packed, packed_strides, 64) &&
+        encode(fn, &qm.k, a.k, 3, packed, packed_strides, BN) &&
+        encode(fn, &qm.v, a.v, 3, packed, packed_strides, BN) &&
+        encode(fn, &qm.wh, a.wh, 2, wh_dims, wh_strides, 64) &&
+        encode(fn, &qm.cos_t, a.cos_t, 2, tab, tab_strides, BN) &&
+        encode(fn, &qm.sin_t, a.sin_t, 2, tab, tab_strides, BN) &&
+        encode(fn, &km.ds, s.ds, 3, sq, sq_strides, 64) &&
+        encode(fn, &km.pd, s.pd, 3, sq, sq_strides, 64) &&
+        encode(fn, &km.qu, a.qu, 3, packed, packed_strides, 64) &&
+        encode(fn, &km.dout, a.dout, 3, packed, packed_strides, 64) &&
+        encode(fn, &am.cos_t, a.cos_t, 2, tab, tab_strides, 64) &&
+        encode(fn, &am.sin_t, a.sin_t, 2, tab, tab_strides, 64) &&
+        encode(fn, &wm.da, s.da, 3, da_dims, packed_strides, 64)))
+    return cudaErrorInvalidValue;
+  am.ds = km.ds;
+  am.wh = qm.wh;
+  wm.qv = qm.qv;
+  const size_t smem_q = 1024 + (size_t)(1 + D / 64) * PANEL + (size_t)Q_STAGES * STAGE;
+  const size_t smem_r = 1024 + (size_t)STAGES * STAGE;
+  int err;
+  if ((err = set_smem(q_pass<DROP>, smem_q)) || (err = set_smem(k_pass, smem_r)) ||
+      (err = set_smem(da_pass, smem_r)) || (err = set_smem(dwh_pass, smem_r)))
+    return err;
+  const dim3 rows((L + BM - 1) / BM, H, B);
+  q_pass<DROP><<<rows, THREADS, smem_q, stream>>>(qm, a, s.ds, s.pd, LP);
+  if ((err = cudaGetLastError())) return err;
+  k_pass<<<rows, THREADS, smem_r, stream>>>(km, a);
+  if ((err = cudaGetLastError())) return err;
+  da_pass<<<rows, THREADS, smem_r, stream>>>(am, a, s.da);
+  if ((err = cudaGetLastError())) return err;
+  dwh_pass<<<dim3(D / 64, H), W_THREADS, smem_r, stream>>>(wm, a);
   return cudaGetLastError();
 }
 
-}  // namespace tensor_core
+}  // namespace hopper
 
 // ---------------------------------------------------------------------------
 // float32: CUDA-core FMAs, ds and p_drop materialised.
@@ -1086,27 +1195,11 @@ extern "C" const char* sincos_attention_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The longest L sincos_attention_bwd takes at H heads on the current device:
-// bfloat16's query pass keeps ds for every key in shared memory. -1 when
-// the device cannot be queried.
-extern "C" int sincos_attention_bwd_max_len(int H, int dtype) {
-  if (dtype == 0) return INT_MAX;
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return -1;
-  if (tensor_core::k_pass_smem(H) > (size_t)optin) return 0;
-  int L = 0;
-  while (tensor_core::q_pass_smem(L + TK, H) <= (size_t)optin) L += TK;
-  return L;
-}
-
 // Bytes of device scratch sincos_attention_bwd needs for these shapes.
 extern "C" long long sincos_attention_bwd_scratch_bytes(int B, int L, int H,
                                                         int dtype) {
   if (dtype == 0) return (long long)cuda_core::scratch_layout(B, L, H, nullptr, nullptr);
-  return (long long)tensor_core::scratch_layout(B, L, H, nullptr, nullptr);
+  return (long long)hopper::scratch_layout(B, L, H, nullptr, nullptr);
 }
 
 // qu, qv, k, v, dout, dqu, dqv, dk, dv: (B, L, H*64); wh, dwh:
@@ -1114,8 +1207,8 @@ extern "C" long long sincos_attention_bwd_scratch_bytes(int B, int L, int H,
 // 1 = bfloat16), contiguous, 16-byte aligned, on the current device.
 // lengths: (B,) int32; stats: (B, H, L, 2) float32 from the forward;
 // scratch: sincos_attention_bwd_scratch_bytes bytes. Dropout as in the
-// forward (thresh 0: none). L at most sincos_attention_bwd_max_len(H,
-// dtype). Returns a cudaError_t.
+// forward (thresh 0: none). bfloat16 takes H*64 <= 512. Returns a
+// cudaError_t.
 extern "C" int sincos_attention_bwd(
     const void* qu, const void* qv, const void* k, const void* v,
     const void* wh, const void* sin_t, const void* cos_t, const void* lengths,
@@ -1133,7 +1226,7 @@ extern "C" int sincos_attention_bwd(
     return drop ? cuda_core::launch<true>(a, scratch, s)
                 : cuda_core::launch<false>(a, scratch, s);
   if (dtype == 1)
-    return drop ? tensor_core::launch<true>(a, scratch, s)
-                : tensor_core::launch<false>(a, scratch, s);
+    return drop ? hopper::launch<true>(a, scratch, s)
+                : hopper::launch<false>(a, scratch, s);
   return cudaErrorInvalidValue;
 }

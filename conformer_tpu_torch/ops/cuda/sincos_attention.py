@@ -289,6 +289,16 @@ sincos_attention_fwd.launches = 0
 sincos_attention_fwd.dropout_launches = 0   # of those, with dropout (K1-drop)
 
 
+def bwd_scratch_bytes(b: int, l: int, h: int, dtype) -> int:
+    """Bytes of device scratch K2 takes at these shapes, as its library
+    computes them (bf16: ds and p_drop (B*H, L, L) and da (B*H, L, D), so
+    they grow with L^2 and not in shared memory)."""
+    size = build.load("sincos_attention_bwd").sincos_attention_bwd_scratch_bytes
+    size.restype = ctypes.c_longlong
+    size.argtypes = [ctypes.c_int] * 4
+    return int(size(b, l, h, _DTYPE_CODES[dtype]))
+
+
 def sincos_attention_bwd(qu, qv, k, v, wh, lengths, sin_t, cos_t, stats,
                          dout, rate: float = 0.0, seed: int = 0, tq: int = 0):
     """Kernel wrapper (K2): same arguments and result as
@@ -304,27 +314,15 @@ def sincos_attention_bwd(qu, qv, k, v, wh, lengths, sin_t, cos_t, stats,
     dev, dt = qu.device, qu.dtype
     _check("dout", dout, (b, l, d), dt, dev)
     _check("stats", stats, (b, h, l, 2), torch.float32, dev)
+    if dt == torch.bfloat16 and d > 512:
+        raise ValueError(f"the bfloat16 attention backward keeps K1's "
+                         f"128-row query tile of width 64 + D in shared "
+                         f"memory and takes D <= 512; got D = {d}")
     thresh, inv_keep, seed32, tq = _dropout_args(rate, seed, tq, l)
     lib = build.load("sincos_attention_bwd")
-    max_len = lib.sincos_attention_bwd_max_len
-    max_len.restype = ctypes.c_int
-    max_len.argtypes = [ctypes.c_int] * 2
-    with torch.cuda.device(dev):
-        limit = max_len(h, code)
-    if limit < 0:
-        raise RuntimeError(f"cannot query the shared memory of {dev}")
-    if l > limit:
-        raise ValueError(
-            f"the {dt} attention backward keeps ds for every key in shared "
-            f"memory and takes L <= {limit} at H = {h} on this device; "
-            f"got L = {l}")
     dqu, dqv, dk, dv = (torch.empty_like(qu) for _ in range(4))
     dwh = torch.empty_like(wh)
-    size = lib.sincos_attention_bwd_scratch_bytes
-    size.restype = ctypes.c_longlong
-    size.argtypes = [ctypes.c_int] * 4
-    # Scratch: the library says how many bytes it needs for these shapes.
-    scratch = torch.empty(int(size(b, l, h, code)), dtype=torch.uint8,
+    scratch = torch.empty(bwd_scratch_bytes(b, l, h, dt), dtype=torch.uint8,
                           device=dev)
     run = lib.sincos_attention_bwd
     run.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4

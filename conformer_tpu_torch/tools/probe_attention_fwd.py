@@ -3,9 +3,10 @@
     python -m conformer_tpu_torch.tools.probe_attention_fwd
 
 Builds variants of ``csrc/sincos_attention.cu`` into ``build/probe/``, each
-the source with one constant or statement changed (the port never loads
-them), and times each through the port's wrapper at B 8, H 8, D 512, bf16,
-L 199 and 599, with and without dropout:
+the source or its shared header ``csrc/hopper.cuh`` with one constant or
+statement changed (the port never loads them), and times each through the
+port's wrapper at B 8, H 8, D 512, bf16, L 199 and 599, with and without
+dropout:
 
 - ``kernel``: the source as it is (two consumer warpgroups, 128-row tiles);
 - ``rows64``: one consumer warpgroup, so 64-row query tiles;
@@ -24,7 +25,6 @@ from __future__ import annotations
 import ctypes
 import json
 import math
-import shutil
 import subprocess
 from typing import Dict
 
@@ -53,24 +53,40 @@ VARIANTS = {
 }
 
 
-def build_variants() -> Dict[str, ctypes.CDLL]:
-    """Write and compile every variant, all nvcc processes at once."""
-    text = (build.CSRC / f"{NAME}.cu").read_text()
+def variant_sources(name: str = NAME, variants: Dict[str, list] = VARIANTS
+                    ) -> Dict[str, Dict[str, str]]:
+    """-> {variant: {file name: text}} of csrc/<name>.cu and the headers. An
+    edit (old, new) or (old, new, count) changes the one file that holds
+    `old`, which must occur `count` times (default once) in all of them."""
+    texts = {path.name: path.read_text()
+             for path in [build.CSRC / f"{name}.cu",
+                          *sorted(build.CSRC.glob("*.cuh"))]}
+    out = {}
+    for variant, edits in variants.items():
+        files = dict(texts)
+        for old, new, *count in edits:
+            found = {f: t.count(old) for f, t in files.items() if old in t}
+            if sum(found.values()) != (count[0] if count else 1) or len(found) != 1:
+                raise RuntimeError(f"{variant}: {old!r} occurs {found}")
+            (f,) = found
+            files[f] = files[f].replace(old, new)
+        out[variant] = files
+    return out
+
+
+def build_variants(name: str = NAME, variants: Dict[str, list] = VARIANTS
+                   ) -> Dict[str, ctypes.CDLL]:
+    """Write and compile every variant into build/probe/<name>/<variant>/,
+    all nvcc processes at once."""
     jobs = {}
-    for variant, edits in VARIANTS.items():
-        src = text
-        for old, new in edits:
-            if src.count(old) != 1:
-                raise RuntimeError(f"{variant}: {old!r} is not in {NAME}.cu once")
-            src = src.replace(old, new)
-        out_dir = build.BUILD_DIR / "probe" / variant
+    for variant, files in variant_sources(name, variants).items():
+        out_dir = build.BUILD_DIR / "probe" / name / variant
         out_dir.mkdir(parents=True, exist_ok=True)
-        for header in build.CSRC.glob("*.cuh"):
-            shutil.copy(header, out_dir / header.name)
-        (out_dir / f"{NAME}.cu").write_text(src)
-        lib = out_dir / f"lib{NAME}.so"
+        for f, text in files.items():
+            (out_dir / f).write_text(text)
+        lib = out_dir / f"lib{name}.so"
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-               str(out_dir / f"{NAME}.cu")]
+               str(out_dir / f"{name}.cu")]
         jobs[variant] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True),
                          lib)

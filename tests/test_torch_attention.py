@@ -123,18 +123,23 @@ def test_plain_forward_with_dropout_matches_pallas_interpret(b, l, h, dh, tq,
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
 
 
+@pytest.mark.parametrize("l,h,lengths,tq", [
+    (50, 2, [50, 20, 0], 32),
+    # past 768, the longest L the card's bf16 backward once took at H 8
+    (800, 1, [731], 128),
+])
 @pytest.mark.parametrize("rate", [0.0, 0.3])
-def test_plain_backward_matches_jax_vjp(rate):
+def test_plain_backward_matches_jax_vjp(rate, l, h, lengths, tq):
     """The autograd Function's plain path (plain forward, plain backward)
     against jax.vjp of the interpret-mode kernels, including the gradient
     of the (D, D) position kernel through prep_pos_kernel; atol 1e-5 as
     tests/test_pallas.py::test_fused_backward_parity."""
-    h, dh, l = 2, 64, 50
-    lengths = np.array([50, 20, 0], np.int32)
-    qu, qv, k, v, kernel = _inputs(3, l, h, dh, seed=11)
+    dh = 64
+    lengths = np.array(lengths, np.int32)
+    qu, qv, k, v, kernel = _inputs(len(lengths), l, h, dh, seed=11)
     g = np.random.default_rng(12).standard_normal(qu.shape).astype(np.float32)
     scale = 1.0 / np.sqrt(dh)
-    _, vjp = _packed_call(rate, 32, lengths, qu, qv, k, v, kernel, h, scale)
+    _, vjp = _packed_call(rate, tq, lengths, qu, qv, k, v, kernel, h, scale)
     jgrads = vjp(jnp.asarray(g))
     j_kernel = jax.vjp(lambda K: jsa.prep_pos_kernel(K, h),
                        jnp.asarray(kernel))[1](jgrads[4])[0]
@@ -142,7 +147,7 @@ def test_plain_backward_matches_jax_vjp(rate):
     before = launch_counts()
     out = tsa.rel_attention_sincos_packed(
         *ts[:4], tsa.prep_pos_kernel(ts[4], h), torch.from_numpy(lengths),
-        scale, dropout_rate=rate, seed=7, tq=32)
+        scale, dropout_rate=rate, seed=7, tq=tq)
     (out * torch.from_numpy(g)).sum().backward()
     assert launch_counts() == before                   # CPU: no launch
     for got, want in zip(ts, [*jgrads[:4], j_kernel]):

@@ -210,6 +210,52 @@ def test_chip_smoke_holds_each_attention_gradient_slice_to_its_own_scale():
                                                                       rel=1e-3)
 
 
+def test_chip_smoke_same_bits_tells_one_flipped_bit():
+    """chip_smoke's determinism check compares K2's gradients as bits: one
+    flipped low bit fails it, NaNs in the same places pass, and -0.0 is not
+    0.0."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    g = torch.Generator().manual_seed(1)
+    grads = (torch.randn(2, 5, 8, generator=g).to(torch.bfloat16),
+             torch.randn(2, 4, 8, generator=g))
+    grads[1][0, 0, 0] = float("nan")
+    same = tuple(x.clone() for x in grads)
+    assert chip_smoke.same_bits(torch, grads, same)
+    flipped = same[1].clone()
+    flipped.view(torch.int32)[1, 2, 3] ^= 1                # one ulp of fp32
+    assert torch.allclose(flipped, same[1], equal_nan=True)
+    assert not chip_smoke.same_bits(torch, grads, (same[0], flipped))
+    low = same[0].clone()
+    low.view(torch.int16)[0, 0, 0] ^= 1                   # one ulp of bf16
+    assert not chip_smoke.same_bits(torch, grads, (low, same[1]))
+    zeros = torch.zeros(3)
+    assert not chip_smoke.same_bits(torch, (zeros,), (-zeros,))
+    assert not chip_smoke.same_bits(torch, grads, grads[:1])
+
+
+@pytest.mark.parametrize("probe", ["probe_attention_fwd",
+                                   "probe_attention_bwd"])
+def test_attention_probe_variants_edit_the_current_sources(probe):
+    """Each probe variant's text edits apply to the committed sources and
+    headers (each edit where it names its count), and only the kernel
+    variant is the source unchanged; nothing is compiled here."""
+    import importlib
+
+    from conformer_tpu_torch.tools import probe_attention_fwd as fwd
+
+    mod = importlib.import_module(f"conformer_tpu_torch.tools.{probe}")
+    sources = fwd.variant_sources(mod.NAME, mod.VARIANTS)
+    assert set(sources) == set(mod.VARIANTS)
+    for variant, files in sources.items():
+        assert f"{mod.NAME}.cu" in files and "hopper.cuh" in files
+        changed = [f for f in files if files[f] != sources["kernel"][f]]
+        assert bool(changed) == (variant != "kernel"), variant
+
+
 def test_chip_smoke_times_sdpa_under_each_backend_that_takes_the_call(
         monkeypatch):
     """chip_smoke's yardstick: SDPA is set up and timed under each backend,
