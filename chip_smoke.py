@@ -17,9 +17,13 @@ Phases, each printing one JSON line:
               and, where one exists, the one PyTorch call that computes the
               same function (SDPA under each backend that takes it, the
               fastest as the yardstick); bf16 K2 at L 768, 769 and
-              L_LONG, and two K2 calls that must give the same bits;
-              K4a at L 2400; K5's per-pass slopes through
-              ``conformer_tpu_torch.tools.bench_vpu_pass.main``.
+              L_LONG, and two K2 calls that must give the same bits; the
+              general attention kernels at GENERAL_SHAPES in both dtypes,
+              GENERAL_WIDE in bf16 and the tiny phase's shape GENERAL_TINY
+              in bf16; K4a at L 2400, at K 7 and 4, and
+              on inputs chosen for bf16 rounding ties and subnormals; K3's
+              reading on a loud tone over faint noise; K5's per-pass slopes
+              through ``conformer_tpu_torch.tools.bench_vpu_pass.main``.
    tolerance -- K1 and K2 again over 8 more seeds: each check's largest
               reading beside its limit.
 3. model   -- the production Config() model (17 blocks, d_model 512, 8
@@ -43,6 +47,9 @@ Phases, each printing one JSON line:
               ``cli.test.main(... --device cuda)`` (WER, CER, loss, results
               CSV), again through the plain versions (the loss must agree),
               and the validation WAVs served through ``cli.infer``.
+7. tiny     -- ``ModelConfig.tiny`` (d_model 64, 2 heads of 32) trained 2
+              steps through ``cli.train`` and served through ``cli.infer``
+              on the card: every attention launch on the general kernels.
 
 Then the card's name and power limit, the ``kernels`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
@@ -63,10 +70,11 @@ import time
 from unittest import mock
 
 PHASES = ("build", "kernels", "tolerance", "model", "serve", "train",
-          "evaluate")
+          "evaluate", "tiny")
 OPTIONAL_PHASES = ("profile",)
 # Published dense peaks of one H100 SXM (NVIDIA data sheet) at 700 W.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_TF32 = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 TOL_K1 = {"float32": 1e-4, "bfloat16": 3e-2}
 # K2, per gradient: max |kernel - plain| over each (batch row, head) slice
@@ -169,12 +177,13 @@ def phase_build():
 # Phase 2: kernels against their plain versions.
 # ---------------------------------------------------------------------------
 
-def _attention_inputs(torch, b: int, l: int, dtype, seed: int):
-    """Packed attention operands at H = 8, dh = 64, D = 512, scale folded
-    into qu/qv, key lengths full, partial and 0."""
+def _attention_inputs(torch, b: int, l: int, dtype, seed: int, h: int = 8,
+                      dh: int = 64):
+    """Packed attention operands (production width H = 8, dh = 64, D = 512
+    by default), scale folded into qu/qv, key lengths full, partial and
+    0."""
     from conformer_tpu_torch.ops.cuda import sincos_attention as sa
 
-    h, dh = 8, 64
     d = h * dh
     gen = torch.Generator().manual_seed(seed)
     mk = lambda *s: torch.randn(*s, generator=gen)
@@ -212,14 +221,19 @@ def _augmented(torch, args):
 
 
 def k1_case(torch, b: int, l: int, dtype, seed: int, time_it: bool,
-            rate: float = 0.0):
-    """K1 at (b, l), H = 8, dh = 64, D = 512; output and row statistics."""
+            rate: float = 0.0, h: int = 8, dh: int = 64):
+    """K1 at (b, l, h, dh), production width by default; output and row
+    statistics, and the kernel the selector picked (its launch counted in
+    that kernel's counter)."""
     from conformer_tpu_torch.ops.cuda import sincos_attention as sa
 
-    h, dh, d = 8, 64, 512
-    args, _ = _attention_inputs(torch, b, l, dtype, seed)
+    d = h * dh
+    args, _ = _attention_inputs(torch, b, l, dtype, seed, h, dh)
     drop = (rate, DROPOUT_SEED, sa.hash_tq(l))
+    variant = sa.attention_variant(dtype, h, dh, d)
+    general_before = sa.sincos_attention_fwd.general_launches
     got, got_st = sa.sincos_attention_fwd(*args, *drop, stats=True)
+    general = sa.sincos_attention_fwd.general_launches - general_before
     want, want_st = sa.sincos_attention_plain(*args, *drop, stats=True)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
@@ -228,10 +242,12 @@ def k1_case(torch, b: int, l: int, dtype, seed: int, time_it: bool,
                    .max())
     finite = bool(torch.isfinite(got.float()).all())
     name = "bfloat16" if dtype == torch.bfloat16 else "float32"
-    case = {"b": b, "l": l, "dtype": name, "rate": rate, "max_abs_err": err,
+    case = {"b": b, "l": l, "h": h, "dh": dh, "dtype": name, "rate": rate,
+            "variant": variant, "max_abs_err": err,
             "tolerance": TOL_K1[name], "stats_rel_err": st_err,
             "stats_tolerance": TOL_STATS[name], "finite": finite,
-            "ok": finite and err <= TOL_K1[name] and st_err <= TOL_STATS[name]}
+            "ok": (finite and err <= TOL_K1[name] and st_err <= TOL_STATS[name]
+                   and general == (variant == "general"))}
     if time_it:
         itemsize = torch.tensor([], dtype=dtype).element_size()
         flops = 2.0 * b * h * l * l * (dh + d + dh) + 2.0 * b * h * l * dh * d
@@ -273,20 +289,23 @@ def k2_rel_err(got, want, key: str, h: int) -> float:
 
 
 def k2_case(torch, b: int, l: int, dtype, seed: int, rate: float,
-            time_it: bool):
-    """K2 against its plain version, each gradient held per slice
-    (k2_rel_err), and two controls that must exceed the limit: the kernel's
-    gradients with slice (batch row 0, a full row; head 0) scaled by
-    1 + 2 * limit, and, with dropout, the plain backward under another
+            time_it: bool, h: int = 8, dh: int = 64):
+    """K2 at (b, l, h, dh) against its plain version, each gradient held per
+    slice (k2_rel_err), and two controls that must exceed the limit: the
+    kernel's gradients with slice (batch row 0, a full row; head 0) scaled
+    by 1 + 2 * limit, and, with dropout, the plain backward under another
     seed."""
     from conformer_tpu_torch.ops.cuda import sincos_attention as sa
 
-    h, dh, d = 8, 64, 512
-    args, dout = _attention_inputs(torch, b, l, dtype, seed)
+    d = h * dh
+    args, dout = _attention_inputs(torch, b, l, dtype, seed, h, dh)
     drop = (rate, DROPOUT_SEED, sa.hash_tq(l))
+    variant = sa.attention_variant(dtype, h, dh, d)
     out, stats = sa.sincos_attention_fwd(*args, *drop, stats=True)
     bwd_args = (*args, stats, dout, *drop)
+    general_before = sa.sincos_attention_bwd.general_launches
     got = sa.sincos_attention_bwd(*bwd_args)
+    general = sa.sincos_attention_bwd.general_launches - general_before
     want = sa.sincos_attention_bwd_plain(*bwd_args)
     torch.cuda.synchronize()
     name = "bfloat16" if dtype == torch.bfloat16 else "float32"
@@ -305,12 +324,13 @@ def k2_case(torch, b: int, l: int, dtype, seed: int, rate: float,
         controls["other_seed"] = max(k2_rel_err(g_, o_, key, h) for key, g_, o_
                                      in zip(K2_GRADS, got, other))
     finite = all(bool(torch.isfinite(g_.float()).all()) for g_ in got)
-    case = {"b": b, "l": l, "dtype": name, "rate": rate, "max_abs_err": err,
-            "rel_err": rel,
+    case = {"b": b, "l": l, "h": h, "dh": dh, "dtype": name, "rate": rate,
+            "variant": variant, "max_abs_err": err, "rel_err": rel,
             "max_rel_err": max(rel.values()), "tolerance": tol,
             "controls": controls, "finite": finite,
             "ok": (finite and max(rel.values()) <= tol
-                   and min(controls.values()) > tol)}
+                   and min(controls.values()) > tol
+                   and general == (variant == "general"))}
     if time_it:
         itemsize = torch.tensor([], dtype=dtype).element_size()
         flops = (2.0 * b * h * l * l * (2 * d + 5 * dh)
@@ -350,7 +370,7 @@ def k2_case(torch, b: int, l: int, dtype, seed: int, rate: float,
             "library_fwd_bwd_ms": both[best_both],
             "library_fwd_bwd_backends_ms": both,
             "bound_ms": bms, "bound_by": by,
-            "scratch_bytes": sa.bwd_scratch_bytes(b, l, h, dtype),
+            "scratch_bytes": sa.bwd_scratch_bytes(b, l, h, dh, dtype),
         })
     return case
 
@@ -368,8 +388,44 @@ def k2_long_lengths(torch):
              k2_case(torch, 2, L_LONG, torch.bfloat16, seed=42, rate=0.1,
                      time_it=False)]
     return {"cases": cases, "scratch_bytes_l%d_b2" % L_LONG:
-            sa.bwd_scratch_bytes(2, L_LONG, 8, torch.bfloat16),
+            sa.bwd_scratch_bytes(2, L_LONG, 8, 64, torch.bfloat16),
             "ok": all(c["ok"] for c in cases)}
+
+
+# The general attention kernels' check shapes, (H, dh): ModelConfig.tiny,
+# head widths other than 64, odd head counts, D/2 not a multiple of 64; in
+# fp32 and bf16. bf16 also at (12, 64), D 768, past the wgmma kernels' 512.
+GENERAL_SHAPES = ((2, 32), (3, 16), (4, 32), (3, 64))
+GENERAL_WIDE = (12, 64)
+# Two lengths: a ragged 64-row tile and three 64-key tiles with a ragged
+# last one; batch rows of full, length - 1 and half length.
+GENERAL_LENGTHS = (77, 199)
+# The shape the tiny phase gives them: its 23.5 s batch, ModelConfig.tiny's
+# width in bf16, B 8 with ragged rows.
+GENERAL_TINY = (8, 599, 2, 32)
+
+
+def general_attention_cases(torch):
+    """K1 and K2 through their general kernels at every GENERAL_SHAPES shape
+    (fp32, bf16) and GENERAL_WIDE (bf16), rates 0 and 0.1, B 3, and at
+    GENERAL_TINY in bf16, against the plain versions with the limits of the
+    production cases; the bf16 cases at L 199 and GENERAL_TINY's at rate
+    0.1 are timed (kernel, plain, bound, SDPA). -> (K1 cases, K2 cases)."""
+    shapes = [(h, dh, dt) for h, dh in GENERAL_SHAPES
+              for dt in (torch.float32, torch.bfloat16)]
+    shapes.append((*GENERAL_WIDE, torch.bfloat16))
+    runs = [(3, l, h, dh, dt, rate, dt == torch.bfloat16 and l == 199
+             and rate == 0.1, 300 + 10 * i + l % 7 + int(rate * 10))
+            for i, (h, dh, dt) in enumerate(shapes)
+            for l in GENERAL_LENGTHS for rate in (0.0, 0.1)]
+    b, l, h, dh = GENERAL_TINY
+    runs += [(b, l, h, dh, torch.bfloat16, rate, rate > 0, 400 + i)
+             for i, rate in enumerate((0.0, 0.1))]
+    k1, k2 = [], []
+    for b, l, h, dh, dt, rate, time_it, seed in runs:
+        k1.append(k1_case(torch, b, l, dt, seed, time_it, rate, h, dh))
+        k2.append(k2_case(torch, b, l, dt, seed, rate, time_it, h, dh))
+    return k1, k2
 
 
 def same_bits(torch, first, second) -> bool:
@@ -418,12 +474,12 @@ def k3_case(torch, b: int, n_samples: int, seed: int, time_it: bool):
     n_frames = n_samples // cfg.hop_length + 1
     args = (padded, fe._dft, fe._fb, cfg.hop_length, cfg.n_fft, n_frames,
             cfg.log_clamp_min)
-    got = mf.logmel_fwd(*args)
+    got = mf.logmel_fwd(*args, operands=fe._k3)
     want = mf.logmel_plain(*args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     finite = bool(torch.isfinite(got).all())
-    case = {"b": b, "n_frames": n_frames, "frames_in_last_tile": n_frames % 64,
+    case = {"b": b, "n_frames": n_frames, "frames_in_last_tile": n_frames % 128,
             "max_abs_err": err, "tolerance": TOL_K3, "finite": finite,
             "ok": finite and err <= TOL_K3}
     if time_it:
@@ -431,15 +487,50 @@ def k3_case(torch, b: int, n_samples: int, seed: int, time_it: bool):
         flops = 2.0 * b * n_frames * (cfg.n_fft * 2 * n_bins + n_bins * n_mels)
         nbytes = 4.0 * (padded.numel() + fe._dft.numel() + fe._fb.numel()
                         + b * n_frames * n_mels)
-        bms, by = bound_ms(flops, nbytes, "float32")
+        fma_ms, _ = bound_ms(flops, nbytes, "float32")
+        # fp32 accuracy at the least cost: three TF32 products per fp32 one
+        # on the tensor cores, as the kernel does it
+        ops_ms = 3 * flops / PEAK_TF32 * 1e3
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        tf32_ms = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
         case.update({
-            "ms": cuda_ms(torch, lambda: mf.logmel_fwd(*args)),
+            "ms": cuda_ms(torch, lambda: mf.logmel_fwd(*args,
+                                                       operands=fe._k3)),
             "plain_ms": cuda_ms(torch, lambda: mf.logmel_plain(*args)),
             # No single PyTorch call computes frame+DFT+mel+log.
             "library_ms": None,
-            "bound_ms": bms, "bound_by": by,
+            "bound_ms": min(tf32_ms, fma_ms), "bound_by": by,
+            "bound_ops": "3xTF32" if tf32_ms <= fma_ms else "fp32 FMA",
+            "bound_fp32_fma_ms": fma_ms,
         })
     return case
+
+
+def k3_tone_reading(torch):
+    """K3 on a loud tone over faint noise (bins ~80 dB apart in a frame),
+    B 2, 24 s: the largest |kernel - plain| of the log-mels, reported beside
+    TOL_K3 and not gated (both sum in fp32, in other orders)."""
+    from conformer_tpu_torch.audio.mel import MelFrontend, reflect_pad
+    from conformer_tpu_torch.config import AudioConfig
+    from conformer_tpu_torch.ops.cuda import mel_frontend as mf
+
+    cfg = AudioConfig()
+    fe = MelFrontend(cfg, device=DEVICE)
+    n = 24 * 16000
+    gen = torch.Generator().manual_seed(13)
+    tone = 0.5 * torch.sin(torch.arange(n) * (2 * math.pi * 440.0 / 16000))
+    audio = torch.stack([tone + 1e-4 * torch.randn(n, generator=gen),
+                         tone]).to(DEVICE)
+    padded = reflect_pad(audio, cfg.n_fft // 2).contiguous()
+    args = (padded, fe._dft, fe._fb, cfg.hop_length, cfg.n_fft,
+            n // cfg.hop_length + 1, cfg.log_clamp_min)
+    diff = (mf.logmel_fwd(*args, operands=fe._k3)
+            - mf.logmel_plain(*args)).abs()
+    return {"max_abs_err": float(diff.max()),
+            "p99_abs_err": float(diff.flatten().kthvalue(
+                int(0.99 * diff.numel())).values),
+            "tolerance_of_the_gated_cases": TOL_K3}
 
 
 def _dtype_name(torch, dtype) -> str:
@@ -462,28 +553,63 @@ def _conv_inputs(torch, b: int, l: int, c: int, k: int, dtype, seed: int):
         DEVICE, dtype), mk(c), mk(b, l, c)
 
 
+# Values that put K4a's bf16 products and sums on rounding ties and into
+# bf16's subnormals (2^-133 .. 2^-126): x * w lands on half-ulps (1 + 2^-8
+# after an add of 2^-8 to 1), on exact subnormals (2^-130 * 0.5) and below
+# the smallest one (2^-133 * 0.5 = 2^-134, a tie between 0 and 2^-133).
+TIE_X = (0.0, 1.0, 1.5, 1.0 + 2 ** -7, 2 ** -4, 3 * 2 ** -9, 2 ** -8,
+         2 ** -126, 2 ** -130, 2 ** -133, 3 * 2 ** -133, 2 ** 100)
+TIE_W = (1.0, 0.5, 0.75, 2 ** -4, 1.0 + 2 ** -7, 2 ** -7, 3.0, 2 ** -100)
+
+
+def _tie_inputs(torch, b: int, l: int, c: int, k: int, seed: int):
+    """bf16 x, w, bias drawn from TIE_X, TIE_W, TIE_X with random signs."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(pool, *shape):
+        vals = torch.tensor(pool, dtype=torch.float32)
+        pick = vals[torch.randint(len(pool), shape, generator=gen)]
+        sign = torch.randint(2, shape, generator=gen) * 2 - 1
+        return (pick * sign).to(DEVICE, torch.bfloat16)
+
+    return draw(TIE_X, b, l, c), draw(TIE_W, k, c), draw(TIE_X, c)
+
+
 def k4a_case(torch, b: int, l: int, dtype, seed: int, time_it: bool,
-             c: int = 512, k: int = 31):
-    """K4a at (b, l, c), k taps, same pad: equal to its plain version."""
+             c: int = 512, k: int = 31, ties: bool = False):
+    """K4a at (b, l, c), k taps, same pad, against its plain version: bf16
+    bit for bit (the same bits, signed zeros included), fp32 within
+    TOL_K4A_ULPS; ``ties``: bf16 inputs from _tie_inputs."""
     import torch.nn.functional as F
 
     from conformer_tpu_torch.ops.cuda import depthwise_conv as dc
 
-    x, w, bias, _ = _conv_inputs(torch, b, l, c, k, dtype, seed)
+    if ties:
+        x, w, bias = _tie_inputs(torch, b, l, c, k, seed)
+    else:
+        x, w, bias, _ = _conv_inputs(torch, b, l, c, k, dtype, seed)
     pad = (k - 1) // 2
+    variant = dc.conv_variant(dtype, k, c)
     before = dc.depthwise_conv_fwd.launches
+    window_before = dc.depthwise_conv_fwd.window_launches
     got = dc.depthwise_conv_fwd(x, w, bias, pad)
     launched = dc.depthwise_conv_fwd.launches - before
+    window = dc.depthwise_conv_fwd.window_launches - window_before
     want = dc.depthwise_conv_plain(x, w, bias, pad)
     torch.cuda.synchronize()
     finite = bool(torch.isfinite(got.float()).all())
     ulp = ulps(torch, got, want)
-    case = {"b": b, "l": l, "c": c, "k": k, "dtype": _dtype_name(torch, dtype),
-            "equal": bool(torch.equal(got, want)),
+    bits = same_bits(torch, (got,), (want,))
+    name = _dtype_name(torch, dtype)
+    case = {"b": b, "l": l, "c": c, "k": k, "dtype": name, "ties": ties,
+            "variant": variant, "equal": bool(torch.equal(got, want)),
+            "same_bits": bits,
             "max_abs_err": float((got.float() - want.float()).abs().max()),
             "max_ulps": ulp, "tolerance_ulps": TOL_K4A_ULPS,
             "launched": launched, "finite": finite,
-            "ok": finite and launched == 1 and ulp <= TOL_K4A_ULPS}
+            "ok": (finite and launched == 1
+                   and window == (variant == "window")
+                   and (bits if name == "bfloat16" else ulp <= TOL_K4A_ULPS))}
     if time_it:
         itemsize = x.element_size()
         flops = 2.0 * b * l * c * k
@@ -624,28 +750,40 @@ def phase_kernels(torch):
     here); prints the phase line."""
     shapes = [(199, torch.float32), (599, torch.float32),
               (199, torch.bfloat16), (599, torch.bfloat16)]
-    k1_cases = [k1_case(torch, 8, l, dt, seed=i, time_it=(dt == torch.bfloat16))
+    # bf16 timed at both lengths, fp32 (the general kernels at production
+    # width) at L 599
+    timed = lambda l, dt: dt == torch.bfloat16 or l == 599
+    k1_cases = [k1_case(torch, 8, l, dt, seed=i, time_it=timed(l, dt))
                 for i, (l, dt) in enumerate(shapes)]
     k1_drop = [k1_case(torch, 8, l, dt, seed=20 + i, rate=0.1,
-                       time_it=(dt == torch.bfloat16))
+                       time_it=timed(l, dt))
                for i, (l, dt) in enumerate(shapes)]
     k1_edges = [k1_case(torch, 8, l, torch.bfloat16, seed=80 + i, rate=rate,
                         time_it=False)
                 for i, l in enumerate(K1_EDGE_LENGTHS) for rate in (0.0, 0.1)]
     k2_cases = [k2_case(torch, 8, l, dt, seed=30 + i, rate=rate,
-                        time_it=(dt == torch.bfloat16))
+                        time_it=timed(l, dt))
                 for i, (l, dt) in enumerate(shapes) for rate in (0.0, 0.1)]
     long_k2 = k2_long_lengths(torch)
     deterministic = k2_determinism(torch)
+    k1_general, k2_general = general_attention_cases(torch)
     k3_cases = [k3_case(torch, 8, 16 * 16000, seed=10, time_it=True),
                 k3_case(torch, 8, 24 * 16000, seed=11, time_it=True),
                 k3_case(torch, 3, 7321 * 17, seed=12, time_it=False)]
+    k3_tone = k3_tone_reading(torch)
     conv_shapes = [(l, dt) for dt in (torch.float32, torch.bfloat16)
                    for l in (199, 599)]
     k4a_cases = [k4a_case(torch, 8, l, dt, seed=50 + i, time_it=True)
                  for i, (l, dt) in enumerate(conv_shapes)]
     # past the JAX kernel's 12 MB VMEM budget, where it falls back to XLA
     k4a_long = k4a_case(torch, 8, 2400, torch.float32, seed=55, time_it=False)
+    # the runtime-K kernel (K 7 in ModelConfig.tiny, 4 in the dx check) and
+    # rounding ties and subnormals through the window kernel, bit for bit
+    k4a_other = [k4a_case(torch, 8, 599, torch.bfloat16, seed=56 + k,
+                          time_it=False, k=k) for k in (7, 4)]
+    k4a_ties = [k4a_case(torch, 8, l, torch.bfloat16, seed=58 + k,
+                         time_it=False, k=k, ties=True)
+                for l, k in ((599, 31), (199, 7))]
     k4b_cases = [k4b_case(torch, 8, l, dt, seed=60 + i, time_it=True)
                  for i, (l, dt) in enumerate(conv_shapes)]
     k4_grads = [k4_grad_case(torch, k, dt, seed=70 + k)
@@ -657,14 +795,19 @@ def phase_kernels(torch):
           "sincos_attention_bwd": k2_cases,
           "sincos_attention_bwd_long": long_k2,
           "sincos_attention_bwd_determinism": deterministic,
-          "logmel_fwd": k3_cases,
+          "sincos_attention_fwd_general": k1_general,
+          "sincos_attention_bwd_general": k2_general,
+          "logmel_fwd": k3_cases, "logmel_fwd_tone": k3_tone,
           "depthwise_conv_fwd": k4a_cases,
           "depthwise_conv_fwd_l2400": k4a_long,
+          "depthwise_conv_fwd_other_k": k4a_other,
+          "depthwise_conv_fwd_ties": k4a_ties,
           "depthwise_conv_dw": k4b_cases, "depthwise_conv1d_grads": k4_grads,
           "vpu_pass": k5})
     bad = [c for c in k1_cases + k1_drop + k1_edges + k2_cases
-           + [long_k2, deterministic] + k3_cases
-           + k4a_cases + [k4a_long] + k4b_cases + k4_grads + [k5]
+           + [long_k2, deterministic] + k1_general + k2_general + k3_cases
+           + k4a_cases + [k4a_long] + k4a_other + k4a_ties + k4b_cases
+           + k4_grads + [k5]
            if not c["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
@@ -673,6 +816,10 @@ def phase_kernels(torch):
     pick = lambda case, **extra: {**{k: case[k] for k in keys if k in case},
                                   **extra}
     main_k2 = k2_cases[7]            # bf16, L 599, rate 0.1: the 24 s train batch
+    # the general kernels at the tiny phase's shape, rate 0.1
+    tiny_k1, tiny_k2 = (next(c for c in cases if "ms" in c
+                             and (c["b"], c["l"]) == GENERAL_TINY[:2])
+                        for cases in (k1_general, k2_general))
     return [
         {"name": "sincos_attention_fwd", "route": "cuda",
          "source": "conformer_tpu_torch/csrc/sincos_attention.cu",
@@ -690,11 +837,23 @@ def phase_kernels(torch):
          "shape": "B=8 L=599 D=512 H=8 bfloat16 rate=0.1",
          **pick(main_k2),
          "library_fwd_bwd_ms": main_k2["library_fwd_bwd_ms"]},
+        {"name": "sincos_attention_fwd_general", "route": "cuda",
+         "source": "conformer_tpu_torch/csrc/sincos_attention.cu",
+         "replaces": "conformer_tpu/ops/pallas/sincos_attention.py:181",
+         "shape": "B=8 L=599 D=64 H=2 dh=32 bfloat16 rate=0.1",
+         **pick(tiny_k1)},
+        {"name": "sincos_attention_bwd_general", "route": "cuda",
+         "source": "conformer_tpu_torch/csrc/sincos_attention_bwd.cu",
+         "replaces": "conformer_tpu/ops/pallas/sincos_attention.py:254",
+         "shape": "B=8 L=599 D=64 H=2 dh=32 bfloat16 rate=0.1",
+         **pick(tiny_k2)},
         {"name": "logmel_fwd", "route": "cuda",
          "source": "conformer_tpu_torch/csrc/mel_frontend.cu",
          "replaces": "conformer_tpu/ops/pallas/mel_frontend.py:43",
          "shape": "B=8 n_frames=2401 float32",
-         **pick(k3_cases[1])},
+         **pick(k3_cases[1]),
+         "bound_ops": k3_cases[1]["bound_ops"],
+         "bound_fp32_fma_ms": k3_cases[1]["bound_fp32_fma_ms"]},
         {"name": "depthwise_conv_fwd", "route": "cuda",
          "source": "conformer_tpu_torch/csrc/depthwise_conv.cu",
          "replaces": "conformer_tpu/ops/pallas/depthwise_conv.py:39",
@@ -768,7 +927,8 @@ def _plain_versions():
                               sa.sincos_attention_plain),
             mock.patch.object(sa, "sincos_attention_bwd",
                               sa.sincos_attention_bwd_plain),
-            mock.patch.object(mel, "logmel_fwd", mf.logmel_plain),
+            mock.patch.object(mel, "logmel_fwd",
+                              lambda *a, operands: mf.logmel_plain(*a)),
             mock.patch.object(dc, "depthwise_conv_fwd",
                               dc.depthwise_conv_plain),
             mock.patch.object(dc, "depthwise_conv_dw",
@@ -1214,6 +1374,72 @@ def phase_evaluate(torch, tmp: str):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: ModelConfig.tiny through training and serving: the general
+# attention kernels on the main path.
+# ---------------------------------------------------------------------------
+
+def phase_tiny(torch, tmp: str):
+    """ModelConfig.tiny (d_model 64, 2 heads of 32, kernel 7, LSTM 80,
+    attention_impl pallas, bf16) trained for 2 steps through ``cli.train``
+    and served through ``cli.infer``, both with ``--device cuda``; every
+    attention launch goes to the general kernels. -> launch counts."""
+    from conformer_tpu_torch.cli import infer, train
+    from conformer_tpu_torch.config import Config, ModelConfig
+    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from conformer_tpu_torch.ops.cuda import sincos_attention as sa
+
+    cfg = Config(model=ModelConfig.tiny(vocab_size=370))
+    model = cfg.model
+    variant = sa.attention_variant(torch.bfloat16, model.n_heads,
+                                   model.d_model // model.n_heads,
+                                   model.d_model)
+    config = os.path.join(tmp, "tiny.json")
+    cfg.to_json(config)
+    manifest, paths = _write_manifest(tmp, "tiny", TRAIN_SECONDS, seed=3)
+    ck = os.path.join(tmp, "ck_tiny")
+    runs, total = {}, {}
+    for name, fn in (
+            ("train", lambda: train.main(
+                ["--train-manifest", manifest, "--checkpoint-dir", ck,
+                 "--config", config, "--device", DEVICE,
+                 "--set", "data.batch_size=8", "--set", "train.num_steps=2",
+                 "--set", "train.log_every_steps=1",
+                 "--set", "train.num_epochs=100"])),
+            ("serve", lambda: infer.main(
+                ["--audio", *paths[:4], *paths[-4:], "--config", config,
+                 "--device", DEVICE, "--batch-size", "8"]))):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        runs[name] = {"wall_s": time.perf_counter() - t0,
+                      "launches": launch_counts()}
+        for key, n in runs[name]["launches"].items():
+            total[key] = total.get(key, 0) + n
+        if name == "train":
+            steps = out.step
+    with open(os.path.join(ck, "metrics.jsonl"), encoding="utf8") as f:
+        losses = [json.loads(ln)["train/ctc_loss"] for ln in f
+                  if "train/ctc_loss" in ln]
+    t, s_ = runs["train"]["launches"], runs["serve"]["launches"]
+    n_blocks = model.n_blocks
+    ok = (variant == "general" and steps == 2 and len(losses) == 2
+          and all(math.isfinite(x) for x in losses)
+          and t["sincos_attention_fwd"] == 2 * n_blocks
+          and t["sincos_attention_fwd_general"] == 2 * n_blocks
+          and t["sincos_attention_bwd"] == 2 * n_blocks
+          and t["sincos_attention_bwd_general"] == 2 * n_blocks
+          and s_["sincos_attention_fwd"] == s_["sincos_attention_fwd_general"]
+          == n_blocks)
+    emit({"phase": "tiny", "config": "ModelConfig.tiny(370): 2 blocks, "
+          "d_model 64, 2 heads (dh 32), kernel 7, LSTM 80, pallas attention, "
+          "bf16; train 16 WAVs (7.5 s, 23.5 s) for 2 steps, serve 8",
+          "variant": variant, "losses": losses, "runs": runs, "ok": ok})
+    if not ok:
+        raise SystemExit("tiny phase failed")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Optional phase: where the time of one 24 s forward goes.
 # ---------------------------------------------------------------------------
 
@@ -1320,7 +1546,7 @@ def main(argv=None) -> int:
     if "model" in phases:
         phase_model(torch)
     for name, run in (("serve", phase_serve), ("train", phase_train),
-                      ("evaluate", phase_evaluate)):
+                      ("evaluate", phase_evaluate), ("tiny", phase_tiny)):
         if name in phases:
             with tempfile.TemporaryDirectory() as tmp:
                 for key, n in run(torch, tmp).items():

@@ -3,7 +3,7 @@
 // Replaces: conformer_tpu/ops/pallas/sincos_attention.py::_fwd_kernel (with
 // _scores and, at a dropout rate above 0, _dropout_keep: K1-drop), reached
 // through _fwd_call and rel_attention_sincos_packed. Same function, packed
-// (B, L, D) layout with head h in columns [h*64, (h+1)*64):
+// (B, L, D) layout with head h in columns [h*dh, (h+1)*dh):
 //   a      = qv_h . wh[h]                        (TQ, D), fp32 sums
 //   alpha  = T(a_s * sin_q + a_c * cos_q)        (TQ, D/2), rounded to T
 //   beta   = T(-a_s * cos_q + a_c * sin_q)
@@ -77,13 +77,25 @@
 // stages and run in step, so the tensor cores idle through their softmax.
 //
 // Shared memory per CTA: (1 + D/64) * 16 KB of query tile + 80 KB of ring
-// + 1 KB of alignment: 225 KB at D = 512, one CTA per SM. The bf16 kernel
-// takes D <= 512 (H <= 8 at dh 64): the query tile of a wider model does
-// not fit beside the ring, and the launch returns cudaErrorInvalidValue.
+// + 1 KB of alignment: 225 KB at D = 512, one CTA per SM. The wgmma kernel
+// takes bf16 at dh 64 with D/2 a multiple of 64 and D <= 512 (H <= 8): a
+// wider query tile does not fit beside the ring, and the launch returns
+// cudaErrorInvalidValue.
 //
-// float32 (not on the production path): CUDA-core FMAs (16 x 16 threads,
-// 4 x 4 outputs each), one CTA per (64 query rows, head, batch row), so fp32
-// inputs keep fp32 products (TF32 would not hold the fp32 tolerance).
+// Every other shape and dtype (fp32 at any width; bf16 at any dh up to
+// 128, odd H, D/2 not a multiple of 64, D > 512) takes the general kernel
+// (namespace general, not on the production path): CUDA-core FMAs (16 x 16
+// threads, 4 x 4 outputs each), one CTA per (64 query rows, head, batch
+// row), so fp32 inputs keep fp32 products (TF32 would not hold the fp32
+// tolerance). Two launches: prep writes alpha | beta (B, H, L, D) in fp32
+// to scratch, rounded to T; the main kernel streams the virtual score depth
+// [qu | alpha | beta] . [k | cos | sin] in 64-deep chunks of query and key
+// rows, so its shared memory (83 KB at dh 128) does not grow with D, and
+// keeps DHP / 16 value columns per thread. The wrapper picks the kernel
+// from (dtype, H, dh, D) and never falls back to the plain version. Speed
+// was not its aim: at B 3, L 199, bf16, rate 0.1 it takes 0.096 ms at
+// (H, dh) = (2, 32) and 0.688 ms at (12, 64) on an H100 80GB HBM3 at 700 W,
+// 3-15x SDPA on the same augmented operands.
 //
 // Masking follows the JAX kernel exactly: masked keys take the finite
 // float32.min through a select, so a row of length 0 has every score equal
@@ -97,15 +109,13 @@
 namespace {
 
 using namespace attn;
-constexpr int TQ = 64;        // query rows per CTA (float32)
-constexpr int TK = 64;        // keys per tile (float32)
 
 struct FwdArgs {
   const void *qu, *qv, *k, *v, *wh, *sin_t, *cos_t;
   const int* lengths;
   void* out;
   float* stats;  // (B, H, L, 2) [row max, row sum], or null
-  int B, L, H;
+  int B, L, H, dh;
   uint32_t seed, thresh;  // dropout: keep where hash >= thresh
   float inv_keep;         // 1 / (1 - rate)
   int tq;                 // the JAX kernel's q-tile rows, for the hash
@@ -425,13 +435,12 @@ int launch(const FwdArgs& a, cudaStream_t stream) {
 }  // namespace hopper
 
 // ---------------------------------------------------------------------------
-// float32: CUDA-core FMAs.
+// The general kernel: every (H, dh, D) and both dtypes, CUDA-core FMAs.
 // ---------------------------------------------------------------------------
 
-namespace cuda_core {
+namespace general {
 
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int SP = 65;        // padded stride of the 64-wide staging tiles
+using namespace attn::fma_tiles;
 
 __device__ __forceinline__ float max16(float x) {
 #pragma unroll
@@ -445,93 +454,36 @@ __device__ __forceinline__ float sum16(float x) {
   return x;
 }
 
-template <bool DROP>
+// One CTA per (64 query rows, head, batch row). Per 64-key tile: the scores
+// over the virtual depth [qu | alpha | beta] . [k | cos | sin] in 64-deep
+// chunks (query and key chunks staged together), the online softmax, and
+// P . V with the value tile (64 keys x DHP) staged beside the first chunk.
+// alpha | beta come from `ab`, written by prep.
+template <class T, int DHP, bool DROP>
 __global__ void __launch_bounds__(THREADS)
-fwd_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
-           const float* __restrict__ k, const float* __restrict__ v,
-           const float* __restrict__ wh, const float* __restrict__ sin_t,
-           const float* __restrict__ cos_t, const int* __restrict__ lengths,
-           float* __restrict__ out, float* __restrict__ stats, int L, int H,
-           uint32_t seed, uint32_t thresh, float inv_keep, int tq) {
-  const int D = H * DH, D2 = D / 2, QS = DH + D + 1;
+fwd_kernel(const T* __restrict__ qu, const T* __restrict__ k,
+           const T* __restrict__ v, const T* __restrict__ sin_t,
+           const T* __restrict__ cos_t, const float* __restrict__ ab,
+           const int* __restrict__ lengths, T* __restrict__ out,
+           float* __restrict__ stats, int L, int H, int dh, uint32_t seed,
+           uint32_t thresh, float inv_keep, int tq) {
+  constexpr int CPT = DHP / 16;   // value columns per thread
+  constexpr int VS = DHP + 1;     // padded stride of the value tile
+  const int D = H * dh, D2 = D / 2, E = dh + D;
   extern __shared__ float4 smem4[];
-  float* s_q = reinterpret_cast<float*>(smem4);  // TQ x QS: [qu|alpha|beta]
-  float* s_t0 = s_q + TQ * QS;   // key chunk (transposed) | wh sin half
-  float* s_t1 = s_t0 + 64 * SP;  // value tile              | wh cos half
-  float* s_t2 = s_t1 + 64 * SP;  // probability tile        | qv tile
+  float* s_q = reinterpret_cast<float*>(smem4);  // [depth][row]
+  float* s_k = s_q + 64 * SP;                    // [depth][key]
+  float* s_p = s_k + 64 * SP;                    // [row][key]
+  float* s_v = s_p + 64 * SP;                    // [key][VS]
 
   const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const size_t row0 = (size_t)b * L;
-  const int col_h = h * DH;
-
-  // 1. qu into s_q[:, 0:64], qv into s_t2.
-  for (int i = tid; i < TQ * DH; i += THREADS) {
-    const int r = i / DH, d = i % DH, q = q0 + r;
-    float xu = 0.f, xv = 0.f;
-    if (q < L) {
-      const size_t off = (row0 + q) * D + col_h + d;
-      xu = qu[off];
-      xv = qv[off];
-    }
-    s_q[r * QS + d] = xu;
-    s_t2[r * SP + d] = xv;
-  }
-
-  // 2. alpha and beta, 64 coefficient columns at a time.
-  const float* whh = wh + (size_t)h * DH * D;
-  for (int c0 = 0; c0 < D2; c0 += 64) {
-    __syncthreads();
-    for (int i = tid; i < DH * 64; i += THREADS) {
-      const int d = i / 64, x = i % 64;
-      s_t0[d * SP + x] = whh[(size_t)d * D + c0 + x];
-      s_t1[d * SP + x] = whh[(size_t)d * D + D2 + c0 + x];
-    }
-    __syncthreads();
-    float as[4][4], ac[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) as[r][c] = ac[r][c] = 0.f;
-    for (int d = 0; d < DH; ++d) {
-      float qa[4], ws[4], wc[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) qa[r] = s_t2[(ty + 16 * r) * SP + d];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        ws[c] = s_t0[d * SP + tx + 16 * c];
-        wc[c] = s_t1[d * SP + tx + 16 * c];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          as[r][c] = fmaf(qa[r], ws[c], as[r][c]);
-          ac[r][c] = fmaf(qa[r], wc[c], ac[r][c]);
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = ty + 16 * r, q = q0 + row;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int x = c0 + tx + 16 * c;
-        float sq = 0.f, cq = 0.f;
-        if (q < L) {
-          sq = sin_t[(size_t)q * D2 + x];
-          cq = cos_t[(size_t)q * D2 + x];
-        }
-        s_q[row * QS + DH + x] = as[r][c] * sq + ac[r][c] * cq;
-        s_q[row * QS + DH + D2 + x] = -as[r][c] * cq + ac[r][c] * sq;
-      }
-    }
-  }
-
-  // 3. Key tiles with an online softmax.
+  const int col_h = h * dh;
+  const float* abh = ab + ((size_t)b * H + h) * L * D;
   const int len = min(lengths[b], L);
-  const int n_chunks = 1 + D / 64;   // [k | cos (D2/64) | sin (D2/64)]
-  const int cos_chunks = D2 / 64;
-  float m_run[4], l_run[4], acc[4][4];
+
+  float m_run[4], l_run[4], acc[4][CPT];
   uint32_t rh[4];  // dropout hash of this thread's four rows
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -539,7 +491,7 @@ fwd_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
     l_run[r] = 0.f;
     rh[r] = DROP ? row_hash(seed, b, h, q0 + ty + 16 * r, tq) : 0u;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < CPT; ++c) acc[r][c] = 0.f;
   }
 
   for (int j0 = 0; j0 < L; j0 += TK) {
@@ -549,38 +501,30 @@ fwd_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
 
-    for (int ch = 0; ch < n_chunks; ++ch) {
+    for (int e0 = 0; e0 < E; e0 += 64) {
       __syncthreads();
-      for (int i = tid; i < TK * 64; i += THREADS) {
-        const int j = i / 64, d = i % 64, key = j0 + j;
-        float x = 0.f, xv = 0.f;
-        if (key < L) {
-          if (ch == 0) {
-            const size_t off = (row0 + key) * D + col_h + d;
-            x = k[off];
-            xv = v[off];
-          } else if (ch <= cos_chunks) {
-            x = cos_t[(size_t)key * D2 + (ch - 1) * 64 + d];
-          } else {
-            x = sin_t[(size_t)key * D2 + (ch - 1 - cos_chunks) * 64 + d];
-          }
+      for (int i = tid; i < 64 * 64; i += THREADS) {
+        const int j = i / 64, x = i % 64, e = e0 + x;
+        const int q = q0 + j, key = j0 + j;
+        s_q[x * SP + j] =
+            q < L && e < E
+                ? query_elem(qu + (row0 + q) * D + col_h, abh + (size_t)q * D,
+                             e, dh)
+                : 0.f;
+        s_k[x * SP + j] =
+            key < L && e < E
+                ? key_elem(k + (row0 + key) * D + col_h, cos_t, sin_t, key, e,
+                           dh, D2)
+                : 0.f;
+      }
+      if (e0 == 0)
+        for (int i = tid; i < TK * DHP; i += THREADS) {
+          const int j = i / DHP, d = i % DHP, key = j0 + j;
+          s_v[j * VS + d] =
+              key < L && d < dh ? ld(v, (row0 + key) * D + col_h + d) : 0.f;
         }
-        s_t0[d * SP + j] = x;
-        if (ch == 0) s_t1[j * SP + d] = xv;
-      }
       __syncthreads();
-      const float* qa_base = s_q + ch * 64;
-      for (int d = 0; d < 64; ++d) {
-        float qa[4], kb[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) qa[r] = qa_base[(ty + 16 * r) * QS + d];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) kb[c] = s_t0[d * SP + tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) s[r][c] = fmaf(qa[r], kb[c], s[r][c]);
-      }
+      chunk_fma(s, s_q, s_k, ty, tx);
     }
 
 #pragma unroll
@@ -600,23 +544,24 @@ fwd_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
         psum += e;
         if (DROP)
           e = keep(rh[r], j0 + tx + 16 * c, thresh) ? e * inv_keep : 0.f;
-        s_t2[(ty + 16 * r) * SP + tx + 16 * c] = e;
-        acc[r][c] *= corr;
+        s_p[(ty + 16 * r) * SP + tx + 16 * c] = rnd<T>(e);
       }
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) acc[r][c] *= corr;
       l_run[r] = l_run[r] * corr + sum16(psum);
       m_run[r] = m_new;
     }
     __syncthreads();
     for (int j = 0; j < TK; ++j) {
-      float p[4], vv[4];
+      float p[4], vv[CPT];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) p[r] = s_t2[(ty + 16 * r) * SP + j];
+      for (int r = 0; r < 4; ++r) p[r] = s_p[(ty + 16 * r) * SP + j];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) vv[c] = s_t1[j * SP + tx + 16 * c];
+      for (int c = 0; c < CPT; ++c) vv[c] = s_v[j * VS + tx + 16 * c];
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(p[r], vv[c], acc[r][c]);
+        for (int c = 0; c < CPT; ++c) acc[r][c] = fmaf(p[r], vv[c], acc[r][c]);
     }
   }
 
@@ -625,36 +570,62 @@ fwd_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
     const int q = q0 + ty + 16 * r;
     if (q >= L) continue;
     if (stats != nullptr && tx == 0) {
-      float* st = stats + (((size_t)b * H + h) * L + q) * 2;
-      st[0] = m_run[r];
-      st[1] = l_run[r];
+      float* sp = stats + (((size_t)b * H + h) * L + q) * 2;
+      sp[0] = m_run[r];
+      sp[1] = l_run[r];
     }
     const float inv = 1.f / fmaxf(l_run[r], 1e-9f);
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      out[(row0 + q) * D + col_h + tx + 16 * c] = acc[r][c] * inv;
+    for (int c = 0; c < CPT; ++c) {
+      const int d = tx + 16 * c;
+      if (d < dh) st(out, (row0 + q) * D + col_h + d, acc[r][c] * inv);
+    }
   }
 }
 
-template <bool DROP>
-int launch(const FwdArgs& a, cudaStream_t stream) {
-  const int D = a.H * DH;
-  const size_t smem = sizeof(float) * ((size_t)TQ * (DH + D + 1) + 3 * 64 * SP);
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+// alpha | beta (B, H, L, D) fp32.
+inline size_t scratch_bytes(int B, int L, int H, int dh) {
+  return sizeof(float) * (size_t)B * H * L * H * dh;
+}
+
+template <class T, int DHP, bool DROP>
+int run(const FwdArgs& a, float* ab, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (3 * 64 * SP + TK * (DHP + 1));
+  int err = cudaFuncSetAttribute(fwd_kernel<T, DHP, DROP>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+  if (err) return err;
   const dim3 grid((a.L + TQ - 1) / TQ, a.H, a.B);
-  fwd_kernel<DROP><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(a.qu), static_cast<const float*>(a.qv),
-      static_cast<const float*>(a.k), static_cast<const float*>(a.v),
-      static_cast<const float*>(a.wh), static_cast<const float*>(a.sin_t),
-      static_cast<const float*>(a.cos_t), a.lengths,
-      static_cast<float*>(a.out), a.stats, a.L, a.H, a.seed, a.thresh,
-      a.inv_keep, a.tq);
+  fwd_kernel<T, DHP, DROP><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(a.qu), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.sin_t),
+      static_cast<const T*>(a.cos_t), ab, a.lengths, static_cast<T*>(a.out),
+      a.stats, a.L, a.H, a.dh, a.seed, a.thresh, a.inv_keep, a.tq);
   return cudaGetLastError();
 }
 
-}  // namespace cuda_core
+template <class T, bool DROP>
+int launch(const FwdArgs& a, void* scratch, cudaStream_t stream) {
+  float* ab = static_cast<float*>(scratch);
+  int err = cudaFuncSetAttribute(prep<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)PREP_SMEM);
+  if (err) return err;
+  prep<T><<<dim3((a.L + TQ - 1) / TQ, a.H, a.B), THREADS, PREP_SMEM, stream>>>(
+      static_cast<const T*>(a.qv), static_cast<const T*>(a.wh),
+      static_cast<const T*>(a.sin_t), static_cast<const T*>(a.cos_t), ab, a.L,
+      a.H, a.dh);
+  if ((err = cudaGetLastError())) return err;
+  switch (padded_head(a.dh)) {
+    case 16: return run<T, 16, DROP>(a, ab, stream);
+    case 32: return run<T, 32, DROP>(a, ab, stream);
+    case 64: return run<T, 64, DROP>(a, ab, stream);
+    case 128: return run<T, 128, DROP>(a, ab, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace general
 
 }  // namespace
 
@@ -662,29 +633,50 @@ extern "C" const char* sincos_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// qu, qv, k, v, out: (B, L, H*64); wh: (H, 64, H*64); sin_t, cos_t:
-// (L, H*32); all of one dtype (0 = float32, 1 = bfloat16), contiguous and
+// The kernels of sincos_attention_fwd: 0 the bf16 wgmma kernel (namespace
+// hopper; dh 64, D/2 a multiple of 64, D <= 512), 1 the general one.
+enum Variant { WGMMA = 0, GENERAL = 1 };
+
+// Bytes of device scratch sincos_attention_fwd needs for these shapes.
+extern "C" long long sincos_attention_fwd_scratch_bytes(int B, int L, int H,
+                                                        int dh, int variant) {
+  return variant == GENERAL ? (long long)general::scratch_bytes(B, L, H, dh)
+                            : 0;
+}
+
+// qu, qv, k, v, out: (B, L, H*dh); wh: (H, dh, H*dh); sin_t, cos_t:
+// (L, H*dh/2); all of one dtype (0 = float32, 1 = bfloat16), contiguous and
 // 16-byte aligned, on the current device. lengths: (B,) int32. stats: null,
-// or (B, H, L, 2) float32 for each row's max and sum. Dropout keeps an
-// element where its hash is >= thresh (0: no dropout, and no hash work),
-// scaled by inv_keep; seed and tq as the JAX kernel hashes them. H*32 must
-// be a multiple of 64. Returns a cudaError_t.
+// or (B, H, L, 2) float32 for each row's max and sum. scratch:
+// sincos_attention_fwd_scratch_bytes bytes. Dropout keeps an element where
+// its hash is >= thresh (0: no dropout, and no hash work), scaled by
+// inv_keep; seed and tq as the JAX kernel hashes them. variant: WGMMA
+// (bfloat16 only) or GENERAL (dh <= 128). Returns a cudaError_t.
 extern "C" int sincos_attention_fwd(const void* qu, const void* qv,
                                     const void* k, const void* v,
                                     const void* wh, const void* sin_t,
                                     const void* cos_t, const void* lengths,
-                                    void* out, void* stats, int B, int L, int H,
-                                    int dtype, uint32_t seed, uint32_t thresh,
-                                    float inv_keep, int tq, void* stream) {
+                                    void* out, void* stats, void* scratch,
+                                    int B, int L, int H, int dh, int dtype,
+                                    int variant, uint32_t seed,
+                                    uint32_t thresh, float inv_keep, int tq,
+                                    void* stream) {
   const FwdArgs a{qu, qv, k, v, wh, sin_t, cos_t,
                   static_cast<const int*>(lengths), out,
-                  static_cast<float*>(stats), B, L, H, seed, thresh, inv_keep,
-                  tq};
+                  static_cast<float*>(stats), B, L, H, dh, seed, thresh,
+                  inv_keep, tq};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool drop = thresh != 0u;
-  if (dtype == 0)
-    return drop ? cuda_core::launch<true>(a, s) : cuda_core::launch<false>(a, s);
-  if (dtype == 1)
+  if (variant == WGMMA) {
+    if (dtype != 1 || dh != DH) return cudaErrorInvalidValue;
     return drop ? hopper::launch<true>(a, s) : hopper::launch<false>(a, s);
+  }
+  if (variant != GENERAL) return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return drop ? general::launch<float, true>(a, scratch, s)
+                : general::launch<float, false>(a, scratch, s);
+  if (dtype == 1)
+    return drop ? general::launch<bf16, true>(a, scratch, s)
+                : general::launch<bf16, false>(a, scratch, s);
   return cudaErrorInvalidValue;
 }

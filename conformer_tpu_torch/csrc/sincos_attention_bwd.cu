@@ -3,7 +3,7 @@
 //
 // Replaces: conformer_tpu/ops/pallas/sincos_attention.py::_bwd_kernel,
 // reached through _bwd_call and the custom VJP _fused. Packed (B, L, D)
-// layout, head h in columns [h*64, (h+1)*64); the caller has folded the
+// layout, head h in columns [h*dh, (h+1)*dh); the caller has folded the
 // score scale into qu and qv. With s the scores of the forward
 // (sincos_attention.cu), m and l each row's softmax max and sum from K1's
 // `stats`, and keep the forward's dropout mask, regenerated from the hash:
@@ -62,8 +62,9 @@
 // past the length take float32.min, keys past L are -inf, so a row of
 // length 0 has uniform weights in the backward too. p uses ex2.approx with
 // log2 e folded in after s - m, as K1 does. Scratch: 2 * B*H*L*LP + B*H*L*D
-// bf16 (sincos_attention_bwd_scratch_bytes). The bf16 kernels take
-// D <= 512 (q_pass keeps K1's query tile), like K1.
+// bf16 (sincos_attention_bwd_scratch_bytes). These wgmma kernels take
+// bf16 at dh 64, D/2 a multiple of 64 and D <= 512 (q_pass keeps K1's
+// query tile), like K1's.
 // tools/probe_attention_bwd.py times the four launches one by one and the
 // whole beside variants without the products, without the copies and
 // without q_pass's stores. On the H100 at B 8, L 599 no one of them bounds
@@ -73,11 +74,21 @@
 // from L2). A key pass that recomputes the scores instead of reading ds and
 // p_drop (the probe's recompute_k) takes ~5x k_pass's time.
 //
-// float32 (the reference dtype) stays on CUDA-core FMAs, so fp32 inputs keep
-// fp32 products, in a simpler design that materialises ds and p_drop (B, H,
-// L, L) in scratch: prep (alpha | beta), scores (p and dp per 64 x 64 tile),
-// rows (delta per row, then ds and p_drop in place), then every contraction
-// as a launch of one strided batched fp32 GEMM, and combine (da).
+// Every other shape and dtype (fp32 at any width, the reference dtype;
+// bf16 at any dh up to 128, odd H, D/2 not a multiple of 64, D > 512)
+// takes the general kernels (namespace general): CUDA-core FMAs, so fp32
+// inputs keep fp32 products, in a simpler design that materialises ds and
+// p_drop (B, H, L, L) in fp32 scratch: prep (alpha | beta, shared with the
+// forward), scores (p and dp per 64 x 64 tile over the virtual depth
+// [qu | alpha | beta] . [k | cos | sin] and dO . v^T, both in 64-deep
+// chunks whatever dh and D are), rows (delta per row, then ds and p_drop in
+// place, rounded to T), then every contraction as a launch of one strided
+// batched GEMM that reads T or fp32 operands and stores T or fp32, and
+// combine (da, rounded to T). The scratch is fp32 in both dtypes and sized
+// by the same layout function the host asks for
+// (sincos_attention_bwd_scratch_bytes). At B 3, L 199, bf16, rate 0.1 it
+// takes 0.224 ms at (H, dh) = (2, 32) and 1.009 ms at (12, 64) on an H100
+// 80GB HBM3 at 700 W; fp32 at production width (B 8, L 599) 5.35 ms.
 
 #include "hopper.cuh"
 #include "sincos_attention_common.cuh"
@@ -85,8 +96,6 @@
 namespace {
 
 using namespace attn;
-constexpr int TQ = 64;  // query rows per tile (float32)
-constexpr int TK = 64;  // keys per tile (float32)
 
 struct BwdArgs {
   const void *qu, *qv, *k, *v, *wh, *sin_t, *cos_t;
@@ -94,7 +103,7 @@ struct BwdArgs {
   const float* stats;  // (B, H, L, 2): K1's row max and row sum
   const void* dout;
   void *dqu, *dqv, *dk, *dv, *dwh;
-  int B, L, H;
+  int B, L, H, dh;
   uint32_t seed, thresh;  // dropout: keep where hash >= thresh (0: none)
   float inv_keep;         // 1 / (1 - rate)
   int tq;                 // the JAX kernel's q-tile rows, for the hash
@@ -840,145 +849,65 @@ int launch(const BwdArgs& a, void* scratch, cudaStream_t stream) {
 }  // namespace hopper
 
 // ---------------------------------------------------------------------------
-// float32: CUDA-core FMAs, ds and p_drop materialised.
+// The general kernels: every (H, dh, D) and both dtypes, CUDA-core FMAs,
+// ds and p_drop materialised in fp32 scratch.
 // ---------------------------------------------------------------------------
 
-namespace cuda_core {
+namespace general {
 
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int SP = 65;        // padded stride of 64-wide staging tiles
+using namespace attn::fma_tiles;
 
-// alpha | beta of one 64-row query tile to `ab`.
-__global__ void __launch_bounds__(THREADS)
-prep(BwdArgs a, float* __restrict__ ab) {
-  const int L = a.L, H = a.H, D = H * DH, D2 = D / 2;
-  extern __shared__ float smem_p[];
-  float* s_qv = smem_p;          // 64 x SP each
-  float* s_w0 = s_qv + 64 * SP;
-  float* s_w1 = s_w0 + 64 * SP;
-  const float* qv = static_cast<const float*>(a.qv);
-  const float* wh = static_cast<const float*>(a.wh);
-  const float* sin_t = static_cast<const float*>(a.sin_t);
-  const float* cos_t = static_cast<const float*>(a.cos_t);
-  const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const size_t row0 = (size_t)b * L, bh = (size_t)b * H + h;
-  const int col_h = h * DH;
-
-  for (int i = tid; i < TQ * DH; i += THREADS) {
-    const int r = i / DH, d = i % DH, q = q0 + r;
-    s_qv[r * SP + d] = q < L ? qv[(row0 + q) * D + col_h + d] : 0.f;
-  }
-  const float* whh = wh + (size_t)h * DH * D;
-  float* abh = ab + bh * L * D;
-  for (int c0 = 0; c0 < D2; c0 += 64) {
-    __syncthreads();
-    for (int i = tid; i < DH * 64; i += THREADS) {
-      const int d = i / 64, x = i % 64;
-      s_w0[d * SP + x] = whh[(size_t)d * D + c0 + x];
-      s_w1[d * SP + x] = whh[(size_t)d * D + D2 + c0 + x];
-    }
-    __syncthreads();
-    float as[4][4], ac[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) as[r][c] = ac[r][c] = 0.f;
-    for (int d = 0; d < DH; ++d) {
-      float qa[4], ws[4], wc[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) qa[r] = s_qv[(ty + 16 * r) * SP + d];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        ws[c] = s_w0[d * SP + tx + 16 * c];
-        wc[c] = s_w1[d * SP + tx + 16 * c];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          as[r][c] = fmaf(qa[r], ws[c], as[r][c]);
-          ac[r][c] = fmaf(qa[r], wc[c], ac[r][c]);
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int q = q0 + ty + 16 * r;
-      if (q >= L) continue;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int x = c0 + tx + 16 * c;
-        const float sq = sin_t[(size_t)q * D2 + x], cq = cos_t[(size_t)q * D2 + x];
-        abh[(size_t)q * D + x] = as[r][c] * sq + ac[r][c] * cq;
-        abh[(size_t)q * D + D2 + x] = -as[r][c] * cq + ac[r][c] * sq;
-      }
-    }
-  }
-}
-
-// acc[r][c] += sum_d s_q[d][ty + 16r] * s_k[d][tx + 16c] over a 64-deep chunk.
-__device__ __forceinline__ void chunk_fma(float (&acc)[4][4], const float* s_q,
-                                          const float* s_k, int ty, int tx) {
-  for (int d = 0; d < 64; ++d) {
-    float qa[4], kb[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) qa[r] = s_q[d * SP + ty + 16 * r];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) kb[c] = s_k[d * SP + tx + 16 * c];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(qa[r], kb[c], acc[r][c]);
-  }
-}
-
-// One 64 x 64 (query, key) tile: scores -> p (to p_out) and dp (to dp_out).
-template <bool DROP>
+// One 64 x 64 (query, key) tile: scores over the virtual depth -> p (to
+// p_out) and dp (to dp_out); the chunks past the score depth take dO . v^T
+// over dh.
+template <class T, bool DROP>
 __global__ void __launch_bounds__(THREADS)
 scores(BwdArgs a, const float* __restrict__ ab, float* __restrict__ dp_out,
        float* __restrict__ p_out) {
-  const int L = a.L, H = a.H, D = H * DH, D2 = D / 2;
+  const int L = a.L, H = a.H, dh = a.dh, D = H * dh, D2 = D / 2, E = dh + D;
   __shared__ float s_q[64 * SP], s_k[64 * SP];
-  const float* qu = static_cast<const float*>(a.qu);
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
-  const float* sin_t = static_cast<const float*>(a.sin_t);
-  const float* cos_t = static_cast<const float*>(a.cos_t);
-  const float* dout = static_cast<const float*>(a.dout);
+  const T* qu = static_cast<const T*>(a.qu);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* sin_t = static_cast<const T*>(a.sin_t);
+  const T* cos_t = static_cast<const T*>(a.cos_t);
+  const T* dout = static_cast<const T*>(a.dout);
   const int k0 = blockIdx.x * TK, q0 = blockIdx.y * TQ;
   const int b = blockIdx.z / H, h = blockIdx.z % H;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const size_t row0 = (size_t)b * L, bh = (size_t)b * H + h;
-  const int col_h = h * DH, cos_chunks = D2 / 64;
+  const int col_h = h * dh;
   const float* abh = ab + bh * L * D;
+  const int n_e = (E + 63) / 64, n_v = (dh + 63) / 64;
 
   float s[4][4], dov[4][4];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) s[r][c] = dov[r][c] = 0.f;
-  // chunks 0..D/64 build the scores; the last one is dO . v^T
-  for (int ch = 0; ch <= 1 + D / 64; ++ch) {
+  for (int ch = 0; ch < n_e + n_v; ++ch) {
     __syncthreads();
     for (int i = tid; i < 64 * 64; i += THREADS) {
-      const int j = i / 64, d = i % 64, q = q0 + j, key = k0 + j;
+      const int j = i / 64, x = i % 64, q = q0 + j, key = k0 + j;
       float xq = 0.f, xk = 0.f;
-      if (q < L) {
-        if (ch == 0) xq = qu[(row0 + q) * D + col_h + d];
-        else if (ch <= D / 64) xq = abh[(size_t)q * D + (ch - 1) * 64 + d];
-        else xq = dout[(row0 + q) * D + col_h + d];
+      if (ch < n_e) {
+        const int e = ch * 64 + x;
+        if (q < L && e < E)
+          xq = query_elem(qu + (row0 + q) * D + col_h, abh + (size_t)q * D, e,
+                          dh);
+        if (key < L && e < E)
+          xk = key_elem(k + (row0 + key) * D + col_h, cos_t, sin_t, key, e, dh,
+                        D2);
+      } else {
+        const int d = (ch - n_e) * 64 + x;
+        if (q < L && d < dh) xq = ld(dout, (row0 + q) * D + col_h + d);
+        if (key < L && d < dh) xk = ld(v, (row0 + key) * D + col_h + d);
       }
-      if (key < L) {
-        if (ch == 0) xk = k[(row0 + key) * D + col_h + d];
-        else if (ch <= cos_chunks) xk = cos_t[(size_t)key * D2 + (ch - 1) * 64 + d];
-        else if (ch <= D / 64) xk = sin_t[(size_t)key * D2 + (ch - 1 - cos_chunks) * 64 + d];
-        else xk = v[(row0 + key) * D + col_h + d];
-      }
-      s_q[d * SP + j] = xq;
-      s_k[d * SP + j] = xk;
+      s_q[x * SP + j] = xq;
+      s_k[x * SP + j] = xk;
     }
     __syncthreads();
-    if (ch <= D / 64)
+    if (ch < n_e)
       chunk_fma(s, s_q, s_k, ty, tx);
     else
       chunk_fma(dov, s_q, s_k, ty, tx);
@@ -1005,9 +934,9 @@ scores(BwdArgs a, const float* __restrict__ ab, float* __restrict__ dp_out,
 }
 
 // One warp per row (b, h, q) of the (B, H, L, L) scratch: delta = sum_j p .
-// dp in a fixed order, then in place ds = p . (dp - delta) over dp and
-// p_drop over p.
-template <bool DROP>
+// dp in a fixed order, then in place ds = T(p . (dp - delta)) over dp and
+// p_drop = T(keep . p / (1 - rate)) over p.
+template <class T, bool DROP>
 __global__ void rows(BwdArgs a, float* __restrict__ ds, float* __restrict__ pd) {
   const int L = a.L, H = a.H, lane = threadIdx.x % 32;
   const size_t row = (size_t)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
@@ -1021,27 +950,30 @@ __global__ void rows(BwdArgs a, float* __restrict__ ds, float* __restrict__ pd) 
   const uint32_t rh = DROP ? row_hash(a.seed, b, h, q, a.tq) : 0u;
   for (int j = lane; j < L; j += 32) {
     const float p = pdr[j];
-    dsr[j] = p * (dsr[j] - delta);
-    if (DROP) pdr[j] = keep(rh, j, a.thresh) ? p * a.inv_keep : 0.f;
+    dsr[j] = rnd<T>(p * (dsr[j] - delta));
+    pdr[j] = rnd<T>(DROP ? (keep(rh, j, a.thresh) ? p * a.inv_keep : 0.f) : p);
   }
 }
 
 // C[z] (M x N) = A[z] (M x K) . B[z] (K x N), any strides; batch z has the
-// offset (z / zdiv) * s0 + (z % zdiv) * s1 in each operand.
+// offset (z / zdiv) * s0 + (z % zdiv) * s1 in each operand. Operands are
+// read as TA and TB, sums are fp32, C is stored as TC.
+template <class TA, class TB, class TC>
 struct Gemm {
-  const float* A;
-  const float* B;
-  float* C;
+  const TA* A;
+  const TB* B;
+  TC* C;
   int M, N, K, zdiv;
   long long a_m, a_k, a_z0, a_z1, b_k, b_n, b_z0, b_z1, c_m, c_n, c_z0, c_z1;
 };
 
-__global__ void __launch_bounds__(THREADS) gemm(Gemm g) {
+template <class TA, class TB, class TC>
+__global__ void __launch_bounds__(THREADS) gemm(Gemm<TA, TB, TC> g) {
   __shared__ float As[16][65], Bs[16][65];
   const int z = blockIdx.z, zb = z / g.zdiv, zh = z % g.zdiv;
-  const float* A = g.A + zb * g.a_z0 + zh * g.a_z1;
-  const float* B = g.B + zb * g.b_z0 + zh * g.b_z1;
-  float* C = g.C + zb * g.c_z0 + zh * g.c_z1;
+  const TA* A = g.A + zb * g.a_z0 + zh * g.a_z1;
+  const TB* B = g.B + zb * g.b_z0 + zh * g.b_z1;
+  TC* C = g.C + zb * g.c_z0 + zh * g.c_z1;
   const int m0 = blockIdx.y * 64, n0 = blockIdx.x * 64;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   float acc[4][4];
@@ -1053,9 +985,9 @@ __global__ void __launch_bounds__(THREADS) gemm(Gemm g) {
     for (int i = tid; i < 16 * 64; i += THREADS) {
       const int kk = i / 64, mm = i % 64, kg = k0 + kk;
       As[kk][mm] = (m0 + mm < g.M && kg < g.K)
-                       ? A[(m0 + mm) * g.a_m + kg * g.a_k] : 0.f;
+                       ? ld(A, (m0 + mm) * g.a_m + kg * g.a_k) : 0.f;
       Bs[kk][mm] = (n0 + mm < g.N && kg < g.K)
-                       ? B[kg * g.b_k + (n0 + mm) * g.b_n] : 0.f;
+                       ? ld(B, kg * g.b_k + (n0 + mm) * g.b_n) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -1079,19 +1011,23 @@ __global__ void __launch_bounds__(THREADS) gemm(Gemm g) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int n = n0 + tx + 16 * c;
-      if (n < g.N) C[m * g.c_m + n * g.c_n] = acc[r][c];
+      if (n < g.N) st(C, m * g.c_m + n * g.c_n, acc[r][c]);
     }
   }
 }
 
-int run_gemm(const Gemm& g, int Z, cudaStream_t stream) {
-  gemm<<<dim3((g.N + 63) / 64, (g.M + 63) / 64, Z), THREADS, 0, stream>>>(g);
+template <class TA, class TB, class TC>
+int run_gemm(const Gemm<TA, TB, TC>& g, int Z, cudaStream_t stream) {
+  gemm<TA, TB, TC><<<dim3((g.N + 63) / 64, (g.M + 63) / 64, Z), THREADS, 0,
+                     stream>>>(g);
   return cudaGetLastError();
 }
 
-// da (H, B, L, D) = [dalpha . sin_q - dbeta . cos_q | dalpha . cos_q + dbeta . sin_q]
-__global__ void combine(const float* __restrict__ dab, const float* __restrict__ sin_t,
-                        const float* __restrict__ cos_t, float* __restrict__ da,
+// da (H, B, L, D) = T([dalpha . sin_q - dbeta . cos_q | dalpha . cos_q +
+// dbeta . sin_q]), fp32.
+template <class T>
+__global__ void combine(const float* __restrict__ dab, const T* __restrict__ sin_t,
+                        const T* __restrict__ cos_t, float* __restrict__ da,
                         int B, int H, int L, int D2) {
   const size_t n = (size_t)B * H * L * D2;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -1100,18 +1036,21 @@ __global__ void combine(const float* __restrict__ dab, const float* __restrict__
   const size_t row = idx / D2;  // (b * H + h) * L + i
   const int i = row % L, h = (row / L) % H, b = row / ((size_t)L * H);
   const float dal = dab[row * 2 * D2 + c], dbe = dab[row * 2 * D2 + D2 + c];
-  const float sq = sin_t[(size_t)i * D2 + c], cq = cos_t[(size_t)i * D2 + c];
+  const float sq = ld(sin_t, (size_t)i * D2 + c), cq = ld(cos_t, (size_t)i * D2 + c);
   float* dst = da + (((size_t)h * B + b) * L + i) * 2 * D2;
-  dst[c] = dal * sq - dbe * cq;
-  dst[D2 + c] = dal * cq + dbe * sq;
+  dst[c] = rnd<T>(dal * sq - dbe * cq);
+  dst[D2 + c] = rnd<T>(dal * cq + dbe * sq);
 }
 
 struct Scratch {
   float *ab, *ds, *pd, *dab, *da;
 };
 
-inline size_t scratch_layout(int B, int L, int H, char* base, Scratch* s) {
-  const size_t D = (size_t)H * DH, rows = (size_t)B * H * L;
+// alpha | beta, ds, p_drop, dalpha | dbeta and da, all fp32 whatever the
+// input dtype: (B*H, L, D), (B*H, L, L) twice, (B*H, L, D) twice.
+inline size_t scratch_layout(int B, int L, int H, int dh, char* base,
+                             Scratch* s) {
+  const size_t D = (size_t)H * dh, rows = (size_t)B * H * L;
   const size_t sizes[5] = {align256(4 * rows * D), align256(4 * rows * L),
                            align256(4 * rows * L), align256(4 * rows * D),
                            align256(4 * rows * D)};
@@ -1126,68 +1065,72 @@ inline size_t scratch_layout(int B, int L, int H, char* base, Scratch* s) {
   return off;
 }
 
-template <bool DROP>
+template <class T, bool DROP>
 int launch(const BwdArgs& a, void* scratch, cudaStream_t stream) {
   Scratch s;
-  scratch_layout(a.B, a.L, a.H, static_cast<char*>(scratch), &s);
-  const int B = a.B, L = a.L, H = a.H, D = H * DH, D2 = D / 2;
+  const int B = a.B, L = a.L, H = a.H, dh = a.dh, D = H * dh, D2 = D / 2;
+  scratch_layout(B, L, H, dh, static_cast<char*>(scratch), &s);
   const int nq = (L + TQ - 1) / TQ, nk = (L + TK - 1) / TK;
   const long long LD = (long long)L * D, LL = (long long)L * L;
-  const int smem_prep = (int)(sizeof(float) * 3 * 64 * SP);
+  const T* qu = static_cast<const T*>(a.qu);
+  const T* qv = static_cast<const T*>(a.qv);
+  const T* k = static_cast<const T*>(a.k);
+  const T* dout = static_cast<const T*>(a.dout);
+  const T* wh = static_cast<const T*>(a.wh);
+  const T* sin_t = static_cast<const T*>(a.sin_t);
+  const T* cos_t = static_cast<const T*>(a.cos_t);
   int err = cudaFuncSetAttribute(
-      prep, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_prep);
+      prep<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PREP_SMEM);
   if (err) return err;
-  prep<<<dim3(nq, H, B), THREADS, smem_prep, stream>>>(a, s.ab);
+  prep<T><<<dim3(nq, H, B), THREADS, PREP_SMEM, stream>>>(qv, wh, sin_t, cos_t,
+                                                          s.ab, L, H, dh);
   if ((err = cudaGetLastError())) return err;
-  scores<DROP><<<dim3(nk, nq, B * H), THREADS, 0, stream>>>(a, s.ab, s.ds, s.pd);
+  scores<T, DROP><<<dim3(nk, nq, B * H), THREADS, 0, stream>>>(a, s.ab, s.ds,
+                                                               s.pd);
   if ((err = cudaGetLastError())) return err;
   const size_t n_rows = (size_t)B * H * L;
-  rows<DROP><<<(unsigned)((n_rows + 7) / 8), 256, 0, stream>>>(a, s.ds, s.pd);
+  rows<T, DROP><<<(unsigned)((n_rows + 7) / 8), 256, 0, stream>>>(a, s.ds, s.pd);
   if ((err = cudaGetLastError())) return err;
-  const float* qu = static_cast<const float*>(a.qu);
-  const float* qv = static_cast<const float*>(a.qv);
-  const float* k = static_cast<const float*>(a.k);
-  const float* dout = static_cast<const float*>(a.dout);
-  const float* wh = static_cast<const float*>(a.wh);
-  const float* sin_t = static_cast<const float*>(a.sin_t);
-  const float* cos_t = static_cast<const float*>(a.cos_t);
+  using GT = Gemm<float, T, T>;
   // batch z = b * H + h over (B, H, L, L) scratch and packed (B, L, D) operands
   const long long HLL = H * LL;
   // dqu = ds . k
-  if ((err = run_gemm({s.ds, k, static_cast<float*>(a.dqu), L, DH, L, H,
-                       L, 1, HLL, LL, D, 1, LD, DH, D, 1, LD, DH}, B * H, stream)))
+  if ((err = run_gemm(GT{s.ds, k, static_cast<T*>(a.dqu), L, dh, L, H,
+                         L, 1, HLL, LL, D, 1, LD, dh, D, 1, LD, dh}, B * H, stream)))
     return err;
   // dk = ds^T . qu
-  if ((err = run_gemm({s.ds, qu, static_cast<float*>(a.dk), L, DH, L, H,
-                       1, L, HLL, LL, D, 1, LD, DH, D, 1, LD, DH}, B * H, stream)))
+  if ((err = run_gemm(GT{s.ds, qu, static_cast<T*>(a.dk), L, dh, L, H,
+                         1, L, HLL, LL, D, 1, LD, dh, D, 1, LD, dh}, B * H, stream)))
     return err;
   // dv = p_drop^T . dO
-  if ((err = run_gemm({s.pd, dout, static_cast<float*>(a.dv), L, DH, L, H,
-                       1, L, HLL, LL, D, 1, LD, DH, D, 1, LD, DH}, B * H, stream)))
+  if ((err = run_gemm(GT{s.pd, dout, static_cast<T*>(a.dv), L, dh, L, H,
+                         1, L, HLL, LL, D, 1, LD, dh, D, 1, LD, dh}, B * H, stream)))
     return err;
   // [dalpha | dbeta] (B, H, L, D) = ds . cos | ds . sin
-  if ((err = run_gemm({s.ds, cos_t, s.dab, L, D2, L, H,
-                       L, 1, HLL, LL, D2, 1, 0, 0, D, 1, H * LD, LD}, B * H, stream)))
+  using GF = Gemm<float, T, float>;
+  if ((err = run_gemm(GF{s.ds, cos_t, s.dab, L, D2, L, H,
+                         L, 1, HLL, LL, D2, 1, 0, 0, D, 1, H * LD, LD}, B * H, stream)))
     return err;
-  if ((err = run_gemm({s.ds, sin_t, s.dab + D2, L, D2, L, H,
-                       L, 1, HLL, LL, D2, 1, 0, 0, D, 1, H * LD, LD}, B * H, stream)))
+  if ((err = run_gemm(GF{s.ds, sin_t, s.dab + D2, L, D2, L, H,
+                         L, 1, HLL, LL, D2, 1, 0, 0, D, 1, H * LD, LD}, B * H, stream)))
     return err;
   const size_t n = (size_t)B * H * L * D2;
-  combine<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(s.dab, sin_t, cos_t,
-                                                           s.da, B, H, L, D2);
+  combine<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(s.dab, sin_t, cos_t,
+                                                              s.da, B, H, L, D2);
   if ((err = cudaGetLastError())) return err;
   // dqv = da . wh^T  (da is (H, B, L, D))
-  if ((err = run_gemm({s.da, wh, static_cast<float*>(a.dqv), L, DH, D, H,
-                       D, 1, LD, B * LD, 1, D, 0, (long long)DH * D,
-                       D, 1, LD, DH}, B * H, stream)))
+  if ((err = run_gemm(GT{s.da, wh, static_cast<T*>(a.dqv), L, dh, D, H,
+                         D, 1, LD, B * LD, 1, D, 0, (long long)dh * D,
+                         D, 1, LD, dh}, B * H, stream)))
     return err;
   // dwh[h] = qv^T . da[h], the sum over (batch row, query row) as one depth
-  return run_gemm({qv, s.da, static_cast<float*>(a.dwh), DH, D, B * L, 1,
-                   1, D, DH, 0, D, 1, B * LD, 0, D, 1, (long long)DH * D, 0},
+  return run_gemm(Gemm<T, float, T>{qv, s.da, static_cast<T*>(a.dwh), dh, D,
+                                    B * L, 1, 1, D, dh, 0, D, 1, B * LD, 0, D,
+                                    1, (long long)dh * D, 0},
                   H, stream);
 }
 
-}  // namespace cuda_core
+}  // namespace general
 
 }  // namespace
 
@@ -1195,38 +1138,51 @@ extern "C" const char* sincos_attention_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// The kernels of sincos_attention_bwd, as in the forward: 0 the bf16 wgmma
+// kernels (namespace hopper; dh 64, D/2 a multiple of 64, D <= 512), 1 the
+// general ones.
+enum Variant { WGMMA = 0, GENERAL = 1 };
+
 // Bytes of device scratch sincos_attention_bwd needs for these shapes.
 extern "C" long long sincos_attention_bwd_scratch_bytes(int B, int L, int H,
-                                                        int dtype) {
-  if (dtype == 0) return (long long)cuda_core::scratch_layout(B, L, H, nullptr, nullptr);
+                                                        int dh, int variant) {
+  if (variant == GENERAL)
+    return (long long)general::scratch_layout(B, L, H, dh, nullptr, nullptr);
   return (long long)hopper::scratch_layout(B, L, H, nullptr, nullptr);
 }
 
-// qu, qv, k, v, dout, dqu, dqv, dk, dv: (B, L, H*64); wh, dwh:
-// (H, 64, H*64); sin_t, cos_t: (L, H*32); all of one dtype (0 = float32,
+// qu, qv, k, v, dout, dqu, dqv, dk, dv: (B, L, H*dh); wh, dwh:
+// (H, dh, H*dh); sin_t, cos_t: (L, H*dh/2); all of one dtype (0 = float32,
 // 1 = bfloat16), contiguous, 16-byte aligned, on the current device.
 // lengths: (B,) int32; stats: (B, H, L, 2) float32 from the forward;
 // scratch: sincos_attention_bwd_scratch_bytes bytes. Dropout as in the
-// forward (thresh 0: none). bfloat16 takes H*64 <= 512. Returns a
-// cudaError_t.
+// forward (thresh 0: none). variant: WGMMA (bfloat16 only) or GENERAL
+// (dh <= 128). Returns a cudaError_t.
 extern "C" int sincos_attention_bwd(
     const void* qu, const void* qv, const void* k, const void* v,
     const void* wh, const void* sin_t, const void* cos_t, const void* lengths,
     const void* stats, const void* dout, void* dqu,
     void* dqv, void* dk, void* dv, void* dwh, void* scratch, int B, int L,
-    int H, int dtype, uint32_t seed, uint32_t thresh, float inv_keep, int tq,
-    void* stream) {
+    int H, int dh, int dtype, int variant, uint32_t seed, uint32_t thresh,
+    float inv_keep, int tq, void* stream) {
   const BwdArgs a{qu, qv, k, v, wh, sin_t, cos_t,
                   static_cast<const int*>(lengths),
                   static_cast<const float*>(stats), dout, dqu, dqv, dk, dv,
-                  dwh, B, L, H, seed, thresh, inv_keep, tq};
+                  dwh, B, L, H, dh, seed, thresh, inv_keep, tq};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool drop = thresh != 0u;
-  if (dtype == 0)
-    return drop ? cuda_core::launch<true>(a, scratch, s)
-                : cuda_core::launch<false>(a, scratch, s);
-  if (dtype == 1)
+  if (variant == WGMMA) {
+    if (dtype != 1 || dh != DH) return cudaErrorInvalidValue;
     return drop ? hopper::launch<true>(a, scratch, s)
                 : hopper::launch<false>(a, scratch, s);
+  }
+  if (variant != GENERAL || general::padded_head(dh) == 0)
+    return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return drop ? general::launch<float, true>(a, scratch, s)
+                : general::launch<float, false>(a, scratch, s);
+  if (dtype == 1)
+    return drop ? general::launch<bf16, true>(a, scratch, s)
+                : general::launch<bf16, false>(a, scratch, s);
   return cudaErrorInvalidValue;
 }

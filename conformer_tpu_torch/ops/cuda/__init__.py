@@ -2,7 +2,9 @@
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches its
 kernel on CUDA tensors, counting launches in ``<wrapper>.launches``; the
-attention forward also counts its launches with dropout (K1-drop).
+attention forward also counts its launches with dropout (K1-drop), both
+attention wrappers their launches of the general kernels, and K4a its
+launches of the window kernel.
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ WRAPPERS = (sincos_attention_fwd, sincos_attention_bwd, logmel_fwd,
 def launch_counts() -> Dict[str, int]:
     counts = {fn.__name__: fn.launches for fn in WRAPPERS}
     counts["sincos_attention_fwd_dropout"] = sincos_attention_fwd.dropout_launches
+    for fn in (sincos_attention_fwd, sincos_attention_bwd):
+        counts[f"{fn.__name__}_general"] = fn.general_launches
+    counts["depthwise_conv_fwd_window"] = depthwise_conv_fwd.window_launches
     return counts
 
 
@@ -30,3 +35,6 @@ def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
     sincos_attention_fwd.dropout_launches = 0
+    sincos_attention_fwd.general_launches = 0
+    sincos_attention_bwd.general_launches = 0
+    depthwise_conv_fwd.window_launches = 0

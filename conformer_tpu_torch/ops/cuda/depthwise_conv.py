@@ -11,8 +11,11 @@ wrappers, each with a plain PyTorch version beside it:
   in interpret mode agree bit for bit;
 - ``depthwise_conv_dw`` (K4b): the weight gradient in fp32.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. ``depthwise_conv1d`` is the autograd Function, the counterpart of
+K4a has two kernels, picked by ``conv_variant``: "window" (K 31, the
+production conv, with the channel count a multiple of 8 in bf16 or 4 in
+fp32: packed bf16x2 arithmetic on a register window) and "general" (any
+other K and C). A CPU tensor takes the plain version; a CUDA tensor
+launches a kernel or raises. ``depthwise_conv1d`` is the autograd Function, the counterpart of
 the JAX ``custom_vjp``: dx is K4a on g with the taps flipped, a zero bias and
 the left pad K - 1 - pad, which is the exact gradient for every K (the JAX
 ``_bwd`` keeps the forward's pad, exact only for odd K).
@@ -77,35 +80,56 @@ def _check_x(x: torch.Tensor, k: int, pad: int):
     return b, l, c, _DTYPE_CODES[x.dtype]
 
 
+CONV_VARIANTS = ("window", "general")
+WINDOW_K = 31
+
+
+def conv_variant(dtype, k: int, c: int, aligned: bool = True) -> str:
+    """The K4a kernel a CUDA call launches: "window" at K = WINDOW_K with C a
+    multiple of the channels in 16 bytes (8 bf16, 4 fp32) and x, w and bias
+    16-byte ``aligned``, else "general"."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"kernel takes float32 or bfloat16, got {dtype}")
+    per_16_bytes = 16 // torch.tensor([], dtype=dtype).element_size()
+    return ("window" if k == WINDOW_K and c % per_16_bytes == 0 and aligned
+            else "general")
+
+
 def depthwise_conv_fwd(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                        pad: int) -> torch.Tensor:
     """Kernel wrapper (K4a): same arguments and result as
     depthwise_conv_plain. CPU tensors take the plain version; CUDA tensors
     launch the kernel (counted in ``depthwise_conv_fwd.launches``) or
-    raise."""
+    raise; the window kernel's launches are also counted in
+    ``.window_launches``."""
     if x.device.type == "cpu":
         return depthwise_conv_plain(x, w, bias, pad)
     k = w.shape[0]
     b, l, c, code = _check_x(x, k, pad)
     _check("w", w, (k, c), x.dtype, x.device)
     _check("bias", bias, (c,), x.dtype, x.device)
+    variant = conv_variant(x.dtype, k, c, all(
+        t.data_ptr() % 16 == 0 for t in (x, w, bias)))
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
     lib = build.load("depthwise_conv")
     fn = lib.depthwise_conv_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                 b, l, c, k, pad, code, stream)
+                 b, l, c, k, pad, code, CONV_VARIANTS.index(variant), stream)
     build.check(lib, "depthwise_conv", err)
     depthwise_conv_fwd.launches += 1
+    if variant == "window":
+        depthwise_conv_fwd.window_launches += 1
     return out
 
 
 depthwise_conv_fwd.launches = 0
+depthwise_conv_fwd.window_launches = 0   # of those, the window kernel
 
 
 def depthwise_conv_dw(x: torch.Tensor, g: torch.Tensor, k: int,

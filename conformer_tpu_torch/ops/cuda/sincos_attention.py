@@ -15,8 +15,13 @@ Kernel wrappers, each with a plain PyTorch version of the same signature:
 - ``sincos_attention_bwd`` (K2, ``csrc/sincos_attention_bwd.cu``): dqu, dqv,
   dk, dv and the gradient of the per-head position operand.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. ``rel_attention_sincos_packed`` is the public entry: under autograd
+Each has two kernels, picked by ``attention_variant`` from (dtype, H, dh,
+D): "wgmma", the bf16 Hopper kernels at dh 64 with D/2 a multiple of 64 and
+D <= 512 (production width), and "general", CUDA-core kernels for every
+other shape the JAX kernels take (any head width up to 128, odd head
+counts, D > 512) and for fp32. A CPU tensor takes the plain version; a CUDA
+tensor launches one of the two kernels or raises, never the plain
+version. ``rel_attention_sincos_packed`` is the public entry: under autograd
 it runs both through one ``torch.autograd.Function``, otherwise (serving,
 ``torch.inference_mode``) just the forward.
 
@@ -215,17 +220,37 @@ def _check(name: str, x: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+VARIANTS = ("wgmma", "general")
+MAX_GENERAL_DH = 128
+
+
+def attention_variant(dtype, h: int, dh: int, d: int) -> str:
+    """The kernel a CUDA call with these shapes launches: "wgmma" (bf16,
+    dh 64, D/2 a multiple of 64, D <= 512) or "general" (fp32, and bf16 at
+    every other head width up to 128). Raises for a shape no kernel takes:
+    another dtype, h * dh != D, an odd D (the JAX kernels' sin/cos halves
+    need an even D too) or dh past 128."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"kernel takes float32 or bfloat16, got {dtype}")
+    if h < 1 or dh < 1 or h * dh != d or d % 2:
+        raise ValueError(f"kernel needs D = H * dh with D even, got H={h}, "
+                         f"dh={dh}, D={d}")
+    if dh > MAX_GENERAL_DH:
+        raise ValueError(f"kernel takes head widths up to {MAX_GENERAL_DH}, "
+                         f"got dh={dh}")
+    if dtype == torch.bfloat16 and dh == 64 and (d // 2) % 64 == 0 and d <= 512:
+        return "wgmma"
+    return "general"
+
+
 def _check_common(qu, qv, k, v, wh, lengths, sin_t, cos_t):
-    """Shapes, dtypes and layout the kernels take. -> (b, l, h, dtype code)."""
+    """Shapes, dtypes and layout the kernels take.
+    -> (b, l, h, dh, dtype code, variant code)."""
     if qu.device.type != "cuda":
         raise ValueError(f"no kernel for device {qu.device}")
     b, l, d = qu.shape
     h, dh = wh.shape[0], wh.shape[1]
-    if dh != 64 or h * dh != d or (d // 2) % 64:
-        raise ValueError(f"kernel needs dh = 64 and D/2 a multiple of 64, "
-                         f"got H={h}, dh={dh}, D={d}")
-    if qu.dtype not in _DTYPE_CODES:
-        raise ValueError(f"kernel takes float32 or bfloat16, got {qu.dtype}")
+    variant = attention_variant(qu.dtype, h, dh, d)
     dev, dt = qu.device, qu.dtype
     for name, x in (("qu", qu), ("qv", qv), ("k", k), ("v", v)):
         _check(name, x, (b, l, d), dt, dev)
@@ -233,7 +258,17 @@ def _check_common(qu, qv, k, v, wh, lengths, sin_t, cos_t):
     _check("sin_t", sin_t, (l, d // 2), dt, dev)
     _check("cos_t", cos_t, (l, d // 2), dt, dev)
     _check("lengths", lengths, (b,), torch.int32, dev)
-    return b, l, h, _DTYPE_CODES[dt]
+    return b, l, h, dh, _DTYPE_CODES[dt], VARIANTS.index(variant)
+
+
+def _scratch_bytes(lib, name: str, b: int, l: int, h: int, dh: int,
+                   variant: int) -> int:
+    """The bytes of device scratch the library's ``<name>_scratch_bytes``
+    asks for."""
+    size = getattr(lib, f"{name}_scratch_bytes")
+    size.restype = ctypes.c_longlong
+    size.argtypes = [ctypes.c_int] * 5
+    return int(size(b, l, h, dh, variant))
 
 
 def _dropout_args(rate: float, seed: int, tq: int, l: int):
@@ -251,23 +286,24 @@ def sincos_attention_fwd(qu, qv, k, v, wh, lengths, sin_t, cos_t,
                          stats: bool = False):
     """Kernel wrapper (K1): same arguments and result as
     sincos_attention_plain. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (counted in ``sincos_attention_fwd.launches``) or
-    raise."""
+    launch the kernel of ``attention_variant`` (counted in
+    ``sincos_attention_fwd.launches``, the general one also in
+    ``.general_launches``) or raise."""
     if qu.device.type == "cpu":
         return sincos_attention_plain(qu, qv, k, v, wh, lengths, sin_t, cos_t,
                                       rate, seed, tq, stats)
-    b, l, h, code = _check_common(qu, qv, k, v, wh, lengths, sin_t, cos_t)
-    if qu.dtype == torch.bfloat16 and h * 64 > 512:
-        raise ValueError(f"the bfloat16 attention forward keeps a 128-row "
-                         f"query tile of width 64 + D in shared memory and "
-                         f"takes D <= 512; got D = {h * 64}")
+    b, l, h, dh, code, variant = _check_common(qu, qv, k, v, wh, lengths,
+                                               sin_t, cos_t)
     thresh, inv_keep, seed32, tq = _dropout_args(rate, seed, tq, l)
     out = torch.empty_like(qu)
     st = (torch.empty((b, h, l, 2), dtype=torch.float32, device=qu.device)
           if stats else None)
     lib = build.load("sincos_attention")
+    scratch = torch.empty(_scratch_bytes(lib, "sincos_attention_fwd", b, l,
+                                         h, dh, variant),
+                          dtype=torch.uint8, device=qu.device)
     fn = lib.sincos_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                    + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -276,10 +312,13 @@ def sincos_attention_fwd(qu, qv, k, v, wh, lengths, sin_t, cos_t,
         err = fn(qu.data_ptr(), qv.data_ptr(), k.data_ptr(), v.data_ptr(),
                  wh.data_ptr(), sin_t.data_ptr(), cos_t.data_ptr(),
                  lengths.data_ptr(), out.data_ptr(),
-                 st.data_ptr() if st is not None else None, b, l, h, code,
+                 st.data_ptr() if st is not None else None,
+                 scratch.data_ptr(), b, l, h, dh, code, variant,
                  seed32, thresh, inv_keep, tq, stream)
     build.check(lib, "sincos_attention", err)
     sincos_attention_fwd.launches += 1
+    if VARIANTS[variant] == "general":
+        sincos_attention_fwd.general_launches += 1
     if thresh:
         sincos_attention_fwd.dropout_launches += 1
     return (out, st) if stats else out
@@ -287,45 +326,44 @@ def sincos_attention_fwd(qu, qv, k, v, wh, lengths, sin_t, cos_t,
 
 sincos_attention_fwd.launches = 0
 sincos_attention_fwd.dropout_launches = 0   # of those, with dropout (K1-drop)
+sincos_attention_fwd.general_launches = 0   # of those, the general kernel
 
 
-def bwd_scratch_bytes(b: int, l: int, h: int, dtype) -> int:
+def bwd_scratch_bytes(b: int, l: int, h: int, dh: int, dtype) -> int:
     """Bytes of device scratch K2 takes at these shapes, as its library
-    computes them (bf16: ds and p_drop (B*H, L, L) and da (B*H, L, D), so
-    they grow with L^2 and not in shared memory)."""
-    size = build.load("sincos_attention_bwd").sincos_attention_bwd_scratch_bytes
-    size.restype = ctypes.c_longlong
-    size.argtypes = [ctypes.c_int] * 4
-    return int(size(b, l, h, _DTYPE_CODES[dtype]))
+    computes them (wgmma: ds and p_drop (B*H, L, L) and da (B*H, L, D) in
+    bf16; general: alpha | beta, ds, p_drop and two (B*H, L, D) in fp32), so
+    they grow with L^2 and not in shared memory."""
+    variant = VARIANTS.index(attention_variant(dtype, h, dh, h * dh))
+    return _scratch_bytes(build.load("sincos_attention_bwd"),
+                          "sincos_attention_bwd", b, l, h, dh, variant)
 
 
 def sincos_attention_bwd(qu, qv, k, v, wh, lengths, sin_t, cos_t, stats,
                          dout, rate: float = 0.0, seed: int = 0, tq: int = 0):
     """Kernel wrapper (K2): same arguments and result as
     sincos_attention_bwd_plain. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (counted in ``sincos_attention_bwd.launches``)
-    or raise. ``stats`` are K1's row statistics."""
+    tensors launch the kernel of ``attention_variant`` (counted in
+    ``sincos_attention_bwd.launches``, the general one also in
+    ``.general_launches``) or raise. ``stats`` are K1's row statistics."""
     if qu.device.type == "cpu":
         return sincos_attention_bwd_plain(qu, qv, k, v, wh, lengths, sin_t,
                                           cos_t, stats, dout, rate,
                                           seed, tq)
-    b, l, h, code = _check_common(qu, qv, k, v, wh, lengths, sin_t, cos_t)
-    d = h * 64
+    b, l, h, dh, code, variant = _check_common(qu, qv, k, v, wh, lengths,
+                                               sin_t, cos_t)
     dev, dt = qu.device, qu.dtype
-    _check("dout", dout, (b, l, d), dt, dev)
+    _check("dout", dout, (b, l, h * dh), dt, dev)
     _check("stats", stats, (b, h, l, 2), torch.float32, dev)
-    if dt == torch.bfloat16 and d > 512:
-        raise ValueError(f"the bfloat16 attention backward keeps K1's "
-                         f"128-row query tile of width 64 + D in shared "
-                         f"memory and takes D <= 512; got D = {d}")
     thresh, inv_keep, seed32, tq = _dropout_args(rate, seed, tq, l)
     lib = build.load("sincos_attention_bwd")
     dqu, dqv, dk, dv = (torch.empty_like(qu) for _ in range(4))
     dwh = torch.empty_like(wh)
-    scratch = torch.empty(bwd_scratch_bytes(b, l, h, dt), dtype=torch.uint8,
-                          device=dev)
+    scratch = torch.empty(_scratch_bytes(lib, "sincos_attention_bwd", b, l,
+                                         h, dh, variant),
+                          dtype=torch.uint8, device=dev)
     run = lib.sincos_attention_bwd
-    run.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
+    run.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
                     + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
                        ctypes.c_int, ctypes.c_void_p])
     run.restype = ctypes.c_int
@@ -333,14 +371,17 @@ def sincos_attention_bwd(qu, qv, k, v, wh, lengths, sin_t, cos_t, stats,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = run(*(x.data_ptr() for x in (
             qu, qv, k, v, wh, sin_t, cos_t, lengths, stats, dout,
-            dqu, dqv, dk, dv, dwh, scratch)), b, l, h, code,
+            dqu, dqv, dk, dv, dwh, scratch)), b, l, h, dh, code, variant,
             seed32, thresh, inv_keep, tq, stream)
     build.check(lib, "sincos_attention_bwd", err)
     sincos_attention_bwd.launches += 1
+    if VARIANTS[variant] == "general":
+        sincos_attention_bwd.general_launches += 1
     return dqu, dqv, dk, dv, dwh
 
 
 sincos_attention_bwd.launches = 0
+sincos_attention_bwd.general_launches = 0   # of those, the general kernels
 
 
 class SincosAttention(torch.autograd.Function):

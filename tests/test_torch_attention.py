@@ -261,3 +261,84 @@ def test_both_impls_agree_in_the_port():
         a = fused(x, None, mask)
         c = dense(x, pos, mask)
     np.testing.assert_allclose(a.numpy(), c.numpy(), atol=2e-5)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("h,dh", [(3, 16), (4, 32), (3, 64)])
+def test_plain_versions_match_pallas_interpret_at_every_head_shape(h, dh,
+                                                                   rate):
+    """The shapes the general kernels take on the card (odd head counts,
+    head widths other than 64, D/2 not a multiple of 64): the plain forward
+    against the interpret-mode kernels (atol 2e-5) and the autograd
+    Function's plain backward against their jax.vjp (atol 1e-5), with a
+    ragged row and a row of length 0."""
+    lengths = np.array([45, 17, 0], np.int32)
+    l = 45
+    qu, qv, k, v, kernel = _inputs(len(lengths), l, h, dh, seed=h * dh)
+    g = np.random.default_rng(dh).standard_normal(qu.shape).astype(np.float32)
+    scale = 1.0 / np.sqrt(dh)
+    want, vjp = _packed_call(rate, 16, lengths, qu, qv, k, v, kernel, h, scale)
+    jgrads = vjp(jnp.asarray(g))
+    j_kernel = jax.vjp(lambda K: jsa.prep_pos_kernel(K, h),
+                       jnp.asarray(kernel))[1](jgrads[4])[0]
+    ts = [torch.tensor(x, requires_grad=True) for x in (qu, qv, k, v, kernel)]
+    out = tsa.rel_attention_sincos_packed(
+        *ts[:4], tsa.prep_pos_kernel(ts[4], h), torch.from_numpy(lengths),
+        scale, dropout_rate=rate, seed=7, tq=16)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               atol=2e-5)
+    (out * torch.from_numpy(g)).sum().backward()
+    for got, want_g in zip(ts, [*jgrads[:4], j_kernel]):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(want_g),
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,h,dh,want", [
+    (torch.bfloat16, 8, 64, "wgmma"),     # production width, D 512
+    (torch.bfloat16, 4, 64, "wgmma"),     # ModelConfig.small, D 256
+    (torch.bfloat16, 2, 64, "wgmma"),
+    (torch.bfloat16, 2, 32, "general"),   # ModelConfig.tiny
+    (torch.bfloat16, 3, 16, "general"),
+    (torch.bfloat16, 4, 32, "general"),
+    (torch.bfloat16, 3, 64, "general"),   # D/2 = 96
+    (torch.bfloat16, 12, 64, "general"),  # D 768 > 512
+    (torch.bfloat16, 2, 128, "general"),
+    (torch.bfloat16, 5, 24, "general"),   # a dh below its padded width
+    (torch.float32, 8, 64, "general"),
+    (torch.float32, 3, 16, "general"),
+])
+def test_attention_variant_picks_a_kernel_for_every_shape(dtype, h, dh, want):
+    """On the card every shape the JAX kernels take goes to one of the two
+    kernels, never to the plain version; the selector is a pure function."""
+    assert tsa.attention_variant(dtype, h, dh, h * dh) == want
+    assert want in tsa.VARIANTS
+
+
+@pytest.mark.parametrize("dtype,h,dh,d", [
+    (torch.float16, 8, 64, 512),    # no kernel for fp16
+    (torch.bfloat16, 2, 192, 384),  # past the general kernels' 128
+    (torch.bfloat16, 3, 33, 99),    # odd D: the sin/cos halves differ
+    (torch.float32, 2, 32, 128),    # H * dh != D
+])
+def test_attention_variant_refuses_shapes_no_kernel_takes(dtype, h, dh, d):
+    with pytest.raises(ValueError):
+        tsa.attention_variant(dtype, h, dh, d)
+
+
+def test_cuda_tensors_never_reach_the_plain_version():
+    """The wrappers reach the plain versions only through the CPU branch:
+    with the plain versions replaced by a function that fails, a meta tensor
+    (neither CPU nor CUDA) raises the wrappers' own device error."""
+    qu = torch.empty(1, 4, 64, device="meta")
+    wh = torch.empty(2, 32, 64, device="meta")
+    lengths = torch.empty(1, dtype=torch.int32, device="meta")
+    sin_t = cos_t = torch.empty(4, 32, device="meta")
+    boom = lambda *a, **k: pytest.fail("the plain version was called")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tsa, "sincos_attention_plain", boom)
+        mp.setattr(tsa, "sincos_attention_bwd_plain", boom)
+        with pytest.raises(ValueError, match="no kernel for device"):
+            tsa.sincos_attention_fwd(qu, qu, qu, qu, wh, lengths, sin_t, cos_t)
+        with pytest.raises(ValueError, match="no kernel for device"):
+            tsa.sincos_attention_bwd(qu, qu, qu, qu, wh, lengths, sin_t, cos_t,
+                                     None, qu)

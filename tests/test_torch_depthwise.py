@@ -14,6 +14,7 @@ the JAX package's Pallas kernel run in interpret mode on the CPU.
   the same converted weights.
 """
 
+import concurrent.futures
 import contextlib
 import functools
 from unittest import mock
@@ -137,6 +138,22 @@ def test_even_kernel_size_dx_is_exact_where_the_jax_pallas_dx_is_not():
 
 # ---------------------------------------------------------------------------
 # The tiny model with conv_impl="pallas"
+@pytest.mark.parametrize("dtype,k,c,aligned,want", [
+    (torch.bfloat16, 31, 512, True, "window"),   # production conv and its dx
+    (torch.float32, 31, 512, True, "window"),
+    (torch.bfloat16, 31, 136, True, "window"),   # 17 pieces of 16 bytes
+    (torch.float32, 31, 12, True, "window"),
+    (torch.bfloat16, 31, 100, True, "general"),  # rows not whole 16 bytes
+    (torch.float32, 31, 6, True, "general"),
+    (torch.bfloat16, 31, 512, False, "general"),
+    (torch.bfloat16, 7, 64, True, "general"),    # ModelConfig.tiny
+    (torch.float32, 4, 512, True, "general"),    # the even-K dx check
+])
+def test_conv_variant_takes_the_window_kernel_at_k31(dtype, k, c, aligned,
+                                                     want):
+    assert dc.conv_variant(dtype, k, c, aligned) == want
+
+
 # ---------------------------------------------------------------------------
 
 LR = 1e-3
@@ -160,9 +177,9 @@ def _variables():
 
 def _batch():
     rng = np.random.default_rng(8)
-    audio = (rng.standard_normal((3, 12800)) * 0.1).astype(np.float32)
-    audio_lengths = np.array([12800, 9000, 12800], np.int32)
-    audio[1, 9000:] = 0.0
+    audio = (rng.standard_normal((3, 6400)) * 0.1).astype(np.float32)
+    audio_lengths = np.array([6400, 4500, 6400], np.int32)
+    audio[1, 4500:] = 0.0
     token_lengths = np.array([7, 4, 5], np.int32)
     tokens = rng.integers(1, VOCAB, (3, 8)).astype(np.int32)
     tokens[np.arange(8)[None] >= token_lengths[:, None]] = 0
@@ -199,13 +216,21 @@ def test_tiny_model_with_pallas_conv_train_step_matches_jax():
     tx = j_make_optimizer(jcfg.optim)
     state = TrainState.create(variables["params"], variables["batch_stats"], tx)
     batch = _batch()
+    args = (state, *(jnp.asarray(a) for a in batch), jax.random.PRNGKey(0))
     with jax_pallas_interpret():
-        _, j_metrics = j_make_train_step(jcfg, tx, donate=False)(
-            state, *(jnp.asarray(a) for a in batch), jax.random.PRNGKey(0))
-    model = _port_model(tcfg)
-    opt = make_optimizer(tcfg.optim, model.parameters())
-    metrics = make_train_step(tcfg, model, opt)(
-        *(torch.from_numpy(a) for a in batch), 0)
+        lowered = j_make_train_step(jcfg, tx, donate=False).lower(*args)
+    # XLA compiles the JAX step while the port's step runs (the two share
+    # nothing); LLVM's optimisation passes, most of that compile on the CPU,
+    # are off: they change no value compared here
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        compiling = pool.submit(
+            lowered.compile,
+            compiler_options={"xla_backend_optimization_level": 0})
+        model = _port_model(tcfg)
+        opt = make_optimizer(tcfg.optim, model.parameters())
+        metrics = make_train_step(tcfg, model, opt)(
+            *(torch.from_numpy(a) for a in batch), 0)
+        _, j_metrics = compiling.result()(*args)
     np.testing.assert_allclose(float(metrics["loss"]),
                                float(j_metrics["loss"]), rtol=1e-5)
     np.testing.assert_allclose(float(metrics["grad_norm"]),

@@ -162,7 +162,10 @@ def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
                                     "depthwise_conv_fwd": 0,
                                     "depthwise_conv_dw": 0,
                                     "vpu_pass": 0,
-                                    "sincos_attention_fwd_dropout": 0}
+                                    "sincos_attention_fwd_dropout": 0,
+                                    "sincos_attention_fwd_general": 0,
+                                    "sincos_attention_bwd_general": 0,
+                                    "depthwise_conv_fwd_window": 0}
     # Any other device has no plain path and no kernel: it raises.
     meta = [x.to("meta") for x in (qu, qv, k, v, wh, lengths, sin_t, cos_t)]
     with pytest.raises(ValueError, match="no kernel"):
@@ -183,6 +186,15 @@ def test_chip_smoke_refuses_to_run_without_a_gpu():
                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_time_attention_refuses_to_run_without_a_gpu(monkeypatch, capsys):
+    from conformer_tpu_torch.tools import time_attention
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        time_attention.main()
+    assert capsys.readouterr().out == ""
 
 
 def test_chip_smoke_holds_each_attention_gradient_slice_to_its_own_scale():
@@ -238,7 +250,8 @@ def test_chip_smoke_same_bits_tells_one_flipped_bit():
 
 
 @pytest.mark.parametrize("probe", ["probe_attention_fwd",
-                                   "probe_attention_bwd"])
+                                   "probe_attention_bwd",
+                                   "probe_mel_frontend"])
 def test_attention_probe_variants_edit_the_current_sources(probe):
     """Each probe variant's text edits apply to the committed sources and
     headers (each edit where it names its count), and only the kernel

@@ -66,14 +66,22 @@ def _audio(seed=0):
 
 
 @functools.lru_cache(maxsize=None)
+def _variables(scan: bool):
+    """Flax variables with random BatchNorm statistics, shared by both
+    attention impls (the impl changes no parameter). Jitted, on a short
+    dummy batch: one compile instead of one per op, and the parameter
+    shapes do not depend on the batch's length."""
+    jcfg, _ = _configs(scan)
+    init = jax.jit(functools.partial(init_variables, jcfg, mel_frames=32))
+    return _randomize_stats(init(jax.random.PRNGKey(3)), 4)
+
+
+@functools.lru_cache(maxsize=None)
 def _pair(scan: bool, attention_impl: str):
     """(JAX config, port config, flax variables, port model). Cached: the
     tests only read them."""
     jcfg, tcfg = _configs(scan, attention_impl)
-    # Jitted, on a short dummy batch: one compile instead of one per op, and
-    # the parameter shapes do not depend on the batch's length.
-    init = jax.jit(functools.partial(init_variables, jcfg, mel_frames=32))
-    variables = _randomize_stats(init(jax.random.PRNGKey(3)), 4)
+    variables = _variables(scan)
     model = Conformer(tcfg.model, tcfg.optim.compute_dtype).eval()
     model.load_state_dict(flax_to_state_dict(variables, tcfg.model))
     return jcfg, tcfg, variables, model
