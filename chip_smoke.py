@@ -156,6 +156,22 @@ def bound_ms(flops: float, nbytes: float, dtype: str) -> "tuple[float, str]":
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def attention_bounds(flops: float, nbytes: float, dtype: str) -> dict:
+    """K1's or K2's bound: bf16 on the bf16 tensor-core rate; fp32 the
+    lesser of 3xTF32 (three TF32 products per fp32 one, as the general
+    kernels take them) and the fp32 FMA rate, that one reported beside."""
+    bms, by = bound_ms(flops, nbytes, dtype)
+    if dtype == "bfloat16":
+        return {"bound_ms": bms, "bound_by": by, "bound_ops": "bf16"}
+    ops_ms = 3 * flops / PEAK_TF32 * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    tf32_ms = max(ops_ms, bytes_ms)
+    return {"bound_ms": min(tf32_ms, bms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_ops": "3xTF32" if tf32_ms <= bms else "fp32 FMA",
+            "bound_fp32_fma_ms": bms}
+
+
 # ---------------------------------------------------------------------------
 # Phase 1: build.
 # ---------------------------------------------------------------------------
@@ -252,7 +268,7 @@ def k1_case(torch, b: int, l: int, dtype, seed: int, time_it: bool,
         itemsize = torch.tensor([], dtype=dtype).element_size()
         flops = 2.0 * b * h * l * l * (dh + d + dh) + 2.0 * b * h * l * dh * d
         nbytes = (5 * b * l * d + h * dh * d + l * d) * itemsize + 4 * b
-        bms, by = bound_ms(flops, nbytes, name)
+        bounds = attention_bounds(flops, nbytes, name)
         q_aug, k_aug, v_h, mask = _augmented(torch, args)
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
             q_aug, k_aug, v_h, attn_mask=mask, scale=1.0,
@@ -263,8 +279,7 @@ def k1_case(torch, b: int, l: int, dtype, seed: int, time_it: bool,
             "plain_ms": cuda_ms(torch,
                                 lambda: sa.sincos_attention_plain(*args, *drop)),
             "library_ms": backends[best], "library_backend": best,
-            "library_backends_ms": backends,
-            "bound_ms": bms, "bound_by": by,
+            "library_backends_ms": backends, **bounds,
         })
     return case
 
@@ -337,7 +352,7 @@ def k2_case(torch, b: int, l: int, dtype, seed: int, rate: float,
                  + 3 * 2.0 * b * h * l * dh * d)
         nbytes = ((9 * b * l * d + 2 * h * dh * d + l * d) * itemsize
                   + 8 * b * h * l + 4 * b)
-        bms, by = bound_ms(flops, nbytes, name)
+        bounds = attention_bounds(flops, nbytes, name)
         q_aug, k_aug, v_h, mask = _augmented(torch, args)
         q_aug.requires_grad_(True)
         k_aug.requires_grad_(True)
@@ -368,8 +383,7 @@ def k2_case(torch, b: int, l: int, dtype, seed: int, rate: float,
             "library_call": "SDPA backward alone on [qu|alpha|beta], "
                             "[k|cos|sin], v",
             "library_fwd_bwd_ms": both[best_both],
-            "library_fwd_bwd_backends_ms": both,
-            "bound_ms": bms, "bound_by": by,
+            "library_fwd_bwd_backends_ms": both, **bounds,
             "scratch_bytes": sa.bwd_scratch_bytes(b, l, h, dh, dtype),
         })
     return case
@@ -393,9 +407,11 @@ def k2_long_lengths(torch):
 
 
 # The general attention kernels' check shapes, (H, dh): ModelConfig.tiny,
-# head widths other than 64, odd head counts, D/2 not a multiple of 64; in
+# head widths other than 64, odd head counts, D/2 not a multiple of 64, and
+# Conformer-S (Gulati et al. 2020: d_model 144, 4 heads), whose head width
+# (36), D/2 (72) and head offsets are not multiples of 16 bytes in bf16; in
 # fp32 and bf16. bf16 also at (12, 64), D 768, past the wgmma kernels' 512.
-GENERAL_SHAPES = ((2, 32), (3, 16), (4, 32), (3, 64))
+GENERAL_SHAPES = ((2, 32), (3, 16), (4, 32), (3, 64), (4, 36))
 GENERAL_WIDE = (12, 64)
 # Two lengths: a ragged 64-row tile and three 64-key tiles with a ragged
 # last one; batch rows of full, length - 1 and half length.
@@ -410,7 +426,8 @@ def general_attention_cases(torch):
     (fp32, bf16) and GENERAL_WIDE (bf16), rates 0 and 0.1, B 3, and at
     GENERAL_TINY in bf16, against the plain versions with the limits of the
     production cases; the bf16 cases at L 199 and GENERAL_TINY's at rate
-    0.1 are timed (kernel, plain, bound, SDPA). -> (K1 cases, K2 cases)."""
+    0.1 are timed (kernel, plain, bound, SDPA); each shape's tiling checked
+    against the host's copy. -> (K1 cases, K2 cases, geometry checks)."""
     shapes = [(h, dh, dt) for h, dh in GENERAL_SHAPES
               for dt in (torch.float32, torch.bfloat16)]
     shapes.append((*GENERAL_WIDE, torch.bfloat16))
@@ -421,11 +438,26 @@ def general_attention_cases(torch):
     b, l, h, dh = GENERAL_TINY
     runs += [(b, l, h, dh, torch.bfloat16, rate, rate > 0, 400 + i)
              for i, rate in enumerate((0.0, 0.1))]
-    k1, k2 = [], []
+    k1, k2, geometry = [], [], []
     for b, l, h, dh, dt, rate, time_it, seed in runs:
         k1.append(k1_case(torch, b, l, dt, seed, time_it, rate, h, dh))
         k2.append(k2_case(torch, b, l, dt, seed, rate, time_it, h, dh))
-    return k1, k2
+        if rate == 0.0:
+            geometry.append(geometry_case(torch, b, l, h, dh, dt))
+    return k1, k2, geometry
+
+
+def geometry_case(torch, b: int, l: int, h: int, dh: int, dtype):
+    """The host's copy of the general kernels' tiling and scratch
+    (``general_geometry``, tested on the CPU) against the built libraries'
+    own."""
+    from conformer_tpu_torch.ops.cuda import sincos_attention as sa
+
+    host = sa.general_geometry(dtype, b, l, h, dh)
+    lib = sa.library_geometry(dtype, b, l, h, dh)
+    return {"b": b, "l": l, "h": h, "dh": dh,
+            "dtype": _dtype_name(torch, dtype), "library": lib,
+            "ok": all(host[k] == v for k, v in lib.items())}
 
 
 def same_bits(torch, first, second) -> bool:
@@ -766,7 +798,7 @@ def phase_kernels(torch):
                 for i, (l, dt) in enumerate(shapes) for rate in (0.0, 0.1)]
     long_k2 = k2_long_lengths(torch)
     deterministic = k2_determinism(torch)
-    k1_general, k2_general = general_attention_cases(torch)
+    k1_general, k2_general, geometry = general_attention_cases(torch)
     k3_cases = [k3_case(torch, 8, 16 * 16000, seed=10, time_it=True),
                 k3_case(torch, 8, 24 * 16000, seed=11, time_it=True),
                 k3_case(torch, 3, 7321 * 17, seed=12, time_it=False)]
@@ -797,6 +829,7 @@ def phase_kernels(torch):
           "sincos_attention_bwd_determinism": deterministic,
           "sincos_attention_fwd_general": k1_general,
           "sincos_attention_bwd_general": k2_general,
+          "general_geometry": geometry,
           "logmel_fwd": k3_cases, "logmel_fwd_tone": k3_tone,
           "depthwise_conv_fwd": k4a_cases,
           "depthwise_conv_fwd_l2400": k4a_long,
@@ -805,14 +838,15 @@ def phase_kernels(torch):
           "depthwise_conv_dw": k4b_cases, "depthwise_conv1d_grads": k4_grads,
           "vpu_pass": k5})
     bad = [c for c in k1_cases + k1_drop + k1_edges + k2_cases
-           + [long_k2, deterministic] + k1_general + k2_general + k3_cases
+           + [long_k2, deterministic] + k1_general + k2_general + geometry
+           + k3_cases
            + k4a_cases + [k4a_long] + k4a_other + k4a_ties + k4b_cases
            + k4_grads + [k5]
            if not c["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_backend")
+            "bound_ops", "bound_fp32_fma_ms", "library_ms", "library_backend")
     pick = lambda case, **extra: {**{k: case[k] for k in keys if k in case},
                                   **extra}
     main_k2 = k2_cases[7]            # bf16, L 599, rate 0.1: the 24 s train batch
@@ -847,6 +881,16 @@ def phase_kernels(torch):
          "replaces": "conformer_tpu/ops/pallas/sincos_attention.py:254",
          "shape": "B=8 L=599 D=64 H=2 dh=32 bfloat16 rate=0.1",
          **pick(tiny_k2)},
+        {"name": "sincos_attention_fwd_general_fp32", "route": "cuda",
+         "source": "conformer_tpu_torch/csrc/sincos_attention.cu",
+         "replaces": "conformer_tpu/ops/pallas/sincos_attention.py:181",
+         "shape": "B=8 L=599 D=512 H=8 float32 rate=0",
+         **pick(k1_cases[1])},
+        {"name": "sincos_attention_bwd_general_fp32", "route": "cuda",
+         "source": "conformer_tpu_torch/csrc/sincos_attention_bwd.cu",
+         "replaces": "conformer_tpu/ops/pallas/sincos_attention.py:254",
+         "shape": "B=8 L=599 D=512 H=8 float32 rate=0.1",
+         **pick(k2_cases[3])},
         {"name": "logmel_fwd", "route": "cuda",
          "source": "conformer_tpu_torch/csrc/mel_frontend.cu",
          "replaces": "conformer_tpu/ops/pallas/mel_frontend.py:43",
@@ -998,6 +1042,8 @@ def _forward_case(torch, cfg, forward, dtype: str, seconds: int):
 
 
 def phase_model(torch):
+    """-> the kernels' launches in the forwards and train steps driven
+    through them (the fp32 ones are the main path's fp32 runs)."""
     from conformer_tpu_torch.config import Config
     from conformer_tpu_torch.models.conformer import Conformer, init_weights
     from conformer_tpu_torch.train.steps import make_forward
@@ -1039,6 +1085,11 @@ def phase_model(torch):
           "float32_pallas_vs_xla_conv": impl_diffs, "train_steps": train_runs})
     if not all(r["ok"] for r in results + impl_diffs + train_runs):
         raise SystemExit("model phase failed")
+    total = {}
+    for case in results + train_runs:
+        for key, n in case["launches"].items():
+            total[key] = total.get(key, 0) + n
+    return total
 
 
 # One train step through the kernels against the plain versions: the loss
@@ -1544,7 +1595,8 @@ def main(argv=None) -> int:
     if "tolerance" in phases:
         phase_tolerance(torch)
     if "model" in phases:
-        phase_model(torch)
+        for key, n in phase_model(torch).items():
+            launches[key] = launches.get(key, 0) + n
     for name, run in (("serve", phase_serve), ("train", phase_train),
                       ("evaluate", phase_evaluate), ("tiny", phase_tiny)):
         if name in phases:

@@ -64,7 +64,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32.cuh"
+
 namespace {
+
+using namespace tf32;
 
 constexpr int NT = 4;        // DFT n-tiles per chunk: 16 bins
 constexpr int STAGES = 2;    // ring stages
@@ -84,36 +88,6 @@ using Wide = Tile<8, 1, 10, 1>;
 // 64 frames, 4 warps, 10 KB stages: 63 KB, three CTAs an SM.
 using Narrow = Tile<4, 1, 5, 3>;
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// (hi, lo) of x: hi = tf32(x), lo = tf32(x - hi).
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d = a . b with a zero accumulator.
-__device__ __forceinline__ void mma0(float (&d)[4], const uint32_t (&a)[4],
-                                     uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(0.f));
-}
-
 // acc += a . b in 3xTF32; b = (b0_hi, b1_hi, b0_lo, b1_lo). The three
 // products of this k-step are summed by the tensor cores from zero, the
 // small terms first, and that sum added to acc by an fp32 add. The tensor
@@ -130,12 +104,6 @@ __device__ __forceinline__ void mma3(float (&acc)[4], const uint32_t (&hi)[4],
   mma(d, hi, bh0, bh1);
 #pragma unroll
   for (int i = 0; i < 4; ++i) acc[i] += d[i];
-}
-
-__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split(x[i], hi[i], lo[i]);
 }
 
 __device__ __forceinline__ void cp_async16(float4* dst, const float4* src) {

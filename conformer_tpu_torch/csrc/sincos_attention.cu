@@ -84,25 +84,53 @@
 //
 // Every other shape and dtype (fp32 at any width; bf16 at any dh up to
 // 128, odd H, D/2 not a multiple of 64, D > 512) takes the general kernel
-// (namespace general, not on the production path): CUDA-core FMAs (16 x 16
-// threads, 4 x 4 outputs each), one CTA per (64 query rows, head, batch
-// row), so fp32 inputs keep fp32 products (TF32 would not hold the fp32
-// tolerance). Two launches: prep writes alpha | beta (B, H, L, D) in fp32
-// to scratch, rounded to T; the main kernel streams the virtual score depth
-// [qu | alpha | beta] . [k | cos | sin] in 64-deep chunks of query and key
-// rows, so its shared memory (83 KB at dh 128) does not grow with D, and
-// keeps DHP / 16 value columns per thread. The wrapper picks the kernel
-// from (dtype, H, dh, D) and never falls back to the plain version. Speed
-// was not its aim: at B 3, L 199, bf16, rate 0.1 it takes 0.096 ms at
-// (H, dh) = (2, 32) and 0.688 ms at (12, 64) on an H100 80GB HBM3 at 700 W,
-// 3-15x SDPA on the same augmented operands.
-//
+// (namespace general; shared pieces in attention_general.cuh), one launch
+// and no scratch. It replaces PR 6's CUDA-core kernel, which ran every
+// product as FMAs bound by shared-memory load issue, wrote alpha | beta
+// for all of (B, H, L, D) to fp32 scratch in a launch of its own and
+// re-staged the query side from it for every 64-key tile with scalar loads.
+// - Every product on the tensor cores through mma.sync: bf16 m16n8k16
+//   (ldmatrix from padded tiles), fp32 3xTF32 on m16n8k8 from operands
+//   split by truncation, each 64-deep tile summed from zero and added in
+//   fp32 (the tensor cores truncate a running sum: summing the whole depth
+//   in it gave 2.2e-5 against 3.3e-6).
+// - One CTA per (64, 32 or 16 query rows, head, batch row): the most rows
+//   whose tile fits in shared memory, fewer while the grid has fewer CTAs
+//   than SMs. The query tile [qu | alpha | beta] is built in a prologue
+//   (a = qv . wh[h] on the tensor cores, 32 coefficient columns a step,
+//   the weights double-buffered, alpha | beta rounded to T) and kept for
+//   the whole key walk; each segment of the score depth is padded to 16 on
+//   its own (dh 36 -> 48, D/2 72 -> 80).
+// - The key side [k | cos | sin] in 64-column chunks, then v, through a
+//   3- or 4-stage cp.async ring (16-, 8- or 4-byte copies by the head's
+//   alignment, 2-byte ones through registers where none divides), the
+//   copies of the next stages in flight behind the products.
+// - Two warps per 16 rows, each on one half (32 keys) of every key tile
+//   with its own online softmax (masked keys float32.min, keys past L
+//   -inf, a row of length 0 uniform), P . V from the score registers as A
+//   fragments; the halves' max, sum and output are combined at the end.
+//   The dropout keep bit is the hash of each fragment element's own
+//   (query row, key).
+// What bounds it on the H100 (80GB HBM3, 700 W;
+// tools/probe_attention_general.py): in fp32 at production width (B 8,
+// L 599, H 8, dh 64) the 64-row tile (147 KB) leaves one CTA per SM, and
+// every CTA reads the whole key side from L2: 1.1 GB a call, which the
+// variant without products takes 0.71 ms to stream (~1.5 TB/s), and the
+// products with the split alone ~1.1 ms; the kernel overlaps them only in
+// part. bf16 at ModelConfig.tiny's width is bound by the copies and the
+// per-tile softmax of its small products. Measured there (device ms;
+// PR 6's kernel, SDPA on the augmented operands): fp32 (8, 64), B 8,
+// L 599, rate 0: 1.333 (2.955, 0.753); bf16 (2, 32), B 8, L 599, rate 0.1:
+// 0.072 (0.283, 0.049); bf16 (12, 64), B 3, L 199, rate 0.1: 0.213 (0.688,
+// 0.044). Faster than the plain version at each, slower than SDPA.
+
 // Masking follows the JAX kernel exactly: masked keys take the finite
 // float32.min through a select, so a row of length 0 has every score equal
 // and gets uniform weights over all L keys. Keys past L (the ragged last
 // tile) are -inf and carry no weight. The ragged last query tile is
 // bounds-checked on store.
 
+#include "attention_general.cuh"
 #include "hopper.cuh"
 #include "sincos_attention_common.cuh"
 
@@ -435,192 +463,218 @@ int launch(const FwdArgs& a, cudaStream_t stream) {
 }  // namespace hopper
 
 // ---------------------------------------------------------------------------
-// The general kernel: every (H, dh, D) and both dtypes, CUDA-core FMAs.
+// The general kernel: every (H, dh, D) and both dtypes, on mma.sync.
 // ---------------------------------------------------------------------------
 
 namespace general {
 
-using namespace attn::fma_tiles;
+using namespace attn::gen;
 
-__device__ __forceinline__ float max16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float sum16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+struct Params {
+  const void *qu, *qv, *k, *v, *wh, *sin_t, *cos_t;
+  const int* lengths;
+  void* out;
+  float* stats;
+  Geo g;
+  uint32_t seed, thresh;
+  float inv_keep;
+  int tq;
+};
 
-// One CTA per (64 query rows, head, batch row). Per 64-key tile: the scores
-// over the virtual depth [qu | alpha | beta] . [k | cos | sin] in 64-deep
-// chunks (query and key chunks staged together), the online softmax, and
-// P . V with the value tile (64 keys x DHP) staged beside the first chunk.
-// alpha | beta come from `ab`, written by prep.
-template <class T, int DHP, bool DROP>
-__global__ void __launch_bounds__(THREADS)
-fwd_kernel(const T* __restrict__ qu, const T* __restrict__ k,
-           const T* __restrict__ v, const T* __restrict__ sin_t,
-           const T* __restrict__ cos_t, const float* __restrict__ ab,
-           const int* __restrict__ lengths, T* __restrict__ out,
-           float* __restrict__ stats, int L, int H, int dh, uint32_t seed,
-           uint32_t thresh, float inv_keep, int tq) {
-  constexpr int CPT = DHP / 16;   // value columns per thread
-  constexpr int VS = DHP + 1;     // padded stride of the value tile
-  const int D = H * dh, D2 = D / 2, E = dh + D;
+// One CTA per (g.rows query rows, head, batch row), a pair of warps per 16
+// rows, each warp on one half (32 keys) of every 64-key tile with its own
+// online softmax; the pair's two states are combined at the end. The
+// query tile [qu | alpha | beta] is built once (build_query_tile) and kept
+// for the whole key walk. Per 64-key tile the ring streams the g.nc score
+// chunks of [k | cos | sin] and then v, g.stages - 1 items ahead of the
+// products; the scores stay in registers, the online softmax runs on them
+// and P . V takes P from them as A fragments.
+template <class T, int DVP, bool DROP>
+__global__ void __launch_bounds__(QTHREADS)
+fwd_kernel(const __grid_constant__ Params p) {
+  constexpr int NV = DVP / 8;  // value n-tiles
+  const Geo& g = p.g;
   extern __shared__ float4 smem4[];
-  float* s_q = reinterpret_cast<float*>(smem4);  // [depth][row]
-  float* s_k = s_q + 64 * SP;                    // [depth][key]
-  float* s_p = s_k + 64 * SP;                    // [row][key]
-  float* s_v = s_p + 64 * SP;                    // [key][VS]
+  T* qt = reinterpret_cast<T*>(smem4);
+  T* ring = qt + g.rows * g.qs;
+  const int slot_elems = TK * g.ss, stages = g.stages;
+  const int q0 = blockIdx.x * g.rows, h = blockIdx.y, b = blockIdx.z;
+  const T* k = static_cast<const T*>(p.k);
+  const T* v = static_cast<const T*>(p.v);
+  const T* sin_t = static_cast<const T*>(p.sin_t);
+  const T* cos_t = static_cast<const T*>(p.cos_t);
+  build_query_tile<T>(g, qt, ring, static_cast<const T*>(p.qu),
+                      static_cast<const T*>(p.qv), static_cast<const T*>(p.wh),
+                      sin_t, cos_t, b, h, q0, g.rows);
 
-  const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const size_t row0 = (size_t)b * L;
-  const int col_h = h * dh;
-  const float* abh = ab + ((size_t)b * H + h) * L * D;
-  const int len = min(lengths[b], L);
-
-  float m_run[4], l_run[4], acc[4][CPT];
-  uint32_t rh[4];  // dropout hash of this thread's four rows
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m_run[r] = -INFINITY;
-    l_run[r] = 0.f;
-    rh[r] = DROP ? row_hash(seed, b, h, q0 + ty + 16 * r, tq) : 0u;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[r][c] = 0.f;
-  }
-
-  for (int j0 = 0; j0 < L; j0 += TK) {
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-
-    for (int e0 = 0; e0 < E; e0 += 64) {
-      __syncthreads();
-      for (int i = tid; i < 64 * 64; i += THREADS) {
-        const int j = i / 64, x = i % 64, e = e0 + x;
-        const int q = q0 + j, key = j0 + j;
-        s_q[x * SP + j] =
-            q < L && e < E
-                ? query_elem(qu + (row0 + q) * D + col_h, abh + (size_t)q * D,
-                             e, dh)
-                : 0.f;
-        s_k[x * SP + j] =
-            key < L && e < E
-                ? key_elem(k + (row0 + key) * D + col_h, cos_t, sin_t, key, e,
-                           dh, D2)
-                : 0.f;
-      }
-      if (e0 == 0)
-        for (int i = tid; i < TK * DHP; i += THREADS) {
-          const int j = i / DHP, d = i % DHP, key = j0 + j;
-          s_v[j * VS + d] =
-              key < L && d < dh ? ld(v, (row0 + key) * D + col_h + d) : 0.f;
-        }
-      __syncthreads();
-      chunk_fma(s, s_q, s_k, ty, tx);
+  const int warp = threadIdx.x / 32, wrow = 16 * (warp >> 1);
+  const int kn0 = 32 * (warp & 1);  // this warp's half of each key tile
+  const int l = lane_id(), gq = l >> 2, t = l & 3;
+  const int len = min(p.lengths[b], g.L);
+  const int ni = g.nc + 1, n_items = ((g.L + TK - 1) / TK) * ni;
+  auto issue = [&](int i) {
+    if (i < n_items) {
+      T* slot = ring + (i % stages) * slot_elems;
+      const int j0 = (i / ni) * TK, sub = i % ni;
+      if (sub < g.nc)
+        load_key_chunk(g, slot, k, cos_t, sin_t, b, h, j0, sub);
+      else
+        load_head_rows(g, slot, g.ss, v, b, h, j0, TK);
     }
+    cp_commit();
+  };
+  for (int i = 0; i < stages - 1; ++i) issue(i);
 
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = mask_score(s[r][c], j0 + tx + 16 * c, len, L);
-        tmax = fmaxf(tmax, s[r][c]);
-      }
-      const float m_new = fmaxf(m_run[r], max16(tmax));
-      const float corr = expf(m_run[r] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float e = expf(s[r][c] - m_new);
-        psum += e;
-        if (DROP)
-          e = keep(rh[r], j0 + tx + 16 * c, thresh) ? e * inv_keep : 0.f;
-        s_p[(ty + 16 * r) * SP + tx + 16 * c] = rnd<T>(e);
-      }
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[r][c] *= corr;
-      l_run[r] = l_run[r] * corr + sum16(psum);
-      m_run[r] = m_new;
-    }
+  float s[4][4], o[NV][4], m_run[2] = {-INFINITY, -INFINITY},
+                           l_run[2] = {0.f, 0.f};
+  zero(o);
+  uint32_t rh[2] = {0u, 0u};
+  if (DROP)
+    for (int i = 0; i < 2; ++i)
+      rh[i] = row_hash(p.seed, b, h, q0 + wrow + gq + 8 * i, p.tq);
+
+  for (int i = 0; i < n_items; ++i) {
+    cp_wait_n(stages - 2);
     __syncthreads();
-    for (int j = 0; j < TK; ++j) {
-      float p[4], vv[CPT];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) p[r] = s_p[(ty + 16 * r) * SP + j];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) vv[c] = s_v[j * VS + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[r][c] = fmaf(p[r], vv[c], acc[r][c]);
+    issue(i + stages - 1);
+    const T* slot = ring + (i % stages) * slot_elems;
+    const int j0 = (i / ni) * TK + kn0, sub = i % ni;
+    if (sub == 0) zero(s);
+    if (sub < g.nc) {
+      score_chunk<T>(s, g, qt, slot, wrow, kn0, chunk_of(g, sub));
+      continue;
     }
+    // This half's scores are complete: mask, online softmax, P . V.
+    float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = mask_score(s[nt][e], j0 + 8 * nt + 2 * t + (e & 1), len, g.L);
+        tmax[e >> 1] = fmaxf(tmax[e >> 1], s[nt][e]);
+      }
+    float m_use[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      tmax[hf] = fmaxf(tmax[hf], __shfl_xor_sync(0xffffffffu, tmax[hf], 1));
+      tmax[hf] = fmaxf(tmax[hf], __shfl_xor_sync(0xffffffffu, tmax[hf], 2));
+      const float m_new = fmaxf(m_run[hf], tmax[hf]);
+      // -inf until a key below L: the second half of a short row
+      m_use[hf] = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = exp2f((m_run[hf] - m_use[hf]) * LOG2E);
+      m_run[hf] = m_new;
+      l_run[hf] *= corr;
+#pragma unroll
+      for (int vn = 0; vn < NV; ++vn) {
+        o[vn][2 * hf] *= corr;
+        o[vn][2 * hf + 1] *= corr;
+      }
+    }
+    // e = exp(s - m) into the row sums; then dropped, rescaled and (as A
+    // fragments) rounded to T.
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = exp2f((s[nt][e] - m_use[e >> 1]) * LOG2E);
+        l_run[e >> 1] += x;
+        if (DROP)
+          x = keep(rh[e >> 1], j0 + 8 * nt + 2 * t + (e & 1), p.thresh)
+                  ? x * p.inv_keep : 0.f;
+        s[nt][e] = x;
+      }
+    c_times_kn<T, NV>(o, s, slot + kn0 * g.ss, g.ss);
   }
 
+  // Combine the pair: the second half's m, l and o through shared memory
+  // (the ring, free now), added to the first's in that order.
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int q = q0 + ty + 16 * r;
-    if (q >= L) continue;
-    if (stats != nullptr && tx == 0) {
-      float* sp = stats + (((size_t)b * H + h) * L + q) * 2;
-      sp[0] = m_run[r];
-      sp[1] = l_run[r];
-    }
-    const float inv = 1.f / fmaxf(l_run[r], 1e-9f);
+  for (int hf = 0; hf < 2; ++hf) {
+    l_run[hf] += __shfl_xor_sync(0xffffffffu, l_run[hf], 1);
+    l_run[hf] += __shfl_xor_sync(0xffffffffu, l_run[hf], 2);
+  }
+  float* comb = reinterpret_cast<float*>(ring) + ((warp >> 1) * 32 + l) * (4 + 4 * NV);
+  __syncthreads();
+  if (warp & 1) {
+    comb[0] = m_run[0];
+    comb[1] = m_run[1];
+    comb[2] = l_run[0];
+    comb[3] = l_run[1];
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int d = tx + 16 * c;
-      if (d < dh) st(out, (row0 + q) * D + col_h + d, acc[r][c] * inv);
+    for (int vn = 0; vn < NV; ++vn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) comb[4 + 4 * vn + e] = o[vn][e];
+  }
+  __syncthreads();
+  if (warp & 1) return;
+  float c0[2], c1[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const float m1 = comb[hf], m = fmaxf(m_run[hf], m1);
+    c0[hf] = exp2f((m_run[hf] - m) * LOG2E);
+    c1[hf] = exp2f((m1 - m) * LOG2E);
+    m_run[hf] = m;
+    l_run[hf] = l_run[hf] * c0[hf] + comb[2 + hf] * c1[hf];
+  }
+#pragma unroll
+  for (int vn = 0; vn < NV; ++vn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      o[vn][e] = o[vn][e] * c0[e >> 1] + comb[4 + 4 * vn + e] * c1[e >> 1];
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const float lsum = l_run[hf];
+    const int q = q0 + wrow + gq + 8 * hf;
+    if (q >= g.L) continue;
+    if (p.stats != nullptr && t == 0) {
+      float* sp = p.stats + (((size_t)b * g.H + h) * g.L + q) * 2;
+      sp[0] = m_run[hf];
+      sp[1] = lsum;
     }
+    const float inv = 1.f / fmaxf(lsum, 1e-9f);
+    T* dst = static_cast<T*>(p.out) + ((size_t)b * g.L + q) * g.D + h * g.dh;
+#pragma unroll
+    for (int vn = 0; vn < NV; ++vn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * vn + 2 * t + e;
+        if (d < g.dh) dst[d] = from_f<T>(o[vn][2 * hf + e] * inv);
+      }
   }
 }
 
-// alpha | beta (B, H, L, D) fp32.
-inline size_t scratch_bytes(int B, int L, int H, int dh) {
-  return sizeof(float) * (size_t)B * H * L * H * dh;
+// The geometry the forward launches with: rows 0 when no query tile fits.
+inline Geo plan(int B, int L, int H, int dh, int esz) {
+  Geo g = make_geo(B, L, H, dh, esz);
+  g.rows = query_rows(g, false);
+  g.stages = g.rows ? query_stages(g, g.rows, false) : 0;
+  return g;
 }
 
-template <class T, int DHP, bool DROP>
-int run(const FwdArgs& a, float* ab, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (3 * 64 * SP + TK * (DHP + 1));
-  int err = cudaFuncSetAttribute(fwd_kernel<T, DHP, DROP>,
+template <class T, int DVP, bool DROP>
+int run(const FwdArgs& a, const Geo& g, cudaStream_t stream) {
+  const size_t smem = query_smem(g, g.rows, g.stages, false);
+  int err = cudaFuncSetAttribute(fwd_kernel<T, DVP, DROP>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)smem);
   if (err) return err;
-  const dim3 grid((a.L + TQ - 1) / TQ, a.H, a.B);
-  fwd_kernel<T, DHP, DROP><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(a.qu), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.sin_t),
-      static_cast<const T*>(a.cos_t), ab, a.lengths, static_cast<T*>(a.out),
-      a.stats, a.L, a.H, a.dh, a.seed, a.thresh, a.inv_keep, a.tq);
+  const Params p{a.qu, a.qv, a.k, a.v, a.wh, a.sin_t, a.cos_t, a.lengths,
+                 a.out, a.stats, g, a.seed, a.thresh, a.inv_keep, a.tq};
+  const dim3 grid((a.L + g.rows - 1) / g.rows, a.H, a.B);
+  fwd_kernel<T, DVP, DROP><<<grid, g.rows * 4, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <class T, bool DROP>
-int launch(const FwdArgs& a, void* scratch, cudaStream_t stream) {
-  float* ab = static_cast<float*>(scratch);
-  int err = cudaFuncSetAttribute(prep<T>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)PREP_SMEM);
-  if (err) return err;
-  prep<T><<<dim3((a.L + TQ - 1) / TQ, a.H, a.B), THREADS, PREP_SMEM, stream>>>(
-      static_cast<const T*>(a.qv), static_cast<const T*>(a.wh),
-      static_cast<const T*>(a.sin_t), static_cast<const T*>(a.cos_t), ab, a.L,
-      a.H, a.dh);
-  if ((err = cudaGetLastError())) return err;
-  switch (padded_head(a.dh)) {
-    case 16: return run<T, 16, DROP>(a, ab, stream);
-    case 32: return run<T, 32, DROP>(a, ab, stream);
-    case 64: return run<T, 64, DROP>(a, ab, stream);
-    case 128: return run<T, 128, DROP>(a, ab, stream);
+int launch(const FwdArgs& a, cudaStream_t stream) {
+  const Geo g = plan(a.B, a.L, a.H, a.dh, sizeof(T));
+  if (g.rows == 0) return cudaErrorInvalidValue;
+  switch (g.dvp) {
+    case 16: return run<T, 16, DROP>(a, g, stream);
+    case 32: return run<T, 32, DROP>(a, g, stream);
+    case 64: return run<T, 64, DROP>(a, g, stream);
+    case 128: return run<T, 128, DROP>(a, g, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -637,18 +691,30 @@ extern "C" const char* sincos_attention_error_string(int err) {
 // hopper; dh 64, D/2 a multiple of 64, D <= 512), 1 the general one.
 enum Variant { WGMMA = 0, GENERAL = 1 };
 
-// Bytes of device scratch sincos_attention_fwd needs for these shapes.
-extern "C" long long sincos_attention_fwd_scratch_bytes(int B, int L, int H,
-                                                        int dh, int variant) {
-  return variant == GENERAL ? (long long)general::scratch_bytes(B, L, H, dh)
-                            : 0;
+// The general kernels' geometry for these shapes (dtype 0 float32, 1
+// bfloat16), as both sources compute it, into out[0..9]: dh and D/2 padded,
+// the copy width in bytes, the forward's query rows, ring stages and shared
+// memory, the backward query pass's, and the score chunks.
+extern "C" void sincos_attention_general_geometry(int B, int L, int H, int dh,
+                                                  int dtype, long long* out) {
+  using namespace attn::gen;
+  const Geo g = make_geo(B, L, H, dh, dtype == 0 ? 4 : 2);
+  const int fr = query_rows(g, false), br = query_rows(g, true);
+  const int fs = fr ? query_stages(g, fr, false) : 0;
+  const int bs = br ? query_stages(g, br, true) : 0;
+  const long long v[10] = {g.dhp, g.d2p, g.vb, fr, fs,
+                           fr ? (long long)query_smem(g, fr, fs, false) : 0,
+                           br, bs,
+                           br ? (long long)query_smem(g, br, bs, true) : 0,
+                           g.nc};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
 }
 
 // qu, qv, k, v, out: (B, L, H*dh); wh: (H, dh, H*dh); sin_t, cos_t:
 // (L, H*dh/2); all of one dtype (0 = float32, 1 = bfloat16), contiguous and
 // 16-byte aligned, on the current device. lengths: (B,) int32. stats: null,
-// or (B, H, L, 2) float32 for each row's max and sum. scratch:
-// sincos_attention_fwd_scratch_bytes bytes. Dropout keeps an element where
+// or (B, H, L, 2) float32 for each row's max and sum. scratch: unused
+// (neither kernel needs any; null). Dropout keeps an element where
 // its hash is >= thresh (0: no dropout, and no hash work), scaled by
 // inv_keep; seed and tq as the JAX kernel hashes them. variant: WGMMA
 // (bfloat16 only) or GENERAL (dh <= 128). Returns a cudaError_t.
@@ -672,11 +738,12 @@ extern "C" int sincos_attention_fwd(const void* qu, const void* qv,
     return drop ? hopper::launch<true>(a, s) : hopper::launch<false>(a, s);
   }
   if (variant != GENERAL) return cudaErrorInvalidValue;
+  (void)scratch;
   if (dtype == 0)
-    return drop ? general::launch<float, true>(a, scratch, s)
-                : general::launch<float, false>(a, scratch, s);
+    return drop ? general::launch<float, true>(a, s)
+                : general::launch<float, false>(a, s);
   if (dtype == 1)
-    return drop ? general::launch<bf16, true>(a, scratch, s)
-                : general::launch<bf16, false>(a, scratch, s);
+    return drop ? general::launch<bf16, true>(a, s)
+                : general::launch<bf16, false>(a, s);
   return cudaErrorInvalidValue;
 }

@@ -76,20 +76,46 @@
 //
 // Every other shape and dtype (fp32 at any width, the reference dtype;
 // bf16 at any dh up to 128, odd H, D/2 not a multiple of 64, D > 512)
-// takes the general kernels (namespace general): CUDA-core FMAs, so fp32
-// inputs keep fp32 products, in a simpler design that materialises ds and
-// p_drop (B, H, L, L) in fp32 scratch: prep (alpha | beta, shared with the
-// forward), scores (p and dp per 64 x 64 tile over the virtual depth
-// [qu | alpha | beta] . [k | cos | sin] and dO . v^T, both in 64-deep
-// chunks whatever dh and D are), rows (delta per row, then ds and p_drop in
-// place, rounded to T), then every contraction as a launch of one strided
-// batched GEMM that reads T or fp32 operands and stores T or fp32, and
-// combine (da, rounded to T). The scratch is fp32 in both dtypes and sized
-// by the same layout function the host asks for
-// (sincos_attention_bwd_scratch_bytes). At B 3, L 199, bf16, rate 0.1 it
-// takes 0.224 ms at (H, dh) = (2, 32) and 1.009 ms at (12, 64) on an H100
-// 80GB HBM3 at 700 W; fp32 at production width (B 8, L 599) 5.35 ms.
+// takes the general kernels (namespace general; the forward's tiles, ring
+// and fragments from attention_general.cuh). They replace PR 6's eleven
+// CUDA-core launches (prep, scores, rows, seven strided GEMMs with scalar
+// stride-L reads of the transposed operands, combine), which kept
+// alpha | beta, ds, p_drop and three (B*H, L, D) buffers in fp32 scratch
+// (420 MB at the fp32 production shape) and reduced dwh over B*L rows in H
+// CTAs. Five launches now, every product on mma.sync (bf16 m16n8k16, fp32
+// 3xTF32 summed per tile), no atomics, every sum in a fixed order:
+// - q_pass, one CTA per (64/32/16 query rows, head, batch row), K1's query
+//   tile and its key-half warp pairs, with dO's tile beside it: the first
+//   sweep recomputes p and dp and sums delta; the second writes ds and
+//   p_drop rounded to T to a (B*H, L, lp) scratch in T (lp = L rounded up
+//   to 8, zeros past L) and accumulates dqu = ds . k. In bf16 the second
+//   sweep recomputes the scores; in fp32 the first stores p and dp in that
+//   fp32 scratch (each thread its own elements) and the second reads them
+//   back and streams only k.
+// - k_pass, one CTA per (64 keys, head, batch row): dk = ds^T . qu and
+//   dv = p_drop^T . dO over 64-row tiles, the scratch read k-major
+//   (ldmatrix.trans in bf16), coalesced cp.async copies.
+// - da_pass, one CTA per (128 query rows, head, batch row) where the grid
+//   keeps a CTA per SM, else 64: per 64 coefficient columns,
+//   dalpha | dbeta = ds . [cos | sin] over the key tiles, da rounded to T
+//   (to a (B*H, L, D) scratch) and dqv += da . wh^T from da's fragments.
+// - dwh_partial, one CTA per (64 columns, head, batch row x split): the
+//   fixed-order partial qv^T . da over the split's row tiles, the splits
+//   chosen to give two CTAs per SM (10 per batch row at ModelConfig.tiny,
+//   not 2 CTAs in all); dwh_reduce sums the partials in order.
+// Scratch: ds, p_drop and da in T, the partials in fp32
+// (sincos_attention_bwd_scratch_bytes; 271 MB at the fp32 production
+// shape, no fp32 (B*H, L, L) buffer in bf16).
+// What bounds them on the H100 (80GB HBM3, 700 W): q_pass, as K1 (L2 reads
+// of the key side, the 3xTF32 split, latency at small widths) twice in
+// bf16, and da_pass's reads of the tables per 64 columns. Measured (device
+// ms; PR 6's kernels, SDPA's backward on the augmented operands): fp32
+// (8, 64), B 8, L 599, rate 0.1: 3.376 (5.382, 1.750), of it q_pass 2.04,
+// da_pass 0.92, k_pass 0.34; bf16 (2, 32), B 8, L 599, rate 0.1: 0.333
+// (1.312, 0.081), q_pass 0.26; bf16 (12, 64), B 3, L 199, rate 0.1: 0.611
+// (1.013, 0.291). Faster than the plain version at each, slower than SDPA.
 
+#include "attention_general.cuh"
 #include "hopper.cuh"
 #include "sincos_attention_common.cuh"
 
@@ -849,285 +875,824 @@ int launch(const BwdArgs& a, void* scratch, cudaStream_t stream) {
 }  // namespace hopper
 
 // ---------------------------------------------------------------------------
-// The general kernels: every (H, dh, D) and both dtypes, CUDA-core FMAs,
-// ds and p_drop materialised in fp32 scratch.
+// The general kernels: every (H, dh, D) and both dtypes, on mma.sync; ds
+// and p_drop through device memory in T.
 // ---------------------------------------------------------------------------
 
 namespace general {
 
-using namespace attn::fma_tiles;
+using namespace attn::gen;
 
-// One 64 x 64 (query, key) tile: scores over the virtual depth -> p (to
-// p_out) and dp (to dp_out); the chunks past the score depth take dO . v^T
-// over dh.
-template <class T, bool DROP>
-__global__ void __launch_bounds__(THREADS)
-scores(BwdArgs a, const float* __restrict__ ab, float* __restrict__ dp_out,
-       float* __restrict__ p_out) {
-  const int L = a.L, H = a.H, dh = a.dh, D = H * dh, D2 = D / 2, E = dh + D;
-  __shared__ float s_q[64 * SP], s_k[64 * SP];
-  const T* qu = static_cast<const T*>(a.qu);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* sin_t = static_cast<const T*>(a.sin_t);
-  const T* cos_t = static_cast<const T*>(a.cos_t);
-  const T* dout = static_cast<const T*>(a.dout);
-  const int k0 = blockIdx.x * TK, q0 = blockIdx.y * TQ;
-  const int b = blockIdx.z / H, h = blockIdx.z % H;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const size_t row0 = (size_t)b * L, bh = (size_t)b * H + h;
-  const int col_h = h * dh;
-  const float* abh = ab + bh * L * D;
-  const int n_e = (E + 63) / 64, n_v = (dh + 63) / 64;
-
-  float s[4][4], dov[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[r][c] = dov[r][c] = 0.f;
-  for (int ch = 0; ch < n_e + n_v; ++ch) {
-    __syncthreads();
-    for (int i = tid; i < 64 * 64; i += THREADS) {
-      const int j = i / 64, x = i % 64, q = q0 + j, key = k0 + j;
-      float xq = 0.f, xk = 0.f;
-      if (ch < n_e) {
-        const int e = ch * 64 + x;
-        if (q < L && e < E)
-          xq = query_elem(qu + (row0 + q) * D + col_h, abh + (size_t)q * D, e,
-                          dh);
-        if (key < L && e < E)
-          xk = key_elem(k + (row0 + key) * D + col_h, cos_t, sin_t, key, e, dh,
-                        D2);
-      } else {
-        const int d = (ch - n_e) * 64 + x;
-        if (q < L && d < dh) xq = ld(dout, (row0 + q) * D + col_h + d);
-        if (key < L && d < dh) xk = ld(v, (row0 + key) * D + col_h + d);
-      }
-      s_q[x * SP + j] = xq;
-      s_k[x * SP + j] = xk;
-    }
-    __syncthreads();
-    if (ch < n_e)
-      chunk_fma(s, s_q, s_k, ty, tx);
-    else
-      chunk_fma(dov, s_q, s_k, ty, tx);
-  }
-  const int len = min(a.lengths[b], L);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int q = q0 + ty + 16 * r;
-    if (q >= L) continue;
-    const float m = a.stats[(bh * L + q) * 2];
-    const float l = fmaxf(a.stats[(bh * L + q) * 2 + 1], 1e-9f);
-    const uint32_t rh = DROP ? row_hash(a.seed, b, h, q, a.tq) : 0u;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int key = k0 + tx + 16 * c;
-      if (key >= L) continue;
-      float dp = dov[r][c];
-      if (DROP) dp = keep(rh, key, a.thresh) ? dp * a.inv_keep : 0.f;
-      const size_t off = (bh * L + q) * L + key;
-      dp_out[off] = dp;
-      p_out[off] = expf(mask_score(s[r][c], key, len, L) - m) / l;
-    }
-  }
-}
-
-// One warp per row (b, h, q) of the (B, H, L, L) scratch: delta = sum_j p .
-// dp in a fixed order, then in place ds = T(p . (dp - delta)) over dp and
-// p_drop = T(keep . p / (1 - rate)) over p.
-template <class T, bool DROP>
-__global__ void rows(BwdArgs a, float* __restrict__ ds, float* __restrict__ pd) {
-  const int L = a.L, H = a.H, lane = threadIdx.x % 32;
-  const size_t row = (size_t)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  if (row >= (size_t)a.B * H * L) return;  // whole warps only
-  const int q = row % L, h = (row / L) % H, b = row / ((size_t)L * H);
-  float* dsr = ds + row * L;
-  float* pdr = pd + row * L;
-  float delta = 0.f;
-  for (int j = lane; j < L; j += 32) delta += pdr[j] * dsr[j];
-  for (int o = 16; o > 0; o >>= 1) delta += __shfl_xor_sync(0xffffffffu, delta, o);
-  const uint32_t rh = DROP ? row_hash(a.seed, b, h, q, a.tq) : 0u;
-  for (int j = lane; j < L; j += 32) {
-    const float p = pdr[j];
-    dsr[j] = rnd<T>(p * (dsr[j] - delta));
-    pdr[j] = rnd<T>(DROP ? (keep(rh, j, a.thresh) ? p * a.inv_keep : 0.f) : p);
-  }
-}
-
-// C[z] (M x N) = A[z] (M x K) . B[z] (K x N), any strides; batch z has the
-// offset (z / zdiv) * s0 + (z % zdiv) * s1 in each operand. Operands are
-// read as TA and TB, sums are fp32, C is stored as TC.
-template <class TA, class TB, class TC>
-struct Gemm {
-  const TA* A;
-  const TB* B;
-  TC* C;
-  int M, N, K, zdiv;
-  long long a_m, a_k, a_z0, a_z1, b_k, b_n, b_z0, b_z1, c_m, c_n, c_z0, c_z1;
-};
-
-template <class TA, class TB, class TC>
-__global__ void __launch_bounds__(THREADS) gemm(Gemm<TA, TB, TC> g) {
-  __shared__ float As[16][65], Bs[16][65];
-  const int z = blockIdx.z, zb = z / g.zdiv, zh = z % g.zdiv;
-  const TA* A = g.A + zb * g.a_z0 + zh * g.a_z1;
-  const TB* B = g.B + zb * g.b_z0 + zh * g.b_z1;
-  TC* C = g.C + zb * g.c_z0 + zh * g.c_z1;
-  const int m0 = blockIdx.y * 64, n0 = blockIdx.x * 64;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-  for (int k0 = 0; k0 < g.K; k0 += 16) {
-    for (int i = tid; i < 16 * 64; i += THREADS) {
-      const int kk = i / 64, mm = i % 64, kg = k0 + kk;
-      As[kk][mm] = (m0 + mm < g.M && kg < g.K)
-                       ? ld(A, (m0 + mm) * g.a_m + kg * g.a_k) : 0.f;
-      Bs[kk][mm] = (n0 + mm < g.N && kg < g.K)
-                       ? ld(B, kg * g.b_k + (n0 + mm) * g.b_n) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < 16; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) av[r] = As[kk][ty + 16 * r];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) bv[c] = Bs[kk][tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int m = m0 + ty + 16 * r;
-    if (m >= g.M) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = n0 + tx + 16 * c;
-      if (n < g.N) st(C, m * g.c_m + n * g.c_n, acc[r][c]);
-    }
-  }
-}
-
-template <class TA, class TB, class TC>
-int run_gemm(const Gemm<TA, TB, TC>& g, int Z, cudaStream_t stream) {
-  gemm<TA, TB, TC><<<dim3((g.N + 63) / 64, (g.M + 63) / 64, Z), THREADS, 0,
-                     stream>>>(g);
-  return cudaGetLastError();
-}
-
-// da (H, B, L, D) = T([dalpha . sin_q - dbeta . cos_q | dalpha . cos_q +
-// dbeta . sin_q]), fp32.
-template <class T>
-__global__ void combine(const float* __restrict__ dab, const T* __restrict__ sin_t,
-                        const T* __restrict__ cos_t, float* __restrict__ da,
-                        int B, int H, int L, int D2) {
-  const size_t n = (size_t)B * H * L * D2;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int c = idx % D2;
-  const size_t row = idx / D2;  // (b * H + h) * L + i
-  const int i = row % L, h = (row / L) % H, b = row / ((size_t)L * H);
-  const float dal = dab[row * 2 * D2 + c], dbe = dab[row * 2 * D2 + D2 + c];
-  const float sq = ld(sin_t, (size_t)i * D2 + c), cq = ld(cos_t, (size_t)i * D2 + c);
-  float* dst = da + (((size_t)h * B + b) * L + i) * 2 * D2;
-  dst[c] = rnd<T>(dal * sq - dbe * cq);
-  dst[D2 + c] = rnd<T>(dal * cq + dbe * sq);
-}
-
+// Scratch: ds and p_drop (B*H, L, lp) in T, da (B*H, L, D) in T, and the
+// dwh partials (B * splits, H, dh, D) in fp32.
 struct Scratch {
-  float *ab, *ds, *pd, *dab, *da;
+  void *ds, *pd, *da;
+  float* part;
 };
 
-// alpha | beta, ds, p_drop, dalpha | dbeta and da, all fp32 whatever the
-// input dtype: (B*H, L, D), (B*H, L, L) twice, (B*H, L, D) twice.
-inline size_t scratch_layout(int B, int L, int H, int dh, char* base,
-                             Scratch* s) {
-  const size_t D = (size_t)H * dh, rows = (size_t)B * H * L;
-  const size_t sizes[5] = {align256(4 * rows * D), align256(4 * rows * L),
-                           align256(4 * rows * L), align256(4 * rows * D),
-                           align256(4 * rows * D)};
+// Row stride of ds and p_drop: L rounded up to 8 (16-byte rows in both
+// dtypes); q_pass writes zeros past L so that every copy reads written
+// values.
+__host__ __device__ inline int ds_stride(int L) { return round_up(L, 8); }
+
+// Row-tile splits of each batch row in the dwh pass: enough CTAs for two
+// per SM, at most one split per 64-row tile.
+inline int dwh_splits(const Geo& g) {
+  const int base = ((g.D + 63) / 64) * g.H * g.B, nqt = (g.L + TK - 1) / TK;
+  const int want = (2 * SMS + base - 1) / base;
+  return want < 1 ? 1 : (want > nqt ? nqt : want);
+}
+
+inline size_t scratch_layout(const Geo& g, char* base, Scratch* s) {
+  const size_t bh = (size_t)g.B * g.H;
+  const size_t sizes[4] = {
+      align256(bh * g.L * ds_stride(g.L) * g.esz),
+      align256(bh * g.L * ds_stride(g.L) * g.esz),
+      align256(bh * g.L * g.D * g.esz),
+      align256((size_t)g.B * dwh_splits(g) * g.H * g.dh * g.D * 4)};
   size_t off = 0;
-  for (int i = 0; i < 5; ++i) {
+  for (int i = 0; i < 4; ++i) {
     if (s != nullptr) {
-      float** ptrs[5] = {&s->ab, &s->ds, &s->pd, &s->dab, &s->da};
-      *ptrs[i] = reinterpret_cast<float*>(base + off);
+      void* p = base + off;
+      if (i == 0) s->ds = p;
+      if (i == 1) s->pd = p;
+      if (i == 2) s->da = p;
+      if (i == 3) s->part = static_cast<float*>(p);
     }
     off += sizes[i];
   }
   return off;
 }
 
+template <class T>
+__device__ __forceinline__ void store2(T* p, float x0, float x1, bool both) {
+  p[0] = from_f<T>(x0);
+  if (both) p[1] = from_f<T>(x1);
+}
+
+struct QParams {
+  const void *qu, *qv, *k, *v, *wh, *sin_t, *cos_t, *dout;
+  const int* lengths;
+  const float* stats;
+  void *dqu, *ds, *pd;
+  Geo g;
+  uint32_t seed, thresh;
+  float inv_keep;
+  int tq;
+};
+
+// q_pass: one CTA per (g.rows query rows, head, batch row), a pair of
+// warps per 16 rows, each on one half (32 keys) of every key tile; K1's
+// query tile plus dO's tile in shared memory. Two sweeps over the key
+// tiles. The first streams the score chunks and v, recomputes p and
+// dp = keep . dO v^T / (1 - rate) and sums delta = sum p dp per row in a
+// fixed order (each half, then the two halves through shared memory). The
+// second writes ds = T(p (dp - delta)) and p_drop = T(keep . p / (1 - rate))
+// and accumulates dqu = ds . k (the halves' sums added at the end): in
+// bf16 it streams the score chunks, v and k again and recomputes p and dp;
+// in fp32 the first sweep has stored p and dp in the fp32 ds and p_drop
+// scratch, each thread its own elements, and the second reads them back
+// and streams only k.
+template <class T, int DVP, bool DROP>
+__global__ void __launch_bounds__(QTHREADS)
+q_pass(const __grid_constant__ QParams p) {
+  using M = Mma<T>;
+  constexpr int NV = DVP / 8;
+  const Geo& g = p.g;
+  extern __shared__ float4 smem4[];
+  const int dos = g.dvp + g.pa;
+  T* qt = reinterpret_cast<T*>(smem4);
+  T* dot = qt + g.rows * g.qs;
+  float* dsum = reinterpret_cast<float*>(dot + g.rows * dos);  // [half][row]
+  T* ring = reinterpret_cast<T*>(dsum + 2 * g.rows);
+  const int slot_elems = TK * g.ss, stages = g.stages;
+  const int q0 = blockIdx.x * g.rows, h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * g.H + h;
+  const T* k = static_cast<const T*>(p.k);
+  const T* v = static_cast<const T*>(p.v);
+  const T* sin_t = static_cast<const T*>(p.sin_t);
+  const T* cos_t = static_cast<const T*>(p.cos_t);
+  // dO's tile joins the prologue's first copy group
+  load_tile(dot, dos,
+            static_cast<const T*>(p.dout) + ((size_t)b * g.L + q0) * g.D +
+                h * g.dh,
+            g.D, g.rows, g.L - q0, g.dvp, g.dh, g.vb);
+  build_query_tile<T>(g, qt, ring, static_cast<const T*>(p.qu),
+                      static_cast<const T*>(p.qv), static_cast<const T*>(p.wh),
+                      sin_t, cos_t, b, h, q0, g.rows);
+
+  constexpr bool KEEP_P = sizeof(T) == 4;  // p and dp kept in scratch
+  const int warp = threadIdx.x / 32, wrow = 16 * (warp >> 1);
+  const int half = warp & 1, kn0 = 32 * half;
+  const int l = lane_id(), gq = l >> 2, t = l & 3;
+  const int len = min(p.lengths[b], g.L), lp = ds_stride(g.L);
+  const int nkt = (g.L + TK - 1) / TK, ni0 = g.nc + 1;
+  const int ni1 = KEEP_P ? 1 : g.nc + 2;
+  const int n0 = nkt * ni0, n_items = n0 + nkt * ni1;
+  auto decode = [&](int i, int& sweep, int& j0, int& sub) {
+    sweep = i >= n0;
+    const int r = sweep ? i - n0 : i, ni = sweep ? ni1 : ni0;
+    j0 = (r / ni) * TK;
+    sub = sweep && KEEP_P ? g.nc + 1 : r % ni;
+  };
+  T* ds_rows = static_cast<T*>(p.ds) + bh * g.L * lp;
+  T* pd_rows = static_cast<T*>(p.pd) + bh * g.L * lp;
+  auto issue = [&](int i) {
+    if (i < n_items) {
+      int sweep, j0, sub;
+      decode(i, sweep, j0, sub);
+      T* slot = ring + (i % stages) * slot_elems;
+      if (sub < g.nc)
+        load_key_chunk(g, slot, k, cos_t, sin_t, b, h, j0, sub);
+      else
+        load_head_rows(g, slot, g.ss, sub == g.nc ? v : k, b, h, j0, TK);
+    }
+    cp_commit();
+  };
+  for (int i = 0; i < stages - 1; ++i) issue(i);
+
+  float m[2], lden[2], delta[2] = {0.f, 0.f};
+  uint32_t rh[2] = {0u, 0u};
+  for (int hf = 0; hf < 2; ++hf) {
+    const int q = q0 + wrow + gq + 8 * hf;
+    m[hf] = q < g.L ? p.stats[(bh * g.L + q) * 2] : 0.f;
+    lden[hf] = q < g.L ? fmaxf(p.stats[(bh * g.L + q) * 2 + 1], 1e-9f) : 1.f;
+    if (DROP) rh[hf] = row_hash(p.seed, b, h, q, p.tq);
+  }
+  float s[4][4], dq[NV][4];
+  zero(dq);
+
+  for (int i = 0; i < n_items; ++i) {
+    cp_wait_n(stages - 2);
+    __syncthreads();
+    issue(i + stages - 1);
+    const T* slot = ring + (i % stages) * slot_elems;
+    int sweep, j0, sub;
+    decode(i, sweep, j0, sub);
+    j0 += kn0;
+    if (sub == 0) zero(s);
+    if (sub < g.nc) {
+      score_chunk<T>(s, g, qt, slot, wrow, kn0, chunk_of(g, sub));
+      continue;
+    }
+    if (sub == g.nc + 1) {  // k: dqu += ds . k
+      if constexpr (KEEP_P) {
+        // p and dp of this thread's elements, as the first sweep stored
+        // them: ds and p_drop over them
+        float dtot[2];
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = wrow + gq + 8 * hf;
+          dtot[hf] = dsum[r] + dsum[g.rows + r];
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int key = j0 + 8 * nt + 2 * t, q = q0 + wrow + gq + 8 * hf;
+            float2 pv = make_float2(0.f, 0.f), dp = pv;
+            const size_t off = (size_t)q * lp + key;
+            if (q < g.L && key < lp) {
+              pv = *reinterpret_cast<const float2*>(pd_rows + off);
+              dp = *reinterpret_cast<const float2*>(ds_rows + off);
+            }
+            const float pe[2] = {pv.x, pv.y}, de[2] = {dp.x, dp.y};
+            float dsv[2], pdv[2];
+            for (int e = 0; e < 2; ++e) {
+              const bool kept = !DROP || keep(rh[hf], key + e, p.thresh);
+              dsv[e] = pe[e] * (de[e] - dtot[hf]);
+              pdv[e] = DROP ? (kept ? pe[e] * p.inv_keep : 0.f) : pe[e];
+              s[nt][2 * hf + e] = dsv[e];
+            }
+            if (q < g.L && key < lp) {
+              *reinterpret_cast<float2*>(ds_rows + off) = make_float2(dsv[0], dsv[1]);
+              *reinterpret_cast<float2*>(pd_rows + off) = make_float2(pdv[0], pdv[1]);
+            }
+          }
+      }
+      c_times_kn<T, NV>(dq, s, slot + kn0 * g.ss, g.ss);
+      continue;
+    }
+    // v: dO . v^T over the head width, then p, dp and delta or ds, p_drop.
+    float dov[4][4];
+    zero(dov);
+    for (int kk = 0; kk < g.dvp; kk += M::K) {
+      if constexpr (sizeof(T) == 2) {
+        uint32_t a[4], bb[4];
+        M::a_mk(a, dot, dos, wrow, kk);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          M::b_nk(bb, slot, g.ss, kn0 + 16 * np, kk);
+          M::mma2(dov[2 * np], dov[2 * np + 1], a, bb);
+        }
+      } else {
+        SplitA a;
+        M::a_mk(a, dot, dos, wrow, kk);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          float bb[4];
+          M::b_nk(bb, slot, g.ss, kn0 + 16 * np, kk);
+          mma3(dov[2 * np], a, bb[0], bb[1]);
+          mma3(dov[2 * np + 1], a, bb[2], bb[3]);
+        }
+      }
+    }
+    float dtot[2] = {0.f, 0.f};
+    if (sweep == 1)
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = wrow + gq + 8 * hf;
+        dtot[hf] = dsum[r] + dsum[g.rows + r];
+      }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = j0 + 8 * nt + 2 * t + (e & 1), hf = e >> 1;
+        const int q = q0 + wrow + gq + 8 * hf;
+        const float pv =
+            q < g.L ? exp2f((mask_score(s[nt][e], key, len, g.L) - m[hf]) *
+                            LOG2E) / lden[hf]
+                    : 0.f;
+        const bool kept = !DROP || keep(rh[hf], key, p.thresh);
+        const float dp = DROP ? (kept ? dov[nt][e] * p.inv_keep : 0.f)
+                              : dov[nt][e];
+        if (sweep == 0) {
+          delta[hf] += pv * dp;
+          if (KEEP_P) {  // dp to the ds scratch, p to the p_drop one
+            s[nt][e] = key < g.L ? dp : 0.f;
+            dov[nt][e] = key < g.L ? pv : 0.f;
+          }
+        } else {
+          s[nt][e] = rnd<T>(pv * (dp - dtot[hf]));
+          dov[nt][e] = DROP ? (kept ? pv * p.inv_keep : 0.f) : pv;
+        }
+      }
+    if (sweep == 0) {
+      if (j0 - kn0 + TK >= g.L) {  // the last key tile: this half's sums
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          delta[hf] += __shfl_xor_sync(0xffffffffu, delta[hf], 1);
+          delta[hf] += __shfl_xor_sync(0xffffffffu, delta[hf], 2);
+          if (t == 0) dsum[half * g.rows + wrow + gq + 8 * hf] = delta[hf];
+        }
+      }
+      if (!KEEP_P) continue;
+    }
+    // ds and p_drop (fp32's first sweep: p and dp) to scratch; keys in
+    // [L, lp) get zeros
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int key = j0 + 8 * nt + 2 * t, q = q0 + wrow + gq + 8 * hf;
+        if (q >= g.L || key >= lp) continue;
+        const size_t off = (bh * g.L + q) * lp + key;
+        const bool in0 = key < g.L, in1 = key + 1 < g.L;
+        store2(static_cast<T*>(p.ds) + off, in0 ? s[nt][2 * hf] : 0.f,
+               in1 ? s[nt][2 * hf + 1] : 0.f, true);
+        store2(static_cast<T*>(p.pd) + off, in0 ? dov[nt][2 * hf] : 0.f,
+               in1 ? dov[nt][2 * hf + 1] : 0.f, true);
+      }
+  }
+
+  // dqu: the second half's sums through shared memory (the ring, free
+  // now), added to the first's.
+  float* comb = reinterpret_cast<float*>(ring) + ((warp >> 1) * 32 + l) * 4 * NV;
+  __syncthreads();
+  if (half) {
+#pragma unroll
+    for (int vn = 0; vn < NV; ++vn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) comb[4 * vn + e] = dq[vn][e];
+  }
+  __syncthreads();
+  if (half) return;
+#pragma unroll
+  for (int vn = 0; vn < NV; ++vn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[vn][e] += comb[4 * vn + e];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int q = q0 + wrow + gq + 8 * hf;
+    if (q >= g.L) continue;
+    T* dst = static_cast<T*>(p.dqu) + ((size_t)b * g.L + q) * g.D + h * g.dh;
+#pragma unroll
+    for (int vn = 0; vn < NV; ++vn) {
+      const int d = 8 * vn + 2 * t;
+      if (d < g.dh)
+        store2(dst + d, dq[vn][2 * hf], dq[vn][2 * hf + 1], d + 1 < g.dh);
+    }
+  }
+}
+
+struct KParams {
+  const void *qu, *dout, *ds, *pd;
+  void *dk, *dv;
+  Geo g;
+};
+
+// acc[16 keys from kw][NV n-tiles] += x^T . y over 64 query rows: x the
+// [row][key] tile of ds or p_drop, y the [row][d] tile of qu or dO, both
+// read k-major. fp32 sums the tile from zero and adds it.
+template <class T, int NV>
+__device__ __forceinline__ void kt_product(float (&acc)[NV][4], const T* x,
+                                           int ts, const T* y, int rs,
+                                           int kw) {
+  using M = Mma<T>;
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int kk = 0; kk < TK; kk += 16) {
+      uint32_t a[4];
+      M::a_km(a, x, ts, kw, kk);
+#pragma unroll
+      for (int vp = 0; vp < NV / 2; ++vp) {
+        uint32_t bb[4];
+        M::b_kn(bb, y, rs, 16 * vp, kk);
+        M::mma2(acc[2 * vp], acc[2 * vp + 1], a, bb);
+      }
+    }
+  } else {
+    float part[NV][4];
+    zero(part);
+#pragma unroll
+    for (int kk = 0; kk < TK; kk += 8) {
+      SplitA a;
+      M::a_km(a, x, ts, kw, kk);
+#pragma unroll
+      for (int vn = 0; vn < NV; ++vn) {
+        float b0, b1;
+        M::b_kn(b0, b1, y, rs, 8 * vn, kk);
+        mma3(part[vn], a, b0, b1);
+      }
+    }
+    add_to(acc, part);
+  }
+}
+
+// k_pass: one CTA per (64 keys, head, batch row), a warp per 16 keys:
+// dk = ds^T . qu and dv = p_drop^T . dO over 64-row query tiles, the
+// scratch tiles read k-major (ldmatrix.trans in bf16).
+template <class T, int DVP>
+__global__ void __launch_bounds__(THREADS)
+k_pass(const __grid_constant__ KParams p) {
+  constexpr int NV = DVP / 8;
+  const Geo& g = p.g;
+  extern __shared__ float4 smem4[];
+  T* ring = reinterpret_cast<T*>(smem4);
+  const int ts = TK + g.pa, rs = g.dvp + g.pa;
+  const int slot_elems = TK * ts + TK * rs;
+  const int k0 = blockIdx.x * TK, h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * g.H + h;
+  const int lp = ds_stride(g.L), n_items = 2 * ((g.L + TK - 1) / TK);
+  auto issue = [&](int i) {
+    if (i < n_items) {
+      T* slot = ring + (i % STAGES) * slot_elems;
+      const int q0 = (i / 2) * TK;
+      const T* src = static_cast<const T*>(i % 2 ? p.pd : p.ds);
+      load_tile(slot, ts, src + (bh * g.L + q0) * lp + k0, lp, TK, g.L - q0,
+                TK, lp - k0, g.vb);
+      load_head_rows(g, slot + TK * ts, rs,
+                     static_cast<const T*>(i % 2 ? p.dout : p.qu), b, h, q0,
+                     TK);
+    }
+    cp_commit();
+  };
+  for (int i = 0; i < STAGES - 1; ++i) issue(i);
+  const int kw = 16 * (threadIdx.x / 32);
+  float dk[NV][4], dv[NV][4];
+  zero(dk);
+  zero(dv);
+  for (int i = 0; i < n_items; ++i) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();
+    issue(i + STAGES - 1);
+    const T* x = ring + (i % STAGES) * slot_elems;
+    if (i % 2)
+      kt_product<T, NV>(dv, x, ts, x + TK * ts, rs, kw);
+    else
+      kt_product<T, NV>(dk, x, ts, x + TK * ts, rs, kw);
+  }
+  const int l = lane_id(), gq = l >> 2, t = l & 3;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int key = k0 + kw + gq + 8 * hf;
+    if (key >= g.L) continue;
+    const size_t row = ((size_t)b * g.L + key) * g.D + h * g.dh;
+#pragma unroll
+    for (int vn = 0; vn < NV; ++vn) {
+      const int d = 8 * vn + 2 * t;
+      if (d >= g.dh) continue;
+      store2(static_cast<T*>(p.dk) + row + d, dk[vn][2 * hf],
+             dk[vn][2 * hf + 1], d + 1 < g.dh);
+      store2(static_cast<T*>(p.dv) + row + d, dv[vn][2 * hf],
+             dv[vn][2 * hf + 1], d + 1 < g.dh);
+    }
+  }
+}
+
+struct AParams {
+  const void *ds, *sin_t, *cos_t, *wh;
+  void *da, *dqv;
+  Geo g;
+};
+
+// Shared memory of one da_pass ring slot (elements) at `rows` query rows:
+// a ds tile and a cos and a sin tile, or the sin and cos halves of wh[h]'s
+// 64 columns.
+__host__ __device__ inline size_t da_slot(const Geo& g, int rows) {
+  const size_t keys =
+      (size_t)rows * (TK + g.pa) + 2 * (size_t)TK * (TK + PB);
+  const size_t w = 2 * (size_t)g.dvp * (TK + PB);
+  return keys > w ? keys : w;
+}
+
+// da_pass's query rows per CTA: 128 (each warp on 16 rows and all 64
+// columns x of a step) where the grid still has a CTA per SM and the ring
+// fits, which halves the reads of the tables; else 64 (a pair of warps per
+// 16 rows, each on 32 of the columns).
+inline int da_rows(const Geo& g) {
+  const long long ctas = (long long)((g.L + 127) / 128) * g.H * g.B;
+  return ctas >= SMS && STAGES * da_slot(g, 128) * g.esz <= SMEM_LIMIT ? 128
+                                                                       : 64;
+}
+
+// da_pass: one CTA per (128 or 64 query rows, head, batch row), eight
+// warps of 16 rows, each on XN n-tiles (8: all, 4: half) of every 64
+// coefficient columns x: dalpha | dbeta = ds . [cos | sin] over the key
+// tiles, then da = T(rotation by the query row's sin, cos) to scratch and
+// dqv += da . wh^T with da's fragments in registers (a pair's two halves
+// of dqv added at the end).
+template <class T, int DVP, int XN>
+__global__ void __launch_bounds__(QTHREADS)
+da_pass(const __grid_constant__ AParams p) {
+  using M = Mma<T>;
+  constexpr int NV = DVP / 8, ROWS = XN == 8 ? 128 : 64;
+  const Geo& g = p.g;
+  extern __shared__ float4 smem4[];
+  T* ring = reinterpret_cast<T*>(smem4);
+  const int ts = TK + g.pa, cs = TK + PB;
+  const int slot_elems = (int)da_slot(g, ROWS);
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * g.H + h;
+  const T* sin_t = static_cast<const T*>(p.sin_t);
+  const T* cos_t = static_cast<const T*>(p.cos_t);
+  const T* whh = static_cast<const T*>(p.wh) + (size_t)h * g.dh * g.D;
+  const int lp = ds_stride(g.L), nkt = (g.L + TK - 1) / TK;
+  const int nx = (g.d2p + TK - 1) / TK, n_items = nx * (nkt + 1);
+  auto issue = [&](int i) {
+    if (i < n_items) {
+      T* slot = ring + (i % STAGES) * slot_elems;
+      const int x0 = (i / (nkt + 1)) * TK, sub = i % (nkt + 1);
+      if (sub < nkt) {
+        const int j0 = sub * TK;
+        load_tile(slot, ts,
+                  static_cast<const T*>(p.ds) + (bh * g.L + q0) * lp + j0, lp,
+                  ROWS, g.L - q0, TK, lp - j0, g.vb);
+        T* tab = slot + ROWS * ts;
+        load_tile(tab, cs, cos_t + (size_t)j0 * g.D2 + x0, g.D2, TK,
+                  g.L - j0, TK, g.D2 - x0, g.vb);
+        load_tile(tab + TK * cs, cs, sin_t + (size_t)j0 * g.D2 + x0, g.D2,
+                  TK, g.L - j0, TK, g.D2 - x0, g.vb);
+      } else {
+        load_tile(slot, cs, whh + x0, g.D, g.dvp, g.dh, TK, g.D2 - x0, g.vb);
+        load_tile(slot + g.dvp * cs, cs, whh + g.D2 + x0, g.D, g.dvp, g.dh,
+                  TK, g.D2 - x0, g.vb);
+      }
+    }
+    cp_commit();
+  };
+  for (int i = 0; i < STAGES - 1; ++i) issue(i);
+  const int warp = threadIdx.x / 32;
+  const int wrow = XN == 8 ? 16 * warp : 16 * (warp >> 1);
+  const int xh = XN == 8 ? 0 : 32 * (warp & 1);  // this warp's x columns
+  const int l = lane_id(), gq = l >> 2, t = l & 3;
+  float dal[XN][4], dbe[XN][4], dq[NV][4];
+  zero(dq);
+  for (int i = 0; i < n_items; ++i) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();
+    issue(i + STAGES - 1);
+    const T* slot = ring + (i % STAGES) * slot_elems;
+    const int x0 = (i / (nkt + 1)) * TK, sub = i % (nkt + 1);
+    if (sub == 0) {
+      zero(dal);
+      zero(dbe);
+    }
+    if (sub < nkt) {
+      const T* ct = slot + ROWS * ts;
+      const T* st = ct + TK * cs;
+      if constexpr (sizeof(T) == 2) {
+#pragma unroll
+        for (int kk = 0; kk < TK; kk += 16) {
+          uint32_t a[4], bb[4];
+          M::a_mk(a, slot, ts, wrow, kk);
+#pragma unroll
+          for (int np = 0; np < XN / 2; ++np) {
+            M::b_kn(bb, ct, cs, xh + 16 * np, kk);
+            M::mma2(dal[2 * np], dal[2 * np + 1], a, bb);
+            M::b_kn(bb, st, cs, xh + 16 * np, kk);
+            M::mma2(dbe[2 * np], dbe[2 * np + 1], a, bb);
+          }
+        }
+      } else {
+        float pa_[XN][4], pb_[XN][4];
+        zero(pa_);
+        zero(pb_);
+#pragma unroll 2
+        for (int kk = 0; kk < TK; kk += 8) {
+          SplitA a;
+          M::a_mk(a, slot, ts, wrow, kk);
+#pragma unroll
+          for (int nt = 0; nt < XN; ++nt) {
+            float b0, b1;
+            M::b_kn_nat(b0, b1, ct, cs, xh + 8 * nt, kk);
+            mma3(pa_[nt], a, b0, b1);
+            M::b_kn_nat(b0, b1, st, cs, xh + 8 * nt, kk);
+            mma3(pb_[nt], a, b0, b1);
+          }
+        }
+        add_to(dal, pa_);
+        add_to(dbe, pb_);
+      }
+      continue;
+    }
+    // da_s = T(dalpha sin_q - dbeta cos_q), da_c = T(dalpha cos_q + dbeta
+    // sin_q), into dal / dbe and to scratch
+#pragma unroll
+    for (int nt = 0; nt < XN; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = q0 + wrow + gq + 8 * (e >> 1);
+        const int x = x0 + xh + 8 * nt + 2 * t + (e & 1);
+        float sq = 0.f, cq = 0.f;
+        const bool in = q < g.L && x < g.D2;
+        if (in) {
+          sq = to_f(sin_t[(size_t)q * g.D2 + x]);
+          cq = to_f(cos_t[(size_t)q * g.D2 + x]);
+        }
+        const float a_ = dal[nt][e], b_ = dbe[nt][e];
+        dal[nt][e] = rnd<T>(__fsub_rn(__fmul_rn(a_, sq), __fmul_rn(b_, cq)));
+        dbe[nt][e] = rnd<T>(__fadd_rn(__fmul_rn(a_, cq), __fmul_rn(b_, sq)));
+        if (in) {
+          T* dst = static_cast<T*>(p.da) + (bh * g.L + q) * g.D + x;
+          dst[0] = from_f<T>(dal[nt][e]);
+          dst[g.D2] = from_f<T>(dbe[nt][e]);
+        }
+      }
+    const T* w_s = slot;
+    const T* w_c = slot + g.dvp * cs;
+    if constexpr (sizeof(T) == 2) {
+#pragma unroll
+      for (int kk = 0; kk < XN / 2; ++kk) {
+        uint32_t a[4], bb[4];
+        M::a_c(a, dal[2 * kk], dal[2 * kk + 1]);
+#pragma unroll
+        for (int vp = 0; vp < NV / 2; ++vp) {
+          M::b_nk(bb, w_s, cs, 16 * vp, xh + 16 * kk);
+          M::mma2(dq[2 * vp], dq[2 * vp + 1], a, bb);
+        }
+        M::a_c(a, dbe[2 * kk], dbe[2 * kk + 1]);
+#pragma unroll
+        for (int vp = 0; vp < NV / 2; ++vp) {
+          M::b_nk(bb, w_c, cs, 16 * vp, xh + 16 * kk);
+          M::mma2(dq[2 * vp], dq[2 * vp + 1], a, bb);
+        }
+      }
+    } else {
+      float part[NV][4];
+      zero(part);
+#pragma unroll
+      for (int nt = 0; nt < XN; ++nt) {
+        SplitA a;
+        M::a_c(a, dal[nt]);
+#pragma unroll
+        for (int vn = 0; vn < NV; ++vn) {
+          float b0, b1;
+          M::b_nk_perm(b0, b1, w_s, cs, 8 * vn, xh + 8 * nt);
+          mma3(part[vn], a, b0, b1);
+        }
+        M::a_c(a, dbe[nt]);
+#pragma unroll
+        for (int vn = 0; vn < NV; ++vn) {
+          float b0, b1;
+          M::b_nk_perm(b0, b1, w_c, cs, 8 * vn, xh + 8 * nt);
+          mma3(part[vn], a, b0, b1);
+        }
+      }
+      add_to(dq, part);
+    }
+  }
+  if (XN == 4) {
+    // the second half's dqv through shared memory (the ring, free now)
+    float* comb =
+        reinterpret_cast<float*>(ring) + ((warp >> 1) * 32 + l) * 4 * NV;
+    __syncthreads();
+    if (xh) {
+#pragma unroll
+      for (int vn = 0; vn < NV; ++vn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) comb[4 * vn + e] = dq[vn][e];
+    }
+    __syncthreads();
+    if (xh) return;
+#pragma unroll
+    for (int vn = 0; vn < NV; ++vn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[vn][e] += comb[4 * vn + e];
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int q = q0 + wrow + gq + 8 * hf;
+    if (q >= g.L) continue;
+    T* dst = static_cast<T*>(p.dqv) + ((size_t)b * g.L + q) * g.D + h * g.dh;
+#pragma unroll
+    for (int vn = 0; vn < NV; ++vn) {
+      const int d = 8 * vn + 2 * t;
+      if (d < g.dh)
+        store2(dst + d, dq[vn][2 * hf], dq[vn][2 * hf + 1], d + 1 < g.dh);
+    }
+  }
+}
+
+struct WParams {
+  const void *qv, *da;
+  float* part;
+  Geo g;
+  int splits;
+};
+
+// dwh_partial: one CTA per (64 columns of D, head, batch row x split), a
+// warp per 16 columns: the partial qv^T . da over the split's 64-row
+// tiles, both read k-major, to part[(b * splits + split), h] in fp32.
+template <class T, int DVP>
+__global__ void __launch_bounds__(THREADS)
+dwh_partial(const __grid_constant__ WParams p) {
+  using M = Mma<T>;
+  constexpr int MT = DVP / 16;
+  const Geo& g = p.g;
+  extern __shared__ float4 smem4[];
+  T* ring = reinterpret_cast<T*>(smem4);
+  const int qs = g.dvp + g.pa, ts = TK + g.pa;
+  const int slot_elems = TK * qs + TK * ts;
+  const int x0 = blockIdx.x * TK, h = blockIdx.y, z = blockIdx.z;
+  const int b = z / p.splits, split = z % p.splits;
+  const size_t bh = (size_t)b * g.H + h;
+  const int nqt = (g.L + TK - 1) / TK, per = (nqt + p.splits - 1) / p.splits;
+  const int t0 = split * per, n_items = max(0, min(nqt, t0 + per) - t0);
+  auto issue = [&](int i) {
+    if (i < n_items) {
+      T* slot = ring + (i % STAGES) * slot_elems;
+      const int q0 = (t0 + i) * TK;
+      load_head_rows(g, slot, qs, static_cast<const T*>(p.qv), b, h, q0, TK);
+      load_tile(slot + TK * qs, ts,
+                static_cast<const T*>(p.da) + (bh * g.L + q0) * g.D + x0, g.D,
+                TK, g.L - q0, TK, g.D - x0, g.vb);
+    }
+    cp_commit();
+  };
+  for (int i = 0; i < STAGES - 1; ++i) issue(i);
+  const int n0 = 16 * (threadIdx.x / 32);
+  float acc[MT][2][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) zero(acc[mt]);
+  for (int i = 0; i < n_items; ++i) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();
+    issue(i + STAGES - 1);
+    const T* qvt = ring + (i % STAGES) * slot_elems;
+    const T* dat = qvt + TK * qs;
+    if constexpr (sizeof(T) == 2) {
+#pragma unroll
+      for (int kk = 0; kk < TK; kk += 16) {
+        uint32_t bb[4];
+        M::b_kn(bb, dat, ts, n0, kk);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t a[4];
+          M::a_km(a, qvt, qs, 16 * mt, kk);
+          M::mma2(acc[mt][0], acc[mt][1], a, bb);
+        }
+      }
+    } else {
+      float part[MT][2][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) zero(part[mt]);
+#pragma unroll 2
+      for (int kk = 0; kk < TK; kk += 8) {
+        float b[4];
+        M::b_kn(b[0], b[1], dat, ts, n0, kk);
+        M::b_kn(b[2], b[3], dat, ts, n0 + 8, kk);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          SplitA a;
+          M::a_km(a, qvt, qs, 16 * mt, kk);
+          mma3(part[mt][0], a, b[0], b[1]);
+          mma3(part[mt][1], a, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) add_to(acc[mt], part[mt]);
+    }
+  }
+  const int l = lane_id(), gq = l >> 2, t = l & 3;
+  float* out = p.part + ((size_t)z * g.H + h) * g.dh * g.D;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = 16 * mt + gq + 8 * (e >> 1);
+        const int x = x0 + n0 + 8 * j + 2 * t + (e & 1);
+        if (d < g.dh && x < g.D) out[(size_t)d * g.D + x] = acc[mt][j][e];
+      }
+}
+
+// dwh = T(sum of the partials in order), one thread per element.
+template <class T>
+__global__ void dwh_reduce(const float* __restrict__ part, T* __restrict__ dwh,
+                           size_t n, int n_parts) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float acc = 0.f;
+  for (int z = 0; z < n_parts; ++z) acc += part[(size_t)z * n + i];
+  dwh[i] = from_f<T>(acc);
+}
+
+inline Geo plan(int B, int L, int H, int dh, int esz) {
+  Geo g = make_geo(B, L, H, dh, esz);
+  g.rows = query_rows(g, true);
+  g.stages = g.rows ? query_stages(g, g.rows, true) : 0;
+  return g;
+}
+
+template <class K>
+int set_smem(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <class T, int DVP, bool DROP>
+int run(const BwdArgs& a, const Geo& g, void* scratch, cudaStream_t stream) {
+  Scratch s;
+  scratch_layout(g, static_cast<char*>(scratch), &s);
+  const int nqt = (g.L + TK - 1) / TK;
+  int err;
+  const size_t q_smem = query_smem(g, g.rows, g.stages, true);
+  if ((err = set_smem(q_pass<T, DVP, DROP>, q_smem))) return err;
+  const QParams qp{a.qu, a.qv, a.k, a.v, a.wh, a.sin_t, a.cos_t, a.dout,
+                   a.lengths, a.stats, a.dqu, s.ds, s.pd, g, a.seed, a.thresh,
+                   a.inv_keep, a.tq};
+  q_pass<T, DVP, DROP><<<dim3((g.L + g.rows - 1) / g.rows, g.H, g.B),
+                         g.rows * 4, q_smem, stream>>>(qp);
+  if ((err = cudaGetLastError())) return err;
+
+  const size_t k_smem =
+      (size_t)STAGES * (TK * (TK + g.pa) + TK * (g.dvp + g.pa)) * g.esz;
+  if ((err = set_smem(k_pass<T, DVP>, k_smem))) return err;
+  k_pass<T, DVP><<<dim3(nqt, g.H, g.B), THREADS, k_smem, stream>>>(
+      KParams{a.qu, a.dout, s.ds, s.pd, a.dk, a.dv, g});
+  if ((err = cudaGetLastError())) return err;
+
+  const int arows = da_rows(g);
+  const size_t a_smem = (size_t)STAGES * da_slot(g, arows) * g.esz;
+  const AParams ap{s.ds, a.sin_t, a.cos_t, a.wh, s.da, a.dqv, g};
+  const dim3 a_grid((g.L + arows - 1) / arows, g.H, g.B);
+  if (arows == 128) {
+    if ((err = set_smem(da_pass<T, DVP, 8>, a_smem))) return err;
+    da_pass<T, DVP, 8><<<a_grid, QTHREADS, a_smem, stream>>>(ap);
+  } else {
+    if ((err = set_smem(da_pass<T, DVP, 4>, a_smem))) return err;
+    da_pass<T, DVP, 4><<<a_grid, QTHREADS, a_smem, stream>>>(ap);
+  }
+  if ((err = cudaGetLastError())) return err;
+
+  const int splits = dwh_splits(g);
+  const size_t w_smem =
+      (size_t)STAGES * (TK * (g.dvp + g.pa) + TK * (TK + g.pa)) * g.esz;
+  if ((err = set_smem(dwh_partial<T, DVP>, w_smem))) return err;
+  dwh_partial<T, DVP><<<dim3((g.D + TK - 1) / TK, g.H, g.B * splits), THREADS,
+                        w_smem, stream>>>(
+      WParams{a.qv, s.da, s.part, g, splits});
+  if ((err = cudaGetLastError())) return err;
+
+  const size_t n = (size_t)g.H * g.dh * g.D;
+  dwh_reduce<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      s.part, static_cast<T*>(a.dwh), n, g.B * splits);
+  return cudaGetLastError();
+}
+
 template <class T, bool DROP>
 int launch(const BwdArgs& a, void* scratch, cudaStream_t stream) {
-  Scratch s;
-  const int B = a.B, L = a.L, H = a.H, dh = a.dh, D = H * dh, D2 = D / 2;
-  scratch_layout(B, L, H, dh, static_cast<char*>(scratch), &s);
-  const int nq = (L + TQ - 1) / TQ, nk = (L + TK - 1) / TK;
-  const long long LD = (long long)L * D, LL = (long long)L * L;
-  const T* qu = static_cast<const T*>(a.qu);
-  const T* qv = static_cast<const T*>(a.qv);
-  const T* k = static_cast<const T*>(a.k);
-  const T* dout = static_cast<const T*>(a.dout);
-  const T* wh = static_cast<const T*>(a.wh);
-  const T* sin_t = static_cast<const T*>(a.sin_t);
-  const T* cos_t = static_cast<const T*>(a.cos_t);
-  int err = cudaFuncSetAttribute(
-      prep<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PREP_SMEM);
-  if (err) return err;
-  prep<T><<<dim3(nq, H, B), THREADS, PREP_SMEM, stream>>>(qv, wh, sin_t, cos_t,
-                                                          s.ab, L, H, dh);
-  if ((err = cudaGetLastError())) return err;
-  scores<T, DROP><<<dim3(nk, nq, B * H), THREADS, 0, stream>>>(a, s.ab, s.ds,
-                                                               s.pd);
-  if ((err = cudaGetLastError())) return err;
-  const size_t n_rows = (size_t)B * H * L;
-  rows<T, DROP><<<(unsigned)((n_rows + 7) / 8), 256, 0, stream>>>(a, s.ds, s.pd);
-  if ((err = cudaGetLastError())) return err;
-  using GT = Gemm<float, T, T>;
-  // batch z = b * H + h over (B, H, L, L) scratch and packed (B, L, D) operands
-  const long long HLL = H * LL;
-  // dqu = ds . k
-  if ((err = run_gemm(GT{s.ds, k, static_cast<T*>(a.dqu), L, dh, L, H,
-                         L, 1, HLL, LL, D, 1, LD, dh, D, 1, LD, dh}, B * H, stream)))
-    return err;
-  // dk = ds^T . qu
-  if ((err = run_gemm(GT{s.ds, qu, static_cast<T*>(a.dk), L, dh, L, H,
-                         1, L, HLL, LL, D, 1, LD, dh, D, 1, LD, dh}, B * H, stream)))
-    return err;
-  // dv = p_drop^T . dO
-  if ((err = run_gemm(GT{s.pd, dout, static_cast<T*>(a.dv), L, dh, L, H,
-                         1, L, HLL, LL, D, 1, LD, dh, D, 1, LD, dh}, B * H, stream)))
-    return err;
-  // [dalpha | dbeta] (B, H, L, D) = ds . cos | ds . sin
-  using GF = Gemm<float, T, float>;
-  if ((err = run_gemm(GF{s.ds, cos_t, s.dab, L, D2, L, H,
-                         L, 1, HLL, LL, D2, 1, 0, 0, D, 1, H * LD, LD}, B * H, stream)))
-    return err;
-  if ((err = run_gemm(GF{s.ds, sin_t, s.dab + D2, L, D2, L, H,
-                         L, 1, HLL, LL, D2, 1, 0, 0, D, 1, H * LD, LD}, B * H, stream)))
-    return err;
-  const size_t n = (size_t)B * H * L * D2;
-  combine<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(s.dab, sin_t, cos_t,
-                                                              s.da, B, H, L, D2);
-  if ((err = cudaGetLastError())) return err;
-  // dqv = da . wh^T  (da is (H, B, L, D))
-  if ((err = run_gemm(GT{s.da, wh, static_cast<T*>(a.dqv), L, dh, D, H,
-                         D, 1, LD, B * LD, 1, D, 0, (long long)dh * D,
-                         D, 1, LD, dh}, B * H, stream)))
-    return err;
-  // dwh[h] = qv^T . da[h], the sum over (batch row, query row) as one depth
-  return run_gemm(Gemm<T, float, T>{qv, s.da, static_cast<T*>(a.dwh), dh, D,
-                                    B * L, 1, 1, D, dh, 0, D, 1, B * LD, 0, D,
-                                    1, (long long)dh * D, 0},
-                  H, stream);
+  const Geo g = plan(a.B, a.L, a.H, a.dh, sizeof(T));
+  if (g.rows == 0) return cudaErrorInvalidValue;
+  switch (g.dvp) {
+    case 16: return run<T, 16, DROP>(a, g, scratch, stream);
+    case 32: return run<T, 32, DROP>(a, g, scratch, stream);
+    case 64: return run<T, 64, DROP>(a, g, scratch, stream);
+    case 128: return run<T, 128, DROP>(a, g, scratch, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace general
@@ -1143,11 +1708,15 @@ extern "C" const char* sincos_attention_bwd_error_string(int err) {
 // general ones.
 enum Variant { WGMMA = 0, GENERAL = 1 };
 
-// Bytes of device scratch sincos_attention_bwd needs for these shapes.
+// Bytes of device scratch sincos_attention_bwd needs for these shapes
+// (dtype 0 float32, 1 bfloat16).
 extern "C" long long sincos_attention_bwd_scratch_bytes(int B, int L, int H,
-                                                        int dh, int variant) {
+                                                        int dh, int dtype,
+                                                        int variant) {
   if (variant == GENERAL)
-    return (long long)general::scratch_layout(B, L, H, dh, nullptr, nullptr);
+    return (long long)general::scratch_layout(
+        attn::gen::make_geo(B, L, H, dh, dtype == 0 ? 4 : 2), nullptr,
+        nullptr);
   return (long long)hopper::scratch_layout(B, L, H, nullptr, nullptr);
 }
 
@@ -1176,7 +1745,7 @@ extern "C" int sincos_attention_bwd(
     return drop ? hopper::launch<true>(a, scratch, s)
                 : hopper::launch<false>(a, scratch, s);
   }
-  if (variant != GENERAL || general::padded_head(dh) == 0)
+  if (variant != GENERAL || attn::gen::padded_head(dh) == 0)
     return cudaErrorInvalidValue;
   if (dtype == 0)
     return drop ? general::launch<float, true>(a, scratch, s)

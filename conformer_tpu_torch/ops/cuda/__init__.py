@@ -3,7 +3,8 @@
 Each wrapper runs its plain PyTorch version on CPU tensors and launches its
 kernel on CUDA tensors, counting launches in ``<wrapper>.launches``; the
 attention forward also counts its launches with dropout (K1-drop), both
-attention wrappers their launches of the general kernels, and K4a its
+attention wrappers their launches of the general kernels (and of those,
+the fp32 ones), and K4a its
 launches of the window kernel.
 """
 
@@ -27,6 +28,7 @@ def launch_counts() -> Dict[str, int]:
     counts["sincos_attention_fwd_dropout"] = sincos_attention_fwd.dropout_launches
     for fn in (sincos_attention_fwd, sincos_attention_bwd):
         counts[f"{fn.__name__}_general"] = fn.general_launches
+        counts[f"{fn.__name__}_general_fp32"] = fn.general_fp32_launches
     counts["depthwise_conv_fwd_window"] = depthwise_conv_fwd.window_launches
     return counts
 
@@ -35,6 +37,7 @@ def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
     sincos_attention_fwd.dropout_launches = 0
-    sincos_attention_fwd.general_launches = 0
-    sincos_attention_bwd.general_launches = 0
+    for fn in (sincos_attention_fwd, sincos_attention_bwd):
+        fn.general_launches = 0
+        fn.general_fp32_launches = 0
     depthwise_conv_fwd.window_launches = 0

@@ -17,13 +17,14 @@ Kernel wrappers, each with a plain PyTorch version of the same signature:
 
 Each has two kernels, picked by ``attention_variant`` from (dtype, H, dh,
 D): "wgmma", the bf16 Hopper kernels at dh 64 with D/2 a multiple of 64 and
-D <= 512 (production width), and "general", CUDA-core kernels for every
+D <= 512 (production width), and "general", mma.sync kernels for every
 other shape the JAX kernels take (any head width up to 128, odd head
-counts, D > 512) and for fp32. A CPU tensor takes the plain version; a CUDA
-tensor launches one of the two kernels or raises, never the plain
-version. ``rel_attention_sincos_packed`` is the public entry: under autograd
-it runs both through one ``torch.autograd.Function``, otherwise (serving,
-``torch.inference_mode``) just the forward.
+counts, D > 512) and for fp32 (3xTF32). ``general_geometry`` mirrors the
+general kernels' tiling and scratch on the host. A CPU tensor takes the
+plain version; a CUDA tensor launches one of the two kernels or raises,
+never the plain version. ``rel_attention_sincos_packed`` is the public
+entry: under autograd it runs both through one ``torch.autograd.Function``,
+otherwise (serving, ``torch.inference_mode``) just the forward.
 
 Dropout on the probabilities is the JAX kernel's stateless hash
 (``_dropout_keep``): the mask of query row i, key j depends on the seed, the
@@ -262,13 +263,135 @@ def _check_common(qu, qv, k, v, wh, lengths, sin_t, cos_t):
 
 
 def _scratch_bytes(lib, name: str, b: int, l: int, h: int, dh: int,
-                   variant: int) -> int:
+                   code: int, variant: int) -> int:
     """The bytes of device scratch the library's ``<name>_scratch_bytes``
     asks for."""
     size = getattr(lib, f"{name}_scratch_bytes")
     size.restype = ctypes.c_longlong
-    size.argtypes = [ctypes.c_int] * 5
-    return int(size(b, l, h, dh, variant))
+    size.argtypes = [ctypes.c_int] * 6
+    return int(size(b, l, h, dh, code, variant))
+
+
+# The general kernels' tiling, as csrc/attention_general.cuh computes it.
+GENERAL_TK = 64              # keys (or rows) per streamed tile
+GENERAL_XW = 32              # alpha | beta columns per prologue step
+GENERAL_SMS = 132            # an H100's SMs
+GENERAL_SMEM_LIMIT = 232448  # a block's shared memory on sm_90
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _align256(n: int) -> int:
+    return _round_up(n, 256)
+
+
+def general_geometry(dtype, b: int, l: int, h: int, dh: int) -> dict:
+    """The general kernels' tiling for these shapes, the host's copy of
+    ``attn::gen::make_geo``/``query_rows``/``query_stages`` and the
+    backward's scratch layout: the padded head and half widths (16), the
+    copy width in bytes (the widest of 16, 8, 4 that divides dh and D/2 in
+    bytes; 2 for a bf16 shape that none does), the score chunks, the query
+    rows per CTA, ring stages and shared memory of the forward
+    (``fwd_rows``, ``fwd_stages``, ``fwd_smem``) and of the backward's
+    query pass (``bwd_*``; rows 0 = no tile fits), the dwh pass's row
+    splits and the backward's scratch bytes."""
+    esz = 4 if dtype == torch.float32 else 2
+    d = h * dh
+    d2 = d // 2
+    pa, pb = 16 // esz, 8
+    dhp, d2p = _round_up(dh, 16), _round_up(d2, 16)
+    ep = dhp + 2 * d2p
+    dvp = next(w for w in (16, 32, 64, 128) if dh <= w) if dh <= 128 else 0
+    vb = 16
+    while vb > esz and ((dh * esz) % vb or (d2 * esz) % vb):
+        vb //= 2
+    ss = max(64, dvp) + pa
+
+    def smem(rows: int, stages: int, bwd: bool) -> int:
+        tile = rows * (ep + pa) * esz
+        if bwd:
+            tile += rows * (dvp + pa) * esz + 2 * rows * 4
+        ring = stages * GENERAL_TK * ss * esz
+        pro = (rows * (dhp + pa) + 4 * dhp * (GENERAL_XW + pb)) * esz
+        comb = rows * 2 * (4 + dvp // 2) * 4
+        return tile + max(ring, pro, comb)
+
+    def stages_for(rows: int, bwd: bool) -> int:
+        return next((st for st in (4, 3)
+                     if smem(rows, st, bwd) <= GENERAL_SMEM_LIMIT), 0)
+
+    def rows_for(bwd: bool) -> int:
+        rows = 64
+        while rows >= 16 and not stages_for(rows, bwd):
+            rows //= 2
+        if rows < 16:
+            return 0
+        while rows > 16 and b * h * -(-l // rows) < GENERAL_SMS:
+            rows //= 2
+        return rows
+
+    geo = {"dhp": dhp, "d2p": d2p, "vec_bytes": vb,
+           "chunks": -(-dhp // 64) + 2 * -(-d2p // 64)}
+    for key, bwd in (("fwd", False), ("bwd", True)):
+        rows = rows_for(bwd)
+        stages = stages_for(rows, bwd) if rows else 0
+        geo.update({f"{key}_rows": rows, f"{key}_stages": stages,
+                    f"{key}_smem": smem(rows, stages, bwd) if rows else 0})
+    nqt = -(-l // GENERAL_TK)
+    base = -(-d // 64) * h * b
+    splits = min(max(1, -(-2 * GENERAL_SMS // base)), nqt)
+    lp = _round_up(l, 8)
+    geo["dwh_splits"] = splits
+    geo["bwd_scratch"] = (2 * _align256(b * h * l * lp * esz)
+                          + _align256(b * h * l * d * esz)
+                          + _align256(b * splits * h * dh * d * 4))
+    return geo
+
+
+def split_tf32_trunc(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """fp32 x -> (hi, lo) as the general kernels' 3xTF32 products read them
+    (``tf32::split_trunc``): hi = x with its low 13 bits cleared, lo =
+    x - hi (exact in fp32) with the low 13 bits the tensor cores ignore
+    cleared too."""
+    mask = np.uint32(0xFFFFE000)
+    x = np.ascontiguousarray(x, np.float32)
+    hi = (x.view(np.uint32) & mask).view(np.float32)
+    lo = ((x - hi).view(np.uint32) & mask).view(np.float32)
+    return hi, lo
+
+
+def library_geometry(dtype, b: int, l: int, h: int, dh: int) -> dict:
+    """The same keys of ``general_geometry`` (all but the dwh splits) as
+    the built forward library computes them
+    (``sincos_attention_general_geometry``) and the backward library's
+    scratch bytes: a check on the card that the host's copy is the
+    kernels' own."""
+    lib = build.load("sincos_attention")
+    fn = lib.sincos_attention_general_geometry
+    fn.restype = None
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    out = (ctypes.c_longlong * 10)()
+    code = _DTYPE_CODES[dtype]
+    fn(b, l, h, dh, code, ctypes.addressof(out))
+    keys = ("dhp", "d2p", "vec_bytes", "fwd_rows", "fwd_stages", "fwd_smem",
+            "bwd_rows", "bwd_stages", "bwd_smem", "chunks")
+    geo = dict(zip(keys, (int(x) for x in out)))
+    geo["bwd_scratch"] = _scratch_bytes(
+        build.load("sincos_attention_bwd"), "sincos_attention_bwd", b, l, h,
+        dh, code, VARIANTS.index("general"))
+    return geo
+
+
+def _check_fits(dtype, b: int, l: int, h: int, dh: int, variant: int,
+                key: str) -> None:
+    """Raise where the general kernel's query tile does not fit in shared
+    memory even at 16 rows (D past ~3000 in fp32, ~6000 in bf16)."""
+    if VARIANTS[variant] == "general" and not general_geometry(
+            dtype, b, l, h, dh)[key]:
+        raise ValueError(f"no query tile of the general kernel fits for "
+                         f"H={h}, dh={dh}, {dtype}")
 
 
 def _dropout_args(rate: float, seed: int, tq: int, l: int):
@@ -288,20 +411,19 @@ def sincos_attention_fwd(qu, qv, k, v, wh, lengths, sin_t, cos_t,
     sincos_attention_plain. CPU tensors take the plain version; CUDA tensors
     launch the kernel of ``attention_variant`` (counted in
     ``sincos_attention_fwd.launches``, the general one also in
-    ``.general_launches``) or raise."""
+    ``.general_launches`` and, in fp32, ``.general_fp32_launches``) or
+    raise."""
     if qu.device.type == "cpu":
         return sincos_attention_plain(qu, qv, k, v, wh, lengths, sin_t, cos_t,
                                       rate, seed, tq, stats)
     b, l, h, dh, code, variant = _check_common(qu, qv, k, v, wh, lengths,
                                                sin_t, cos_t)
+    _check_fits(qu.dtype, b, l, h, dh, variant, "fwd_rows")
     thresh, inv_keep, seed32, tq = _dropout_args(rate, seed, tq, l)
     out = torch.empty_like(qu)
     st = (torch.empty((b, h, l, 2), dtype=torch.float32, device=qu.device)
           if stats else None)
     lib = build.load("sincos_attention")
-    scratch = torch.empty(_scratch_bytes(lib, "sincos_attention_fwd", b, l,
-                                         h, dh, variant),
-                          dtype=torch.uint8, device=qu.device)
     fn = lib.sincos_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                    + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
@@ -313,12 +435,13 @@ def sincos_attention_fwd(qu, qv, k, v, wh, lengths, sin_t, cos_t,
                  wh.data_ptr(), sin_t.data_ptr(), cos_t.data_ptr(),
                  lengths.data_ptr(), out.data_ptr(),
                  st.data_ptr() if st is not None else None,
-                 scratch.data_ptr(), b, l, h, dh, code, variant,
+                 None, b, l, h, dh, code, variant,
                  seed32, thresh, inv_keep, tq, stream)
     build.check(lib, "sincos_attention", err)
     sincos_attention_fwd.launches += 1
     if VARIANTS[variant] == "general":
         sincos_attention_fwd.general_launches += 1
+        sincos_attention_fwd.general_fp32_launches += code == 0
     if thresh:
         sincos_attention_fwd.dropout_launches += 1
     return (out, st) if stats else out
@@ -327,16 +450,21 @@ def sincos_attention_fwd(qu, qv, k, v, wh, lengths, sin_t, cos_t,
 sincos_attention_fwd.launches = 0
 sincos_attention_fwd.dropout_launches = 0   # of those, with dropout (K1-drop)
 sincos_attention_fwd.general_launches = 0   # of those, the general kernel
+sincos_attention_fwd.general_fp32_launches = 0   # ... in fp32
 
 
 def bwd_scratch_bytes(b: int, l: int, h: int, dh: int, dtype) -> int:
-    """Bytes of device scratch K2 takes at these shapes, as its library
-    computes them (wgmma: ds and p_drop (B*H, L, L) and da (B*H, L, D) in
-    bf16; general: alpha | beta, ds, p_drop and two (B*H, L, D) in fp32), so
-    they grow with L^2 and not in shared memory."""
-    variant = VARIANTS.index(attention_variant(dtype, h, dh, h * dh))
+    """Bytes of device scratch K2 takes at these shapes (wgmma: ds and
+    p_drop (B*H, L, L) and da (B*H, L, D) in bf16, as its library computes
+    them; general: ``general_geometry``'s, ds, p_drop and da in the input
+    dtype and the dwh partials in fp32), so they grow with L^2 and not in
+    shared memory."""
+    variant = attention_variant(dtype, h, dh, h * dh)
+    if variant == "general":
+        return general_geometry(dtype, b, l, h, dh)["bwd_scratch"]
     return _scratch_bytes(build.load("sincos_attention_bwd"),
-                          "sincos_attention_bwd", b, l, h, dh, variant)
+                          "sincos_attention_bwd", b, l, h, dh,
+                          _DTYPE_CODES[dtype], VARIANTS.index(variant))
 
 
 def sincos_attention_bwd(qu, qv, k, v, wh, lengths, sin_t, cos_t, stats,
@@ -345,7 +473,8 @@ def sincos_attention_bwd(qu, qv, k, v, wh, lengths, sin_t, cos_t, stats,
     sincos_attention_bwd_plain. CPU tensors take the plain version; CUDA
     tensors launch the kernel of ``attention_variant`` (counted in
     ``sincos_attention_bwd.launches``, the general one also in
-    ``.general_launches``) or raise. ``stats`` are K1's row statistics."""
+    ``.general_launches`` and, in fp32, ``.general_fp32_launches``) or
+    raise. ``stats`` are K1's row statistics."""
     if qu.device.type == "cpu":
         return sincos_attention_bwd_plain(qu, qv, k, v, wh, lengths, sin_t,
                                           cos_t, stats, dout, rate,
@@ -355,12 +484,13 @@ def sincos_attention_bwd(qu, qv, k, v, wh, lengths, sin_t, cos_t, stats,
     dev, dt = qu.device, qu.dtype
     _check("dout", dout, (b, l, h * dh), dt, dev)
     _check("stats", stats, (b, h, l, 2), torch.float32, dev)
+    _check_fits(dt, b, l, h, dh, variant, "bwd_rows")
     thresh, inv_keep, seed32, tq = _dropout_args(rate, seed, tq, l)
     lib = build.load("sincos_attention_bwd")
     dqu, dqv, dk, dv = (torch.empty_like(qu) for _ in range(4))
     dwh = torch.empty_like(wh)
     scratch = torch.empty(_scratch_bytes(lib, "sincos_attention_bwd", b, l,
-                                         h, dh, variant),
+                                         h, dh, code, variant),
                           dtype=torch.uint8, device=dev)
     run = lib.sincos_attention_bwd
     run.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
@@ -377,11 +507,13 @@ def sincos_attention_bwd(qu, qv, k, v, wh, lengths, sin_t, cos_t, stats,
     sincos_attention_bwd.launches += 1
     if VARIANTS[variant] == "general":
         sincos_attention_bwd.general_launches += 1
+        sincos_attention_bwd.general_fp32_launches += code == 0
     return dqu, dqv, dk, dv, dwh
 
 
 sincos_attention_bwd.launches = 0
 sincos_attention_bwd.general_launches = 0   # of those, the general kernels
+sincos_attention_bwd.general_fp32_launches = 0   # ... in fp32
 
 
 class SincosAttention(torch.autograd.Function):

@@ -1,8 +1,11 @@
-"""Device time of the attention kernels K1 and K2 at the production width.
+"""Device time of the attention kernels K1 and K2.
 
 Times ``sincos_attention_fwd`` (K1) and ``sincos_attention_bwd`` (K2) at
-B 8, H 8, dh 64, D 512, L 199 and 599, rates 0 and 0.1, in fp32 and bf16,
-beside their plain versions, with the largest |kernel - plain| of each
+B 8, H 8, dh 64, D 512, L 199 and 599, rates 0 and 0.1, in fp32 and bf16
+(fp32 takes the general kernels, bf16 the wgmma ones), and the general
+kernels in bf16 at GENERAL_BF16 (ModelConfig.tiny's (H, dh) = (2, 32) at
+B 8, L 599 and (12, 64), D 768, at B 3, L 199), rates 0 and 0.1, beside
+their plain versions, with the largest |kernel - plain| of each
 call's outputs. It uses only the wrappers' call signatures, so it times
 whichever ``conformer_tpu_torch`` comes first on the path: run it as a file
 with ``PYTHONPATH`` set to another checkout to time that checkout's kernels
@@ -27,24 +30,26 @@ from conformer_tpu_torch.tools.timing import device_ms
 
 B, H, DH = 8, 8, 64
 LENGTHS = (199, 599)
+# (H, dh, B, L) of the bf16 shapes the general kernels take
+GENERAL_BF16 = ((2, 32, 8, 599), (12, 64, 3, 199))
 RATES = (0.0, 0.1)
 DROPOUT_SEED = 1234567
 
 
-def inputs(l: int, dtype, seed: int):
+def inputs(l: int, dtype, seed: int, h: int = H, dh: int = DH, b: int = B):
     """Seeded operands as chip_smoke.py makes them: scale folded into qu
     and qv, key lengths full, one short, half, 1, 0, full, 3/4, 7."""
-    d = H * DH
+    d = h * dh
     gen = torch.Generator().manual_seed(seed)
     mk = lambda *s: torch.randn(*s, generator=gen)
     dev = torch.device("cuda")
-    qu, qv, k, v = (mk(B, l, d).to(dev, dtype) for _ in range(4))
-    wh = sa.prep_pos_kernel((mk(d, d) / math.sqrt(d)).to(dev, dtype), H)
-    lens = [l, l - 1, l // 2, 1, 0, l, 3 * l // 4, 7][:B]
+    qu, qv, k, v = (mk(b, l, d).to(dev, dtype) for _ in range(4))
+    wh = sa.prep_pos_kernel((mk(d, d) / math.sqrt(d)).to(dev, dtype), h)
+    lens = [l, l - 1, l // 2, 1, 0, l, 3 * l // 4, 7][:b]
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-    s = torch.tensor(1.0 / math.sqrt(DH), dtype=dtype, device=dev)
+    s = torch.tensor(1.0 / math.sqrt(dh), dtype=dtype, device=dev)
     sin_t, cos_t = sa.sincos_tables(l, d, dtype, dev)
-    dout = mk(B, l, d).to(dev, dtype)
+    dout = mk(b, l, d).to(dev, dtype)
     return ((qu * s).contiguous(), (qv * s).contiguous(), k, v, wh, lengths,
             sin_t, cos_t), dout
 
@@ -54,8 +59,9 @@ def max_err(got, want) -> float:
                for g, w in zip(got, want))
 
 
-def run(dtype, l: int, rate: float, seed: int) -> dict:
-    args, dout = inputs(l, dtype, seed)
+def run(dtype, l: int, rate: float, seed: int, h: int = H, dh: int = DH,
+        b: int = B) -> dict:
+    args, dout = inputs(l, dtype, seed, h, dh, b)
     drop = (rate, DROPOUT_SEED, sa.hash_tq(l))
     out, stats = sa.sincos_attention_fwd(*args, *drop, stats=True)
     bwd_args = (*args, stats, dout, *drop)
@@ -63,8 +69,8 @@ def run(dtype, l: int, rate: float, seed: int) -> dict:
     bwd_err = max_err(sa.sincos_attention_bwd(*bwd_args),
                       sa.sincos_attention_bwd_plain(*bwd_args))
     return {
-        "dtype": str(dtype).replace("torch.", ""), "b": B, "l": l, "h": H,
-        "dh": DH, "rate": rate,
+        "dtype": str(dtype).replace("torch.", ""), "b": b, "l": l, "h": h,
+        "dh": dh, "rate": rate,
         "k1_ms": device_ms(lambda: sa.sincos_attention_fwd(*args, *drop)),
         "k1_plain_ms": device_ms(
             lambda: sa.sincos_attention_plain(*args, *drop), iters=5),
@@ -89,6 +95,10 @@ def main() -> None:
             for rate in RATES:
                 print(json.dumps(run(dtype, l, rate, seed=500 + i)),
                       flush=True)
+    for i, (h, dh, b, l) in enumerate(GENERAL_BF16):
+        for rate in RATES:
+            print(json.dumps(run(torch.bfloat16, l, rate, 510 + i, h, dh, b)),
+                  flush=True)
 
 
 if __name__ == "__main__":

@@ -264,11 +264,13 @@ def test_both_impls_agree_in_the_port():
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.3])
-@pytest.mark.parametrize("h,dh", [(3, 16), (4, 32), (3, 64)])
+@pytest.mark.parametrize("h,dh", [(3, 16), (4, 32), (3, 64), (4, 36)])
 def test_plain_versions_match_pallas_interpret_at_every_head_shape(h, dh,
                                                                    rate):
     """The shapes the general kernels take on the card (odd head counts,
-    head widths other than 64, D/2 not a multiple of 64): the plain forward
+    head widths other than 64, D/2 not a multiple of 64, and Conformer-S's
+    (4, 36), whose head width and D/2 are not multiples of 16 bytes in
+    bf16; the JAX wrapper takes it through its per-head layout): the plain forward
     against the interpret-mode kernels (atol 2e-5) and the autograd
     Function's plain backward against their jax.vjp (atol 1e-5), with a
     ragged row and a row of length 0."""
@@ -304,6 +306,8 @@ def test_plain_versions_match_pallas_interpret_at_every_head_shape(h, dh,
     (torch.bfloat16, 12, 64, "general"),  # D 768 > 512
     (torch.bfloat16, 2, 128, "general"),
     (torch.bfloat16, 5, 24, "general"),   # a dh below its padded width
+    (torch.bfloat16, 4, 36, "general"),   # Conformer-S, D 144
+    (torch.float32, 4, 36, "general"),
     (torch.float32, 8, 64, "general"),
     (torch.float32, 3, 16, "general"),
 ])
@@ -342,3 +346,132 @@ def test_cuda_tensors_never_reach_the_plain_version():
         with pytest.raises(ValueError, match="no kernel for device"):
             tsa.sincos_attention_bwd(qu, qu, qu, qu, wh, lengths, sin_t, cos_t,
                                      None, qu)
+
+
+@pytest.mark.parametrize("dtype,h,dh,b,l,want", [
+    # fp32 at production width: the 64-row query tile (147 KB) fits, with a
+    # 4-stage ring in the forward and a 3-stage one beside dO's tile
+    (torch.float32, 8, 64, 8, 599,
+     dict(dhp=64, d2p=256, vec_bytes=16, chunks=9, fwd_rows=64,
+          fwd_stages=4, bwd_rows=64, bwd_stages=3, dwh_splits=1)),
+    # ModelConfig.tiny: 160 CTAs of 64 rows; the dwh pass splits each batch
+    # row into 10 row tiles to fill the card
+    (torch.bfloat16, 2, 32, 8, 599,
+     dict(dhp=32, d2p=32, vec_bytes=16, chunks=3, fwd_rows=64, bwd_rows=64,
+          dwh_splits=10)),
+    # Conformer-S: dh 36 and D/2 72 pad to 48 and 80; 72-byte head columns
+    # take 8-byte copies in bf16, 144-byte ones 16-byte copies in fp32; 12
+    # (batch row, head) pairs at L 199 cut the query tile to 16 rows
+    (torch.bfloat16, 4, 36, 3, 199,
+     dict(dhp=48, d2p=80, vec_bytes=8, chunks=5, fwd_rows=16, bwd_rows=16,
+          dwh_splits=4)),
+    (torch.float32, 4, 36, 3, 199,
+     dict(dhp=48, d2p=80, vec_bytes=16, chunks=5, fwd_rows=16, bwd_rows=16,
+          dwh_splits=4)),
+    # D 768 in bf16: 13 score chunks, 144 CTAs of 64 rows
+    (torch.bfloat16, 12, 64, 3, 199,
+     dict(dhp=64, d2p=384, vec_bytes=16, chunks=13, fwd_rows=64,
+          bwd_rows=64, dwh_splits=1)),
+    # D/2 = 51 bf16 values is 102 bytes: 2-byte copies
+    (torch.bfloat16, 3, 34, 2, 50,
+     dict(dhp=48, d2p=64, vec_bytes=2, chunks=3, fwd_rows=16, bwd_rows=16,
+          dwh_splits=1)),
+    # fp32 at dh 128, D 1024: the query tile fits only at 16 rows
+    (torch.float32, 8, 128, 8, 599,
+     dict(dhp=128, d2p=512, vec_bytes=16, chunks=18, fwd_rows=16,
+          bwd_rows=16, dwh_splits=1)),
+    # D 8192 in fp32: no query tile fits in shared memory
+    (torch.float32, 64, 128, 1, 50,
+     dict(fwd_rows=0, bwd_rows=0)),
+])
+def test_general_geometry_by_shape(dtype, h, dh, b, l, want):
+    """The general kernels' tiling, the host's copy of the sources' own
+    (chip_smoke.py holds it against the built library): padded widths, the
+    copy width, the query rows (the most of 64, 32, 16 that fit in shared
+    memory, halved while the grid has fewer CTAs than SMs) and the ring
+    stages (4 where they fit, else 3)."""
+    geo = tsa.general_geometry(dtype, b, l, h, dh)
+    assert {k: geo[k] for k in want} == want
+    for rows, smem in ((geo["fwd_rows"], geo["fwd_smem"]),
+                       (geo["bwd_rows"], geo["bwd_smem"])):
+        assert (smem <= tsa.GENERAL_SMEM_LIMIT) if rows else smem == 0
+
+
+@pytest.mark.parametrize("dtype,h,dh,b,l,want", [
+    # ds and p_drop (B*H, L, 600) in fp32, da (B*H, L, 512) in fp32 and
+    # the dwh partials (B, H, 64, 512) in fp32: 271 MB (the earlier
+    # design's alpha | beta, ds, p_drop and two (B*H, L, D) buffers, all
+    # fp32, were 420 MB)
+    (torch.float32, 8, 64, 8, 599,
+     2 * 64 * 599 * 600 * 4 + 64 * 599 * 512 * 4 + 8 * 8 * 64 * 512 * 4),
+    # bf16: ds, p_drop and da in bf16, only the partials in fp32
+    (torch.bfloat16, 2, 32, 8, 599,
+     2 * 16 * 599 * 600 * 2 + 16 * 599 * 64 * 2 + 80 * 2 * 32 * 64 * 4),
+])
+def test_general_backward_scratch_bytes(dtype, h, dh, b, l, want):
+    assert tsa.bwd_scratch_bytes(b, l, h, dh, dtype) == want
+    assert tsa.general_geometry(dtype, b, l, h, dh)["bwd_scratch"] == want
+
+
+def test_3xtf32_scores_and_values_hold_the_fp32_limit():
+    """The general kernels' fp32 products in 3xTF32, emulated in float64
+    at B 1, L 599, H 8, dh 64: the scores over the 576-deep
+    [qu | alpha | beta] . [k | cos | sin] and P . V with P split the same
+    way hold the output to 1e-4 of float64's (the fp32 limit of the card's
+    check), with the kernels' truncating split (``split_tf32_trunc``) and
+    with K3's rounded one (the port's ``split_tf32``), where one TF32
+    product alone does not."""
+    from conformer_tpu_torch.ops.cuda.mel_frontend import split_tf32
+
+    h, dh, l = 8, 64, 599
+    d = h * dh
+    qu, qv, k, v, kernel = _inputs(1, l, h, dh, seed=599)
+    scale = np.float32(1.0 / np.sqrt(dh))
+    qu, qv = qu * scale, qv * scale
+    wh = tsa.prep_pos_kernel(torch.from_numpy(kernel), h).numpy()
+    sin_t, cos_t = (x.numpy() for x in tsa.sincos_tables(l, d))
+    split = lambda x: x.reshape(l, h, dh).transpose(1, 0, 2)
+    a = np.einsum("hld,hdx->hlx", split(qv[0]), wh).astype(np.float32)
+    a_s, a_c = a[..., :d // 2], a[..., d // 2:]
+    alpha = a_s * sin_t + a_c * cos_t
+    beta = -a_s * cos_t + a_c * sin_t
+    q_aug = np.concatenate([split(qu[0]), alpha, beta], -1)
+    k_aug = np.concatenate([split(k[0]), np.broadcast_to(cos_t, (h, l, d // 2)),
+                            np.broadcast_to(sin_t, (h, l, d // 2))], -1)
+    f64 = lambda x: np.asarray(x, np.float64)
+
+    def product(x, y, splitter, terms):
+        (xh, xl), (yh, yl) = splitter(x), splitter(y)
+        out = f64(xh) @ f64(yh)
+        if terms == 3:
+            out += f64(xh) @ f64(yl) + f64(xl) @ f64(yh)
+        return out
+
+    def attention(splitter, terms):
+        s = product(q_aug, k_aug.transpose(0, 2, 1), splitter, terms)
+        s = s.astype(np.float32).astype(np.float64)    # fp32 scores
+        e = np.exp(s - s.max(-1, keepdims=True))
+        p = e.astype(np.float32)
+        return (product(p, split(v[0]), splitter, terms)
+                / e.sum(-1, keepdims=True))
+
+    s = f64(q_aug) @ f64(k_aug).transpose(0, 2, 1)
+    e = np.exp(s - s.max(-1, keepdims=True))
+    want = (e @ f64(split(v[0]))) / e.sum(-1, keepdims=True)
+    for splitter in (tsa.split_tf32_trunc, split_tf32):
+        assert np.abs(attention(splitter, 3) - want).max() <= 1e-4
+        assert np.abs(attention(splitter, 1) - want).max() > 1e-4
+
+
+def test_truncating_tf32_split_holds_each_value_to_2_pow_minus_20():
+    """The general kernels' split: hi and lo (as the tensor cores read it)
+    are TF32 values, hi is x truncated, and hi + lo holds x to 2^-20 of
+    it."""
+    x = np.random.default_rng(0).standard_normal(4096).astype(np.float32)
+    x = np.concatenate([x, x * np.float32(1e-30), x * np.float32(1e30)])
+    hi, lo = tsa.split_tf32_trunc(x)
+    for part in (hi, lo):
+        assert not (part.view(np.uint32) & np.uint32(0x1FFF)).any()
+    assert (np.abs(hi) <= np.abs(x)).all()
+    err = np.abs(hi.astype(np.float64) + lo - x)
+    assert (err <= np.abs(x) * 2.0 ** -20).all()

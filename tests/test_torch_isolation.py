@@ -165,6 +165,8 @@ def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
                                     "sincos_attention_fwd_dropout": 0,
                                     "sincos_attention_fwd_general": 0,
                                     "sincos_attention_bwd_general": 0,
+                                    "sincos_attention_fwd_general_fp32": 0,
+                                    "sincos_attention_bwd_general_fp32": 0,
                                     "depthwise_conv_fwd_window": 0}
     # Any other device has no plain path and no kernel: it raises.
     meta = [x.to("meta") for x in (qu, qv, k, v, wh, lengths, sin_t, cos_t)]
@@ -251,6 +253,7 @@ def test_chip_smoke_same_bits_tells_one_flipped_bit():
 
 @pytest.mark.parametrize("probe", ["probe_attention_fwd",
                                    "probe_attention_bwd",
+                                   "probe_attention_general",
                                    "probe_mel_frontend"])
 def test_attention_probe_variants_edit_the_current_sources(probe):
     """Each probe variant's text edits apply to the committed sources and
