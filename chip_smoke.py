@@ -21,7 +21,10 @@ Phases, each printing one JSON line:
               general attention kernels at GENERAL_SHAPES in both dtypes,
               GENERAL_WIDE in bf16 and the tiny phase's shape GENERAL_TINY
               in bf16; K4a at L 2400, at K 7 and 4, and
-              on inputs chosen for bf16 rounding ties and subnormals; K3's
+              on inputs chosen for bf16 rounding ties and subnormals; K4b
+              at K 7 and 4, at L 1, 63, 65 and 2400, at B 3, at C 520, 36
+              and 100, at the widths K4B_WIDE_C (clusters of 3 CTAs or
+              fewer), and two calls that must give the same bits; K3's
               reading on a loud tone over faint noise; K5's per-pass slopes
               through ``conformer_tpu_torch.tools.bench_vpu_pass.main``.
    tolerance -- K1 and K2 again over 8 more seeds: each check's largest
@@ -46,7 +49,16 @@ Phases, each printing one JSON line:
               (validation every 2 steps), the checkpoint evaluated through
               ``cli.test.main(... --device cuda)`` (WER, CER, loss, results
               CSV), again through the plain versions (the loss must agree),
-              and the validation WAVs served through ``cli.infer``.
+              and with the host beam search at the reference operating
+              point and one hotword over an ARPA that ``cli.create_lm``
+              builds from the train transcripts (``--lm --decode beam``;
+              ``--lm`` with ``--decode auto`` must raise: the device beam
+              search is not ported); each batch's beam-decode seconds, and
+              the native decoder held against the Python one (with the
+              Python n-gram scorer) at beam 16 on the card's log-probs of
+              one batch and on a contended seeded 8 x 599 batch; then the
+              validation WAVs
+              served through ``cli.infer``.
 7. tiny     -- ``ModelConfig.tiny`` (d_model 64, 2 heads of 32) trained 2
               steps through ``cli.train`` and served through ``cli.infer``
               on the card: every attention launch on the general kernels.
@@ -106,10 +118,17 @@ TOL_K3 = 1e-4
 # it must be equal; the reading is the largest difference in units in the
 # last place of the dtype, and one is the most PERF.md may explain.
 TOL_K4A_ULPS = 1
-# K4b's fp32 sums run in another order than the plain version's: max |diff|
-# over max |dw|; rounded to bf16, one bf16 ulp per element.
+# K4b against its plain version, which sums in float64 (the exact sum,
+# rounded once to fp32): max |diff| over max |dw|; rounded to bf16, one
+# bf16 ulp per element.
 TOL_K4B = 1e-5
 TOL_K4B_BF16_ULPS = 1
+# K4b's window kernel at these (B, L) past the timed B 8, L 199 and 599.
+K4B_EDGES = ((8, 1), (8, 63), (8, 65), (8, 2400), (3, 599))
+# K4b's window kernel at widths past d_model 512, where fewer CTAs a
+# cluster fit on the card in one wave: a cluster of 3 or fewer gives each
+# CTA more of the final sum than it has threads.
+K4B_WIDE_C = (1024, 1184, 1536, 2400)
 # The autograd Function against autograd through the plain per-tap loop,
 # per gradient, max |diff| over max |grad|: fp32 sums in another order;
 # bf16 also rounds each sum in another order (31 rounded adds).
@@ -663,28 +682,51 @@ def k4a_case(torch, b: int, l: int, dtype, seed: int, time_it: bool,
 def k4b_case(torch, b: int, l: int, dtype, seed: int, time_it: bool,
              c: int = 512, k: int = 31):
     """K4b (fp32 dw) against its plain version, relative to max |dw|, and
-    rounded to bf16 within one bf16 ulp per element."""
+    rounded to bf16 within one bf16 ulp per element; the kernel launched
+    must be the one ``conv_variant`` names, the window kernel with no
+    scratch. A window case records the CTAs a cluster (``window_splits``)."""
+    import ctypes
+
+    from conformer_tpu_torch.ops.cuda import build
     from conformer_tpu_torch.ops.cuda import depthwise_conv as dc
 
     x, _, _, g = _conv_inputs(torch, b, l, c, k, dtype, seed)
     pad = (k - 1) // 2
+    variant = dc.conv_variant(dtype, k, c)
+    before = dc.depthwise_conv_dw.launches
+    window_before = dc.depthwise_conv_dw.window_launches
     got = dc.depthwise_conv_dw(x, g, k, pad)
+    launched = dc.depthwise_conv_dw.launches - before
+    window = dc.depthwise_conv_dw.window_launches - window_before
     want = dc.depthwise_conv_dw_plain(x, g, k, pad)
     torch.cuda.synchronize()
     rel = float((got - want).abs().max() / want.abs().max())
     bf16_ulps = ulps(torch, got.to(torch.bfloat16), want.to(torch.bfloat16))
     finite = bool(torch.isfinite(got).all())
+    size = build.load("depthwise_conv").depthwise_conv_dw_scratch_bytes
+    size.restype = ctypes.c_longlong
+    size.argtypes = [ctypes.c_int] * 5
+    scratch = int(size(b, l, c, k, dc.CONV_VARIANTS.index(variant)))
     case = {"b": b, "l": l, "c": c, "k": k, "dtype": _dtype_name(torch, dtype),
+            "variant": variant, "launched": launched,
+            "scratch_bytes": scratch,
             "max_abs_err": float((got - want).abs().max()), "rel_err": rel,
             "tolerance": TOL_K4B, "bf16_max_ulps": bf16_ulps,
             "bf16_tolerance_ulps": TOL_K4B_BF16_ULPS, "finite": finite,
             "ok": (finite and got.dtype == torch.float32 and rel <= TOL_K4B
-                   and bf16_ulps <= TOL_K4B_BF16_ULPS)}
+                   and bf16_ulps <= TOL_K4B_BF16_ULPS and launched == 1
+                   and window == (variant == "window")
+                   and (scratch == 0) == (variant == "window"))}
+    if variant == "window":
+        splits = build.load("depthwise_conv").depthwise_conv_dw_window_splits
+        splits.argtypes, splits.restype = [ctypes.c_int] * 2, ctypes.c_int
+        case["window_splits"] = splits(c, 1 if dtype == torch.bfloat16 else 0)
+        case["ok"] = case["ok"] and 1 <= case["window_splits"] <= 8
     if time_it:
-        itemsize = x.element_size()
+        # the kernel runs on fp32 FMAs whatever its input dtype
         flops = 2.0 * b * l * c * k
-        nbytes = 2 * b * l * c * itemsize + 4 * k * c
-        bms, by = bound_ms(flops, nbytes, case["dtype"])
+        nbytes = 2 * b * l * c * x.element_size() + 4 * k * c
+        bms, by = bound_ms(flops, nbytes, "float32")
         w_conv = torch.zeros(c, 1, k, device=DEVICE, dtype=dtype)
         xt, gt = x.transpose(1, 2), g.transpose(1, 2)
         weight_grad = lambda: torch.ops.aten.convolution_backward(
@@ -696,8 +738,47 @@ def k4b_case(torch, b: int, l: int, dtype, seed: int, time_it: bool,
                 x, g, k, pad), iters=5),
             "library_ms": cuda_ms(torch, weight_grad),
             "library_call": "aten.convolution_backward, weight gradient only",
-            "bound_ms": bms, "bound_by": by})
+            "bound_ms": bms, "bound_by": by,
+            "bound_fp32_fma_ms": flops / PEAK_FLOPS["float32"] * 1e3,
+            "bound_bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3})
     return case
+
+
+def k4b_checks(torch):
+    """K4b past the timed cases: the runtime-K kernel at K 7 and 4; the
+    window kernel at the edge lengths 1, 63, 65 and 2400, at B 3 (its
+    eighths of the frames cross batch rows), at channel counts that are no
+    multiple of its 32-channel slice (and one no multiple of 8, which the
+    runtime-K kernel takes); and two calls giving the same bits. And the
+    window kernel at K4B_WIDE_C in both dtypes, with the CTAs a cluster each
+    gets, of which at least one must be 3 or fewer."""
+    from conformer_tpu_torch.ops.cuda import depthwise_conv as dc
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = [k4b_case(torch, 8, 599, dt, seed=61 + k, time_it=False, k=k)
+             for k in (7, 4) for dt in (fp32, bf16)]
+    cases += [k4b_case(torch, b, l, dt, seed=63 + i, time_it=False)
+              for i, (b, l) in enumerate(K4B_EDGES) for dt in (fp32, bf16)]
+    cases += [k4b_case(torch, 8, 599, dt, seed=67, time_it=False, c=c)
+              for c, dt in ((520, bf16), (36, fp32), (100, bf16))]
+    runs = []
+    for dt in (fp32, bf16):
+        x, _, _, g = _conv_inputs(torch, 8, 599, 512, 31, dt, seed=68)
+        first = dc.depthwise_conv_dw(x, g, 31, 15)
+        second = dc.depthwise_conv_dw(x, g, 31, 15)
+        torch.cuda.synchronize()
+        runs.append({"dtype": _dtype_name(torch, dt),
+                     "same_bits": same_bits(torch, (first,), (second,))})
+    wide = [k4b_case(torch, 8, 599, dt, seed=69, time_it=False, c=c)
+            for c in K4B_WIDE_C for dt in (fp32, bf16)]
+    splits = {f"C={w['c']} {w['dtype']}": w.get("window_splits")
+              for w in wide}
+    print("K4b window kernel, CTAs a cluster by width: " + json.dumps(splits),
+          flush=True)
+    wide_ok = (all(w["ok"] and w["variant"] == "window" for w in wide)
+               and min(splits.values()) <= 3)
+    return (cases, {"runs": runs, "ok": all(r["same_bits"] for r in runs)},
+            {"cases": wide, "splits": splits, "ok": wide_ok})
 
 
 def k4_grad_case(torch, k: int, dtype, seed: int, b: int = 8, l: int = 599,
@@ -818,6 +899,7 @@ def phase_kernels(torch):
                 for l, k in ((599, 31), (199, 7))]
     k4b_cases = [k4b_case(torch, 8, l, dt, seed=60 + i, time_it=True)
                  for i, (l, dt) in enumerate(conv_shapes)]
+    k4b_other, k4b_same, k4b_wide = k4b_checks(torch)
     k4_grads = [k4_grad_case(torch, k, dt, seed=70 + k)
                 for k in (31, 4) for dt in (torch.float32, torch.bfloat16)]
     k5, k5_entry, k5_launches = k5_checks(torch)
@@ -835,13 +917,16 @@ def phase_kernels(torch):
           "depthwise_conv_fwd_l2400": k4a_long,
           "depthwise_conv_fwd_other_k": k4a_other,
           "depthwise_conv_fwd_ties": k4a_ties,
-          "depthwise_conv_dw": k4b_cases, "depthwise_conv1d_grads": k4_grads,
+          "depthwise_conv_dw": k4b_cases, "depthwise_conv_dw_other": k4b_other,
+          "depthwise_conv_dw_determinism": k4b_same,
+          "depthwise_conv_dw_wide_c": k4b_wide,
+          "depthwise_conv1d_grads": k4_grads,
           "vpu_pass": k5})
     bad = [c for c in k1_cases + k1_drop + k1_edges + k2_cases
            + [long_k2, deterministic] + k1_general + k2_general + geometry
            + k3_cases
            + k4a_cases + [k4a_long] + k4a_other + k4a_ties + k4b_cases
-           + k4_grads + [k5]
+           + k4b_other + [k4b_same, k4b_wide] + k4_grads + [k5]
            if not c["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
@@ -1334,6 +1419,103 @@ def phase_train(torch, tmp: str):
 
 VAL_SECONDS = [7.5] * 3 + [23.5] * 3
 PALLAS = ["--set", "model.conv_impl=pallas"]
+# The host beam search at the reference's operating point (DecodeConfig:
+# beam 190, alpha 2.1, beta 9.2, prune -20, hotword weight 9.0) with one
+# hotword, and the width at which the Python decoder is held against the
+# native one on the card's log-probs.
+HOTWORD = "VIỆT NAM"
+BEAM_CHECK_WIDTH = 16
+
+
+def build_lm(tmp: str, manifest: str) -> str:
+    """An ARPA from a manifest's transcripts through the port's
+    ``cli.create_lm``. -> its path."""
+    from conformer_tpu_torch.cli import create_lm
+
+    with open(manifest, newline="", encoding="utf8") as f:
+        texts = [row["text"] for row in csv.DictReader(f)]
+    corpus = os.path.join(tmp, "corpus.txt")
+    with open(corpus, "w", encoding="utf8") as f:
+        f.write("\n".join(texts))
+    out = os.path.join(tmp, "lm")
+    create_lm.main(["--text", corpus, "--out", out])
+    return os.path.join(out, "lm.arpa")
+
+
+def beam_batches(torch, ck: str, manifest: str, arpa: str) -> dict:
+    """The checkpoint through ``InferencePipeline(decode="beam")`` on the
+    card at the reference operating point with HOTWORD: each batch's wall
+    and beam-decode seconds; and on the card's log-probs of the shortest
+    batch and on a contended seeded batch, the native decoder's texts
+    against the Python decoder's (the plain version, with the Python n-gram
+    scorer) at BEAM_CHECK_WIDTH."""
+    import dataclasses
+
+    import numpy as np
+
+    from conformer_tpu_torch.config import Config, DataConfig
+    from conformer_tpu_torch.data.dataset import BucketedLoader, ManifestDataset
+    from conformer_tpu_torch.decode.beam_search import BeamSearchDecoder
+    from conformer_tpu_torch.decode.pipeline import InferencePipeline
+    from conformer_tpu_torch.text.tokenizer import load_tokenizer
+
+    tok = load_tokenizer("vi")
+    cfg = Config.from_json(os.path.join(ck, "config.json")).override(
+        **{"decode.lm_path": arpa, "decode.hotwords": [HOTWORD]})
+    pipe = InferencePipeline(cfg, tok, decode="beam", device=DEVICE,
+                             checkpoint_dir=ck)
+    metrics, _ = pipe.evaluate(manifest)
+    batch = min(BucketedLoader(ManifestDataset(manifest), tok,
+                               DataConfig(batch_size=8),
+                               training=False).epoch(0),
+                key=lambda b: b.audio.shape[1])
+    out, _ = pipe._run_batch(batch.audio, batch.audio_lengths)
+    log_probs = out["log_probs"].float().cpu().numpy()
+    lengths = out["lengths"].cpu().numpy()
+    small = dataclasses.replace(pipe.cfg.decode, beam_width=BEAM_CHECK_WIDTH)
+    # A briefly trained model puts nearly every frame on the blank, which
+    # leaves the search little to do; a batch of 8 x 599 frames of contended
+    # seeded log-probs makes it choose, so the decoders are held against
+    # each other there too, and the native decoder's time on it at the
+    # operating point times the search itself.
+    contended = contended_log_probs(tok.vocab_size, tok.pad_id, 8, 599, seed=9)
+    contended_lengths = np.full(8, 599, np.int32)
+    check = {"beam_width": BEAM_CHECK_WIDTH}
+    for name, lp, ln in (("checkpoint", log_probs, lengths),
+                         ("contended", contended, contended_lengths)):
+        t0 = time.perf_counter()
+        native = BeamSearchDecoder(tok, small).decode_batch(lp, ln)
+        t1 = time.perf_counter()
+        plain = BeamSearchDecoder(tok, small, native=False).decode_batch(lp, ln)
+        t2 = time.perf_counter()
+        check[name] = {"frames": [int(n) for n in ln],
+                       "native_texts": native, "plain_texts": plain,
+                       "native_s": t1 - t0, "plain_s": t2 - t1,
+                       "words": sum(len(t.split()) for t in native),
+                       "same": native == plain}
+    check["same"] = all(check[n]["same"] for n in ("checkpoint", "contended"))
+    decoder = BeamSearchDecoder(tok, pipe.cfg.decode)
+    t3 = time.perf_counter()
+    decoder.decode_batch(contended, contended_lengths)
+    t4 = time.perf_counter()
+    return {"operating_point": dataclasses.asdict(pipe.cfg.decode),
+            "metrics": metrics, "batches": pipe.batch_log, "check": check,
+            "contended_batch_8x599_s": t4 - t3}
+
+
+def contended_log_probs(vocab: int, blank: int, b: int, t: int, seed: int):
+    """(b, t, vocab) fp32 log-softmax rows around a random token path, a
+    third of the frames favouring the blank: the generator of the JAX
+    package's native-against-Python beam test, at any shape."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lp = rng.normal(-6.0, 1.5, size=(b, t, vocab)).astype(np.float32)
+    path = rng.integers(0, vocab, size=(b, t))
+    rows, cols = np.meshgrid(np.arange(b), np.arange(t), indexing="ij")
+    lp[rows, cols, path] += rng.uniform(2.0, 6.0, size=(b, t))
+    lp[..., blank] += np.where(rng.uniform(size=(b, t)) < 0.3, 5.0, 0.0)
+    return (lp - np.log(np.exp(lp).sum(-1, keepdims=True))).astype(np.float32)
 
 
 def phase_evaluate(torch, tmp: str):
@@ -1385,6 +1567,26 @@ def phase_evaluate(torch, tmp: str):
         rows = list(csv.reader(f))
     plain, plain_ms = _run(torch, lambda: cli_test.main(argv),
                            _plain_versions())
+    # The host beam search with an n-gram LM built from the train
+    # transcripts, through cli.test and through the pipeline; --lm with
+    # --decode auto means the device beam search on the card, which raises.
+    arpa = build_lm(tmp, train_csv)
+    beam_csv = os.path.join(tmp, "beam_results.csv")
+    beam_argv = ["--manifest", val_csv, "--checkpoint-dir", ck, "--device",
+                 DEVICE, *PALLAS, "--lm", arpa, "--decode", "beam",
+                 "--set", f'decode.hotwords=["{HOTWORD}"]',
+                 "--results", beam_csv]
+    beam_metrics = driven("test_beam", lambda: cli_test.main(beam_argv))
+    with open(beam_csv, newline="", encoding="utf8") as f:
+        beam_rows = list(csv.reader(f))
+    try:
+        cli_test.main(["--manifest", val_csv, "--checkpoint-dir", ck,
+                       "--device", DEVICE, "--lm", arpa])
+        auto_error = None
+    except NotImplementedError as e:
+        auto_error = str(e)
+    beam = driven("beam_batches",
+                  lambda: beam_batches(torch, ck, val_csv, arpa))
     driven("serve", lambda: infer.main(["--audio", *val_paths, "--device",
                                         DEVICE, *PALLAS, "--batch-size", "8"]))
     rel = abs(metrics["loss"] - plain["loss"]) / abs(plain["loss"])
@@ -1404,6 +1606,7 @@ def phase_evaluate(torch, tmp: str):
                  and e["sincos_attention_fwd"] == n_val * n_blocks
                  and e["depthwise_conv_dw"] == 0
                  and e["logmel_fwd"] == n_long > 0),
+        "test_beam": runs["test_beam"]["launches"] == e,
         "serve": (s_["depthwise_conv_fwd"] == n_blocks
                   and s_["sincos_attention_fwd"] == n_blocks)}
     ok = (trainer.step == 2 and len(val) == 2
@@ -1411,13 +1614,23 @@ def phase_evaluate(torch, tmp: str):
           and all(math.isfinite(metrics[k]) for k in ("wer", "cer", "loss"))
           and rows[0] == ["label", "prediction"]
           and len(rows) == len(VAL_SECONDS) + 1
-          and rel <= tol and all(launches_ok.values()))
+          and rel <= tol and all(launches_ok.values())
+          and all(math.isfinite(beam_metrics[k]) for k in ("wer", "cer", "loss"))
+          and math.isclose(beam_metrics["loss"], metrics["loss"], rel_tol=1e-6)
+          and beam_rows[0] == ["label", "prediction"]
+          and len(beam_rows) == len(VAL_SECONDS) + 1
+          and auto_error is not None and "item 7" in auto_error
+          and beam["check"]["same"] and beam["check"]["contended"]["words"] > 0
+          and len(beam["batches"]) == n_val + 1)
     emit({"phase": "evaluate", "config": "Config() production, "
           "conv_impl pallas, B=8; train 16 WAVs (7.5 s, 23.5 s) for 2 steps, "
           "validate and evaluate 6 WAVs", "val_batches": n_val,
           "val_records": val, "metrics": metrics, "plain_metrics": plain,
           "plain_test_ms": plain_ms, "loss_rel_diff": rel,
           "loss_tolerance": tol, "results_rows": len(rows) - 1,
+          "beam_decode_s_per_batch": [b["decode_s"] for b in beam["batches"]],
+          "beam_metrics": beam_metrics, "beam_results_rows": len(beam_rows) - 1,
+          "beam_auto_error": auto_error, "beam": beam,
           "runs": runs, "launches_ok": launches_ok, "ok": ok})
     if not ok:
         raise SystemExit("evaluate phase failed")

@@ -69,9 +69,23 @@ def load_tokenizer_from_args(args: argparse.Namespace, cfg: Config):
     return load_tokenizer(args.tokenizer or cfg.train.tokenizer_path or "vi")
 
 
-def refuse_lm_decode(args: argparse.Namespace, cfg: Config) -> None:
-    """``--lm`` or a configured LM asks for LM-fused beam search, which is
-    not ported yet: raise."""
-    if args.lm or cfg.decode.lm_path or cfg.decode.device_lm_path:
-        raise NotImplementedError(
-            "LM-fused beam decode is not ported yet (a later slice)")
+def refuse_lm_decode(cfg: Config) -> None:
+    """A token-level device LM (``decode.device_lm_path``) asks for the
+    device beam search, which is not ported yet: raise."""
+    if cfg.decode.device_lm_path:
+        from conformer_tpu_torch.decode.pipeline import DEVICE_BEAM_NOT_PORTED
+
+        raise NotImplementedError(DEVICE_BEAM_NOT_PORTED)
+
+
+def lm_decode(args: argparse.Namespace, cfg: Config) -> "tuple[Config, str]":
+    """-> (cfg with ``--lm`` as decode.lm_path, the decode mode): ``--decode
+    auto`` is greedy without an LM and beam_auto with one, as in the JAX
+    CLIs; a device LM is refused (refuse_lm_decode)."""
+    if args.lm:
+        cfg = cfg.override(**{"decode.lm_path": args.lm})
+    refuse_lm_decode(cfg)
+    decode = args.decode
+    if decode == "auto":
+        decode = "beam_auto" if cfg.decode.lm_path else "greedy"
+    return cfg, decode

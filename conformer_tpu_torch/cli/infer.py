@@ -1,12 +1,14 @@
-"""Transcribe audio files or a CSV manifest with greedy CTC decoding, on the
-GPU unless ``--device cpu`` is given.
+"""Transcribe audio files or a CSV manifest with greedy CTC decoding or the
+host beam search fused with an n-gram LM (``--lm lm.arpa --decode beam``),
+on the GPU unless ``--device cpu`` is given.
 
     python -m conformer_tpu_torch.cli.infer --audio a.wav b.wav --weights w.pt
     python -m conformer_tpu_torch.cli.infer --manifest batch.csv --output out.csv
 
 ``--weights`` takes a state dict written by ``conformer_tpu_torch.convert``;
-without it the model has seeded random weights. Beam search, LM fusion and
-streaming are not ported yet and raise.
+without it the model has seeded random weights. ``--decode auto`` is greedy
+without an LM and ``beam_auto`` with one, which on the GPU means the device
+beam search; that and streaming are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -15,8 +17,8 @@ import argparse
 import csv
 
 from conformer_tpu_torch.cli.common import (add_common_args, load_config,
-                                            load_tokenizer_from_args,
-                                            refuse_lm_decode)
+                                            lm_decode,
+                                            load_tokenizer_from_args)
 
 
 def read_manifest(path: str):
@@ -45,7 +47,8 @@ def main(argv=None):
     p.add_argument("--decode", choices=["auto", "greedy", "beam",
                                         "beam_device", "beam_auto"],
                    default="auto")
-    p.add_argument("--lm", default=None)
+    p.add_argument("--lm", default=None,
+                   help="ARPA n-gram LM for the beam search")
     p.add_argument("--output", default=None, help="CSV output")
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--channel", type=int, default=None,
@@ -62,8 +65,7 @@ def main(argv=None):
         raise NotImplementedError(
             "--streaming: streaming decode is not ported yet (a later slice)")
     cfg = load_config(args)
-    refuse_lm_decode(args, cfg)
-    decode = "greedy" if args.decode == "auto" else args.decode
+    cfg, decode = lm_decode(args, cfg)
     tokenizer = load_tokenizer_from_args(args, cfg)
 
     from conformer_tpu_torch.decode.pipeline import InferencePipeline

@@ -1,16 +1,21 @@
-"""Evaluate a trained model: corpus WER/CER (x100) and the CTC loss with
-greedy decoding, on the GPU unless ``--device cpu`` is given.
+"""Evaluate a trained model: corpus WER/CER (x100) and the CTC loss, with
+greedy decoding or the host beam search fused with an n-gram LM, on the
+GPU unless ``--device cpu`` is given.
 
     python -m conformer_tpu_torch.cli.test --manifest eval.csv \
-        --checkpoint-dir ./checkpoints [--results results.csv]
+        --checkpoint-dir ./checkpoints [--results results.csv] \
+        [--lm lm.arpa --decode beam]
 
 The manifest is a CSV of (path, text) rows pointing at WAV files. Weights
 come from the newest checkpoint in ``--checkpoint-dir`` (written by
 ``conformer_tpu_torch.cli.train``, whose ``config.json`` there also sets the
 model) or from a state dict (``--weights``). ``--results`` writes the
-(label, prediction) pairs as CSV. Beam search (``--decode beam``,
-``beam_device``, ``beam_auto``) and LM fusion (``--lm``) are not ported yet
-and raise.
+(label, prediction) pairs as CSV. ``--lm`` takes an ARPA file (see
+``conformer_tpu_torch.cli.create_lm``) and ``--decode beam`` the host beam
+search at ``decode.*``'s operating point (beam 190, alpha 2.1, beta 9.2,
+``--set decode.hotwords='["..."]'``). ``--decode auto`` is greedy without an
+LM and ``beam_auto`` with one, which on the GPU means the device beam
+search: not ported yet, so it raises, as ``--decode beam_device`` does.
 """
 
 from __future__ import annotations
@@ -19,8 +24,8 @@ import argparse
 import csv
 
 from conformer_tpu_torch.cli.common import (add_common_args, load_config,
-                                            load_tokenizer_from_args,
-                                            refuse_lm_decode)
+                                            lm_decode,
+                                            load_tokenizer_from_args)
 
 
 def main(argv=None) -> dict:
@@ -33,15 +38,16 @@ def main(argv=None) -> dict:
     p.add_argument("--weights", default=None,
                    help="torch state dict (see conformer_tpu_torch.convert)")
     p.add_argument("--decode", choices=["auto", "greedy", "beam", "beam_device",
-                                        "beam_auto"], default="auto")
-    p.add_argument("--lm", default=None, help="not ported: refused")
+                                        "beam_auto"], default="auto",
+                   help="'auto' = greedy without an LM, beam_auto with one")
+    p.add_argument("--lm", default=None,
+                   help="ARPA n-gram LM for the beam search")
     p.add_argument("--results", default=None,
                    help="CSV path for the (label, prediction) pairs")
     args = p.parse_args(argv)
 
     cfg = load_config(args)
-    refuse_lm_decode(args, cfg)
-    decode = "greedy" if args.decode == "auto" else args.decode
+    cfg, decode = lm_decode(args, cfg)
     tokenizer = load_tokenizer_from_args(args, cfg)
 
     from conformer_tpu_torch.decode.pipeline import InferencePipeline

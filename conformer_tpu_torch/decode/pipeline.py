@@ -1,6 +1,7 @@
-"""Inference pipeline: weights -> batched greedy transcription and
-evaluation (counterpart of conformer_tpu/decode/pipeline.py, greedy decode
-only).
+"""Inference pipeline: weights -> batched transcription and evaluation with
+greedy decode or the host CTC beam search with n-gram LM fusion
+(counterpart of conformer_tpu/decode/pipeline.py; the device beam search is
+not ported and raises).
 
 Runs on the CUDA device unless the caller passes ``device="cpu"``; with no
 CUDA device and no explicit CPU it raises. Weights come from a
@@ -38,25 +39,46 @@ def resolve_device(device="cuda") -> torch.device:
     return device
 
 
+DEVICE_BEAM_NOT_PORTED = (
+    "the device beam search (decode='beam_device', decode.device_lm_path) "
+    "is not ported yet (ROADMAP.md §1, item 7); decode='beam' "
+    "(--decode beam) runs the host beam search with decode.lm_path")
+
+
+def resolve_beam_backend(device: torch.device) -> str:
+    """The backend ``decode='beam_auto'`` means on ``device``, as the JAX
+    ``resolve_beam_backend`` picks it for a batch: the device beam search
+    wherever an accelerator runs the model ("beam_device"), the host beam
+    search on the CPU ("beam")."""
+    return "beam_device" if device.type == "cuda" else "beam"
+
+
 class InferencePipeline:
-    """Builds the model on ``device``, transcribes batches greedily and
-    evaluates manifests.
+    """Builds the model on ``device``, transcribes batches and evaluates
+    manifests. ``decode``: "greedy" (collapse on the device), "beam" (the
+    host beam search with ``cfg.decode``'s LM and hotwords over the
+    device's log-softmax) or "beam_auto" (resolve_beam_backend);
+    "beam_device" and ``cfg.decode.device_lm_path`` raise.
 
     ``batch_log`` records one entry per batch: its size, its audio seconds,
-    the padded seconds the model ran on and the wall seconds it took (the
-    device synchronised before the clock is read)."""
+    the padded seconds the model ran on, the wall seconds it took (the
+    device synchronised before the clock is read) and, of those, the
+    seconds the host took to turn the outputs into texts (``decode_s``)."""
 
     def __init__(self, cfg: Config, tokenizer: GraphemeTokenizer,
                  weights: Optional[str] = None, decode: str = "greedy",
                  device="cuda", seed: int = 0,
                  checkpoint_dir: Optional[str] = None):
-        if decode != "greedy":
-            raise NotImplementedError(
-                f"decode={decode!r}: beam search (host and device) and LM "
-                "fusion are not ported yet; only 'greedy' runs")
         if weights and checkpoint_dir:
             raise ValueError("give weights or checkpoint_dir, not both")
         self.device = resolve_device(device)
+        if decode == "beam_auto":
+            decode = resolve_beam_backend(self.device)
+            print(f"[infer] beam_auto -> {decode}")
+        if decode == "beam_device" or cfg.decode.device_lm_path:
+            raise NotImplementedError(DEVICE_BEAM_NOT_PORTED)
+        if decode not in ("greedy", "beam"):
+            raise ValueError(f"unknown decode {decode!r}")
         cfg = cfg.override(**{"model.vocab_size": tokenizer.vocab_size})
         self.cfg, self.tok, self.decode = cfg, tokenizer, decode
         model = Conformer(cfg.model, cfg.optim.compute_dtype)
@@ -79,9 +101,21 @@ class InferencePipeline:
         self.frontend = MelFrontend(cfg.audio, device=self.device)
         self.eval_step = make_eval_step(cfg, self.model, self.frontend,
                                         unk_id=tokenizer.unk_id)
+        self._beam = None
+        if decode == "beam":
+            from conformer_tpu_torch.decode.beam_search import BeamSearchDecoder
+
+            self._beam = BeamSearchDecoder(tokenizer, cfg.decode)
         self.batch_log: List[dict] = []
 
     def texts_from_out(self, out: dict) -> List[str]:
+        """Eval-step outputs -> texts: the beam search over the log-softmax
+        (fp32 on the host, each row to its true length), or the greedy
+        tokens collapsed on the device."""
+        if self._beam is not None:
+            log_probs = out["log_probs"].float().cpu().numpy()
+            lengths = out["lengths"].cpu().numpy()
+            return self._beam.decode_batch(log_probs, lengths)
         tokens = out["tokens"].cpu().numpy()
         counts = out["counts"].cpu().numpy()
         return [self.tok.collapsed_ids_to_text(tokens[i], counts[i])
@@ -100,15 +134,17 @@ class InferencePipeline:
         if tokens is not None:
             args += [to(tokens, np.int64), to(token_lengths, np.int64)]
         out = self.eval_step(*args)
-        texts = self.texts_from_out(out)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        t1 = time.perf_counter()
+        texts = self.texts_from_out(out)
+        t2 = time.perf_counter()
         sr = self.cfg.audio.sample_rate
         self.batch_log.append({
             "batch_size": int(audio.shape[0]),
             "audio_s": float(np.sum(audio_lengths)) / sr,
             "padded_s": float(audio.shape[1]) / sr,
-            "seconds": time.perf_counter() - t0})
+            "seconds": t2 - t0, "decode_s": t2 - t1})
         return out, texts
 
     def transcribe_batch(self, audio: np.ndarray, audio_lengths: np.ndarray

@@ -4,8 +4,8 @@ Each wrapper runs its plain PyTorch version on CPU tensors and launches its
 kernel on CUDA tensors, counting launches in ``<wrapper>.launches``; the
 attention forward also counts its launches with dropout (K1-drop), both
 attention wrappers their launches of the general kernels (and of those,
-the fp32 ones), and K4a its
-launches of the window kernel.
+the fp32 ones), and K4a and K4b their
+launches of the window kernels.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ def launch_counts() -> Dict[str, int]:
         counts[f"{fn.__name__}_general"] = fn.general_launches
         counts[f"{fn.__name__}_general_fp32"] = fn.general_fp32_launches
     counts["depthwise_conv_fwd_window"] = depthwise_conv_fwd.window_launches
+    counts["depthwise_conv_dw_window"] = depthwise_conv_dw.window_launches
     return counts
 
 
@@ -41,3 +42,4 @@ def reset_launch_counts() -> None:
         fn.general_launches = 0
         fn.general_fp32_launches = 0
     depthwise_conv_fwd.window_launches = 0
+    depthwise_conv_dw.window_launches = 0

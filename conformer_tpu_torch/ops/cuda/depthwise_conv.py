@@ -9,12 +9,18 @@ wrappers, each with a plain PyTorch version beside it:
   pad; in bf16 every product and every add is rounded to bf16, as the Pallas
   kernel rounds, so the kernel, ``depthwise_conv_plain`` and the JAX kernel
   in interpret mode agree bit for bit;
-- ``depthwise_conv_dw`` (K4b): the weight gradient in fp32.
+- ``depthwise_conv_dw`` (K4b): the weight gradient in fp32, against a plain
+  version that sums in float64, so that each kernel is held to the exact
+  sum.
 
 K4a has two kernels, picked by ``conv_variant``: "window" (K 31, the
 production conv, with the channel count a multiple of 8 in bf16 or 4 in
 fp32: packed bf16x2 arithmetic on a register window) and "general" (any
-other K and C). A CPU tensor takes the plain version; a CUDA tensor
+other K and C). K4b has two as well, picked by ``conv_variant`` too:
+"window" (TMA tiles, a register window whose products are summed in
+fp64, one cluster launch summing its CTAs through distributed shared
+memory, no scratch) and "general" (fp64 partials and a second launch that
+sums them in fp64). A CPU tensor takes the plain version; a CUDA tensor
 launches a kernel or raises. ``depthwise_conv1d`` is the autograd Function, the counterpart of
 the JAX ``custom_vjp``: dx is K4a on g with the taps flipped, a zero bias and
 the left pad K - 1 - pad, which is the exact gradient for every K (the JAX
@@ -48,12 +54,14 @@ def depthwise_conv_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 def depthwise_conv_dw_plain(x: torch.Tensor, g: torch.Tensor, k: int,
                             pad: int) -> torch.Tensor:
     """x, g (B, L, C) -> dw (K, C) fp32: dw[i] = sum over batch and frames of
-    x[:, t + i - pad] * g[:, t], in fp32."""
+    x[:, t + i - pad] * g[:, t], taken in float64 (products of fp32 values
+    are exact there) and rounded once to fp32: the exact sum, up to that
+    rounding, whatever order the reduction takes."""
     l = x.shape[1]
-    xp = F.pad(x.float(), (0, 0, pad, k - 1 - pad))
-    gf = g.float()
-    return torch.stack([(xp[:, i:i + l] * gf).sum(dim=(0, 1))
-                        for i in range(k)])
+    xp = F.pad(x.double(), (0, 0, pad, k - 1 - pad))
+    gd = g.double()
+    return torch.stack([(xp[:, i:i + l] * gd).sum(dim=(0, 1))
+                        for i in range(k)]).float()
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -85,9 +93,10 @@ WINDOW_K = 31
 
 
 def conv_variant(dtype, k: int, c: int, aligned: bool = True) -> str:
-    """The K4a kernel a CUDA call launches: "window" at K = WINDOW_K with C a
-    multiple of the channels in 16 bytes (8 bf16, 4 fp32) and x, w and bias
-    16-byte ``aligned``, else "general"."""
+    """The K4a or K4b kernel a CUDA call launches: "window" at K = WINDOW_K
+    with C a multiple of the channels in 16 bytes (8 bf16, 4 fp32) and the
+    operands (K4a's x, w and bias; K4b's x and g, as TMA needs) 16-byte
+    ``aligned``, else "general"."""
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"kernel takes float32 or bfloat16, got {dtype}")
     per_16_bytes = 16 // torch.tensor([], dtype=dtype).element_size()
@@ -136,34 +145,39 @@ def depthwise_conv_dw(x: torch.Tensor, g: torch.Tensor, k: int,
                       pad: int) -> torch.Tensor:
     """Kernel wrapper (K4b): same arguments and result as
     depthwise_conv_dw_plain. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (counted in ``depthwise_conv_dw.launches``)
-    or raise."""
+    tensors launch a kernel (counted in ``depthwise_conv_dw.launches``; the
+    window kernel's also in ``.window_launches``) or raise."""
     if x.device.type == "cpu":
         return depthwise_conv_dw_plain(x, g, k, pad)
     b, l, c, code = _check_x(x, k, pad)
     _check("g", g, (b, l, c), x.dtype, x.device)
+    variant = conv_variant(x.dtype, k, c,
+                           all(t.data_ptr() % 16 == 0 for t in (x, g)))
     dw = torch.empty((k, c), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return dw.zero_()
     lib = build.load("depthwise_conv")
     size = lib.depthwise_conv_dw_scratch_bytes
     size.restype = ctypes.c_longlong
-    size.argtypes = [ctypes.c_int] * 4
-    scratch = torch.empty(int(size(b, l, c, k)), dtype=torch.uint8,
-                          device=x.device)
+    size.argtypes = [ctypes.c_int] * 5
+    scratch = torch.empty(int(size(b, l, c, k, CONV_VARIANTS.index(variant))),
+                          dtype=torch.uint8, device=x.device)
     fn = lib.depthwise_conv_dw
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), g.data_ptr(), scratch.data_ptr(), dw.data_ptr(),
-                 b, l, c, k, pad, code, stream)
+                 b, l, c, k, pad, code, CONV_VARIANTS.index(variant), stream)
     build.check(lib, "depthwise_conv", err)
     depthwise_conv_dw.launches += 1
+    if variant == "window":
+        depthwise_conv_dw.window_launches += 1
     return dw
 
 
 depthwise_conv_dw.launches = 0
+depthwise_conv_dw.window_launches = 0    # of those, the window kernel
 
 
 class DepthwiseConv1d(torch.autograd.Function):

@@ -9,6 +9,8 @@ the JAX package's Pallas kernel run in interpret mode on the CPU.
   interpret path at 1e-4, and the bf16 weight gradient rounded as the JAX
   ``.astype(w.dtype)`` rounds it;
 - even K: the port's dx is the exact gradient, the JAX Pallas dx is not;
+- which K4a and K4b kernel each (K, C, dtype) takes on the card, and K4b's
+  scratch;
 - the tiny Conformer with ``conv_impl="pallas"``: logits (1e-4) and one fp32
   train step (loss and grad norm to 1e-5 relative) against the JAX model on
   the same converted weights.
@@ -151,6 +153,24 @@ def test_even_kernel_size_dx_is_exact_where_the_jax_pallas_dx_is_not():
 ])
 def test_conv_variant_takes_the_window_kernel_at_k31(dtype, k, c, aligned,
                                                      want):
+    assert dc.conv_variant(dtype, k, c, aligned) == want
+
+
+@pytest.mark.parametrize("dtype,k,c,aligned,want", [
+    (torch.bfloat16, 31, 512, True, "window"),   # the production conv
+    (torch.float32, 31, 512, True, "window"),
+    (torch.bfloat16, 31, 520, True, "window"),   # a part-filled slice
+    (torch.float32, 31, 36, True, "window"),
+    (torch.bfloat16, 31, 2400, True, "window"),  # few CTAs a cluster
+    (torch.bfloat16, 31, 100, True, "general"),
+    (torch.bfloat16, 31, 512, False, "general"),
+    (torch.bfloat16, 7, 64, True, "general"),    # tiny
+    (torch.float32, 4, 512, True, "general"),
+])
+def test_k4b_takes_the_window_kernel_at_k31(dtype, k, c, aligned, want):
+    """K4b's kernel for each shape: the window kernel (which asks for no
+    scratch; chip_smoke.py reads the library's size on the card) at K 31
+    with whole 16-byte rows, else the runtime-K kernel."""
     assert dc.conv_variant(dtype, k, c, aligned) == want
 
 

@@ -99,6 +99,9 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
 
 
 def test_unported_decoders_raise():
+    """The device beam search (decode beam_device, a device LM) and
+    streaming are not ported: they raise; the host beam runs instead of
+    none of them."""
     from conformer_tpu_torch.cli import test as cli_test
     from conformer_tpu_torch.cli.infer import main
     from conformer_tpu_torch.config import Config, ModelConfig
@@ -106,17 +109,17 @@ def test_unported_decoders_raise():
     from conformer_tpu_torch.text.tokenizer import load_tokenizer
 
     cfg = Config(model=ModelConfig.tiny(370))
-    for decode in ("beam", "beam_device"):
-        with pytest.raises(NotImplementedError):
-            InferencePipeline(cfg, load_tokenizer("vi"), decode=decode,
-                              device="cpu")
-    for flag in (["--streaming"], ["--lm", "lm.arpa"]):
+    with pytest.raises(NotImplementedError):
+        InferencePipeline(cfg, load_tokenizer("vi"), decode="beam_device",
+                          device="cpu")
+    device_lm = ["--set", "decode.device_lm_path=lm_tokens.arpa"]
+    for flag in (["--streaming"], ["--decode", "beam_device"], device_lm):
         with pytest.raises(NotImplementedError):
             main(["--audio", "a.wav", "--device", "cpu", *flag])
     tiny = ["--set", "model.n_blocks=1", "--set", "model.d_model=64",
             "--set", "model.n_heads=2", "--set", "model.kernel_size=7"]
-    for flag in (["--decode", "beam"], ["--decode", "beam_device"],
-                 ["--decode", "beam_auto"], ["--lm", "lm.arpa"]):
+    for flag in (["--decode", "beam_device"], device_lm,
+                 ["--lm", "lm.arpa", *device_lm]):
         with pytest.raises(NotImplementedError):
             cli_test.main(["--manifest", "m.csv", "--device", "cpu", *tiny,
                            *flag])
@@ -167,7 +170,8 @@ def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
                                     "sincos_attention_bwd_general": 0,
                                     "sincos_attention_fwd_general_fp32": 0,
                                     "sincos_attention_bwd_general_fp32": 0,
-                                    "depthwise_conv_fwd_window": 0}
+                                    "depthwise_conv_fwd_window": 0,
+                                    "depthwise_conv_dw_window": 0}
     # Any other device has no plain path and no kernel: it raises.
     meta = [x.to("meta") for x in (qu, qv, k, v, wh, lengths, sin_t, cos_t)]
     with pytest.raises(ValueError, match="no kernel"):
