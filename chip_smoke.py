@@ -11,8 +11,11 @@ Phases, each printing one JSON line:
 2. kernels -- hold each kernel against its plain PyTorch version on the card
               at the shapes the serving and training paths give it (K1 with
               and without dropout, and bf16 K1 at the lengths
-              K1_EDGE_LENGTHS, K2 at rates 0 and 0.1, K3, the depthwise
-              conv K4a/K4b and its autograd Function at K 31 and 4, K5 for
+              K1_EDGE_LENGTHS and at every (B, L) the serving front
+              launches (serving_shapes), K2 at rates 0 and 0.1, K3 (also at
+              the serving front's shapes past 1600 frames), the depthwise
+              conv K4a/K4b and its autograd Function at K 31 and 4 (K4a also
+              at a stream window, B 1), K5 for
               every op), and time the kernel, the plain version, the bound
               and, where one exists, the one PyTorch call that computes the
               same function (SDPA under each backend that takes it, the
@@ -62,6 +65,17 @@ Phases, each printing one JSON line:
 7. tiny     -- ``ModelConfig.tiny`` (d_model 64, 2 heads of 32) trained 2
               steps through ``cli.train`` and served through ``cli.infer``
               on the card: every attention launch on the general kernels.
+8. stream   -- the production model behind ``cli.serve.make_server`` on an
+              ephemeral port: 10 concurrent uploads to /transcribe (WAV and
+              FLAC twins of 6, 12, 20 and 28 s, two also as 8 kHz WAVs),
+              each text held against the pipeline on that signal alone,
+              then the WAVs alone; two concurrent /stream sessions (l16,
+              f32) on a 24 s WAV against ``cli.infer --streaming``; a
+              1.8 s utterance streamed against offline; transcribers
+              pipelined, synchronous and with the host beam (190, LM,
+              hotword), one window profiled; ``cli.infer --streaming`` with
+              the beam and with conv_impl=pallas. Latencies, RTFs and the
+              window's idle share on a line of their own.
 
 Then the card's name and power limit, the ``kernels`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
@@ -82,7 +96,7 @@ import time
 from unittest import mock
 
 PHASES = ("build", "kernels", "tolerance", "model", "serve", "train",
-          "evaluate", "tiny")
+          "evaluate", "tiny", "stream")
 OPTIONAL_PHASES = ("profile",)
 # Published dense peaks of one H100 SXM (NVIDIA data sheet) at 700 W.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -253,6 +267,35 @@ def _augmented(torch, args):
     mask = (torch.arange(l, device=qu_s.device)[None, :]
             < lengths[:, None])[:, None, None, :]
     return q_aug, k_aug, split(v).contiguous(), mask
+
+
+def serving_shapes():
+    """-> (K1's (B, L), K3's (B, samples), a stream window's L): every
+    shape ``cli.serve`` with its defaults (as the stream phase runs it)
+    gives the two kernels: each batch rung at each bucket and a stream
+    window (context plus chunk) at B 1, K3 where the frontend takes it
+    (MelFrontend.impl_for)."""
+    from conformer_tpu_torch.audio.mel import MelFrontend
+    from conformer_tpu_torch.cli import serve
+    from conformer_tpu_torch.config import AudioConfig
+
+    args = serve.parse_args([])
+    cfg = AudioConfig()
+    fe = MelFrontend(cfg)
+    # samples -> subsampled frames (decode/streaming.py::_sub_frames)
+    sub = lambda n: ((n // cfg.hop_length) // 2 - 1) // 2
+    stride = 4 * cfg.hop_length
+    window = sum(int(sec * cfg.sample_rate) // stride * stride
+                 for sec in (args.stream_context_seconds,
+                             args.stream_chunk_seconds))
+    shapes = [(b, int(sec * cfg.sample_rate))
+              for b in serve.batch_rungs(args.max_batch)
+              for sec in args.buckets]
+    if (1, window) not in shapes:
+        shapes.append((1, window))
+    k1 = sorted({(b, sub(n)) for b, n in shapes})
+    k3 = [(b, n) for b, n in shapes if fe.impl_for(n) == "pallas"]
+    return k1, k3, sub(window)
 
 
 def k1_case(torch, b: int, l: int, dtype, seed: int, time_it: bool,
@@ -507,7 +550,7 @@ def k2_determinism(torch):
 
 
 def k3_case(torch, b: int, n_samples: int, seed: int, time_it: bool):
-    """K3 on b rows of n_samples (one silent row, one quiet row)."""
+    """K3 on b rows of n_samples (past one row, one silent and one quiet)."""
     from conformer_tpu_torch.audio.mel import MelFrontend, reflect_pad
     from conformer_tpu_torch.config import AudioConfig
     from conformer_tpu_torch.ops.cuda import mel_frontend as mf
@@ -517,8 +560,8 @@ def k3_case(torch, b: int, n_samples: int, seed: int, time_it: bool):
     fe = MelFrontend(cfg, device=dev)
     gen = torch.Generator().manual_seed(seed)
     audio = torch.randn(b, n_samples, generator=gen) * 0.1
-    audio[0] = 0.0
-    if b > 1:
+    if b > 1:            # one silent row and one quiet row
+        audio[0] = 0.0
         audio[1] *= 1e-3
     audio = audio.to(dev)
     padded = reflect_pad(audio, cfg.n_fft // 2).contiguous()
@@ -874,6 +917,11 @@ def phase_kernels(torch):
     k1_edges = [k1_case(torch, 8, l, torch.bfloat16, seed=80 + i, rate=rate,
                         time_it=False)
                 for i, l in enumerate(K1_EDGE_LENGTHS) for rate in (0.0, 0.1)]
+    # every (B, L) and K3 (B, samples) the serving front launches
+    k1_shapes, k3_shapes, window_l = serving_shapes()
+    k1_serving = [k1_case(torch, b, l, torch.bfloat16, seed=90 + i,
+                          time_it=False)
+                  for i, (b, l) in enumerate(k1_shapes)]
     k2_cases = [k2_case(torch, 8, l, dt, seed=30 + i, rate=rate,
                         time_it=timed(l, dt))
                 for i, (l, dt) in enumerate(shapes) for rate in (0.0, 0.1)]
@@ -883,6 +931,8 @@ def phase_kernels(torch):
     k3_cases = [k3_case(torch, 8, 16 * 16000, seed=10, time_it=True),
                 k3_case(torch, 8, 24 * 16000, seed=11, time_it=True),
                 k3_case(torch, 3, 7321 * 17, seed=12, time_it=False)]
+    k3_serving = [k3_case(torch, b, n, seed=130 + i, time_it=False)
+                  for i, (b, n) in enumerate(k3_shapes)]
     k3_tone = k3_tone_reading(torch)
     conv_shapes = [(l, dt) for dt in (torch.float32, torch.bfloat16)
                    for l in (199, 599)]
@@ -897,6 +947,9 @@ def phase_kernels(torch):
     k4a_ties = [k4a_case(torch, 8, l, torch.bfloat16, seed=58 + k,
                          time_it=False, k=k, ties=True)
                 for l, k in ((599, 31), (199, 7))]
+    # a stream window (B 1) with conv_impl=pallas
+    k4a_stream = k4a_case(torch, 1, window_l, torch.bfloat16, seed=54,
+                          time_it=False)
     k4b_cases = [k4b_case(torch, 8, l, dt, seed=60 + i, time_it=True)
                  for i, (l, dt) in enumerate(conv_shapes)]
     k4b_other, k4b_same, k4b_wide = k4b_checks(torch)
@@ -906,6 +959,7 @@ def phase_kernels(torch):
     emit({"phase": "kernels", "sincos_attention_fwd": k1_cases,
           "sincos_attention_fwd_dropout": k1_drop,
           "sincos_attention_fwd_edges": k1_edges,
+          "sincos_attention_fwd_serving": k1_serving,
           "sincos_attention_bwd": k2_cases,
           "sincos_attention_bwd_long": long_k2,
           "sincos_attention_bwd_determinism": deterministic,
@@ -913,19 +967,22 @@ def phase_kernels(torch):
           "sincos_attention_bwd_general": k2_general,
           "general_geometry": geometry,
           "logmel_fwd": k3_cases, "logmel_fwd_tone": k3_tone,
+          "logmel_fwd_serving": k3_serving,
           "depthwise_conv_fwd": k4a_cases,
           "depthwise_conv_fwd_l2400": k4a_long,
           "depthwise_conv_fwd_other_k": k4a_other,
           "depthwise_conv_fwd_ties": k4a_ties,
+          "depthwise_conv_fwd_stream": k4a_stream,
           "depthwise_conv_dw": k4b_cases, "depthwise_conv_dw_other": k4b_other,
           "depthwise_conv_dw_determinism": k4b_same,
           "depthwise_conv_dw_wide_c": k4b_wide,
           "depthwise_conv1d_grads": k4_grads,
           "vpu_pass": k5})
-    bad = [c for c in k1_cases + k1_drop + k1_edges + k2_cases
+    bad = [c for c in k1_cases + k1_drop + k1_edges + k1_serving + k2_cases
            + [long_k2, deterministic] + k1_general + k2_general + geometry
-           + k3_cases
-           + k4a_cases + [k4a_long] + k4a_other + k4a_ties + k4b_cases
+           + k3_cases + k3_serving
+           + k4a_cases + [k4a_long, k4a_stream] + k4a_other + k4a_ties
+           + k4b_cases
            + k4b_other + [k4b_same, k4b_wide] + k4_grads + [k5]
            if not c["ok"]]
     if bad:
@@ -1469,7 +1526,7 @@ def beam_batches(torch, ck: str, manifest: str, arpa: str) -> dict:
                                DataConfig(batch_size=8),
                                training=False).epoch(0),
                 key=lambda b: b.audio.shape[1])
-    out, _ = pipe._run_batch(batch.audio, batch.audio_lengths)
+    out, _ = pipe.run_batch(batch.audio, batch.audio_lengths)
     log_probs = out["log_probs"].float().cpu().numpy()
     lengths = out["lengths"].cpu().numpy()
     small = dataclasses.replace(pipe.cfg.decode, beam_width=BEAM_CHECK_WIDTH)
@@ -1704,6 +1761,454 @@ def phase_tiny(torch, tmp: str):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: the serving front: HTTP uploads, stream sessions, streaming CLI.
+# ---------------------------------------------------------------------------
+
+# Upload lengths (s): the 8, 16 and 30 s buckets (801, 1601 and 3001 mel
+# frames; K3 at the last two); the ones at STREAM_8K_UPLOADS are also sent as
+# 8 kHz WAVs, resampled by the server.
+STREAM_UPLOAD_SECONDS = (6.0, 12.0, 20.0, 28.0)
+STREAM_8K_UPLOADS = (0, 2)
+# The batching window of the phase's server: long enough that concurrent
+# uploads meet in one batch however the host schedules their decoding.
+STREAM_WINDOW_MS = 200
+STREAM_SECONDS = 24.0
+STREAM_BLOCK_S = 0.5
+STREAM_SHORT_S = 1.8
+
+
+def _percentiles(values) -> dict:
+    import numpy as np
+
+    if not values:
+        return {"n": 0}
+    return {"n": len(values), "p50": float(np.percentile(values, 50)),
+            "p95": float(np.percentile(values, 95)), "max": float(max(values))}
+
+
+def _http(url: str, data=None, ctype=None):
+    """-> (JSON reply, wall ms) of one request to the phase's server."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data)
+    if ctype:
+        req.add_header("Content-Type", ctype)
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        body = json.loads(r.read())
+    return body, (time.perf_counter() - t0) * 1e3
+
+
+def _concurrently(fns):
+    """Run each fn in its own thread; re-raise the first failure."""
+    import threading
+
+    errors = []
+
+    def run(fn):
+        try:
+            fn()
+        except BaseException as e:  # noqa: BLE001 -- reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(fn,)) for fn in fns]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+
+def _serve_uploads(server, base: str, uploads):
+    """POST every upload at once; hold each served text against the
+    pipeline's run on that signal alone (batch 1, the same bucket), and,
+    where the texts differ, the row's log-probs of the two runs against the
+    model phase's bf16 tolerance."""
+    import numpy as np
+
+    from conformer_tpu_torch.audio import io as aio
+    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    pipe, batcher = server.pipe, server.batcher
+    logged = len(pipe.batch_log)
+    pipe.keep_outputs = True
+    replies = {}
+
+    def client(name, raw):
+        replies[name] = _http(f"{base}/transcribe", raw)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _concurrently([lambda n=n, r=r: client(n, r) for n, r in uploads])
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    pipe.keep_outputs = False
+    served = pipe.batch_log[logged:]
+    stats, _ = _http(f"{base}/stats")
+    tol = TOL_MODEL["bfloat16"]
+    rows = []
+    for name, raw in uploads:
+        sig, sr = aio.decode_audio_bytes(raw)
+        sig = aio.resample(sig.mean(axis=0) if sig.ndim == 2 else sig, sr,
+                           16000)
+        n = len(sig)
+        bucket = batcher.bucket_for(n)
+        batch, row = next((b, i) for b in served
+                          for i in range(b["batch_size"])
+                          if b["audio_lengths"][i] == n
+                          and np.array_equal(b["audio"][i, :n], sig))
+        audio = np.zeros((1, bucket), np.float32)
+        audio[0, :n] = sig
+        out, texts = pipe.run_batch(audio, np.array([n]))
+        want_lp = out["log_probs"][0].float().cpu()
+        t = int(out["lengths"][0])
+        got_lp = batch["log_probs"][row]
+        diff = float((got_lp[:t] - want_lp[:t]).abs().max())
+        scale = float(want_lp[:t].abs().max())
+        agree = float((got_lp[:t].argmax(-1) == want_lp[:t].argmax(-1))
+                      .float().mean())
+        text = replies[name][0]["text"]
+        same_text = text == texts[0]
+        logits_ok = (int(batch["lengths"][row]) == t
+                     and diff <= tol["max_abs_rel"]
+                     * scale and agree >= tol["token_agreement"])
+        rows.append({"upload": name, "audio_s": n / 16000,
+                     "bucket_s": bucket / 16000,
+                     "served_batch": batch["batch_size"],
+                     "latency_ms": replies[name][1],
+                     "same_text": same_text,
+                     "held_by": "text" if same_text else "log_probs",
+                     "log_prob_max_abs_diff": diff, "log_prob_scale": scale,
+                     "token_agreement": agree,
+                     "ok": bool(text) and (same_text or logits_ok)})
+    return {"uploads": rows, "wall_s": wall, "stats": stats,
+            "latency_ms": _percentiles([r["latency_ms"] for r in rows]),
+            "launches": counts}
+
+
+def _stream_sessions(base: str, pcm):
+    """Two concurrent sessions on the same utterance, fed in STREAM_BLOCK_S
+    blocks: one in audio/l16, one in audio/f32. -> {encoding: result}."""
+    import numpy as np
+
+    block = int(STREAM_BLOCK_S * 16000)
+    bodies = {"l16": (pcm.astype("<i2"), "audio/l16"),
+              "f32": ((pcm.astype(np.float32) / 32768.0).astype("<f4"),
+                      "audio/f32")}
+    # a window runs when a feed completes a chunk: every 4th 0.5 s block
+    per_chunk = int(round(2.0 / STREAM_BLOCK_S))
+    results = {}
+
+    def session(name):
+        samples, ctype = bodies[name]
+        t0 = time.perf_counter()
+        sid = _http(f"{base}/stream/start", b"")[0]["session"]
+        feed_ms = []
+        for i in range(0, len(samples), block):
+            _, ms = _http(f"{base}/stream/{sid}",
+                          samples[i: i + block].tobytes(), ctype)
+            feed_ms.append(ms)
+        final, finish_ms = _http(f"{base}/stream/{sid}/finish", b"")
+        wall = time.perf_counter() - t0
+        chunk_ms = feed_ms[per_chunk - 1::per_chunk]
+        results[name] = {"text": final["text"], "feeds": len(feed_ms),
+                         "feed_ms": _percentiles(feed_ms),
+                         "chunk_feed_ms": _percentiles(chunk_ms),
+                         "finish_ms": finish_ms, "wall_s": wall,
+                         "rtf": wall / (len(samples) / 16000)}
+
+    _concurrently([lambda n=n: session(n) for n in bodies])
+    return results
+
+
+def _infer_text(argv) -> "tuple[str, float]":
+    """-> (the one transcript, wall s) of ``cli.infer.main(argv)``."""
+    from conformer_tpu_torch.cli import infer
+
+    t0 = time.perf_counter()
+    infer.main(argv)
+    wall = time.perf_counter() - t0
+    out = argv[argv.index("--output") + 1]
+    with open(out, newline="", encoding="utf8") as f:
+        rows = list(csv.DictReader(f))
+    return rows[0]["prediction"], wall
+
+
+def _stream_short(pipe):
+    """A <= 2 s utterance streamed (one window) against the offline run
+    padded to the same window: the same log-probs, the same text."""
+    import numpy as np
+
+    from conformer_tpu_torch.decode.streaming import StreamingTranscriber
+
+    rng = np.random.default_rng(17)
+    audio = np.clip(rng.standard_normal(int(STREAM_SHORT_S * 16000)) * 0.1,
+                    -1, 1).astype(np.float32)
+    st = StreamingTranscriber(pipe.cfg, pipe.tok, pipe.model, pipe.frontend,
+                              keep_windows=True)
+    st.feed(audio)
+    st.finish()
+    window = np.zeros((1, st.ctx + st.chunk), np.float32)
+    window[0, : len(audio)] = audio
+    out, texts = pipe.run_batch(window, np.array([len(audio)]))
+    t = int(out["lengths"][0])
+    streamed = st.windows[0]
+    same_frames = streamed.shape[0] == t
+    diff = (float((streamed - out["log_probs"][0][:t].cpu()).abs().max())
+            if same_frames else math.inf)
+    return {"audio_s": STREAM_SHORT_S, "windows": len(st.windows),
+            "frames": t, "streamed_frames": streamed.shape[0],
+            "log_prob_max_abs_diff": diff, "text_equal": st.text == texts[0],
+            "ok": len(st.windows) == 1 and diff == 0.0
+            and st.text == texts[0]}
+
+
+def _conv_impls(pipe, audio):
+    """The streaming utterance through transcribers over the same weights,
+    the depthwise conv through F.conv1d (``pipe``'s model, conv_impl xla)
+    and through K4a (pallas): each window's log-probs held against the
+    model phase's bf16 tolerance (the two round differently)."""
+    from conformer_tpu_torch.decode.streaming import StreamingTranscriber
+    from conformer_tpu_torch.models.conformer import Conformer
+
+    cfg = pipe.cfg.override(**{"model.conv_impl": "pallas"})
+    pallas = Conformer(cfg.model, cfg.optim.compute_dtype)
+    pallas.load_state_dict(pipe.model.state_dict())
+    pallas = pallas.to(pipe.device).eval()
+    windows = {}
+    for name, c, model in (("xla", pipe.cfg, pipe.model),
+                           ("pallas", cfg, pallas)):
+        st = StreamingTranscriber(c, pipe.tok, model, pipe.frontend,
+                                  keep_windows=True)
+        st.feed(audio)
+        st.finish()
+        windows[name] = st.windows
+    pairs = list(zip(windows["xla"], windows["pallas"]))
+    rel = max(float((p - x).abs().max() / x.abs().max()) for x, p in pairs)
+    agree = min(float((p.argmax(-1) == x.argmax(-1)).float().mean())
+                for x, p in pairs)
+    tol = TOL_MODEL["bfloat16"]
+    return {"windows": len(pairs), "log_prob_max_rel_diff": rel,
+            "min_token_agreement": agree,
+            "ok": (len(windows["xla"]) == len(windows["pallas"])
+                   and all(x.shape == p.shape for x, p in pairs)
+                   and rel <= tol["max_abs_rel"]
+                   and agree >= tol["token_agreement"])}
+
+
+def _stream_timing(torch, pipe, pcm, arpa: str):
+    """The streaming utterance fed in STREAM_BLOCK_S blocks through
+    transcribers over ``pipe``'s model: greedy pipelined and synchronous
+    (the same text), and the host beam at 190 with the LM and the hotword;
+    each one's wall time and RTF. Then one synchronous 2 s chunk (one
+    window) under the profiler: the device's busy and idle share."""
+    import dataclasses
+
+    import numpy as np
+
+    from conformer_tpu_torch.decode.streaming import StreamingTranscriber
+
+    audio = pcm.astype(np.float32) / 32768.0
+    block = int(STREAM_BLOCK_S * 16000)
+    beam_cfg = dataclasses.replace(pipe.cfg.decode, lm_path=arpa,
+                                   beam_width=190, hotwords=(HOTWORD,))
+    runs = {
+        "pipelined": pipe.streaming_transcriber(),
+        "synchronous": pipe.streaming_transcriber(pipeline_chunks=False),
+        "beam_190": StreamingTranscriber(
+            pipe.cfg, pipe.tok, pipe.model, pipe.frontend, decode="beam",
+            decode_cfg=beam_cfg)}
+    out = {}
+    for name, st in runs.items():
+        st.feed(audio[:block])           # warm-up: the allocator's blocks
+        st.finish()
+        st.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, len(audio), block):
+            st.feed(audio[i: i + block])
+        st.finish()
+        wall = time.perf_counter() - t0
+        out[name] = {"wall_s": wall, "rtf": wall / STREAM_SECONDS,
+                     "windows": -(-len(audio) // st.chunk)}
+        out[name]["text_chars"] = len(st.text)
+        if name != "beam_190":
+            out[name]["text"] = st.text
+    st = runs["synchronous"]
+    st.reset()
+    st.feed(audio[: st.chunk])           # the first window, untimed
+    out["window_profile"] = {k: v for k, v in _profiled(
+        torch, lambda: st.feed(audio[st.chunk: 2 * st.chunk])).items()
+        if k != "conv_rows"}
+    out["ok"] = out["pipelined"]["text"] == out["synchronous"]["text"]
+    return out
+
+
+def phase_stream(torch, tmp: str):
+    """The production model (Config(), seeded weights, bf16) behind the
+    port's HTTP server and its streaming CLI: concurrent WAV / FLAC / 8 kHz
+    uploads to /transcribe, two concurrent /stream sessions (l16, f32)
+    against ``cli.infer --streaming``, a short utterance streamed against
+    offline, double buffering against synchronous emission, the host beam
+    (beam 190, one hotword, an ARPA from ``cli.create_lm``) and
+    conv_impl=pallas through ``cli.infer --streaming`` (its text equal to
+    the xla run's, or, where it differs, each window's log-probs of the
+    two conv_impls on the same weights within the bf16 tolerance). The
+    threaded runs' launch counts are exact (the wrappers count under a
+    lock) but depend on how requests batched, so they are held as > 0. ->
+    launch counts of the driven runs."""
+    import io as _io
+    import threading
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from conformer_tpu_torch.audio import io as aio
+    from conformer_tpu_torch.audio.flac import encode_flac_bytes
+    from conformer_tpu_torch.cli import create_lm, serve
+    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    rng = np.random.default_rng(7)
+    pcm = lambda sec, sr: np.round(np.clip(
+        rng.standard_normal(int(sec * sr)) * 0.1, -1, 1) * 32767
+    ).astype(np.int16)
+
+    def wav_bytes(x, sr):
+        buf = _io.BytesIO()
+        wavfile.write(buf, sr, x)
+        return buf.getvalue()
+
+    uploads, twins = [], []
+    for i, sec in enumerate(STREAM_UPLOAD_SECONDS):
+        x = pcm(sec, 16000)
+        wav, flac = wav_bytes(x, 16000), encode_flac_bytes(
+            x.astype(np.int64), 16000)
+        twins.append(np.array_equal(aio.decode_audio_bytes(wav)[0],
+                                    aio.decode_audio_bytes(flac)[0]))
+        uploads += [(f"wav_{sec:g}s", wav), (f"flac_{sec:g}s", flac)]
+        if i in STREAM_8K_UPLOADS:
+            uploads.append((f"wav8k_{sec:g}s", wav_bytes(pcm(sec, 8000),
+                                                          8000)))
+    totals = {}
+
+    def add(counts):
+        for key, n in counts.items():
+            totals[key] = totals.get(key, 0) + n
+
+    t0 = time.perf_counter()
+    server = serve.make_server(serve.parse_args(
+        ["--device", DEVICE, "--port", "0", "--warmup",
+         "--window-ms", str(STREAM_WINDOW_MS)]))
+    build_s = time.perf_counter() - t0
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    corpus = os.path.join(tmp, "stream_corpus.txt")
+    with open(corpus, "w", encoding="utf8") as f:
+        f.write("\n".join(_transcript(rng) for _ in range(20)))
+    create_lm.main(["--text", corpus, "--out", os.path.join(tmp, "slm")])
+    arpa = os.path.join(tmp, "slm", "lm.arpa")
+    utterance = pcm(STREAM_SECONDS, 16000)
+    path = os.path.join(tmp, "stream24.wav")
+    wavfile.write(path, 16000, utterance)
+    try:
+        served = _serve_uploads(server, base, uploads)
+        add(served["launches"])
+        # the WAVs alone: no FLAC decoding holds the host
+        wav_only = _serve_uploads(server, base,
+                                  [u for u in uploads if "flac" not in u[0]])
+        add(wav_only["launches"])
+        reset_launch_counts()
+        sessions = _stream_sessions(base, utterance)
+        session_counts = launch_counts()
+        add(session_counts)
+        short = _stream_short(server.pipe)
+        timing = _stream_timing(torch, server.pipe, utterance, arpa)
+        conv_impls = _conv_impls(server.pipe,
+                                 utterance.astype(np.float32) / 32768.0)
+    finally:
+        server.shutdown()
+        server.server_close()
+    del server
+    torch.cuda.empty_cache()
+
+    out_csv = os.path.join(tmp, "stream.csv")
+    stream = ["--audio", path, "--streaming", "--device", DEVICE,
+              "--output", out_csv]
+    reset_launch_counts()
+    cli_text, cli_wall = _infer_text(stream)
+    cli_counts = launch_counts()
+    add(cli_counts)
+    reset_launch_counts()
+    beam_text, beam_wall = _infer_text(
+        stream + ["--decode", "beam", "--lm", arpa,
+                  "--set", "decode.beam_width=190",
+                  "--set", f'decode.hotwords=["{HOTWORD}"]'])
+    beam_counts = launch_counts()
+    add(beam_counts)
+    reset_launch_counts()
+    pallas_text, pallas_wall = _infer_text(stream + PALLAS)
+    pallas_counts = launch_counts()
+    add(pallas_counts)
+
+    finals = {k: v["text"] for k, v in sessions.items()}
+    stats = served["stats"]
+    ok = (all(twins) and all(r["ok"] for r in served["uploads"])
+          and stats["max_batch_seen"] > 1
+          and stats["requests"] == len(uploads)
+          and all(t == cli_text for t in finals.values())
+          and all(r["ok"] for r in wav_only["uploads"])
+          and short["ok"] and timing["ok"]
+          and served["launches"]["sincos_attention_fwd"] > 0
+          and served["launches"]["logmel_fwd"] > 0
+          and session_counts["sincos_attention_fwd"] > 0
+          and cli_counts["sincos_attention_fwd"] > 0
+          and beam_counts["sincos_attention_fwd"] > 0
+          and pallas_counts["sincos_attention_fwd"] > 0
+          and pallas_counts["depthwise_conv_fwd"] > 0
+          and (pallas_text == cli_text or conv_impls["ok"]))
+    emit({"phase": "stream", "config": "Config() production, seeded random "
+          "weights, bf16; serve buckets 2/4/8/16/30 s, batch rungs 1/2/4/8, "
+          f"window {STREAM_WINDOW_MS} ms; streams of 2 s chunks, 6 s context",
+          "server_build_s": build_s, "wav_flac_twins_equal": twins,
+          "transcribe": served, "transcribe_wav_only": wav_only,
+          "sessions": sessions,
+          "session_launches": session_counts,
+          # the CLIs' wall times include building the model and reading
+          # the file; the transcribers' timings below do not
+          "cli_streaming": {"wall_s": cli_wall,
+                            "equals_sessions": {k: t == cli_text
+                                                for k, t in finals.items()},
+                            "launches": cli_counts},
+          "short_utterance": short, "transcriber_timing": timing,
+          "cli_beam": {"width": 190, "hotword": HOTWORD, "wall_s": beam_wall,
+                       "text_chars": len(beam_text),
+                       "launches": beam_counts},
+          "pallas": {"wall_s": pallas_wall,
+                     "same_text_as_xla": pallas_text == cli_text,
+                     "held_by": ("text" if pallas_text == cli_text
+                                 else "log_probs"),
+                     "log_probs_against_xla": conv_impls,
+                     "launches": pallas_counts},
+          "ok": ok})
+    # the figures of PERF.md, each on a line of its own
+    emit({"stream_figures": {
+        "transcribe_latency_ms": served["latency_ms"],
+        "transcribe_wav_only_latency_ms": wav_only["latency_ms"],
+        "stream_feed_ms": {k: v["feed_ms"] for k, v in sessions.items()},
+        "stream_chunk_feed_ms": {k: v["chunk_feed_ms"]
+                                 for k, v in sessions.items()},
+        "stream_session_rtf": {k: v["rtf"] for k, v in sessions.items()},
+        "streaming_rtf": {k: timing[k]["rtf"] for k in
+                          ("pipelined", "synchronous", "beam_190")},
+        "stream_window_device_idle_share":
+            timing["window_profile"]["device_idle_share"]}})
+    if not ok:
+        raise SystemExit("stream phase failed")
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # Optional phase: where the time of one 24 s forward goes.
 # ---------------------------------------------------------------------------
 
@@ -1811,7 +2316,8 @@ def main(argv=None) -> int:
         for key, n in phase_model(torch).items():
             launches[key] = launches.get(key, 0) + n
     for name, run in (("serve", phase_serve), ("train", phase_train),
-                      ("evaluate", phase_evaluate), ("tiny", phase_tiny)):
+                      ("evaluate", phase_evaluate), ("tiny", phase_tiny),
+                      ("stream", phase_stream)):
         if name in phases:
             with tempfile.TemporaryDirectory() as tmp:
                 for key, n in run(torch, tmp).items():

@@ -2,13 +2,18 @@
 host beam search fused with an n-gram LM (``--lm lm.arpa --decode beam``),
 on the GPU unless ``--device cpu`` is given.
 
-    python -m conformer_tpu_torch.cli.infer --audio a.wav b.wav --weights w.pt
+    python -m conformer_tpu_torch.cli.infer --audio a.wav b.flac --weights w.pt
     python -m conformer_tpu_torch.cli.infer --manifest batch.csv --output out.csv
+    python -m conformer_tpu_torch.cli.infer --audio long.wav --streaming
 
 ``--weights`` takes a state dict written by ``conformer_tpu_torch.convert``;
 without it the model has seeded random weights. ``--decode auto`` is greedy
-without an LM and ``beam_auto`` with one, which on the GPU means the device
-beam search; that and streaming are not ported yet and raise.
+without an LM and ``beam_auto`` with one, which offline on the GPU means the
+device beam search (not ported yet: it raises, as ``--decode beam_device``
+does) and for ``--streaming`` the host beam search. ``--streaming`` feeds
+each file through a ``StreamingTranscriber`` (decode/streaming.py) in chunks
+of ``--stream-chunk-seconds`` with ``--stream-context-seconds`` of left
+context.
 """
 
 from __future__ import annotations
@@ -56,22 +61,31 @@ def main(argv=None):
     p.add_argument("--long", action="store_true",
                    help="chunked transcription for long recordings")
     p.add_argument("--chunk-seconds", type=float, default=24.0)
-    p.add_argument("--streaming", action="store_true")
+    p.add_argument("--streaming", action="store_true",
+                   help="stateful streaming decode (left-context-carry "
+                        "encoder chunks, incremental emission)")
+    p.add_argument("--stream-chunk-seconds", type=float, default=2.0)
+    p.add_argument("--stream-context-seconds", type=float, default=6.0)
     args = p.parse_args(argv)
 
     if not args.audio and not args.manifest:
         raise SystemExit("need --audio files or --manifest")
-    if args.streaming:
-        raise NotImplementedError(
-            "--streaming: streaming decode is not ported yet (a later slice)")
     cfg = load_config(args)
     cfg, decode = lm_decode(args, cfg)
     tokenizer = load_tokenizer_from_args(args, cfg)
 
     from conformer_tpu_torch.decode.pipeline import InferencePipeline
 
+    if args.streaming:
+        from conformer_tpu_torch.decode.streaming import \
+            resolve_streaming_decode
+
+        decode = resolve_streaming_decode(cfg, decode)
+    # streaming decodes in its transcriber; the pipeline then only holds
+    # the model
     pipe = InferencePipeline(cfg, tokenizer, weights=args.weights,
-                             decode=decode, device=args.device)
+                             decode="greedy" if args.streaming else decode,
+                             device=args.device)
     paths = list(args.audio)
     segments = None
     if args.manifest:
@@ -80,7 +94,20 @@ def main(argv=None):
             segments = manifest_segments
         paths.extend(manifest_paths)
 
-    if args.long:
+    if args.streaming:
+        from conformer_tpu_torch.audio.io import load_audio
+
+        st = pipe.streaming_transcriber(
+            chunk_s=args.stream_chunk_seconds,
+            left_context_s=args.stream_context_seconds, decode=decode)
+        texts = []
+        for p_ in paths:
+            st.reset()
+            st.feed(load_audio(p_, cfg.audio.sample_rate,
+                               channel=args.channel))
+            st.finish()
+            texts.append(st.text)
+    elif args.long:
         texts = [pipe.transcribe_long(p_, chunk_s=args.chunk_seconds,
                                       channel=args.channel) for p_ in paths]
     else:

@@ -1,7 +1,8 @@
 """Inference pipeline: weights -> batched transcription and evaluation with
-greedy decode or the host CTC beam search with n-gram LM fusion
-(counterpart of conformer_tpu/decode/pipeline.py; the device beam search is
-not ported and raises).
+greedy decode or the host CTC beam search with n-gram LM fusion, and the
+streaming transcribers that share its model (counterpart of
+conformer_tpu/decode/pipeline.py; the device beam search is not ported and
+raises).
 
 Runs on the CUDA device unless the caller passes ``device="cpu"``; with no
 CUDA device and no explicit CPU it raises. Weights come from a
@@ -63,7 +64,15 @@ class InferencePipeline:
     ``batch_log`` records one entry per batch: its size, its audio seconds,
     the padded seconds the model ran on, the wall seconds it took (the
     device synchronised before the clock is read) and, of those, the
-    seconds the host took to turn the outputs into texts (``decode_s``)."""
+    seconds the host took to turn the outputs into texts (``decode_s``);
+    the oldest half is dropped past BATCH_LOG_MAX entries (a server runs
+    for long). With ``keep_outputs`` set, an entry also keeps the batch on
+    the host: its ``audio`` and ``audio_lengths`` and the model's fp32
+    ``log_probs`` and frame ``lengths`` (for checks that hold served rows
+    against another run)."""
+
+    BATCH_LOG_MAX = 4096
+    keep_outputs = False
 
     def __init__(self, cfg: Config, tokenizer: GraphemeTokenizer,
                  weights: Optional[str] = None, decode: str = "greedy",
@@ -121,11 +130,12 @@ class InferencePipeline:
         return [self.tok.collapsed_ids_to_text(tokens[i], counts[i])
                 for i in range(len(counts))]
 
-    def _run_batch(self, audio: np.ndarray, audio_lengths: np.ndarray,
-                   tokens: Optional[np.ndarray] = None,
-                   token_lengths: Optional[np.ndarray] = None
-                   ) -> Tuple[dict, List[str]]:
-        """One eval step on the device -> (its outputs, texts); logs the
+    def run_batch(self, audio: np.ndarray, audio_lengths: np.ndarray,
+                  tokens: Optional[np.ndarray] = None,
+                  token_lengths: Optional[np.ndarray] = None
+                  ) -> Tuple[dict, List[str]]:
+        """One eval step on the device -> (its outputs: tokens, counts,
+        log_probs, lengths and, with transcripts, loss; the texts); logs the
         batch in ``batch_log``."""
         t0 = time.perf_counter()
         to = lambda a, dt: torch.from_numpy(
@@ -140,17 +150,39 @@ class InferencePipeline:
         texts = self.texts_from_out(out)
         t2 = time.perf_counter()
         sr = self.cfg.audio.sample_rate
-        self.batch_log.append({
-            "batch_size": int(audio.shape[0]),
-            "audio_s": float(np.sum(audio_lengths)) / sr,
-            "padded_s": float(audio.shape[1]) / sr,
-            "seconds": t2 - t0, "decode_s": t2 - t1})
+        if len(self.batch_log) >= self.BATCH_LOG_MAX:
+            del self.batch_log[: self.BATCH_LOG_MAX // 2]
+        entry = {"batch_size": int(audio.shape[0]),
+                 "audio_s": float(np.sum(audio_lengths)) / sr,
+                 "padded_s": float(audio.shape[1]) / sr,
+                 "seconds": t2 - t0, "decode_s": t2 - t1}
+        if self.keep_outputs:
+            entry.update(audio=np.array(audio, np.float32),
+                         audio_lengths=np.array(audio_lengths),
+                         log_probs=out["log_probs"].float().cpu(),
+                         lengths=out["lengths"].cpu())
+        self.batch_log.append(entry)
         return out, texts
 
     def transcribe_batch(self, audio: np.ndarray, audio_lengths: np.ndarray
                          ) -> List[str]:
         """audio (B, S) float32 zero-padded; audio_lengths (B,) samples."""
-        return self._run_batch(audio, audio_lengths)[1]
+        return self.run_batch(audio, audio_lengths)[1]
+
+    def streaming_transcriber(self, chunk_s: float = 2.0,
+                              left_context_s: float = 6.0,
+                              decode: Optional[str] = None,
+                              pipeline_chunks: bool = True):
+        """-> a ``StreamingTranscriber`` over this pipeline's model and
+        frontend, with its config's LM and hotwords; ``decode`` defaults to
+        the pipeline's (decode/streaming.py resolves ``beam_auto`` for a
+        stream)."""
+        from conformer_tpu_torch.decode.streaming import StreamingTranscriber
+
+        return StreamingTranscriber(
+            self.cfg, self.tok, self.model, self.frontend, chunk_s=chunk_s,
+            left_context_s=left_context_s, decode=decode or self.decode,
+            decode_cfg=self.cfg.decode, pipeline_chunks=pipeline_chunks)
 
     def transcribe_files(self, paths: Sequence[str], batch_size: int = 8,
                          channel: Optional[int] = None,
@@ -229,7 +261,7 @@ class InferencePipeline:
                                 batch_size=batch_size or data_cfg.batch_size)
         refs, hyps, losses = [], [], []
         for batch in loader.epoch(0):
-            out, texts = self._run_batch(batch.audio, batch.audio_lengths,
+            out, texts = self.run_batch(batch.audio, batch.audio_lengths,
                                          batch.tokens, batch.token_lengths)
             losses.append(float(out["loss"]))
             for i, ref_text in enumerate(batch.texts or []):

@@ -29,9 +29,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build time or 0.0 when cached, "ptxas": compiler log}
 BUILD_LOG: Dict[str, dict] = {}
+
+
+def count(fn, *counters: str) -> None:
+    """Add one to each named launch counter of the wrapper ``fn`` under one
+    lock, so that threads sharing a wrapper (a server's handler and
+    batching threads) lose no count."""
+    with _count_lock:
+        for name in counters:
+            setattr(fn, name, getattr(fn, name) + 1)
 
 
 def _nvcc() -> str:

@@ -131,9 +131,8 @@ def depthwise_conv_fwd(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
                  b, l, c, k, pad, code, CONV_VARIANTS.index(variant), stream)
     build.check(lib, "depthwise_conv", err)
-    depthwise_conv_fwd.launches += 1
-    if variant == "window":
-        depthwise_conv_fwd.window_launches += 1
+    build.count(depthwise_conv_fwd, "launches",
+                *(["window_launches"] if variant == "window" else []))
     return out
 
 
@@ -170,9 +169,8 @@ def depthwise_conv_dw(x: torch.Tensor, g: torch.Tensor, k: int,
         err = fn(x.data_ptr(), g.data_ptr(), scratch.data_ptr(), dw.data_ptr(),
                  b, l, c, k, pad, code, CONV_VARIANTS.index(variant), stream)
     build.check(lib, "depthwise_conv", err)
-    depthwise_conv_dw.launches += 1
-    if variant == "window":
-        depthwise_conv_dw.window_launches += 1
+    build.count(depthwise_conv_dw, "launches",
+                *(["window_launches"] if variant == "window" else []))
     return dw
 
 

@@ -178,7 +178,7 @@ def logmel_fwd(padded_audio: torch.Tensor, dft: torch.Tensor,
                  ops.n_steps, ops.s_pad, ops.n_chunks, n_mels,
                  ops.n_mel_tiles, clamp, stream)
     build.check(lib, "mel_frontend", err)
-    logmel_fwd.launches += 1
+    build.count(logmel_fwd, "launches")
     return out
 
 

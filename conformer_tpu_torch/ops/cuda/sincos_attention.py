@@ -438,12 +438,12 @@ def sincos_attention_fwd(qu, qv, k, v, wh, lengths, sin_t, cos_t,
                  None, b, l, h, dh, code, variant,
                  seed32, thresh, inv_keep, tq, stream)
     build.check(lib, "sincos_attention", err)
-    sincos_attention_fwd.launches += 1
+    counters = ["launches"]
     if VARIANTS[variant] == "general":
-        sincos_attention_fwd.general_launches += 1
-        sincos_attention_fwd.general_fp32_launches += code == 0
+        counters += ["general_launches"] + ["general_fp32_launches"] * (code == 0)
     if thresh:
-        sincos_attention_fwd.dropout_launches += 1
+        counters.append("dropout_launches")
+    build.count(sincos_attention_fwd, *counters)
     return (out, st) if stats else out
 
 
@@ -504,10 +504,10 @@ def sincos_attention_bwd(qu, qv, k, v, wh, lengths, sin_t, cos_t, stats,
             dqu, dqv, dk, dv, dwh, scratch)), b, l, h, dh, code, variant,
             seed32, thresh, inv_keep, tq, stream)
     build.check(lib, "sincos_attention_bwd", err)
-    sincos_attention_bwd.launches += 1
+    counters = ["launches"]
     if VARIANTS[variant] == "general":
-        sincos_attention_bwd.general_launches += 1
-        sincos_attention_bwd.general_fp32_launches += code == 0
+        counters += ["general_launches"] + ["general_fp32_launches"] * (code == 0)
+    build.count(sincos_attention_bwd, *counters)
     return dqu, dqv, dk, dv, dwh
 
 

@@ -87,7 +87,7 @@ def vpu_pass(x: torch.Tensor, op: str, n: int, rows: int) -> torch.Tensor:
         err = fn(x.data_ptr(), out.data_ptr(), OPS.index(op), n, rows, cols,
                  total // rows, stream)
     build.check(lib, "vpu_pass", err)
-    vpu_pass.launches += 1
+    build.count(vpu_pass, "launches")
     return out
 
 

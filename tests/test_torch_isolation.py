@@ -99,8 +99,8 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
 
 
 def test_unported_decoders_raise():
-    """The device beam search (decode beam_device, a device LM) and
-    streaming are not ported: they raise; the host beam runs instead of
+    """The device beam search (decode beam_device, a device LM, offline or
+    streaming) is not ported: it raises; the host beam runs instead of
     none of them."""
     from conformer_tpu_torch.cli import test as cli_test
     from conformer_tpu_torch.cli.infer import main
@@ -113,7 +113,8 @@ def test_unported_decoders_raise():
         InferencePipeline(cfg, load_tokenizer("vi"), decode="beam_device",
                           device="cpu")
     device_lm = ["--set", "decode.device_lm_path=lm_tokens.arpa"]
-    for flag in (["--streaming"], ["--decode", "beam_device"], device_lm):
+    for flag in (["--streaming", "--decode", "beam_device"],
+                 ["--decode", "beam_device"], device_lm):
         with pytest.raises(NotImplementedError):
             main(["--audio", "a.wav", "--device", "cpu", *flag])
     tiny = ["--set", "model.n_blocks=1", "--set", "model.d_model=64",
