@@ -15,7 +15,8 @@ Phases, each printing one JSON line:
               launches (serving_shapes), K2 at rates 0 and 0.1, K3 (also at
               the serving front's shapes past 1600 frames), the depthwise
               conv K4a/K4b and its autograd Function at K 31 and 4 (K4a also
-              at a stream window, B 1), K5 for
+              at a stream window, B 1), K1, K3 and K4a at every shape the
+              export phase's programs launch (export_shapes), K5 for
               every op), and time the kernel, the plain version, the bound
               and, where one exists, the one PyTorch call that computes the
               same function (SDPA under each backend that takes it, the
@@ -76,6 +77,33 @@ Phases, each printing one JSON line:
               hotword), one window profiled; ``cli.infer --streaming`` with
               the beam and with conv_impl=pallas. Latencies, RTFs and the
               window's idle share on a line of their own.
+9. transducer -- configs/production_vi_transducer.json (17 blocks, d_model
+              512, prediction and joint 320, vocab 370, bf16, hash dropout
+              0.1, the lattice-free scan loss) at batch 8 (its 72 cut for
+              time), seeded random weights: ``cli.train --device cuda`` on
+              the train phase's WAVs for 4 steps with checkpoints, resumed
+              to 6 (34 K1 and K1-drop and 17 K2 launches a step, K3 on the
+              23.5 s batches); one train step through the kernels against
+              their plain versions; ``rnnt_loss_scan`` against the lattice
+              loss in fp32 (B 8 x 8 s) and both timed at 24 s;
+              ``rnnt_alpha_final`` on a peaked 24 s lattice against a
+              float64 DP; the checkpoint through ``cli.test`` (greedy);
+              then a copy whose joint is rescaled so that the greedy decode
+              mixes blanks and emissions (mixing_copy; the validation rows'
+              share of emitting rounds and in-frame stops checked) through ``cli.infer`` and ``cli.infer
+              --streaming`` (a one-chunk utterance against the offline
+              decode of the same window); the greedy decode of a B 8 x
+              24 s batch timed, its kernel launches counted.
+10. export  -- the production Config() with conv_impl pallas through
+              ``cli.export --device cuda`` at 8 and 24 s, batch 1 and 8,
+              each program against the live forward (bf16 tolerance) with
+              K1, K3 (24 s) and K4a counted while it runs; a tiny program
+              exported on the CPU and moved to the card against the live
+              model; the transducer phase's mixing checkpoint exported
+              greedy at 8 s, batch 1: the live greedy tokens. The kernels
+              phase holds every shape these programs launch
+              (export_shapes). Export seconds, program
+              bytes, program against live forward ms.
 
 Then the card's name and power limit, the ``kernels`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
@@ -89,6 +117,7 @@ import csv
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -96,7 +125,7 @@ import time
 from unittest import mock
 
 PHASES = ("build", "kernels", "tolerance", "model", "serve", "train",
-          "evaluate", "tiny", "stream")
+          "evaluate", "tiny", "stream", "transducer", "export")
 OPTIONAL_PHASES = ("profile",)
 # Published dense peaks of one H100 SXM (NVIDIA data sheet) at 700 W.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -269,6 +298,11 @@ def _augmented(torch, args):
     return q_aug, k_aug, split(v).contiguous(), mask
 
 
+def _sub_frames(cfg, n: int) -> int:
+    """Samples -> subsampled frames (decode/streaming.py::_sub_frames)."""
+    return ((n // cfg.hop_length) // 2 - 1) // 2
+
+
 def serving_shapes():
     """-> (K1's (B, L), K3's (B, samples), a stream window's L): every
     shape ``cli.serve`` with its defaults (as the stream phase runs it)
@@ -282,8 +316,7 @@ def serving_shapes():
     args = serve.parse_args([])
     cfg = AudioConfig()
     fe = MelFrontend(cfg)
-    # samples -> subsampled frames (decode/streaming.py::_sub_frames)
-    sub = lambda n: ((n // cfg.hop_length) // 2 - 1) // 2
+    sub = lambda n: _sub_frames(cfg, n)
     stride = 4 * cfg.hop_length
     window = sum(int(sec * cfg.sample_rate) // stride * stride
                  for sec in (args.stream_context_seconds,
@@ -296,6 +329,34 @@ def serving_shapes():
     k1 = sorted({(b, sub(n)) for b, n in shapes})
     k3 = [(b, n) for b, n in shapes if fe.impl_for(n) == "pallas"]
     return k1, k3, sub(window)
+
+
+def export_shapes():
+    """-> (K1's (B, L), K4a's (B, L), K3's (B, samples), each with the
+    (h, dh) or (c, k) and dtype name of its model): every shape the
+    export phase's programs give the kernels, each program padded to its
+    bucket: the production CTC model (conv_impl pallas) at each of
+    EXPORT_BATCHES x EXPORT_SECONDS, the transducer (conv_impl xla) at
+    TRANSDUCER_EXPORT and the tiny program moved from the CPU at
+    TINY_EXPORT; K3 where the frontend takes it (MelFrontend.impl_for)."""
+    from conformer_tpu_torch.audio.mel import MelFrontend
+
+    ctc, tiny = _export_cfg(), _tiny_export_cfg()
+    t_b, t_s = TRANSDUCER_EXPORT
+    tiny_b, tiny_s = TINY_EXPORT
+    programs = ([(ctc, b, s) for b in EXPORT_BATCHES for s in EXPORT_SECONDS]
+                + [(_transducer_cfg(), t_b, t_s), (tiny, tiny_b, tiny_s)])
+    k1, k4a, k3 = set(), set(), set()
+    for cfg, b, seconds in programs:
+        m, audio = cfg.model, cfg.audio
+        n = int(seconds * audio.sample_rate)
+        l, dt = _sub_frames(audio, n), cfg.optim.compute_dtype
+        k1.add((b, l, m.n_heads, m.d_model // m.n_heads, dt))
+        if m.conv_impl == "pallas":
+            k4a.add((b, l, m.d_model, m.kernel_size, dt))
+        if MelFrontend(audio).impl_for(n) == "pallas":
+            k3.add((b, n))
+    return sorted(k1), sorted(k4a), sorted(k3)
 
 
 def k1_case(torch, b: int, l: int, dtype, seed: int, time_it: bool,
@@ -934,6 +995,17 @@ def phase_kernels(torch):
     k3_serving = [k3_case(torch, b, n, seed=130 + i, time_it=False)
                   for i, (b, n) in enumerate(k3_shapes)]
     k3_tone = k3_tone_reading(torch)
+    # every (B, L) and K3 (B, samples) the export phase's programs launch
+    e_k1, e_k4a, e_k3 = export_shapes()
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    k1_export = [k1_case(torch, b, l, dtypes[dt], seed=140 + i,
+                         time_it=False, h=h, dh=dh)
+                 for i, (b, l, h, dh, dt) in enumerate(e_k1)]
+    k4a_export = [k4a_case(torch, b, l, dtypes[dt], seed=150 + i,
+                           time_it=False, c=c, k=k)
+                  for i, (b, l, c, k, dt) in enumerate(e_k4a)]
+    k3_export = [k3_case(torch, b, n, seed=160 + i, time_it=False)
+                 for i, (b, n) in enumerate(e_k3)]
     conv_shapes = [(l, dt) for dt in (torch.float32, torch.bfloat16)
                    for l in (199, 599)]
     k4a_cases = [k4a_case(torch, 8, l, dt, seed=50 + i, time_it=True)
@@ -960,6 +1032,7 @@ def phase_kernels(torch):
           "sincos_attention_fwd_dropout": k1_drop,
           "sincos_attention_fwd_edges": k1_edges,
           "sincos_attention_fwd_serving": k1_serving,
+          "sincos_attention_fwd_export": k1_export,
           "sincos_attention_bwd": k2_cases,
           "sincos_attention_bwd_long": long_k2,
           "sincos_attention_bwd_determinism": deterministic,
@@ -967,21 +1040,24 @@ def phase_kernels(torch):
           "sincos_attention_bwd_general": k2_general,
           "general_geometry": geometry,
           "logmel_fwd": k3_cases, "logmel_fwd_tone": k3_tone,
-          "logmel_fwd_serving": k3_serving,
+          "logmel_fwd_serving": k3_serving, "logmel_fwd_export": k3_export,
           "depthwise_conv_fwd": k4a_cases,
           "depthwise_conv_fwd_l2400": k4a_long,
           "depthwise_conv_fwd_other_k": k4a_other,
           "depthwise_conv_fwd_ties": k4a_ties,
           "depthwise_conv_fwd_stream": k4a_stream,
+          "depthwise_conv_fwd_export": k4a_export,
           "depthwise_conv_dw": k4b_cases, "depthwise_conv_dw_other": k4b_other,
           "depthwise_conv_dw_determinism": k4b_same,
           "depthwise_conv_dw_wide_c": k4b_wide,
           "depthwise_conv1d_grads": k4_grads,
           "vpu_pass": k5})
-    bad = [c for c in k1_cases + k1_drop + k1_edges + k1_serving + k2_cases
+    bad = [c for c in k1_cases + k1_drop + k1_edges + k1_serving + k1_export
+           + k2_cases
            + [long_k2, deterministic] + k1_general + k2_general + geometry
-           + k3_cases + k3_serving
+           + k3_cases + k3_serving + k3_export
            + k4a_cases + [k4a_long, k4a_stream] + k4a_other + k4a_ties
+           + k4a_export
            + k4b_cases
            + k4b_other + [k4b_same, k4b_wide] + k4_grads + [k5]
            if not c["ok"]]
@@ -1103,8 +1179,9 @@ def _noise_batch(torch, b: int, seconds: float, seed: int):
 
 
 def _plain_versions():
-    """Route the model through the kernels' plain versions (on the card)."""
-    from conformer_tpu_torch.audio import mel
+    """Route the model through the kernels' plain versions (on the card):
+    the wrappers' module names, which the autograd Functions and the custom
+    ops look up when called."""
     from conformer_tpu_torch.ops.cuda import depthwise_conv as dc
     from conformer_tpu_torch.ops.cuda import mel_frontend as mf
     from conformer_tpu_torch.ops.cuda import sincos_attention as sa
@@ -1113,7 +1190,7 @@ def _plain_versions():
                               sa.sincos_attention_plain),
             mock.patch.object(sa, "sincos_attention_bwd",
                               sa.sincos_attention_bwd_plain),
-            mock.patch.object(mel, "logmel_fwd",
+            mock.patch.object(mf, "logmel_fwd",
                               lambda *a, operands: mf.logmel_plain(*a)),
             mock.patch.object(dc, "depthwise_conv_fwd",
                               dc.depthwise_conv_plain),
@@ -1257,23 +1334,25 @@ def _tokens(torch, b: int, n: int, seed: int):
     return tokens, lengths
 
 
-def train_step_case(torch, dtype: str, seconds: int, conv_impl: str = "xla"):
+def train_step_case(torch, dtype: str, seconds: int, conv_impl: str = "xla",
+                    base=None):
     """One production train step (dropout 0.1 hash, SpecAugment, remat,
     Adam at learning rate 0 so both runs see the same weights), through the
     kernels and through their plain versions, with the same seeds. Under
     remat K4a runs three times per block (forward, recomputation, dx) and
-    K4b once."""
+    K4b once. ``base``: the config (default ``Config()``, the CTC model;
+    the transducer phase gives its own)."""
     from conformer_tpu_torch.config import Config
-    from conformer_tpu_torch.models.conformer import Conformer, init_weights
+    from conformer_tpu_torch.models.conformer import build_model
     from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from conformer_tpu_torch.train.state import make_optimizer
     from conformer_tpu_torch.train.steps import make_train_step
 
     dev = torch.device(DEVICE)
-    cfg = Config().override(**{"optim.compute_dtype": dtype,
-                               "optim.learning_rate": 0.0,
-                               "model.conv_impl": conv_impl})
-    model = init_weights(Conformer(cfg.model, dtype), seed=0).to(dev)
+    cfg = (base or Config()).override(**{"optim.compute_dtype": dtype,
+                                         "optim.learning_rate": 0.0,
+                                         "model.conv_impl": conv_impl})
+    model = build_model(cfg.model, dtype, seed=0).to(dev)
     opt = make_optimizer(cfg.optim, model.parameters())
     step = make_train_step(cfg, model, opt)
     audio, lengths = _noise_batch(torch, 8, seconds, seed=100 + seconds)
@@ -2212,6 +2291,770 @@ def phase_stream(torch, tmp: str):
 # Optional phase: where the time of one 24 s forward goes.
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phase 9: the transducer (RNN-T) of configs/production_vi_transducer.json.
+# ---------------------------------------------------------------------------
+
+TRANSDUCER_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "configs", "production_vi_transducer.json")
+# The one cut of the shipped config: its batch of 72, for the phase's time.
+TRANSDUCER_CUT = {"data.batch_size": 8}
+# rnnt_loss_scan against rnnt_loss_from_logits in fp32 on the same inputs:
+# the two compute the same planes by other routes (logsumexp against
+# log_softmax, chunks of frames against the whole lattice), so the value
+# (relative) and each gradient (max |diff| over its max) agree to fp32
+# rounding.
+TOL_RNNT = {"value": 1e-5, "grad": 1e-4}
+# A stream of one chunk (cli.infer's 2 s) against the offline decode of
+# the same window.
+TRANSDUCER_STREAM_S = 2.0
+# The decode checks (served, streamed, exported, the timed decode) run a
+# copy of the trained checkpoint made to mix blanks and emissions
+# (mixing_copy): MIX_TOKENS_PER_FRAME tokens a frame on average over the
+# validation rows and the stream's utterance, so that a 23.5 s row (586
+# frames) stays below the cap of data.max_tokens (96).
+MIX_TOKENS_PER_FRAME = 0.1
+# The validation rows' share of active rounds that emit must lie within
+# this, each row's count within (0, cap), and some frame must stop on a
+# blank after emitting.
+MIX_SHARE = (0.02, 0.5)
+# rnnt_alpha_final on a peaked lattice at 24 s against the float64
+# frame-by-frame DP: (B, T', U), and the blank log-prob off the alignment.
+ALPHA_PEAKED = (8, 599, 60)
+ALPHA_OFF = -20.0
+
+
+def _transducer_cfg():
+    from conformer_tpu_torch.config import Config
+
+    return Config.from_json(TRANSDUCER_CONFIG).override(**TRANSDUCER_CUT)
+
+
+def _wall_ms(torch, fn, iters: int = 3) -> float:
+    """Mean host wall ms of fn() with the device synchronised around it:
+    the time of launch-bound work, which a device clock would not see."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def rnnt_loss_case(torch):
+    """rnnt_loss_scan against rnnt_loss_from_logits on the card in fp32 at
+    B 8 x 8 s (T' 199, up to 60 labels, J 320, V 370) on seeded factors:
+    the value and every gradient. Then both losses' forward + backward
+    timed at B 8 x 24 s (T' 599) with bf16 factors, as training gives
+    them."""
+    import torch.nn.functional as F
+
+    from conformer_tpu_torch.ops import rnnt
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(31)
+
+    def inputs(frames: int, dtype):
+        e = torch.randn(8, frames, 320, generator=gen)
+        p = torch.randn(8, 61, 320, generator=gen)
+        w = torch.randn(370, 320, generator=gen) * 320 ** -0.5
+        b = torch.randn(370, generator=gen) * 0.1
+        labels, u_len = _tokens(torch, 8, 60, seed=frames)
+        t_len = torch.tensor([frames - 9 * i for i in range(8)])
+        grads = [x.to(dev, dt).requires_grad_(True) for x, dt in
+                 ((e, dtype), (p, dtype), (w, torch.float32),
+                  (b, torch.float32))]
+        return grads, [x.to(dev) for x in (labels, t_len, u_len)]
+
+    def run(impl, args):
+        (e, p, w, b), (labels, t_len, u_len) = args
+        if impl == "scan":
+            loss = rnnt.rnnt_loss_scan(e, p, w, b, labels, t_len, u_len,
+                                       row_mask=u_len > 0)
+        else:
+            lattice = F.linear(torch.tanh(e[:, :, None] + p[:, None]).float(),
+                               w, b)
+            loss = rnnt.rnnt_loss_from_logits(lattice, labels, t_len, u_len,
+                                              row_mask=u_len > 0)
+        return loss.detach(), torch.autograd.grad(loss, (e, p, w, b))
+
+    args = inputs(199, torch.float32)
+    (scan, g_scan), (lattice, g_lat) = run("scan", args), run("lattice", args)
+    value = abs(float(scan) - float(lattice)) / abs(float(lattice))
+    grads = {n: float((a - b).abs().max()) / float(b.abs().max())
+             for n, a, b in zip(("e", "p", "out_weight", "out_bias"),
+                                g_scan, g_lat)}
+    args24 = inputs(599, torch.bfloat16)
+    times = {f"{impl}_fwd_bwd_ms": _wall_ms(torch, lambda: run(impl, args24))
+             for impl in ("scan", "lattice")}
+    ok = (math.isfinite(float(scan)) and value <= TOL_RNNT["value"]
+          and all(g <= TOL_RNNT["grad"] for g in grads.values()))
+    return {"shape": "B=8 T'=199 U<=60 J=320 V=370 float32", "loss": float(scan),
+            "value_rel_diff": value, "grad_rel_diff": grads,
+            "tolerance": TOL_RNNT, "timed_shape": "B=8 T'=599 U<=60 bfloat16",
+            **times, "ok": ok}
+
+
+def _lae(a: float, b: float) -> float:
+    if a == -math.inf:
+        return b
+    if b == -math.inf:
+        return a
+    return max(a, b) + math.log1p(math.exp(-abs(a - b)))
+
+
+def _dp64(blank, emit, t_len: int, u_len: int):
+    """One row of the RNN-T lattice frame by frame in float64 (numpy
+    planes (T, U+1) and (T, U)): -> (log P(y | x), its gradients in blank
+    and emit), the gradients as occupation probabilities (alpha + step +
+    beta - log P)."""
+    import numpy as np
+
+    blank, emit = blank.astype(np.float64), emit.astype(np.float64)
+    alpha = np.full((t_len, u_len + 1), -np.inf)
+    beta = np.full((t_len + 1, u_len + 2), -np.inf)
+    for t in range(t_len):
+        for u in range(u_len + 1):
+            a = 0.0 if t == u == 0 else -math.inf
+            if t > 0:
+                a = _lae(a, alpha[t - 1, u] + blank[t - 1, u])
+            if u > 0:
+                a = _lae(a, alpha[t, u - 1] + emit[t, u - 1])
+            alpha[t, u] = a
+    beta[t_len, u_len] = 0.0          # past the final blank
+    for t in range(t_len - 1, -1, -1):
+        for u in range(u_len, -1, -1):
+            beta[t, u] = _lae(beta[t + 1, u] + blank[t, u],
+                              beta[t, u + 1] + emit[t, u]
+                              if u < u_len else -math.inf)
+    ll = beta[0, 0]
+    g_blank, g_emit = np.zeros_like(blank), np.zeros_like(emit)
+    g_blank[:t_len, :u_len + 1] = np.exp(
+        alpha + blank[:t_len, :u_len + 1] + beta[1:t_len + 1, :u_len + 1]
+        - ll)
+    g_emit[:t_len, :u_len] = np.exp(
+        alpha[:, :u_len] + emit[:t_len, :u_len] + beta[:t_len, 1:u_len + 1]
+        - ll)
+    return ll, g_blank, g_emit
+
+
+def alpha_peaked_case(torch):
+    """rnnt_alpha_final on the card (fp32 planes) against _dp64 at
+    ALPHA_PEAKED, on the planes of a confident model: near 0 along one
+    diagonal alignment and around ALPHA_OFF off it, so that a column's
+    blank log-probs sum to thousands before the alignment reaches it. The
+    value (relative) and both gradients (absolute; they are occupation
+    probabilities) within TOL_RNNT."""
+    import numpy as np
+
+    from conformer_tpu_torch.ops import rnnt
+
+    b, t, u = ALPHA_PEAKED
+    rng = np.random.default_rng(37)
+    k = np.minimum(u, (np.arange(1, t + 1) * u) // t)[:, None]
+    pos = np.arange(u + 1)[None, :]
+    on = lambda: -rng.uniform(0.0, 0.05, (b, t, u + 1))
+    off = lambda: ALPHA_OFF + rng.uniform(-2.0, 2.0, (b, t, u + 1))
+    lp_blank = np.where(pos == k, on(), off()).astype(np.float32)
+    lp_emit = np.where(pos < k, on(), off())[:, :, :u].astype(np.float32)
+    # rows end on the alignment at other lengths
+    t_len = np.array([t - 37 * i for i in range(b)])
+    u_len = k[t_len - 1, 0]
+    dev = torch.device(DEVICE)
+    blank = torch.from_numpy(lp_blank).to(dev).requires_grad_(True)
+    emit = torch.from_numpy(lp_emit).to(dev).requires_grad_(True)
+    ll = rnnt.rnnt_alpha_final(blank, emit, torch.from_numpy(t_len).to(dev),
+                               torch.from_numpy(u_len).to(dev))
+    g_blank, g_emit = torch.autograd.grad(ll.sum(), (blank, emit))
+    ll, g_blank, g_emit = (x.detach().cpu().numpy()
+                           for x in (ll, g_blank, g_emit))
+    value, grads = 0.0, {"blank": 0.0, "emit": 0.0}
+    for i in range(b):
+        want, w_blank, w_emit = _dp64(lp_blank[i], lp_emit[i], t_len[i],
+                                      u_len[i])
+        want = float(want)
+        value = max(value, abs(float(ll[i]) - want) / abs(want))
+        grads["blank"] = max(grads["blank"],
+                             float(np.abs(g_blank[i] - w_blank).max()))
+        grads["emit"] = max(grads["emit"],
+                            float(np.abs(g_emit[i] - w_emit).max()))
+    col_sum = float(np.where(pos == k, 0.0, lp_blank[0]).sum(0).min())
+    return {"shape": f"B={b} T'={t} U={u} float32 planes, blank {ALPHA_OFF} "
+            "off the alignment", "log_likelihood": ll.tolist(),
+            "min_column_blank_sum": col_sum, "value_rel_diff": value,
+            "grad_abs_diff": grads, "tolerance": TOL_RNNT,
+            "ok": (bool(np.isfinite(ll).all()) and value <= TOL_RNNT["value"]
+                   and all(g <= TOL_RNNT["grad"] for g in grads.values()))}
+
+
+def _greedy(torch, model, cfg, enc, enc_len, max_len=None):
+    """The model's greedy decode of encodings, as the eval step runs it."""
+    from conformer_tpu_torch.ops.rnnt import rnnt_greedy_decode
+
+    joint_fn, pred_step_fn = model.greedy_fns()
+    return rnnt_greedy_decode(
+        joint_fn, enc, enc_len, pred_step_fn,
+        model.predict_init(enc.shape[0], enc.device),
+        max_symbols=cfg.decode.rnnt_max_symbols, max_len=max_len)
+
+
+def _encode(torch, model, cfg, audio, lengths):
+    from conformer_tpu_torch.audio.mel import MelFrontend
+
+    dev = torch.device(DEVICE)
+    frontend = MelFrontend(cfg.audio, device=dev)
+    with torch.inference_mode():
+        return model.eval().encode(frontend(audio.to(dev)),
+                                   frontend.frame_lengths(lengths.to(dev)))
+
+
+def _prediction_states(torch, model, seed: int):
+    """The prediction network's outputs (B 8 x 61, H) after seeded labels."""
+    gen = torch.Generator().manual_seed(seed)
+    labels = torch.randint(1, model.cfg.vocab_size, (8, 60), generator=gen)
+    with torch.inference_mode():
+        return model.prediction(labels.to(DEVICE)).flatten(0, 1)
+
+
+def _centre(torch, dense, x) -> None:
+    """Rescale the Dense layer in place so that its outputs on the rows of
+    x have zero mean and unit spread (the mean of the features' std)."""
+    with torch.no_grad():
+        y = x.float() @ dense.weight.float().t() + dense.bias.float()
+        mu, sd = y.mean(0), y.std(0).mean()
+        dense.weight.div_(sd)
+        dense.bias.copy_((dense.bias - mu) / sd)
+
+
+def mixing_copy(torch, model, cfg, batches, iters: int = 18) -> dict:
+    """Make the model's greedy decode mix blanks and emissions, in place.
+    At production depth the random encoder's frames differ little (the
+    joint's margin between blank and the best token moves by ~0.01 from
+    frame to frame and utterance to utterance, so a blank bias alone makes
+    every frame emit or none), so the joint's two halves are centred and
+    scaled to unit spread, the encoder half over the frames of ``batches``
+    ((audio, lengths) pairs), the prediction half over prediction states
+    after seeded labels; then the blank's bias (joint.out.bias[0]) is
+    bisected until the rows of ``batches`` emit MIX_TOKENS_PER_FRAME
+    tokens a frame on average (each row weighing alike), uncapped.
+    -> the bias and the rate it gives."""
+    encs = [_encode(torch, model, cfg, *b_) for b_ in batches]
+    frames = torch.cat([enc[i, : int(n)] for enc, lens in encs
+                        for i, n in enumerate(lens)])
+    joint = model.joint
+    _centre(torch, joint.enc_proj, frames)
+    _centre(torch, joint.pred_proj, _prediction_states(torch, model, seed=47))
+    bias = joint.out.bias
+
+    def rate(value):
+        with torch.no_grad():
+            bias[0] = value
+        with torch.inference_mode():
+            per_row = [(_greedy(torch, model, cfg, enc, lens)[1].float()
+                        / lens.float()) for enc, lens in encs]
+        return float(torch.cat(per_row).mean())
+
+    lo, hi = -30.0, 30.0
+    for _ in range(iters):
+        mid = (lo + hi) / 2
+        if rate(mid) > MIX_TOKENS_PER_FRAME:
+            lo = mid                   # emits too often: raise the blank
+        else:
+            hi = mid
+    at = rate((lo + hi) / 2)
+    return {"blank_bias": float(bias[0].detach()), "tokens_per_frame": at,
+            "target_tokens_per_frame": MIX_TOKENS_PER_FRAME}
+
+
+def decode_mix(torch, model, cfg, audio, lengths) -> dict:
+    """The greedy decode of a batch at the eval step's cap
+    (data.max_tokens), each round's argmax recorded: each row's count;
+    the share of active rounds that emit (a frame's rounds run until its
+    first blank, at most decode.rnnt_max_symbols); the share of frames
+    that emit; and of those, the share that stop on a blank before their
+    last round. The share must lie within MIX_SHARE, every count within
+    (0, cap), and some emitting frame must stop on a blank."""
+    enc, enc_len = _encode(torch, model, cfg, audio, lengths)
+    cap, symbols = cfg.data.max_tokens, cfg.decode.rnnt_max_symbols
+    joint_fn, pred_step_fn = model.greedy_fns()
+    argmaxes = []
+
+    def recording(enc_t, pred):
+        logits = joint_fn(enc_t, pred)
+        argmaxes.append(logits.argmax(dim=-1))
+        return logits
+
+    from conformer_tpu_torch.ops.rnnt import rnnt_greedy_decode
+
+    with torch.inference_mode():
+        _, counts = rnnt_greedy_decode(
+            recording, enc, enc_len, pred_step_fn,
+            model.predict_init(enc.shape[0], enc.device),
+            max_symbols=symbols, max_len=cap)
+        t = enc.shape[1]
+        emits = torch.stack(argmaxes).view(t, symbols, -1) != 0
+        # tokens a frame (B, T): the rounds before the frame's first blank
+        lead = emits.int().cumprod(dim=1).sum(dim=1).t()
+        valid = (torch.arange(t, device=enc.device)[None, :]
+                 < enc_len[:, None])
+        lead = lead[valid]
+    emitted, rounds = int(lead.sum()), int((lead + (lead < symbols)).sum())
+    emitting = int((lead > 0).sum())
+    stops = int(((lead > 0) & (lead < symbols)).sum())
+    share = emitted / rounds
+    return {"counts": counts.tolist(), "frames": enc_len.tolist(),
+            "cap": cap, "emit_share": share, "share_limits": MIX_SHARE,
+            "frames_emitting": emitting / lead.numel(),
+            "emitting_frames_stopping_on_a_blank": stops / max(emitting, 1),
+            "ok": (MIX_SHARE[0] <= share <= MIX_SHARE[1] and stops > 0
+                   and 0 < int(counts.min()) and int(counts.max()) < cap)}
+
+
+def greedy_case(torch, model, cfg):
+    """The greedy decode of one B 8 x 24 s batch (T' 599 frames, all
+    decode.rnnt_max_symbols rounds of each) on the model's encodings: wall
+    ms (synchronised), and the CUDA kernels it launches and the device's
+    busy time, by torch.profiler."""
+    enc, enc_len = _encode(torch, model, cfg,
+                           *_noise_batch(torch, 8, 24, seed=41))
+    symbols = cfg.decode.rnnt_max_symbols
+    with torch.inference_mode():
+        def decode():
+            return _greedy(torch, model, cfg, enc, enc_len,
+                           max_len=cfg.data.max_tokens)
+
+        ms = _wall_ms(torch, decode, iters=2)
+        prof = _profiled(torch, decode)
+        _, counts = decode()
+    rounds = enc.shape[1] * symbols
+    return {"shape": "B=8 24 s", "frames": enc.shape[1], "rounds": rounds,
+            "ms": ms, "ms_per_round": ms / rounds,
+            "kernel_launches": prof["kernel_launches"],
+            "launches_per_round": prof["kernel_launches"] / rounds,
+            "device_busy_ms": prof["device_busy_ms"],
+            "profiled_wall_ms": prof["wall_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "tokens_per_row": counts.tolist()}
+
+
+def phase_transducer(torch, tmp: str):
+    """configs/production_vi_transducer.json at full width (17 blocks,
+    d_model 512, prediction and joint 320, vocab 370, bf16, hash dropout
+    0.1, the scan loss) with seeded random weights, at batch 8: trained 4
+    steps through ``cli.train --device cuda`` with checkpoints and resumed
+    to 6; one train step through the kernels against their plain versions;
+    the scan loss against the lattice loss; rnnt_alpha_final on a peaked
+    24 s lattice against a float64 DP; the checkpoint evaluated through
+    ``cli.test`` (greedy) and served through ``cli.infer``, offline and
+    ``--streaming`` (a one-chunk utterance's text against the offline
+    decode of the same window); the greedy decode of a 24 s batch timed and
+    its launches counted. The decode checks after cli.test run a copy of
+    the checkpoint made to mix blanks and emissions (mixing_copy;
+    decode_mix holds the validation rows to it), kept
+    in ``tmp/ck_mixed`` for the export phase. -> launch counts of the
+    driven runs."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from conformer_tpu_torch.cli import infer, train
+    from conformer_tpu_torch.cli import test as cli_test
+    from conformer_tpu_torch.config import Config
+    from conformer_tpu_torch.decode.pipeline import InferencePipeline
+    from conformer_tpu_torch.decode.streaming import StreamingTranscriber
+    from conformer_tpu_torch.models.conformer import build_model
+    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from conformer_tpu_torch.text.tokenizer import load_tokenizer
+
+    train_csv, _ = _write_manifest(tmp, "train", TRAIN_SECONDS, seed=1)
+    val_csv, val_paths = _write_manifest(tmp, "val", VAL_SECONDS, seed=2)
+    ck = os.path.join(tmp, "ck")
+    argv = ["--config", TRANSDUCER_CONFIG, "--train-manifest", train_csv,
+            "--checkpoint-dir", ck, "--device", DEVICE,
+            "--set", "data.batch_size=8",
+            "--set", "train.checkpoint_every_steps=2",
+            "--set", "train.log_every_steps=1",
+            "--set", "train.num_epochs=100"]
+    n_blocks = _transducer_cfg().model.n_blocks
+    total, runs, train_runs = {}, {}, []
+
+    def driven(name, fn):
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        runs[name] = {"wall_s": time.perf_counter() - t0,
+                      "launches": launch_counts()}
+        for key, n in runs[name]["launches"].items():
+            total[key] = total.get(key, 0) + n
+        return out
+
+    for num_steps in (4, 6):
+        trainer = driven(f"train_{num_steps}", lambda: train.main(
+            argv + ["--set", f"train.num_steps={num_steps}"]))
+        counts = runs[f"train_{num_steps}"]["launches"]
+        steps = trainer.step - trainer.start_step
+        train_runs.append({
+            "num_steps": num_steps, "start_step": trainer.start_step,
+            "end_step": trainer.step,
+            "launches_per_step": {k: v / max(steps, 1)
+                                  for k, v in counts.items()},
+            "checkpoints": sorted(os.listdir(ck))})
+    with open(os.path.join(ck, "metrics.jsonl"), encoding="utf8") as f:
+        records = [json.loads(ln) for ln in f]
+    steps = [{"step": r["step"], "loss": r["train/ctc_loss"],
+              "grad_norm": r["train/grad_norm"],
+              "step_seconds": r["train/step_seconds"],
+              "audio_seconds": r["train/audio_seconds"],
+              "audio_s_per_s": r["train/audio_seconds"] / r["train/step_seconds"],
+              "peak_memory_gb": r.get("train/peak_memory_gb")}
+             for r in records if "train/ctc_loss" in r]
+    step_case = train_step_case(torch, "bfloat16", 24, base=_transducer_cfg())
+    loss_case = rnnt_loss_case(torch)
+    alpha_case = alpha_peaked_case(torch)
+
+    results = os.path.join(tmp, "results.csv")
+    metrics = driven("test", lambda: cli_test.main(
+        ["--manifest", val_csv, "--checkpoint-dir", ck, "--device", DEVICE,
+         "--results", results]))
+    with open(results, newline="", encoding="utf8") as f:
+        rows = list(csv.reader(f))
+    # the decode checks' copy of the checkpoint (mixing_copy, on the
+    # validation rows and the stream's one-chunk utterance in its window),
+    # in ck_mixed/ for the export phase and as a state dict for cli.infer
+    latest = sorted(n for n in os.listdir(ck) if n.endswith(".pt"))[-1]
+    payload = torch.load(os.path.join(ck, latest), map_location="cpu")
+    cfg_json = os.path.join(ck, "config.json")
+    t_cfg = Config.from_json(cfg_json)
+    model = build_model(t_cfg.model, t_cfg.optim.compute_dtype, seed=None)
+    model.load_state_dict(payload["model"])
+    model = model.to(DEVICE)
+    rng = np.random.default_rng(17)
+    short = np.clip(rng.standard_normal(int(TRANSDUCER_STREAM_S * 16000))
+                    * 0.1, -1, 1)
+    short_wav = os.path.join(tmp, "short.wav")
+    wavfile.write(short_wav, 16000, (short * 32767).astype(np.int16))
+    signals = [wavfile.read(p_)[1].astype(np.float32) / 32768.0
+               for p_ in (*val_paths, short_wav)]
+    st = StreamingTranscriber(t_cfg, load_tokenizer("vi"), model)
+    window = np.zeros((1, st.ctx + st.chunk), np.float32)
+    window[0, : len(signals[-1])] = signals[-1]
+    val_batch = np.zeros((len(val_paths), max(map(len, signals))),
+                         np.float32)
+    for i, a in enumerate(signals[:-1]):
+        val_batch[i, : len(a)] = a
+    val_lengths = torch.tensor([len(a) for a in signals[:-1]])
+    mixing = mixing_copy(torch, model, t_cfg, [
+        (torch.from_numpy(val_batch), val_lengths),
+        (torch.from_numpy(window), torch.tensor([len(signals[-1])]))])
+    mix = {**decode_mix(torch, model, t_cfg, torch.from_numpy(val_batch),
+                        val_lengths), **mixing}
+    payload["model"] = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model, st
+    ck_mixed = os.path.join(tmp, "ck_mixed")
+    os.makedirs(ck_mixed)
+    shutil.copy(cfg_json, ck_mixed)
+    torch.save(payload, os.path.join(ck_mixed, latest))
+    weights = os.path.join(tmp, "w.pt")
+    torch.save(payload["model"], weights)
+    serve_csv = os.path.join(tmp, "served.csv")
+    driven("serve", lambda: infer.main(
+        ["--config", cfg_json, "--weights", weights, "--audio", *val_paths,
+         "--device", DEVICE, "--batch-size", "8", "--output", serve_csv]))
+    with open(serve_csv, newline="", encoding="utf8") as f:
+        served = list(csv.DictReader(f))
+    stream_text, stream_s = driven("stream", lambda: _infer_text(
+        ["--config", cfg_json, "--weights", weights, "--audio", short_wav,
+         "--device", DEVICE, "--streaming", "--output",
+         os.path.join(tmp, "stream.csv")]))
+    pipe = InferencePipeline(Config.from_json(cfg_json), load_tokenizer("vi"),
+                             weights=weights, device=DEVICE)
+    offline_text = pipe.transcribe_batch(window,
+                                         np.array([len(signals[-1])]))[0]
+    greedy = greedy_case(torch, pipe.model, pipe.cfg)
+
+    per_step = lambda r, k: r["launches_per_step"].get(k, 0)
+    t_runs = [runs[f"train_{n}"]["launches"] for n in (4, 6)]
+    launches_ok = {
+        "train": all(per_step(r, "sincos_attention_fwd") == 2 * n_blocks
+                     and per_step(r, "sincos_attention_fwd_dropout")
+                     == 2 * n_blocks
+                     and per_step(r, "sincos_attention_bwd") == n_blocks
+                     for r in train_runs)
+        and all(c["logmel_fwd"] > 0 for c in t_runs),
+        "test": (runs["test"]["launches"]["sincos_attention_fwd"] > 0
+                 and runs["test"]["launches"]["logmel_fwd"] > 0),
+        "serve": runs["serve"]["launches"]["sincos_attention_fwd"] > 0}
+    ok = (train_runs[0]["start_step"] == 0 and train_runs[0]["end_step"] == 4
+          and train_runs[1]["start_step"] == 4
+          and train_runs[1]["end_step"] == 6
+          and [s_["step"] for s_ in steps] == [1, 2, 3, 4, 5, 6]
+          and all(math.isfinite(s_["loss"]) and math.isfinite(s_["grad_norm"])
+                  for s_ in steps)
+          and step_case["ok"] and loss_case["ok"] and alpha_case["ok"]
+          and mix["ok"]
+          and all(math.isfinite(metrics[k]) for k in ("wer", "cer", "loss"))
+          and rows[0] == ["label", "prediction"]
+          and len(rows) == len(VAL_SECONDS) + 1
+          and len(served) == len(VAL_SECONDS)
+          and all(r["prediction"] for r in served)
+          and stream_text == offline_text and stream_text
+          and all(launches_ok.values()))
+    emit({"phase": "transducer", "config": "configs/production_vi_transducer"
+          ".json (17 blocks, d_model 512, pred/joint 320, vocab 370, bf16, "
+          "hash dropout 0.1, attention pallas, scan loss), seeded random "
+          "weights", "reduced": {"data.batch_size": [72, 8]},
+          "train_runs": train_runs, "steps": steps,
+          "train_step_kernels_vs_plain": step_case, "loss_scan_vs_lattice":
+          loss_case, "alpha_final_peaked_vs_dp64": alpha_case,
+          "test_metrics": metrics, "results_rows": len(rows) - 1,
+          "decode_mix": mix, "served": served,
+          "stream": {
+              "audio_s": TRANSDUCER_STREAM_S, "text": stream_text,
+              "offline_text": offline_text, "wall_s": stream_s,
+              "equal": stream_text == offline_text},
+          "greedy_decode": greedy, "runs": runs,
+          "launches_ok": launches_ok, "ok": ok})
+    if not ok:
+        raise SystemExit("transducer phase failed")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: export: torch.export programs with the kernels as custom ops.
+# ---------------------------------------------------------------------------
+
+# The export phase's programs: the production CTC model at each batch and
+# bucket, the transducer greedy at one (batch, seconds), and a tiny model
+# exported on the CPU at one. export_shapes() gives the kernels phase
+# every shape these launch.
+EXPORT_BATCHES = (1, 8)
+EXPORT_SECONDS = (8, 24)
+TRANSDUCER_EXPORT = (1, 8)
+TINY_EXPORT = (2, 2)
+
+
+def _export_cfg():
+    from conformer_tpu_torch.config import Config
+
+    return Config().override(**{"model.conv_impl": "pallas"})
+
+
+def _tiny_export_cfg():
+    from conformer_tpu_torch.config import Config, ModelConfig
+
+    return Config(model=ModelConfig.tiny(370)).override(
+        **{"optim.compute_dtype": "float32", "model.conv_impl": "pallas"})
+
+
+def _artifact_bytes(directory: str) -> int:
+    return sum(os.path.getsize(os.path.join(directory, n))
+               for n in os.listdir(directory) if n.endswith(".pt2"))
+
+
+def _logits_agree(torch, got, want, lengths, tol: dict) -> dict:
+    """The model phase's comparison: finite, the max |diff| within the
+    tolerance (absolute, or relative to the largest logit), and the
+    framewise argmax agreeing on the valid frames."""
+    valid = (torch.arange(got.shape[1], device=got.device)[None, :]
+             < lengths[:, None])
+    agree = float((got.argmax(-1) == want.argmax(-1))[valid].float().mean())
+    diff = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    ok = (bool(torch.isfinite(got).all()) and agree >= tol["token_agreement"]
+          and (diff <= tol["max_abs"] if "max_abs" in tol
+               else diff <= tol["max_abs_rel"] * scale))
+    return {"max_abs_diff": diff, "max_abs_logit": scale,
+            "token_agreement": agree, "tolerance": tol, "ok": ok}
+
+
+def phase_export(torch, tmp: str):
+    """The production ``Config()`` with conv_impl=pallas (seeded random
+    weights, a checkpoint of cli.train's kind) exported by ``cli.export
+    --device cuda`` at the 8 and 24 s buckets, batch 1 and 8, loaded with
+    ``ExportedModel`` and held against the live forward on the same batch
+    (the model phase's bf16 tolerance), the kernels K1, K3 (24 s) and K4a
+    counted while the programs run; a ``ModelConfig.tiny`` program
+    exported on the CPU and moved to the card against the live tiny model;
+    the transducer phase's checkpoint (its decode checks' copy, which
+    mixes blanks and emissions; run alone, seeded weights) exported greedy
+    at 8 s,
+    batch 1, against the live greedy tokens. The
+    three ``cli.export`` runs are processes of their own, started together
+    (tracing and saving is host work, minutes for the unrolled frame
+    loops), and are killed if the phase fails. Export seconds (meta.json),
+    program bytes, load seconds, and the programs' forward ms beside the
+    live forward's. -> launch counts of the programs' runs."""
+    from conformer_tpu_torch.cli.common import save_config
+    from conformer_tpu_torch.config import Config
+    from conformer_tpu_torch.export import ExportedModel, export_model
+    from conformer_tpu_torch.models.conformer import build_model
+    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from conformer_tpu_torch.train.checkpoint import CheckpointManager
+    from conformer_tpu_torch.train.state import make_optimizer
+    from conformer_tpu_torch.train.steps import make_eval_step, make_forward
+
+    dev = torch.device(DEVICE)
+    total, procs = {}, {}
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def checkpoint(cfg, directory):
+        model = build_model(cfg.model, cfg.optim.compute_dtype, seed=0)
+        CheckpointManager(directory).save(
+            model, make_optimizer(cfg.optim, model.parameters()), step=0)
+        save_config(cfg, directory)
+        return model
+
+    def start(name, ck, *flags):
+        out = os.path.join(tmp, name)
+        log = open(os.path.join(tmp, f"{name}.log"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "conformer_tpu_torch.cli.export",
+             "--checkpoint-dir", ck, "--out", out, "--device", DEVICE,
+             *flags], stdout=log, stderr=subprocess.STDOUT, cwd=here)
+        procs[name] = (proc, log, out, time.perf_counter())
+
+    def finish(name):
+        proc, log, out, t0 = procs[name]
+        rc = proc.wait()
+        process_s = time.perf_counter() - t0
+        log.close()
+        if rc != 0:
+            with open(log.name, encoding="utf8") as f:
+                raise SystemExit(f"cli.export {name} exited {rc}:\n"
+                                 + f.read()[-4000:])
+        with open(os.path.join(out, "meta.json")) as f:
+            export_s = json.load(f)["export_seconds"]
+        t0 = time.perf_counter()
+        program = ExportedModel(out, device=DEVICE)
+        return program, {"export_s": export_s, "process_s": process_s,
+                         "load_s": time.perf_counter() - t0,
+                         "bytes": _artifact_bytes(out)}
+
+    def counted(fn):
+        reset_launch_counts()
+        out, ms = _run(torch, fn)
+        counts = launch_counts()
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+        return out, ms, counts
+
+    cfg = _export_cfg()
+    n_blocks = cfg.model.n_blocks
+    ck = os.path.join(tmp, "ck")
+    model = checkpoint(cfg, ck)
+    t_ck = os.path.join(os.path.dirname(tmp), "transducer", "ck_mixed")
+    from_phase = os.path.isdir(t_ck)
+    if not from_phase:
+        t_ck = os.path.join(tmp, "transducer_ck")
+        checkpoint(_transducer_cfg(), t_ck)
+    t_b, t_s = TRANSDUCER_EXPORT
+    tiny_b, tiny_s = TINY_EXPORT
+    seconds_flag = [str(s_) for s_ in EXPORT_SECONDS]
+    try:
+        start("transducer", t_ck, "--batch-size", str(t_b),
+              "--audio-seconds", str(t_s))
+        for b in EXPORT_BATCHES:
+            start(f"ctc_b{b}", ck, "--batch-size", str(b),
+                  "--audio-seconds", *seconds_flag)
+
+        # meanwhile: a tiny program exported on the CPU, moved to the card
+        tcfg = _tiny_export_cfg()
+        tiny = build_model(tcfg.model, "float32", seed=0).eval()
+        tiny_dir = os.path.join(tmp, "tiny_cpu")
+        export_model(tcfg, tiny, tiny_dir, batch_size=tiny_b,
+                     audio_seconds=(float(tiny_s),))
+        with open(os.path.join(tiny_dir, "meta.json")) as f:
+            tiny_meta = json.load(f)
+        moved = ExportedModel(tiny_dir, device=DEVICE)
+        audio, lengths = _noise_batch(torch, tiny_b, tiny_s, seed=61)
+        audio, lengths = audio.to(dev), lengths.to(dev)
+        (logits, _), _, tiny_counts = counted(lambda: moved(audio, lengths))
+        want, want_len = make_forward(tcfg, tiny.to(dev))(audio, lengths)
+        tiny_case = {"exported_on": tiny_meta["device"],
+                     "export_s": tiny_meta["export_seconds"],
+                     "bytes": _artifact_bytes(tiny_dir),
+                     "launches": tiny_counts,
+                     **_logits_agree(torch, logits, want, want_len,
+                                     TOL_MODEL["float32"])}
+        tiny_case["ok"] = (tiny_case["ok"] and tiny_meta["device"] == "cpu"
+                           and tiny_counts["sincos_attention_fwd"] == 2
+                           and tiny_counts["depthwise_conv_fwd"] == 2)
+        del moved, tiny
+
+        model = model.to(dev).eval()
+        forward = make_forward(cfg, model)
+        ctc = []
+        for b in EXPORT_BATCHES:
+            program, info = finish(f"ctc_b{b}")
+            for seconds in EXPORT_SECONDS:
+                audio, lengths = _noise_batch(torch, b, seconds,
+                                              seed=50 + seconds)
+                audio, lengths = audio.to(dev), lengths.to(dev)
+                program(audio, lengths)                  # warm-up
+                (logits, out_len), _, counts = counted(
+                    lambda: program(audio, lengths))
+                want, want_len = forward(audio, lengths)
+                case = _logits_agree(torch, logits, want, want_len,
+                                     TOL_MODEL["bfloat16"])
+                case.update(
+                    batch=b, seconds=seconds, launches=counts,
+                    program_forward_ms=_wall_ms(
+                        torch, lambda: program(audio, lengths)),
+                    live_forward_ms=_wall_ms(
+                        torch, lambda: forward(audio, lengths)),
+                    lengths_equal=torch.equal(out_len, want_len))
+                case["ok"] = (case["ok"] and case["lengths_equal"]
+                              and counts["sincos_attention_fwd"] == n_blocks
+                              and counts["depthwise_conv_fwd"] == n_blocks
+                              and counts["logmel_fwd"] == int(seconds >= 16))
+                ctc.append({**info, **case})
+            del program
+        del model, forward
+
+        # the transducer, greedy decode baked in
+        program, info = finish("transducer")
+    finally:
+        for proc, log, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    tcfg = Config.from_json(os.path.join(t_ck, "config.json"))
+    t_model = build_model(tcfg.model, tcfg.optim.compute_dtype, seed=None)
+    CheckpointManager(t_ck).restore(t_model)
+    t_model = t_model.to(dev).eval()
+    step = make_eval_step(tcfg, t_model)
+    audio, lengths = _noise_batch(torch, t_b, t_s, seed=71)
+    audio, lengths = audio.to(dev), lengths.to(dev)
+    program(audio, lengths)                              # warm-up
+    (tokens, counts_), ms, t_counts = counted(lambda: program(audio, lengths))
+    live = step(audio, lengths)
+    cap = tcfg.data.max_tokens
+    transducer = {**info, "checkpoint": (
+        "transducer phase, mixing copy" if from_phase
+        else "seeded weights"), "launches": t_counts, "cap": cap,
+                  "program_ms": ms,
+                  "live_ms": _wall_ms(torch, lambda: step(audio, lengths), 1),
+                  "counts": counts_.tolist(),
+                  "live_counts": live["counts"].tolist(),
+                  "tokens_equal": torch.equal(tokens, live["tokens"])
+                  and torch.equal(counts_, live["counts"])}
+    transducer["ok"] = (transducer["tokens_equal"]
+                        and (0 < int(counts_.min()) < cap or not from_phase)
+                        and t_counts["sincos_attention_fwd"]
+                        == tcfg.model.n_blocks)
+    ok = all(c["ok"] for c in ctc) and tiny_case["ok"] and transducer["ok"]
+    emit({"phase": "export", "config": "Config() production, conv_impl "
+          "pallas, seeded random weights; ModelConfig.tiny fp32 exported on "
+          "the CPU; configs/production_vi_transducer.json greedy",
+          "ctc": ctc, "tiny_moved_from_cpu": tiny_case,
+          "transducer_greedy": transducer, "ok": ok})
+    if not ok:
+        raise SystemExit("export phase failed")
+    return total
+
+
 def _profiled(torch, fn):
     """-> (host wall ms, device busy ms, kernel rows) of one fn() call."""
     from torch.profiler import ProfilerActivity, profile
@@ -2315,11 +3158,17 @@ def main(argv=None) -> int:
     if "model" in phases:
         for key, n in phase_model(torch).items():
             launches[key] = launches.get(key, 0) + n
-    for name, run in (("serve", phase_serve), ("train", phase_train),
-                      ("evaluate", phase_evaluate), ("tiny", phase_tiny),
-                      ("stream", phase_stream)):
-        if name in phases:
-            with tempfile.TemporaryDirectory() as tmp:
+    # one directory each, under one root: the export phase exports the
+    # transducer phase's checkpoint
+    with tempfile.TemporaryDirectory() as root:
+        for name, run in (("serve", phase_serve), ("train", phase_train),
+                          ("evaluate", phase_evaluate), ("tiny", phase_tiny),
+                          ("stream", phase_stream),
+                          ("transducer", phase_transducer),
+                          ("export", phase_export)):
+            if name in phases:
+                tmp = os.path.join(root, name)
+                os.makedirs(tmp)
                 for key, n in run(torch, tmp).items():
                     launches[key] = launches.get(key, 0) + n
     for entry in entries:

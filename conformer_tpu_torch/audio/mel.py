@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from conformer_tpu_torch.config import AudioConfig
-from conformer_tpu_torch.ops.cuda.mel_frontend import k3_operands, logmel_fwd
+from conformer_tpu_torch.ops.cuda.mel_frontend import k3_operands, logmel_fwd_op
 
 _MEL_BREAK_HZ = 1000.0
 _MEL_BREAK = 15.0          # slaney mels at 1 kHz (= 1000 / (200/3))
@@ -139,12 +139,12 @@ class MelFrontend:
         self._fb = torch.from_numpy(mel_filterbank(
             self.n_bins, cfg.n_mels, cfg.sample_rate, cfg.fmin, cfg.fmax,
             cfg.mel_norm, cfg.mel_scale)).to(self.device)
-        # K3's operands on the card: the DFT matrix and the filterbank split
-        # into TF32 hi and lo parts, once (the CPU path takes the plain
-        # version, which reads _dft and _fb as they are)
-        self._k3 = (k3_operands(self._dft, self._fb, cfg.hop_length,
-                                cfg.n_fft)
-                    if self.device.type == "cuda" else None)
+        # K3's operands: the DFT matrix and the filterbank split into TF32
+        # hi and lo parts, once. The CPU path takes the plain version, which
+        # reads _dft and _fb as they are; an exported program carries both
+        # to whichever device it is moved to.
+        self._k3 = k3_operands(self._dft, self._fb, cfg.hop_length,
+                               cfg.n_fft)
 
     def power_spectrogram(self, signal: torch.Tensor) -> torch.Tensor:
         """(..., samples) -> (..., n_frames, n_bins) power spectrogram."""
@@ -179,9 +179,9 @@ class MelFrontend:
             signal = signal[None]
         padded = reflect_pad(signal, self.cfg.n_fft // 2).contiguous()
         n_frames = signal.shape[-1] // self.cfg.hop_length + 1
-        out = logmel_fwd(padded, self._dft, self._fb, self.cfg.hop_length,
-                         self.cfg.n_fft, n_frames, self.cfg.log_clamp_min,
-                         operands=self._k3)
+        out = logmel_fwd_op(padded, self._dft, self._fb, self.cfg.hop_length,
+                            self.cfg.n_fft, n_frames, self.cfg.log_clamp_min,
+                            *self._k3)
         return out[0] if squeeze else out
 
     def frame_lengths(self, sample_lengths: torch.Tensor) -> torch.Tensor:

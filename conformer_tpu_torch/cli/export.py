@@ -1,0 +1,68 @@
+"""Export a trained checkpoint to ``torch.export`` programs, one per audio
+bucket, on the GPU unless ``--device cpu`` is given.
+
+    python -m conformer_tpu_torch.cli.export --checkpoint-dir ckpt \
+        --out exported [--batch-size 1 --audio-seconds 8 24]
+
+The flags are those of ``conformer_tpu.cli.export`` plus ``--device``.
+Weights come from the newest checkpoint in ``--checkpoint-dir`` (written by
+``conformer_tpu_torch.cli.train``, whose ``config.json`` there also sets
+the model). A CTC program gives (logits, lengths), a transducer program
+(greedy tokens, counts); ``conformer_tpu_torch.export.ExportedModel`` runs
+them. ``--decode beam`` bakes in the device beam search, which is not
+ported yet: it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from conformer_tpu_torch.cli.common import (add_common_args, load_config,
+                                            load_tokenizer_from_args)
+
+
+def main(argv=None):
+    """Run the CLI; -> the program files written."""
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    add_common_args(p)
+    p.add_argument("--checkpoint-dir", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--audio-seconds", type=float, nargs="+", default=[8.0])
+    p.add_argument("--decode", choices=["logits", "beam"], default="logits",
+                   help="'beam' would bake the LM-fused device beam search "
+                        "into the program: not ported, raises")
+    args = p.parse_args(argv)
+
+    cfg = load_config(args)
+    tokenizer = load_tokenizer_from_args(args, cfg)
+    cfg = cfg.override(**{"model.vocab_size": tokenizer.vocab_size})
+
+    from conformer_tpu_torch.decode.pipeline import resolve_device
+    from conformer_tpu_torch.export import export_model
+    from conformer_tpu_torch.models.conformer import build_model
+    from conformer_tpu_torch.train.checkpoint import CheckpointManager
+
+    if args.decode == "beam":
+        from conformer_tpu_torch.export import EXPORT_BEAM_NOT_PORTED
+
+        raise NotImplementedError(EXPORT_BEAM_NOT_PORTED)
+    device = resolve_device(args.device)
+    mgr = CheckpointManager(args.checkpoint_dir)
+    if mgr.latest_step() is None:
+        raise SystemExit(f"no checkpoint found in {args.checkpoint_dir}")
+    model = build_model(cfg.model, cfg.optim.compute_dtype, seed=None)
+    step, _ = mgr.restore(model)
+    files = export_model(cfg, model.to(device), args.out,
+                         batch_size=args.batch_size,
+                         audio_seconds=tuple(args.audio_seconds),
+                         decode=args.decode, tokenizer=tokenizer)
+    print(f"exported step {step} to {args.out}:")
+    for f in files:
+        print(" ", f)
+    return files
+
+
+if __name__ == "__main__":
+    main()

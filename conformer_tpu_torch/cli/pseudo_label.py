@@ -13,7 +13,11 @@ sure of enter retraining.
 Writes a CSV of (path, text, confidence) rows, the text lower-cased and the
 confidence rounded to 4 places; utterances with an empty transcript are
 left out. ``--weights`` takes a state dict instead of a checkpoint
-directory; with neither the model has seeded random weights.
+directory; with neither the model has seeded random weights. A transducer
+(``model.arch='transducer'``) raises: the confidence needs a CTC model's
+per-frame log-probabilities, which the transducer's greedy decode does not
+give (the JAX package's CLI fails on it too, reading ``log_probs`` from the
+transducer eval step, which has none).
 """
 
 from __future__ import annotations
@@ -26,6 +30,11 @@ import numpy as np
 from conformer_tpu_torch.cli.common import (add_common_args, lm_decode,
                                             load_config,
                                             load_tokenizer_from_args)
+
+TRANSDUCER_NOT_SUPPORTED = (
+    "pseudo-labelling needs a CTC model: its confidence is the mean of the "
+    "per-frame log-probabilities, which the transducer (model.arch="
+    "'transducer') does not give; see ROADMAP.md §3")
 
 
 def main(argv=None) -> int:
@@ -47,6 +56,8 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     cfg = load_config(args)
+    if cfg.model.arch == "transducer":
+        raise NotImplementedError(TRANSDUCER_NOT_SUPPORTED)
     cfg, decode = lm_decode(args, cfg)
     tokenizer = load_tokenizer_from_args(args, cfg)
 

@@ -1,4 +1,5 @@
-"""Train the Conformer CTC model, on the GPU unless ``--device cpu`` is given.
+"""Train the Conformer CTC model or the transducer (``model.arch``), on the
+GPU unless ``--device cpu`` is given.
 
     python -m conformer_tpu_torch.cli.train --train-manifest data.csv \
         --set train.num_epochs=10 --set data.batch_size=32

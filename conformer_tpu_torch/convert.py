@@ -1,5 +1,6 @@
 """Weight bridge: a flax ``{"params", "batch_stats"}`` tree of the JAX
-package's CTC Conformer <-> this package's ``state_dict``.
+package's CTC Conformer or Transducer (``model.arch``) <-> this package's
+``state_dict``.
 
 The tree is nested dicts of numpy arrays, in either block layout: the
 scan-stacked ``encoder/blocks/block/...`` (a leading n_blocks axis; the JAX
@@ -7,8 +8,11 @@ default) or the unrolled ``encoder/block_i/...``. Layouts: Dense (in, out) ->
 Linear (out, in); conv2d (kT, kF, in, out) -> (out, in, kT, kF); depthwise
 (K, 1, C) -> (C, 1, K); LSTM ``weight_ih = input_proj.kernel.T``,
 ``bias_ih = input_proj.bias``, ``weight_hh = recurrent_kernel.T``,
-``bias_hh = 0`` (gate order i, f, g, o on both sides). The unused
-attention ``pos.bias`` is carried too, so nothing is dropped.
+``bias_hh = 0`` (gate order i, f, g, o on both sides). The transducer's
+``OptimizedLSTMCell`` keeps one (in, H) kernel per gate: ``weight_ih`` is
+the ``ii/if/ig/io`` kernels side by side, transposed, ``weight_hh`` and
+``bias`` the ``hi/hf/hg/ho`` ones. The unused attention ``pos.bias`` is
+carried too, so nothing is dropped.
 
     python -m conformer_tpu_torch.convert --npz tree.npz --out weights.pt \
         [--config cfg.json] [--set model.n_blocks=2 ...]
@@ -42,6 +46,26 @@ _TO_FLAX = {
     "conv2d": lambda a: a.transpose(2, 3, 1, 0),
     "depthwise": lambda a: a.transpose(2, 1, 0),
 }
+
+
+GATES = "ifgo"
+
+
+def _read(tree: dict, path: str) -> np.ndarray:
+    """The array at ``path``; a path with ``{g}`` is the flax LSTM cell's
+    four gate arrays of that name, side by side on the last axis."""
+    if "{g}" in path:
+        return np.concatenate([np.asarray(_get(tree, path.format(g=g)))
+                               for g in GATES], axis=-1)
+    return _get(tree, path)
+
+
+def _write(tree: dict, path: str, value: np.ndarray) -> None:
+    if "{g}" in path:
+        for g, part in zip(GATES, np.split(value, len(GATES), axis=-1)):
+            _set(tree, path.format(g=g), np.ascontiguousarray(part))
+    else:
+        _set(tree, path, value)
 
 
 def _dense(flax: str, torch_name: str):
@@ -92,6 +116,20 @@ def _top_entries(cfg: ModelConfig) -> Iterator[Tuple[str, str, str, str]]:
         yield ("params", f"encoder/subsample/{conv}/bias",
                f"encoder.subsample.{conv}.bias", "copy")
     yield from _dense("encoder/input_proj", "encoder.input_proj")
+    if cfg.arch == "transducer":
+        yield ("params", "prediction/embed/embedding",
+               "prediction.embedding", "copy")
+        for i in range(cfg.pred_layers):
+            cell = f"prediction/lstm_{i}"
+            yield ("params", f"{cell}/i{{g}}/kernel",
+                   f"prediction.cells.{i}.weight_ih", "linear")
+            yield ("params", f"{cell}/h{{g}}/kernel",
+                   f"prediction.cells.{i}.weight_hh", "linear")
+            yield ("params", f"{cell}/h{{g}}/bias",
+                   f"prediction.cells.{i}.bias", "copy")
+        for proj in ("enc_proj", "pred_proj", "out"):
+            yield from _dense(f"joint/{proj}", f"joint.{proj}")
+        return
     for i in range(cfg.n_lstm_layers):
         yield ("params", f"decoder/lstm_{i}/input_proj/kernel",
                f"decoder.lstm.{i}.weight_ih", "linear")
@@ -127,7 +165,7 @@ def flax_to_state_dict(variables: dict, cfg: ModelConfig
     to_t = lambda a, kind: torch.from_numpy(
         np.array(_TO_TORCH[kind](np.asarray(a, np.float32)), order="C"))
     for coll, fpath, tname, kind in _top_entries(cfg):
-        state[tname] = to_t(_get(variables[coll], fpath), kind)
+        state[tname] = to_t(_read(variables[coll], fpath), kind)
     scan = is_scan_layout(variables)
     for coll, fpath, tname, kind in _block_entries():
         for i in range(cfg.n_blocks):
@@ -137,7 +175,7 @@ def flax_to_state_dict(variables: dict, cfg: ModelConfig
             else:
                 arr = _get(variables[coll], f"encoder/block_{i}/{fpath}")
             state[f"encoder.blocks.{i}.{tname}"] = to_t(arr, kind)
-    for i in range(cfg.n_lstm_layers):
+    for i in range(cfg.n_lstm_layers if cfg.arch == "ctc" else 0):
         hidden = state[f"decoder.lstm.{i}.weight_hh"].shape[1]
         state[f"decoder.lstm.{i}.bias_hh"] = torch.zeros(4 * hidden)
     return state
@@ -168,7 +206,7 @@ def state_dict_to_flax(state: Dict[str, torch.Tensor], cfg: ModelConfig,
     to_f = lambda t, kind: np.ascontiguousarray(
         _TO_FLAX[kind](t.detach().cpu().float().numpy()))
     for coll, fpath, tname, kind in _top_entries(cfg):
-        _set(variables[coll], fpath, to_f(state[tname], kind))
+        _write(variables[coll], fpath, to_f(state[tname], kind))
     for coll, fpath, tname, kind in _block_entries():
         arrs = [to_f(state[f"encoder.blocks.{i}.{tname}"], kind)
                 for i in range(cfg.n_blocks)]
@@ -178,7 +216,7 @@ def state_dict_to_flax(state: Dict[str, torch.Tensor], cfg: ModelConfig,
         else:
             for i, arr in enumerate(arrs):
                 _set(variables[coll], f"encoder/block_{i}/{fpath}", arr)
-    for i in range(cfg.n_lstm_layers):
+    for i in range(cfg.n_lstm_layers if cfg.arch == "ctc" else 0):
         if torch.any(state[f"decoder.lstm.{i}.bias_hh"] != 0):
             raise ValueError(f"decoder.lstm.{i}.bias_hh is not zero: the JAX "
                              "LSTM cell has one bias only")

@@ -1,8 +1,12 @@
 """Inference pipeline: weights -> batched transcription and evaluation with
 greedy decode or the host CTC beam search with n-gram LM fusion, and the
 streaming transcribers that share its model (counterpart of
-conformer_tpu/decode/pipeline.py; the device beam search is not ported and
-raises).
+conformer_tpu/decode/pipeline.py; the device beam searches, CTC and RNN-T,
+are not ported and raise).
+
+``model.arch='transducer'`` decodes greedily on the device
+(ops/rnnt.py::rnnt_greedy_decode): its eval step returns the emitted tokens
+under the CTC step's keys, and the texts come from them as the CTC ones do.
 
 Runs on the CUDA device unless the caller passes ``device="cpu"``; with no
 CUDA device and no explicit CPU it raises. Weights come from a
@@ -24,7 +28,7 @@ from conformer_tpu_torch.audio.io import load_audio, split_segment
 from conformer_tpu_torch.audio.mel import MelFrontend
 from conformer_tpu_torch.config import Config
 from conformer_tpu_torch.data.dataset import BucketedLoader, ManifestDataset
-from conformer_tpu_torch.models.conformer import Conformer, init_weights
+from conformer_tpu_torch.models.conformer import build_model
 from conformer_tpu_torch.text.metrics import cer, wer
 from conformer_tpu_torch.text.tokenizer import GraphemeTokenizer
 from conformer_tpu_torch.train.checkpoint import CheckpointManager
@@ -44,6 +48,16 @@ DEVICE_BEAM_NOT_PORTED = (
     "the device beam search (decode='beam_device', decode.device_lm_path) "
     "is not ported yet (ROADMAP.md §1, item 7); decode='beam' "
     "(--decode beam) runs the host beam search with decode.lm_path")
+RNNT_BEAM_NOT_PORTED = (
+    "the RNN-T beam search (model.arch='transducer' with decode='beam', "
+    "'beam_device' or 'beam_auto') is not ported yet (ROADMAP.md §1, item "
+    "7); the transducer decodes greedily")
+
+
+def refuse_transducer_beam(cfg: Config, decode: str) -> None:
+    """The transducer decodes greedily only: any beam raises."""
+    if cfg.model.arch == "transducer" and decode != "greedy":
+        raise NotImplementedError(RNNT_BEAM_NOT_PORTED)
 
 
 def resolve_beam_backend(device: torch.device) -> str:
@@ -68,8 +82,9 @@ class InferencePipeline:
     the oldest half is dropped past BATCH_LOG_MAX entries (a server runs
     for long). With ``keep_outputs`` set, an entry also keeps the batch on
     the host: its ``audio`` and ``audio_lengths`` and the model's fp32
-    ``log_probs`` and frame ``lengths`` (for checks that hold served rows
-    against another run)."""
+    ``log_probs`` (CTC) or emitted ``tokens`` and ``counts`` (transducer)
+    and frame ``lengths`` (for checks that hold served rows against another
+    run)."""
 
     BATCH_LOG_MAX = 4096
     keep_outputs = False
@@ -81,6 +96,7 @@ class InferencePipeline:
         if weights and checkpoint_dir:
             raise ValueError("give weights or checkpoint_dir, not both")
         self.device = resolve_device(device)
+        refuse_transducer_beam(cfg, decode)
         if decode == "beam_auto":
             decode = resolve_beam_backend(self.device)
             print(f"[infer] beam_auto -> {decode}")
@@ -90,7 +106,7 @@ class InferencePipeline:
             raise ValueError(f"unknown decode {decode!r}")
         cfg = cfg.override(**{"model.vocab_size": tokenizer.vocab_size})
         self.cfg, self.tok, self.decode = cfg, tokenizer, decode
-        model = Conformer(cfg.model, cfg.optim.compute_dtype)
+        model = build_model(cfg.model, cfg.optim.compute_dtype, seed=None)
         ckpt = (CheckpointManager(checkpoint_dir)
                 if checkpoint_dir and os.path.isdir(checkpoint_dir) else None)
         if weights:
@@ -105,7 +121,7 @@ class InferencePipeline:
                 else "no weights given"
             print(f"[infer] WARNING: {where}; seeded random weights "
                   f"(seed {seed})")
-            init_weights(model, seed)
+            model = build_model(cfg.model, cfg.optim.compute_dtype, seed)
         self.model = model.to(self.device).eval()
         self.frontend = MelFrontend(cfg.audio, device=self.device)
         self.eval_step = make_eval_step(cfg, self.model, self.frontend,
@@ -135,8 +151,8 @@ class InferencePipeline:
                   token_lengths: Optional[np.ndarray] = None
                   ) -> Tuple[dict, List[str]]:
         """One eval step on the device -> (its outputs: tokens, counts,
-        log_probs, lengths and, with transcripts, loss; the texts); logs the
-        batch in ``batch_log``."""
+        lengths, log_probs (CTC) and, with transcripts, loss; the texts);
+        logs the batch in ``batch_log``."""
         t0 = time.perf_counter()
         to = lambda a, dt: torch.from_numpy(
             np.ascontiguousarray(a, dt)).to(self.device)
@@ -159,8 +175,12 @@ class InferencePipeline:
         if self.keep_outputs:
             entry.update(audio=np.array(audio, np.float32),
                          audio_lengths=np.array(audio_lengths),
-                         log_probs=out["log_probs"].float().cpu(),
                          lengths=out["lengths"].cpu())
+            if "log_probs" in out:
+                entry["log_probs"] = out["log_probs"].float().cpu()
+            else:
+                entry.update(tokens=out["tokens"].cpu(),
+                             counts=out["counts"].cpu())
         self.batch_log.append(entry)
         return out, texts
 
@@ -251,8 +271,8 @@ class InferencePipeline:
     def evaluate(self, manifest: str, batch_size: Optional[int] = None
                  ) -> Tuple[dict, List[Tuple[str, str]]]:
         """-> (metrics {loss, wer, cer}, [(ref, hyp), ...]) over a CSV
-        manifest of (path, text) rows: the mean eval-step CTC loss over the
-        batches, and corpus WER/CER x100 against the cleaned, upper-cased
+        manifest of (path, text) rows: the mean eval-step loss (CTC or
+        RNN-T) over the batches, and corpus WER/CER x100 against the cleaned, upper-cased
         transcripts. Rows without a transcript count in no metric."""
         data_cfg = self.cfg.data
         ds = ManifestDataset(manifest, self.cfg.audio.sample_rate,

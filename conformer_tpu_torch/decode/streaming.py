@@ -1,6 +1,6 @@
-"""Streaming CTC transcription: a chunked encoder with left-context carry and
+"""Streaming transcription: a chunked encoder with left-context carry and
 frame-synchronous emission (counterpart of conformer_tpu/decode/streaming.py,
-CTC family).
+CTC and the transducer's greedy decode).
 
 Each chunk is encoded together with the trailing ``left_context_s`` seconds
 of audio already seen; the context half of the output is dropped, and the
@@ -27,8 +27,14 @@ event alone (a blocking copy would wait for the chunk just enqueued too).
 Finalized text lags one chunk; ``.text`` and ``finish()`` drain it.
 ``pipeline_chunks=False`` emits each chunk at once.
 
-The transducer (ROADMAP.md §1, item 6) and the device beam search
-(``decode="beam_device"``, item 7) are not ported: they raise.
+The transducer (``model.arch='transducer'``) decodes each window greedily
+on the device from its first new frame (``rnnt_greedy_decode(start_frames=,
+return_carry=True)``, at most ``max(chunk frames * 4, 8)`` tokens a window)
+and carries the prediction network's (state, pred) on the device into the
+next window, so its label history is exact across windows; ``reset()``
+starts it again from ``predict_init(1)``. Its beam search and the device
+CTC beam search (``decode="beam_device"``) are not ported (ROADMAP.md §1,
+item 7): they raise.
 """
 
 from __future__ import annotations
@@ -40,27 +46,24 @@ import torch
 
 from conformer_tpu_torch.audio.mel import MelFrontend
 from conformer_tpu_torch.config import Config, DecodeConfig
-from conformer_tpu_torch.decode.pipeline import DEVICE_BEAM_NOT_PORTED
+from conformer_tpu_torch.decode.pipeline import (DEVICE_BEAM_NOT_PORTED,
+                                                 refuse_transducer_beam)
+from conformer_tpu_torch.ops.rnnt import rnnt_greedy_decode
 from conformer_tpu_torch.text.tokenizer import GraphemeTokenizer
 from conformer_tpu_torch.train.steps import make_forward
-
-TRANSDUCER_NOT_PORTED = (
-    "streaming with model.arch='transducer' is not ported yet (ROADMAP.md "
-    "§1, item 6)")
 
 
 def resolve_streaming_decode(cfg: Config, decode: str) -> str:
     """-> the decode mode a stream runs: ``beam_auto`` is the host beam
     search ("beam"), as the JAX ``resolve_beam_backend(streaming=True)``
     picks it without an active mesh (the port has none): at batch 1 the
-    host search wins. The transducer and ``beam_device`` raise."""
+    host search wins. ``beam_device`` and a transducer's beam raise."""
     if decode == "beam_auto":
         decode = "beam"
     if decode not in ("greedy", "beam", "beam_device"):
         raise ValueError(f"decode must be greedy|beam|beam_device|beam_auto, "
                          f"got {decode!r}")
-    if getattr(cfg.model, "arch", "ctc") == "transducer":
-        raise NotImplementedError(TRANSDUCER_NOT_PORTED)
+    refuse_transducer_beam(cfg, decode)
     if decode == "beam_device":
         raise NotImplementedError(DEVICE_BEAM_NOT_PORTED)
     return decode
@@ -74,13 +77,14 @@ class StreamingTranscriber:
             print(st.feed(block), end="")
         print(st.finish())
 
-    ``model`` is a ``Conformer`` on its device (``InferencePipeline.model``);
-    ``frontend`` a ``MelFrontend`` on the same device (one is built when
-    none is given). ``chunk_s``: audio emitted per encoder call;
-    ``left_context_s``: audio already seen that each chunk attends to.
-    ``keep_windows``: keep each encoded window's fp32 log-softmax (one row,
-    on the host, to its frame length) in ``windows``, for checks that hold
-    the streamed outputs against an offline run.
+    ``model`` is a ``Conformer`` or a ``Transducer`` on its device
+    (``InferencePipeline.model``); ``frontend`` a ``MelFrontend`` on the
+    same device (one is built when none is given). ``chunk_s``: audio
+    emitted per encoder call; ``left_context_s``: audio already seen that
+    each chunk attends to. ``keep_windows``: keep each encoded window's
+    fp32 log-softmax (CTC) or emitted token ids (transducer), one row on
+    the host, in ``windows``, for checks that hold the streamed outputs
+    against an offline run.
     """
 
     def __init__(self, cfg: Config, tokenizer: GraphemeTokenizer,
@@ -102,6 +106,9 @@ class StreamingTranscriber:
         self.device = next(model.parameters()).device
         frontend = frontend or MelFrontend(cfg.audio, device=self.device)
         self._forward = make_forward(cfg, model, frontend)
+        self._model = model
+        self._transducer = cfg.model.arch == "transducer"
+        self._max_per_chunk = max(self.chunk // stride * 4, 8)
         self._beam = None
         if decode == "beam":
             from conformer_tpu_torch.decode.beam_search import \
@@ -119,6 +126,10 @@ class StreamingTranscriber:
         self._buffer = np.zeros((0,), np.float32)   # audio not yet encoded
         self._context = np.zeros((0,), np.float32)  # audio already encoded
         self._prev_id = -1                          # CTC collapse carry
+        self._carry = None                          # transducer (state, pred)
+        if self._transducer:
+            with torch.inference_mode():
+                self._carry = self._model.predict_init(1, self.device)
         self._pieces: List[str] = []
         self._pending = None   # (host outputs, host length, event, start)
         self.windows: List[torch.Tensor] = []
@@ -130,23 +141,44 @@ class StreamingTranscriber:
         mel = n_samples // self.cfg.audio.hop_length + 1
         return ((mel - 1) // 2 - 1) // 2
 
+    def _decode_transducer(self, enc, enc_len, start: int):
+        """Greedy tokens of frames [start:] of the one row, carrying the
+        prediction network's (state, pred) on into the next window."""
+        joint_fn, pred_step_fn = self._model.greedy_fns()
+        ids, count, self._carry = rnnt_greedy_decode(
+            joint_fn, enc, enc_len, pred_step_fn, self._carry,
+            max_symbols=self.cfg.decode.rnnt_max_symbols,
+            max_len=self._max_per_chunk,
+            start_frames=torch.tensor([start], dtype=torch.int32,
+                                      device=self.device),
+            return_carry=True)
+        if self._keep_windows:
+            self.windows.append(ids[0, : int(count[0])].cpu())
+        return ids[0], count
+
     @torch.inference_mode()
-    def _enqueue(self, audio: np.ndarray):
+    def _enqueue(self, audio: np.ndarray, start: int):
         """Encode ``audio`` padded to one window on the device; -> (outputs,
-        length, event): framewise argmax ids (greedy) or fp32 log-softmax
-        (beam) of the one row, copied to pinned host memory without
-        blocking on the card, with the event that marks the copy done."""
+        length, event): framewise argmax ids (greedy), fp32 log-softmax
+        (beam) or, for the transducer, the tokens emitted from frame
+        ``start`` and their count, of the one row, copied to pinned host
+        memory without blocking on the card, with the event that marks the
+        copy done."""
         window = self.ctx + self.chunk
         padded = np.zeros((1, max(len(audio), window)), np.float32)
         padded[0, : len(audio)] = audio
         x = torch.from_numpy(padded).to(self.device)
         n = torch.tensor([len(audio)], dtype=torch.int64, device=self.device)
         logits, out_len = self._forward(x, n)
-        if self._keep_windows:
-            self.windows.append(torch.log_softmax(logits[0], dim=-1)
-                                [: int(out_len[0])].float().cpu())
-        out = (torch.log_softmax(logits[0], dim=-1) if self._stream is not None
-               else logits[0].argmax(dim=-1).to(torch.int32))
+        if self._transducer:      # "logits" are the encodings here
+            out, out_len = self._decode_transducer(logits, out_len, start)
+        else:
+            if self._keep_windows:
+                self.windows.append(torch.log_softmax(logits[0], dim=-1)
+                                    [: int(out_len[0])].float().cpu())
+            out = (torch.log_softmax(logits[0], dim=-1)
+                   if self._stream is not None
+                   else logits[0].argmax(dim=-1).to(torch.int32))
         if self.device.type != "cuda":
             return out, out_len, None
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -163,7 +195,7 @@ class StreamingTranscriber:
         beams (beam) for the frames at and after the subsampled position of
         ``emit_from_sample``, one chunk late when pipelined."""
         start = self._sub_frames(emit_from_sample) if emit_from_sample else 0
-        enqueued = self._enqueue(audio)
+        enqueued = self._enqueue(audio, start)
         piece = self._drain_pending()
         self._pending = (*enqueued, start)
         if not self._pipeline:
@@ -181,6 +213,9 @@ class StreamingTranscriber:
             event.synchronize()
         out = out.numpy()
         n = int(out_len[0])
+        if self._transducer:
+            return "".join(self.tok.vocab[int(c)] for c in out[:n]
+                           if int(c) not in (self.tok.pad_id, self.tok.unk_id))
         if self._stream is not None:
             self._stream.feed(out[start:n])
             return ""

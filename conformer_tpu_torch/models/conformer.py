@@ -5,6 +5,8 @@
 (logits (B, T', vocab) fp32, subsampled lengths)``; in ``train()`` mode with
 a ``dropout_seed`` it drops as the JAX train model does. ``init_weights`` gives
 seeded random weights with the JAX package's initialiser families.
+``build_model`` builds the model of ``model.arch`` ('ctc' here, 'transducer'
+in models/transducer.py) with its seeded random weights.
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ class Conformer(nn.Module):
     def __init__(self, cfg: ModelConfig, compute_dtype: str = "float32"):
         super().__init__()
         if cfg.arch != "ctc":
-            raise NotImplementedError(
-                f"model.arch={cfg.arch!r} is not ported yet (only 'ctc')")
+            raise ValueError(f"Conformer is the CTC model; model.arch="
+                             f"{cfg.arch!r} is built by build_model")
         self.cfg = cfg
         dtype = DTYPES[compute_dtype]
         self.encoder = ConformerEncoder(cfg, dtype)
@@ -51,7 +53,25 @@ class Conformer(nn.Module):
         return logits.float(), out_lengths
 
 
-def _lecun_normal(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
+def build_model(cfg: ModelConfig, compute_dtype: str = "float32",
+                seed: Optional[int] = 0) -> nn.Module:
+    """The model of ``cfg.arch`` ('ctc' or 'transducer') on the CPU, with
+    seeded random weights, or with ``seed=None`` uninitialised (for weights
+    that are loaded next)."""
+    if cfg.arch == "ctc":
+        model, init = Conformer(cfg, compute_dtype), init_weights
+    elif cfg.arch == "transducer":
+        from conformer_tpu_torch.models import transducer
+
+        model = transducer.Transducer(cfg, compute_dtype)
+        init = transducer.init_weights
+    else:
+        raise ValueError(f"unknown model.arch {cfg.arch!r}: 'ctc' or "
+                         "'transducer'")
+    return model if seed is None else init(model, seed)
+
+
+def lecun_normal(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
     """Truncated normal (2 std) with variance 1/fan_in, flax's lecun_normal."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     x = torch.randn(shape, generator=gen)
@@ -62,7 +82,7 @@ def _lecun_normal(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
         x[bad] = torch.randn(int(bad.sum()), generator=gen)
 
 
-def _orthogonal(rows: int, cols: int, gen: torch.Generator) -> torch.Tensor:
+def orthogonal(rows: int, cols: int, gen: torch.Generator) -> torch.Tensor:
     a = torch.randn(max(rows, cols), min(rows, cols), generator=gen,
                     dtype=torch.float64)
     q, r = torch.linalg.qr(a)
@@ -79,14 +99,14 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     for mod in model.modules():
         new = {}
         if isinstance(mod, Dense):
-            new["weight"] = _lecun_normal(mod.weight.shape, mod.in_features, gen)
+            new["weight"] = lecun_normal(mod.weight.shape, mod.in_features, gen)
             new["bias"] = torch.zeros_like(mod.bias)
         elif isinstance(mod, Conv2d):
             fan_in = mod.weight[0].numel()
-            new["weight"] = _lecun_normal(mod.weight.shape, fan_in, gen)
+            new["weight"] = lecun_normal(mod.weight.shape, fan_in, gen)
             new["bias"] = torch.zeros_like(mod.bias)
         elif isinstance(mod, DepthwiseConv1d):
-            new["weight"] = _lecun_normal(mod.weight.shape, mod.kernel_size, gen)
+            new["weight"] = lecun_normal(mod.weight.shape, mod.kernel_size, gen)
             new["bias"] = torch.zeros_like(mod.bias)
         elif isinstance(mod, RelativeMultiHeadAttention):
             h, dh = mod.content_bias.shape
@@ -94,10 +114,10 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
             for name in ("content_bias", "position_bias"):
                 new[name] = (torch.rand((h, dh), generator=gen) * 2 - 1) * limit
         elif isinstance(mod, LSTMLayer):
-            new["weight_ih"] = _lecun_normal(mod.weight_ih.shape,
+            new["weight_ih"] = lecun_normal(mod.weight_ih.shape,
                                              mod.weight_ih.shape[1], gen)
             new["bias_ih"] = torch.zeros_like(mod.bias_ih)
-            new["weight_hh"] = _orthogonal(mod.hidden_dim, 4 * mod.hidden_dim,
+            new["weight_hh"] = orthogonal(mod.hidden_dim, 4 * mod.hidden_dim,
                                            gen).T
         elif isinstance(mod, (LayerNorm, MaskedBatchNorm)):
             for name, p in mod.named_parameters(recurse=False):

@@ -34,13 +34,13 @@ class LSTMLayer(nn.Module):
         dt = self.compute_dtype
         gates_x = F.linear(x.to(dt), self.weight_ih.to(dt),
                            (self.bias_ih + self.bias_hh).to(dt))
-        w_hh = self.weight_hh.to(dt)
+        w_hh_t = self.weight_hh.to(dt).T
         b = x.shape[1]
         h = torch.zeros(b, self.hidden_dim, dtype=dt, device=x.device)
         c = torch.zeros_like(h)
         outs = []
         for gx in gates_x:
-            i, f, g, o = torch.chunk(gx + h @ w_hh.T, 4, dim=-1)
+            i, f, g, o = torch.chunk(gx + h @ w_hh_t, 4, dim=-1)
             c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
             h = torch.sigmoid(o) * torch.tanh(c)
             outs.append(h)

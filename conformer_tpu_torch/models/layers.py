@@ -28,6 +28,12 @@ from conformer_tpu_torch.ops.cuda.depthwise_conv import depthwise_conv1d
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in ``dtype``; no op at all when it already is (an exported
+    program then holds no cast node for it)."""
+    return x if x.dtype == dtype else x.to(dtype)
+
+
 def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
@@ -47,7 +53,8 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(cast(x, dt), cast(self.weight, dt),
+                        cast(self.bias, dt))
 
 
 class LayerNorm(nn.LayerNorm):

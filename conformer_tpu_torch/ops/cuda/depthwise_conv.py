@@ -21,10 +21,13 @@ other K and C). K4b has two as well, picked by ``conv_variant`` too:
 fp64, one cluster launch summing its CTAs through distributed shared
 memory, no scratch) and "general" (fp64 partials and a second launch that
 sums them in fp64). A CPU tensor takes the plain version; a CUDA tensor
-launches a kernel or raises. ``depthwise_conv1d`` is the autograd Function, the counterpart of
-the JAX ``custom_vjp``: dx is K4a on g with the taps flipped, a zero bias and
-the left pad K - 1 - pad, which is the exact gradient for every K (the JAX
-``_bwd`` keeps the forward's pad, exact only for odd K).
+launches a kernel or raises. ``depthwise_conv1d`` runs the autograd Function, the counterpart of
+the JAX ``custom_vjp`` (dx is K4a on g with the taps flipped, a zero bias and
+the left pad K - 1 - pad, which is the exact gradient for every K; the JAX
+``_bwd`` keeps the forward's pad, exact only for odd K), or, when no input
+needs a gradient, the custom op ``conformer_tpu_torch::depthwise_conv_fwd``
+(``torch.library``: K4a's wrapper on the card, the plain version on the
+CPU), which ``torch.export`` keeps as a node of the graph.
 """
 
 from __future__ import annotations
@@ -140,6 +143,25 @@ depthwise_conv_fwd.launches = 0
 depthwise_conv_fwd.window_launches = 0   # of those, the window kernel
 
 
+@torch.library.custom_op("conformer_tpu_torch::depthwise_conv_fwd",
+                         mutates_args=(), device_types="cuda")
+def depthwise_conv_fwd_op(x: torch.Tensor, w: torch.Tensor,
+                          bias: torch.Tensor, pad: int) -> torch.Tensor:
+    """K4a as a custom op: the wrapper, looked up when called, so that
+    patching this module's name reroutes it."""
+    return depthwise_conv_fwd(x, w, bias, pad)
+
+
+@depthwise_conv_fwd_op.register_kernel("cpu")
+def _(x, w, bias, pad):
+    return depthwise_conv_plain(x, w, bias, pad)
+
+
+@depthwise_conv_fwd_op.register_fake
+def _(x, w, bias, pad):
+    return torch.empty_like(x)
+
+
 def depthwise_conv_dw(x: torch.Tensor, g: torch.Tensor, k: int,
                       pad: int) -> torch.Tensor:
     """Kernel wrapper (K4b): same arguments and result as
@@ -210,5 +232,7 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
     """Depthwise same-pad conv1d: x (B, L, C), w (K, C), bias (C,), all of
     the compute dtype -> (B, L, C). Differentiable in all three."""
-    return DepthwiseConv1d.apply(x.contiguous(), w.contiguous(),
-                                 bias.contiguous())
+    args = (x.contiguous(), w.contiguous(), bias.contiguous())
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return DepthwiseConv1d.apply(*args)
+    return depthwise_conv_fwd_op(*args, (w.shape[0] - 1) // 2)

@@ -7,7 +7,10 @@ the kernel wrapper: a CPU tensor takes the plain PyTorch version
 The kernel runs both products in 3xTF32 on the tensor cores; its operands,
 the DFT matrix and the filterbank split into TF32 hi and lo parts and packed
 in the kernel's fragment order, are built once by ``k3_operands`` (the
-frontend does it when it is built).
+frontend does it when it is built). ``logmel_fwd_op`` is the custom op
+``conformer_tpu_torch::logmel_fwd`` (``torch.library``: the wrapper on the
+card, the plain version on the CPU) that the frontend calls, so that
+``torch.export`` keeps the kernel as a node of the graph.
 """
 
 from __future__ import annotations
@@ -183,3 +186,29 @@ def logmel_fwd(padded_audio: torch.Tensor, dft: torch.Tensor,
 
 
 logmel_fwd.launches = 0
+
+
+@torch.library.custom_op("conformer_tpu_torch::logmel_fwd", mutates_args=(),
+                         device_types="cuda")
+def logmel_fwd_op(padded_audio: torch.Tensor, dft: torch.Tensor,
+                  fb: torch.Tensor, hop: int, n_fft: int, n_frames: int,
+                  clamp: float, op_dft: torch.Tensor, op_fb: torch.Tensor,
+                  n_steps: int, s_pad: int, n_chunks: int,
+                  n_mel_tiles: int) -> torch.Tensor:
+    """K3 as a custom op, its operands (K3Operands) spelled out: the
+    wrapper, looked up when called, so that patching this module's name
+    reroutes it."""
+    return logmel_fwd(padded_audio, dft, fb, hop, n_fft, n_frames, clamp,
+                      operands=K3Operands(op_dft, op_fb, n_steps, s_pad,
+                                          n_chunks, n_mel_tiles))
+
+
+@logmel_fwd_op.register_kernel("cpu")
+def _(padded_audio, dft, fb, hop, n_fft, n_frames, clamp, *operands):
+    return logmel_plain(padded_audio, dft, fb, hop, n_fft, n_frames, clamp)
+
+
+@logmel_fwd_op.register_fake
+def _(padded_audio, dft, fb, hop, n_fft, n_frames, clamp, *operands):
+    return padded_audio.new_empty((padded_audio.shape[0], n_frames,
+                                   fb.shape[1]))

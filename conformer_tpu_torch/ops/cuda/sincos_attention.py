@@ -24,7 +24,10 @@ general kernels' tiling and scratch on the host. A CPU tensor takes the
 plain version; a CUDA tensor launches one of the two kernels or raises,
 never the plain version. ``rel_attention_sincos_packed`` is the public
 entry: under autograd it runs both through one ``torch.autograd.Function``,
-otherwise (serving, ``torch.inference_mode``) just the forward.
+otherwise (serving, ``torch.inference_mode``) just the forward, through the
+custom op ``conformer_tpu_torch::sincos_attention_fwd`` (``torch.library``:
+the wrapper on the card, the plain version on the CPU), so that
+``torch.export`` keeps the kernel as a node of the graph.
 
 Dropout on the probabilities is the JAX kernel's stateless hash
 (``_dropout_keep``): the mask of query row i, key j depends on the seed, the
@@ -58,6 +61,11 @@ def sincos_tables(length: int, d_model: int, dtype=torch.float32,
     cos(i*w_k), built in float64 and cast to ``dtype`` (cached)."""
     key = (d_model, dtype, str(device))
     if key not in _tables or _tables[key][0].shape[0] < length:
+        if torch.compiler.is_compiling():
+            # a table built while tracing would be a traced value, not the
+            # constant that the cache and the traced program both need
+            raise RuntimeError("sincos_tables: build the tables before "
+                               "tracing (one eager forward at this length)")
         inv_freq = np.exp(np.arange(0, d_model, 2, dtype=np.float64)
                           * -(np.log(10000.0) / d_model))
         ang = np.arange(length, dtype=np.float64)[:, None] * inv_freq[None, :]
@@ -453,6 +461,30 @@ sincos_attention_fwd.general_launches = 0   # of those, the general kernel
 sincos_attention_fwd.general_fp32_launches = 0   # ... in fp32
 
 
+@torch.library.custom_op("conformer_tpu_torch::sincos_attention_fwd",
+                         mutates_args=(), device_types="cuda")
+def sincos_attention_fwd_op(qu: torch.Tensor, qv: torch.Tensor,
+                            k: torch.Tensor, v: torch.Tensor,
+                            wh: torch.Tensor, lengths: torch.Tensor,
+                            sin_t: torch.Tensor, cos_t: torch.Tensor,
+                            rate: float, seed: int, tq: int) -> torch.Tensor:
+    """K1 as a custom op (the output only): the wrapper, looked up when
+    called, so that patching this module's name reroutes it."""
+    return sincos_attention_fwd(qu, qv, k, v, wh, lengths, sin_t, cos_t,
+                                rate, seed, tq)
+
+
+@sincos_attention_fwd_op.register_kernel("cpu")
+def _(qu, qv, k, v, wh, lengths, sin_t, cos_t, rate, seed, tq):
+    return sincos_attention_plain(qu, qv, k, v, wh, lengths, sin_t, cos_t,
+                                  rate, seed, tq)
+
+
+@sincos_attention_fwd_op.register_fake
+def _(qu, qv, k, v, wh, lengths, sin_t, cos_t, rate, seed, tq):
+    return torch.empty_like(qu)
+
+
 def bwd_scratch_bytes(b: int, l: int, h: int, dh: int, dtype) -> int:
     """Bytes of device scratch K2 takes at these shapes (wgmma: ds and
     p_drop (B*H, L, L) and da (B*H, L, D) in bf16, as its library computes
@@ -559,4 +591,4 @@ def rel_attention_sincos_packed(qu, qv, k, v, wh, lengths: Optional[torch.Tensor
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (qu, qv, k, v, wh)):
         return SincosAttention.apply(*args)
-    return sincos_attention_fwd(*args)
+    return sincos_attention_fwd_op(*args)

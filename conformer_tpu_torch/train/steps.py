@@ -1,11 +1,16 @@
 """Train, forward and eval steps: audio -> log-mels -> (SpecAugment) -> model
--> CTC loss / greedy tokens (counterpart of conformer_tpu/train/steps.py,
-CTC family).
+-> CTC or RNN-T loss / greedy tokens (counterpart of
+conformer_tpu/train/steps.py).
 
 PyTorch runs eagerly, so a "step" is a plain function over a model that
 holds its weights (and, for training, an optimizer from train/state.py).
 Mixed precision as in the JAX package: the compute dtype (bf16 by default)
-in the model, fp32 parameters, fp32 logits and CTC loss.
+in the model, fp32 parameters, fp32 logits and loss. ``make_train_step`` and
+``make_eval_step`` dispatch on ``model.arch``: the transducer trains on the
+lattice-free ``rnnt_loss_scan`` (or, with ``rnnt_loss_impl='lattice'``, on
+the full joint lattice) and decodes greedily (ops/rnnt.py). Its train step
+honours ``optim.accum_steps`` as the CTC one does; the JAX transducer step
+ignores it.
 """
 
 from __future__ import annotations
@@ -18,6 +23,9 @@ from conformer_tpu_torch.audio.augment import spec_augment
 from conformer_tpu_torch.audio.mel import MelFrontend
 from conformer_tpu_torch.config import Config
 from conformer_tpu_torch.ops.ctc import ctc_loss, greedy_decode
+from conformer_tpu_torch.ops.rnnt import (rnnt_greedy_decode,
+                                          rnnt_loss_from_logits,
+                                          rnnt_loss_scan)
 from conformer_tpu_torch.train.state import Optimizer
 
 
@@ -29,15 +37,44 @@ def step_generator(seed: int, step: int) -> torch.Generator:
         ((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
 
 
+def _ctc_train_loss(model, mels, mel_lengths, tokens, token_lengths, seed):
+    logits, out_lengths = model(mels, mel_lengths, dropout_seed=seed)
+    return ctc_loss(logits, out_lengths, tokens, token_lengths,
+                    row_mask=token_lengths > 0)
+
+
+def _transducer_train_loss(cfg: Config) -> Callable:
+    impl = cfg.model.rnnt_loss_impl
+    if impl not in ("scan", "lattice"):
+        raise ValueError(f"rnnt_loss_impl must be scan|lattice, got {impl!r}")
+
+    def loss(model, mels, mel_lengths, tokens, token_lengths, seed):
+        if impl == "lattice":
+            lattice, enc_lengths = model(mels, mel_lengths, tokens,
+                                         dropout_seed=seed)
+            return rnnt_loss_from_logits(lattice, tokens, enc_lengths,
+                                         token_lengths,
+                                         row_mask=token_lengths > 0)
+        (e, p), enc_lengths = model.forward_factors(mels, mel_lengths, tokens,
+                                                    dropout_seed=seed)
+        out = model.joint.out
+        return rnnt_loss_scan(e, p, out.weight, out.bias, tokens, enc_lengths,
+                              token_lengths, row_mask=token_lengths > 0)
+
+    return loss
+
+
 def make_train_step(cfg: Config, model: torch.nn.Module, optimizer: Optimizer,
                     frontend: Optional[MelFrontend] = None) -> Callable:
     """-> step(audio (B, S) fp32, audio_lengths (B,), tokens (B, N),
     token_lengths (B,), step_index) -> {loss, grad_norm, audio_seconds} as
     device scalars. Order: log-mels (no gradient) -> SpecAugment -> model in
-    training mode -> CTC over the rows with a transcript -> backward ->
-    optimizer. ``optim.accum_steps > 1`` runs that many micro-batches in
-    sequence, averages their gradients and threads the BatchNorm statistics
-    through them in order."""
+    training mode -> the loss of ``model.arch`` (CTC, or RNN-T) over the
+    rows with a transcript -> backward -> optimizer. ``optim.accum_steps >
+    1`` runs that many micro-batches in sequence, averages their gradients
+    and threads the BatchNorm statistics through them in order."""
+    loss_fn = (_transducer_train_loss(cfg) if cfg.model.arch == "transducer"
+               else _ctc_train_loss)
     device = next(model.parameters()).device
     frontend = frontend or MelFrontend(cfg.audio, device=device)
     accum = max(cfg.optim.accum_steps, 1)
@@ -62,10 +99,8 @@ def make_train_step(cfg: Config, model: torch.nn.Module, optimizer: Optimizer,
         loss_sum = torch.zeros((), device=audio.device)
         for i in range(accum):
             sl = slice(i * m, (i + 1) * m)
-            logits, out_lengths = model(mels[sl], mel_lengths[sl],
-                                        dropout_seed=seeds[i])
-            loss = ctc_loss(logits, out_lengths, tokens[sl], token_lengths[sl],
-                            row_mask=token_lengths[sl] > 0)
+            loss = loss_fn(model, mels[sl], mel_lengths[sl], tokens[sl],
+                           token_lengths[sl], seeds[i])
             (loss / accum).backward()
             loss_sum = loss_sum + loss.detach()
         grad_norm = optimizer.step()
@@ -77,9 +112,10 @@ def make_train_step(cfg: Config, model: torch.nn.Module, optimizer: Optimizer,
 
 def make_forward(cfg: Config, model: torch.nn.Module,
                  frontend: Optional[MelFrontend] = None) -> Callable:
-    """-> forward(audio (B, S) fp32, audio_lengths (B,)) -> (logits fp32
-    (B, T', V), lengths (B,)), on the model's device, without autograd and
-    with the running BatchNorm statistics."""
+    """-> forward(audio (B, S) fp32, audio_lengths (B,)) -> the model's
+    output on its device, without autograd and with the running BatchNorm
+    statistics: CTC (logits fp32 (B, T', V), lengths (B,)); the transducer
+    (encodings (B, T', D), lengths) from its encoder."""
     device = next(model.parameters()).device
     frontend = frontend or MelFrontend(cfg.audio, device=device)
 
@@ -87,7 +123,8 @@ def make_forward(cfg: Config, model: torch.nn.Module,
     def forward(audio: torch.Tensor, audio_lengths: torch.Tensor):
         model.eval()
         mels = frontend(audio)
-        return model(mels, frontend.frame_lengths(audio_lengths))
+        run = model.encode if cfg.model.arch == "transducer" else model
+        return run(mels, frontend.frame_lengths(audio_lengths))
 
     return forward
 
@@ -98,7 +135,10 @@ def make_eval_step(cfg: Config, model: torch.nn.Module,
     """-> step(audio, audio_lengths[, tokens, token_lengths]) -> {tokens,
     counts, log_probs, lengths} (+ ``loss`` when transcripts are given, over
     the rows that have one): collapsed greedy tokens on the device, text
-    assembly left to the host."""
+    assembly left to the host. The transducer's step is
+    make_transducer_eval_step's."""
+    if cfg.model.arch == "transducer":
+        return make_transducer_eval_step(cfg, model, frontend)
     forward = make_forward(cfg, model, frontend)
 
     @torch.inference_mode()
@@ -114,6 +154,40 @@ def make_eval_step(cfg: Config, model: torch.nn.Module,
         if tokens is not None:
             out["loss"] = ctc_loss(logits, out_lengths, tokens, token_lengths,
                                    row_mask=token_lengths > 0)
+        return out
+
+    return step
+
+
+def make_transducer_eval_step(cfg: Config, model: torch.nn.Module,
+                              frontend: Optional[MelFrontend] = None
+                              ) -> Callable:
+    """-> step(audio, audio_lengths[, tokens, token_lengths]) -> {tokens,
+    counts, lengths} (+ ``loss``, the lattice-free RNN-T loss over the rows
+    with a transcript, when transcripts are given): the greedy decode's
+    emitted tokens under the CTC eval step's keys, so that validation and
+    the pipeline assemble texts the same way. ``decode.rnnt_max_symbols``
+    tokens a frame at most, ``data.max_tokens`` a row."""
+    forward = make_forward(cfg, model, frontend)
+
+    @torch.inference_mode()
+    def step(audio: torch.Tensor, audio_lengths: torch.Tensor,
+             tokens: Optional[torch.Tensor] = None,
+             token_lengths: Optional[torch.Tensor] = None
+             ) -> Dict[str, torch.Tensor]:
+        enc, enc_lengths = forward(audio, audio_lengths)
+        joint_fn, pred_step_fn = model.greedy_fns()
+        ids, counts = rnnt_greedy_decode(
+            joint_fn, enc, enc_lengths, pred_step_fn,
+            model.predict_init(enc.shape[0], enc.device),
+            max_symbols=cfg.decode.rnnt_max_symbols,
+            max_len=cfg.data.max_tokens)
+        out = {"tokens": ids, "counts": counts, "lengths": enc_lengths}
+        if tokens is not None:
+            e, p = model.joint.factors(enc, model.prediction(tokens))
+            out["loss"] = rnnt_loss_scan(
+                e, p, model.joint.out.weight, model.joint.out.bias, tokens,
+                enc_lengths, token_lengths, row_mask=token_lengths > 0)
         return out
 
     return step

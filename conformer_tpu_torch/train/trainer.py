@@ -2,7 +2,8 @@
 (counterpart of conformer_tpu/train/trainer.py, single device).
 
 Epoch loop with per-epoch shuffling, periodic checkpoints and resume,
-validation with the CTC loss and greedy WER, metric logging, and
+validation with the loss and greedy WER (CTC or transducer, by
+``model.arch``), metric logging, and
 ``num_steps`` / ``log_every_steps`` / ``checkpoint_every_steps`` /
 ``val_every_steps`` as in the JAX trainer. It runs on the CUDA device unless
 the caller passes ``device="cpu"``, and raises without a GPU. Not ported
@@ -24,7 +25,7 @@ from conformer_tpu_torch.audio.mel import MelFrontend
 from conformer_tpu_torch.config import Config
 from conformer_tpu_torch.data.dataset import Batch, BucketedLoader, ManifestDataset
 from conformer_tpu_torch.decode.pipeline import resolve_device
-from conformer_tpu_torch.models.conformer import Conformer, init_weights
+from conformer_tpu_torch.models.conformer import build_model
 from conformer_tpu_torch.text.metrics import wer
 from conformer_tpu_torch.text.tokenizer import GraphemeTokenizer
 from conformer_tpu_torch.train.checkpoint import CheckpointManager
@@ -66,9 +67,8 @@ class Trainer:
                 pass
         self.steps_per_epoch = steps_per_epoch
 
-        model = init_weights(Conformer(cfg.model, cfg.optim.compute_dtype),
-                             cfg.train.seed)
-        self.model = model.to(self.device)
+        self.model = build_model(cfg.model, cfg.optim.compute_dtype,
+                                 cfg.train.seed).to(self.device)
         self.optimizer = make_optimizer(cfg.optim, self.model.parameters(),
                                         steps_per_epoch)
         self.step, self.epoch = 0, 0
@@ -174,8 +174,8 @@ class Trainer:
         return float(losses.mean()) if losses.size else float("nan")
 
     def validate(self, loader: Iterable[Batch]) -> dict:
-        """CTC loss + greedy WER over a validation set
-        (reference: train.py:36-81)."""
+        """Loss + greedy WER over a validation set (reference:
+        train.py:36-81)."""
         losses, refs, hyps = [], [], []
         for batch in loader:
             out = self.eval_step(*self._device_batch(batch))

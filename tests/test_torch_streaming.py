@@ -10,7 +10,9 @@
   synchronous one, ``reset`` clears every carried state;
 - a single-chunk utterance gives the offline pipeline's text;
 - ``beam_auto`` is the host beam search, as the JAX package resolves it for a
-  stream; the transducer and ``beam_device`` raise.
+  stream; the transducer's beam and ``beam_device`` raise (the transducer's
+  greedy streaming is held against the JAX package in
+  test_torch_transducer.py).
 """
 
 import functools
@@ -268,9 +270,9 @@ def test_transducer_and_device_beam_raise(port):
     cfg, model, tok = port
     with pytest.raises(NotImplementedError, match="item 7"):
         _transcriber(port, "beam_device")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         StreamingTranscriber(cfg.override(**{"model.arch": "transducer"}),
-                             tok, model)
+                             tok, model, decode="beam")
     from conformer_tpu_torch.cli.infer import main
 
     with pytest.raises(NotImplementedError, match="item 7"):
