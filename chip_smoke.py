@@ -55,9 +55,8 @@ Phases, each printing one JSON line:
               CSV), again through the plain versions (the loss must agree),
               and with the host beam search at the reference operating
               point and one hotword over an ARPA that ``cli.create_lm``
-              builds from the train transcripts (``--lm --decode beam``;
-              ``--lm`` with ``--decode auto`` must raise: the device beam
-              search is not ported); each batch's beam-decode seconds, and
+              builds from the train transcripts (``--lm --decode beam``);
+              each batch's beam-decode seconds, and
               the native decoder held against the Python one (with the
               Python n-gram scorer) at beam 16 on the card's log-probs of
               one batch and on a contended seeded 8 x 599 batch; then the
@@ -105,6 +104,25 @@ Phases, each printing one JSON line:
               (export_shapes). Export seconds, program
               bytes, program against live forward ms.
 
+11. beam_device -- the device beam searches at the reference's operating
+              point (beam 190, 8 candidates a frame, alpha 2.1, beta 9.2,
+              one hotword) with word-level fusion from an ARPA that
+              ``cli.create_lm`` builds: the CTC search on a contended 8 x
+              599 batch through its CUDA graph against the eager step on
+              the card (bit for bit) and against the port's search on the
+              CPU (in a process of its own, meanwhile: equal texts or a
+              near-tie); a peaked batch against the host beam search
+              (native, nothing pruned); ``cli.test --lm --decode auto``
+              (beam_auto -> beam_device), a token-level
+              ``decode.device_lm_path``, ``cli.infer --streaming --decode
+              beam_device``, ``cli.serve --decode beam_auto`` and
+              ``cli.pseudo_label --decode beam_device``; the RNN-T search
+              on the transducer phase's mixing checkpoint (B 8 x 8 s, graph
+              against eager bit for bit; 24 s), ``cli.test --decode beam``
+              and ``cli.infer --decode beam``, offline and ``--streaming``.
+              Walls, capture seconds, launches a frame, the host search's
+              seconds on the contended batch.
+
 Then the card's name and power limit, the ``kernels`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
 ok line; so does a machine with no CUDA device.
@@ -125,7 +143,7 @@ import time
 from unittest import mock
 
 PHASES = ("build", "kernels", "tolerance", "model", "serve", "train",
-          "evaluate", "tiny", "stream", "transducer", "export")
+          "evaluate", "tiny", "stream", "transducer", "export", "beam_device")
 OPTIONAL_PHASES = ("profile",)
 # Published dense peaks of one H100 SXM (NVIDIA data sheet) at 700 W.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -1704,8 +1722,8 @@ def phase_evaluate(torch, tmp: str):
     plain, plain_ms = _run(torch, lambda: cli_test.main(argv),
                            _plain_versions())
     # The host beam search with an n-gram LM built from the train
-    # transcripts, through cli.test and through the pipeline; --lm with
-    # --decode auto means the device beam search on the card, which raises.
+    # transcripts, through cli.test and through the pipeline (--lm with
+    # --decode auto, the device search on the card: the beam_device phase).
     arpa = build_lm(tmp, train_csv)
     beam_csv = os.path.join(tmp, "beam_results.csv")
     beam_argv = ["--manifest", val_csv, "--checkpoint-dir", ck, "--device",
@@ -1715,12 +1733,6 @@ def phase_evaluate(torch, tmp: str):
     beam_metrics = driven("test_beam", lambda: cli_test.main(beam_argv))
     with open(beam_csv, newline="", encoding="utf8") as f:
         beam_rows = list(csv.reader(f))
-    try:
-        cli_test.main(["--manifest", val_csv, "--checkpoint-dir", ck,
-                       "--device", DEVICE, "--lm", arpa])
-        auto_error = None
-    except NotImplementedError as e:
-        auto_error = str(e)
     beam = driven("beam_batches",
                   lambda: beam_batches(torch, ck, val_csv, arpa))
     driven("serve", lambda: infer.main(["--audio", *val_paths, "--device",
@@ -1755,7 +1767,6 @@ def phase_evaluate(torch, tmp: str):
           and math.isclose(beam_metrics["loss"], metrics["loss"], rel_tol=1e-6)
           and beam_rows[0] == ["label", "prediction"]
           and len(beam_rows) == len(VAL_SECONDS) + 1
-          and auto_error is not None and "item 7" in auto_error
           and beam["check"]["same"] and beam["check"]["contended"]["words"] > 0
           and len(beam["batches"]) == n_val + 1)
     emit({"phase": "evaluate", "config": "Config() production, "
@@ -1766,7 +1777,7 @@ def phase_evaluate(torch, tmp: str):
           "loss_tolerance": tol, "results_rows": len(rows) - 1,
           "beam_decode_s_per_batch": [b["decode_s"] for b in beam["batches"]],
           "beam_metrics": beam_metrics, "beam_results_rows": len(beam_rows) - 1,
-          "beam_auto_error": auto_error, "beam": beam,
+          "beam": beam,
           "runs": runs, "launches_ok": launches_ok, "ok": ok})
     if not ok:
         raise SystemExit("evaluate phase failed")
@@ -3055,6 +3066,442 @@ def phase_export(torch, tmp: str):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the device beam searches (CTC and RNN-T) through CUDA graphs.
+# ---------------------------------------------------------------------------
+
+# The contended CTC batch (contended_log_probs, B x T' frames), the peaked
+# batch's beam against the host's (unpruned, every token a candidate), the
+# near-tie a CPU text may differ by, and the RNN-T batches' seconds.
+BEAM_CONTENDED = (8, 599)
+BEAM_PEAKED = (8, 64)
+TOL_NEAR_TIE = 1e-4
+RNNT_BEAM_SECONDS = (8, 24)
+RNNT_BEAM_WIDTH = 190
+# threads of the CPU search's process, beside the card's runs
+CPU_BEAM_THREADS = 4
+# frames of the profiled CTC runs (a third of them for the RNN-T)
+PROFILE_FRAMES = 60
+
+
+def _beam_texts(tok, prefixes, plens):
+    """Best beams -> texts, as the pipeline assembles them."""
+    return [tok.spec_decode(tok.collapsed_ids_to_text(
+        prefixes[i, 0].tolist(), int(plens[i, 0]))).strip()
+        for i in range(prefixes.shape[0])]
+
+
+def _ctc_beam_kwargs(torch, cfg, tok, device):
+    from conformer_tpu_torch.decode.pipeline import device_lm_kwargs
+
+    dc = cfg.decode
+    return dict(beam_width=dc.beam_width, top_k=dc.device_top_k,
+                blank_id=tok.pad_id, unk_id=tok.unk_id,
+                max_len=cfg.data.max_tokens,
+                **device_lm_kwargs(cfg, tok, device, word_fallback=True))
+
+
+def cpu_beam_search(arpa: str, out: str, b: int, t: int) -> None:
+    """The contended batch (b x t) through the port's search on the CPU
+    (its eager loop) at the operating point, in a process of its own: ->
+    ``out`` (npz of the results and the seconds)."""
+    import numpy as np
+    import torch
+
+    from conformer_tpu_torch.config import Config
+    from conformer_tpu_torch.ops.beam_search_device import \
+        ctc_beam_search_device
+    from conformer_tpu_torch.text.tokenizer import load_tokenizer
+
+    torch.set_num_threads(CPU_BEAM_THREADS)
+    tok = load_tokenizer("vi")
+    cfg = Config().override(**{"decode.lm_path": arpa,
+                               "decode.hotwords": [HOTWORD]})
+    lp = torch.from_numpy(contended_log_probs(tok.vocab_size, tok.pad_id, b,
+                                              t, seed=9))
+    kw = _ctc_beam_kwargs(torch, cfg, tok, torch.device("cpu"))
+    t0 = time.perf_counter()
+    prefixes, plens, scores = ctc_beam_search_device(lp, **kw)
+    np.savez(out, prefixes=prefixes.numpy(), plens=plens.numpy(),
+             scores=scores.numpy(), seconds=time.perf_counter() - t0)
+
+
+def _peaked_batch(tok, b: int, seed: int):
+    """(b, T, V) log-softmax of spelled transcripts (each token two frames
+    then a blank, the rest at -9), zero-padded, and the lengths."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(b):
+        seq = []
+        for t_ in tok.encode(tok.clean_text(_transcript(rng, 12).upper())):
+            seq += [t_, t_, tok.pad_id]
+        rows.append(seq)
+    t = max(map(len, rows))
+    lp = np.full((b, t, tok.vocab_size), -9.0, np.float32)
+    for i, seq in enumerate(rows):
+        lp[i, np.arange(len(seq)), seq] = -0.05
+    lp -= np.log(np.exp(lp).sum(-1, keepdims=True))
+    return lp.astype(np.float32), np.array([len(r) for r in rows], np.int32)
+
+
+def _walls(torch, fn, n: int = 3):
+    """Host wall seconds of n synchronised runs of fn()."""
+    out = []
+    for _ in range(n):
+        out.append(_run(torch, fn)[1] / 1e3)
+    return out
+
+
+def _transducer_ck(torch, tmp: str):
+    """The transducer phase's mixing checkpoint when it ran in this call;
+    else the shipped config with seeded weights made to mix the same way
+    (mixing_copy on a seeded 8 s batch). -> (checkpoint dir, where it came
+    from)."""
+    from conformer_tpu_torch.cli.common import save_config
+    from conformer_tpu_torch.models.conformer import build_model
+    from conformer_tpu_torch.train.checkpoint import CheckpointManager
+    from conformer_tpu_torch.train.state import make_optimizer
+
+    ck = os.path.join(os.path.dirname(tmp), "transducer", "ck_mixed")
+    if os.path.isdir(ck):
+        return ck, "transducer phase, mixing copy"
+    cfg = _transducer_cfg()
+    model = build_model(cfg.model, cfg.optim.compute_dtype, seed=0).to(DEVICE)
+    mixing_copy(torch, model, cfg, [_noise_batch(torch, 8, 8, seed=81)])
+    ck = os.path.join(tmp, "ck_mixed")
+    CheckpointManager(ck).save(
+        model, make_optimizer(cfg.optim, model.parameters()), step=0)
+    save_config(cfg, ck)
+    return ck, "seeded weights, mixing copy"
+
+
+def phase_beam_device(torch, tmp: str):
+    """The device beam searches at the reference's operating point
+    (DecodeConfig: beam 190, 8 candidates a frame, alpha 2.1, beta 9.2,
+    HOTWORD at 9.0) with word-level fusion from an ARPA that
+    ``cli.create_lm`` builds from seeded transcripts. CTC: the contended
+    8 x 599 batch through the CUDA graph against the eager step on the card
+    (bit for bit) and against the port's search on the CPU (run meanwhile
+    in a process of its own: equal texts, or a near-tie); a peaked batch
+    against the host beam search (native) with no pruning; the walls,
+    capture seconds, launches a frame, the host search's seconds on the
+    contended batch; ``cli.test --lm --decode auto`` (beam_auto ->
+    beam_device) and with a token-level ``decode.device_lm_path``,
+    ``cli.infer --streaming --decode beam_device`` on a 24 s WAV, each
+    window's feed timed, ``cli.serve --decode beam_auto`` answering
+    /transcribe and ``cli.pseudo_label --decode beam_device``. RNN-T
+    (configs/production_vi_transducer.json, the transducer phase's mixing
+    checkpoint): B 8 x 8 s through the graph against eager (bit for bit),
+    the walls, the graph at 24 s, ``cli.test --decode beam``, ``cli.infer
+    --decode beam``, offline and ``--streaming``. -> launch counts of the
+    driven runs."""
+    import multiprocessing
+    import threading
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from conformer_tpu_torch.cli import create_lm, pseudo_label, serve
+    from conformer_tpu_torch.cli import test as cli_test
+    from conformer_tpu_torch.config import Config
+    from conformer_tpu_torch.decode.beam_search import BeamSearchDecoder
+    from conformer_tpu_torch.decode.pipeline import (InferencePipeline,
+                                                     device_lm_kwargs)
+    from conformer_tpu_torch.models.conformer import build_model
+    from conformer_tpu_torch.ops import frame_graph
+    from conformer_tpu_torch.ops.beam_search_device import \
+        ctc_beam_search_device
+    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from conformer_tpu_torch.ops.rnnt import rnnt_beam_search
+    from conformer_tpu_torch.text.tokenizer import load_tokenizer
+    from conformer_tpu_torch.train.checkpoint import CheckpointManager
+
+    dev = torch.device(DEVICE)
+    tok = load_tokenizer("vi")
+    total, runs, sections = {}, {}, {}
+    t_phase = time.perf_counter()
+
+    def driven(name, fn):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        runs[name] = {"wall_s": time.perf_counter() - t0,
+                      "launches": launch_counts()}
+        for key, n in runs[name]["launches"].items():
+            total[key] = total.get(key, 0) + n
+        return out
+
+    def section(name):
+        """Host seconds since the phase began, at the end of a section."""
+        sections[name] = time.perf_counter() - t_phase
+
+    rng = np.random.default_rng(5)
+    corpus = os.path.join(tmp, "corpus.txt")
+    with open(corpus, "w", encoding="utf8") as f:
+        f.write("\n".join(_transcript(rng) for _ in range(300)))
+    lm_dir = os.path.join(tmp, "lm")
+    create_lm.main(["--text", corpus, "--out", lm_dir, "--token-level"])
+    arpa = os.path.join(lm_dir, "lm.arpa")
+    token_arpa = os.path.join(lm_dir, "lm_tokens.arpa")
+    hot = ["--set", f'decode.hotwords=["{HOTWORD}"]']
+    cfg = Config().override(**{"decode.lm_path": arpa,
+                               "decode.hotwords": [HOTWORD]})
+    cpu_out = os.path.join(tmp, "cpu_beam.npz")
+    b, t = BEAM_CONTENDED
+    proc = multiprocessing.get_context("spawn").Process(
+        target=cpu_beam_search, args=(arpa, cpu_out, b, t))
+    proc.start()
+    try:
+        # -- CTC: the contended batch, graph against eager on the card
+        lp_np = contended_log_probs(tok.vocab_size, tok.pad_id, b, t, seed=9)
+        lp = torch.from_numpy(lp_np).to(dev)
+        kw = _ctc_beam_kwargs(torch, cfg, tok, dev)
+        search = lambda: ctc_beam_search_device(lp, **kw)
+        # the profiles take the first PROFILE_FRAMES frames (the same
+        # graph): a trace of every frame is ~500,000 kernels
+        part = lambda: ctc_beam_search_device(lp[:, :PROFILE_FRAMES], **kw)
+        frame_graph.clear_cache()
+        graph_out, first_ms = _run(torch, search)
+        capture_s = frame_graph.capture_seconds()
+        graph_walls = _walls(torch, search)
+        graph_prof = _profiled(torch, part)
+        with frame_graph.eager():
+            eager_out = search()
+            eager_walls = _walls(torch, search)
+            eager_prof = _profiled(torch, part)
+        bits = all(torch.equal(x, y) for x, y in zip(graph_out, eager_out))
+        card_texts = _beam_texts(tok, graph_out[0].cpu(), graph_out[1].cpu())
+        card_scores = graph_out[2].cpu().numpy()
+        t0 = time.perf_counter()
+        BeamSearchDecoder(tok, cfg.decode).decode_batch(
+            lp_np, np.full(b, t, np.int32))
+        host_s = time.perf_counter() - t0
+        ctc = {"shape": f"B={b} T'={t} V={tok.vocab_size}",
+               "operating_point": {
+                   "beam_width": cfg.decode.beam_width,
+                   "top_k": cfg.decode.device_top_k,
+                   "alpha": cfg.decode.alpha, "beta": cfg.decode.beta,
+                   "hotwords": [HOTWORD],
+                   "hotword_weight": cfg.decode.hotword_weight},
+               "graph_equals_eager_bit_for_bit": bits,
+               "first_call_s": first_ms / 1e3, "capture_s": capture_s,
+               "graph_s": graph_walls, "eager_s": eager_walls,
+               "graph_median_s": float(np.median(graph_walls)),
+               "eager_median_s": float(np.median(eager_walls)),
+               "eager_launches_per_frame":
+                   eager_prof["kernel_launches"] / PROFILE_FRAMES,
+               "profiled_frames": PROFILE_FRAMES,
+               "graph_profile": {k: graph_prof[k] for k in (
+                   "wall_ms", "device_busy_ms", "device_idle_share",
+                   "kernel_launches")},
+               "eager_profile": {k: eager_prof[k] for k in (
+                   "wall_ms", "device_busy_ms", "device_idle_share",
+                   "kernel_launches")},
+               "host_beam_decode_s": host_s,
+               "words": sum(len(x.split()) for x in card_texts)}
+
+        section("ctc_contended")
+        # -- CTC: a peaked batch against the host beam, nothing pruned
+        pb, width = BEAM_PEAKED
+        p_lp, p_len = _peaked_batch(tok, pb, seed=13)
+        p_cfg = cfg.override(**{"decode.beam_width": width,
+                                "decode.device_top_k": tok.vocab_size - 1,
+                                "decode.beam_prune_logp": -1e9,
+                                "decode.token_min_logp": -1e9})
+        p_out = ctc_beam_search_device(
+            torch.from_numpy(p_lp).to(dev), torch.from_numpy(p_len).to(dev),
+            **_ctc_beam_kwargs(torch, p_cfg, tok, dev))
+        p_device = _beam_texts(tok, p_out[0].cpu(), p_out[1].cpu())
+        p_host = BeamSearchDecoder(tok, p_cfg.decode).decode_batch(p_lp,
+                                                                  p_len)
+        peaked = {"shape": f"B={pb} T'={p_lp.shape[1]}", "beam_width": width,
+                  "top_k": tok.vocab_size - 1, "device_texts": p_device,
+                  "host_texts": p_host, "equal": p_device == p_host}
+
+        section("ctc_peaked")
+        # -- CTC through the CLIs (Config(), seeded weights, bf16)
+        manifest, eval_wavs = _write_manifest(tmp, "eval",
+                                              [7.5, 7.5, 23.5, 23.5], seed=3)
+        auto = driven("test_lm_auto", lambda: cli_test.main(
+            ["--manifest", manifest, "--device", DEVICE, "--lm", arpa,
+             *hot]))
+        token = driven("test_device_lm", lambda: cli_test.main(
+            ["--manifest", manifest, "--device", DEVICE, "--decode",
+             "beam_device", "--set", f"decode.device_lm_path={token_arpa}"]))
+        wav24 = os.path.join(tmp, "s24.wav")
+        wavfile.write(wav24, 16000, (np.clip(rng.standard_normal(
+            int(STREAM_SECONDS * 16000)) * 0.1, -1, 1) * 32767).astype(
+            np.int16))
+        stream_text, stream_s = driven("stream", lambda: _infer_text(
+            ["--audio", wav24, "--device", DEVICE, "--streaming", "--decode",
+             "beam_device", "--lm", arpa, *hot, "--output",
+             os.path.join(tmp, "stream.csv")]))
+        pipe = InferencePipeline(cfg, tok, decode="beam_device",
+                                 device=DEVICE)
+        st = pipe.streaming_transcriber()
+        audio = wavfile.read(wav24)[1].astype(np.float32) / 32768.0
+        feeds = []
+        for i in range(0, len(audio), st.chunk):
+            t0 = time.perf_counter()
+            st.feed(audio[i: i + st.chunk])
+            st.text                   # the device work done, read back
+            feeds.append((time.perf_counter() - t0) * 1e3)
+        st.finish()
+        del pipe, st
+        # cli.serve with beam_auto (-> beam_device) answers /transcribe;
+        # cli.pseudo_label labels the manifest through the device beam
+        server = serve.make_server(serve.parse_args(
+            ["--decode", "beam_auto", "--device", DEVICE, "--port", "0",
+             "--lm", arpa, *hot]))
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        try:
+            with open(eval_wavs[0], "rb") as f:
+                served, served_ms = driven("serve", lambda: _http(
+                    f"http://127.0.0.1:{server.server_address[1]}"
+                    "/transcribe", f.read(), "audio/wav"))
+            serve_decode = server.pipe.decode
+        finally:
+            server.shutdown()
+            server.server_close()
+        del server
+        labelled = driven("pseudo_label", lambda: pseudo_label.main(
+            ["--manifest", manifest, "--output",
+             os.path.join(tmp, "labels.csv"), "--device", DEVICE,
+             "--decode", "beam_device", "--lm", arpa, *hot]))
+        clis = {"test_lm_auto": auto, "test_device_lm": token,
+                "stream_text": stream_text, "stream_wall_s": stream_s,
+                "stream_feed_ms": feeds, "serve_decode": serve_decode,
+                "served": served, "served_ms": served_ms,
+                "pseudo_labelled": labelled}
+
+        section("ctc_clis")
+        # -- RNN-T
+        frame_graph.clear_cache()
+        ck, ck_from = _transducer_ck(torch, tmp)
+        # the shipped config's beam is 8 wide: the reference's 190 here
+        wide = ["--set", f"decode.beam_width={RNNT_BEAM_WIDTH}"]
+        t_cfg = Config.from_json(os.path.join(ck, "config.json")).override(
+            **{"decode.lm_path": arpa, "decode.hotwords": [HOTWORD],
+               "decode.beam_width": RNNT_BEAM_WIDTH})
+        model = build_model(t_cfg.model, t_cfg.optim.compute_dtype,
+                            seed=None)
+        CheckpointManager(ck).restore(model)
+        t_weights = os.path.join(tmp, "transducer_w.pt")
+        torch.save(model.state_dict(), t_weights)
+        model = model.to(dev).eval()
+        joint_fn, pred_step_fn = model.beam_fns()
+        dc = t_cfg.decode
+        r_kw = dict(beam_width=dc.beam_width, top_k=dc.rnnt_top_k,
+                    max_symbols=dc.rnnt_max_symbols,
+                    max_len=t_cfg.data.max_tokens, unk_id=tok.unk_id,
+                    **device_lm_kwargs(t_cfg, tok, dev, word_fallback=True))
+        rnnt = {"checkpoint": ck_from, "beam_width": dc.beam_width,
+                "top_k": dc.rnnt_top_k, "max_symbols": dc.rnnt_max_symbols}
+        for seconds in RNNT_BEAM_SECONDS:
+            enc, enc_len = _encode(torch, model, t_cfg,
+                                   *_noise_batch(torch, 8, seconds,
+                                                 seed=90 + seconds))
+            r_search = lambda: rnnt_beam_search(
+                joint_fn, enc, enc_len, pred_step_fn,
+                model.predict_init(8, dev), **r_kw)
+            r_out, r_first = _run(torch, r_search)
+            case = {"frames": enc.shape[1], "first_call_s": r_first / 1e3,
+                    "graph_s": _walls(torch, r_search)}
+            if seconds == RNNT_BEAM_SECONDS[0]:
+                r_part = lambda: rnnt_beam_search(
+                    joint_fn, enc[:, :PROFILE_FRAMES // 3],
+                    enc_len.clamp(max=PROFILE_FRAMES // 3), pred_step_fn,
+                    model.predict_init(8, dev), **r_kw)
+                case["graph_profile"] = {k: v for k, v in _profiled(
+                    torch, r_part).items() if k in (
+                    "wall_ms", "device_busy_ms", "device_idle_share",
+                    "kernel_launches")}
+                with frame_graph.eager():     # one run: it is slow
+                    r_eager, r_eager_ms = _run(torch, r_search)
+                    case["eager_s"] = [r_eager_ms / 1e3]
+                    prof = _profiled(torch, r_part)
+                case["eager_launches_per_frame"] = \
+                    prof["kernel_launches"] / (PROFILE_FRAMES // 3)
+                case["eager_idle_share"] = prof["device_idle_share"]
+                case["graph_equals_eager_bit_for_bit"] = all(
+                    torch.equal(x, y) for x, y in zip(r_out, r_eager))
+            case["counts"] = r_out[1][:, 0].tolist()
+            rnnt[f"{seconds}s"] = case
+        rnnt["capture_s"] = frame_graph.capture_seconds()
+        del model
+        section("rnnt_search")
+        r_test = driven("rnnt_test", lambda: cli_test.main(
+            ["--manifest", manifest, "--checkpoint-dir", ck, "--device",
+             DEVICE, "--decode", "beam", "--lm", arpa, *hot, *wide]))
+        wav8 = os.path.join(tmp, "s8.wav")
+        wavfile.write(wav8, 16000, (audio[: 8 * 16000] * 32767).astype(
+            np.int16))
+        r_offline, r_offline_s = driven("rnnt_infer", lambda: _infer_text(
+            ["--audio", wav8, "--config", os.path.join(ck, "config.json"),
+             "--weights", t_weights, "--device", DEVICE, "--decode", "beam",
+             *wide, "--output", os.path.join(tmp, "rnnt_infer.csv")]))
+        r_stream, r_stream_s = driven("rnnt_stream", lambda: _infer_text(
+            ["--audio", wav8, "--config", os.path.join(ck, "config.json"),
+             "--weights", t_weights, "--device", DEVICE, "--streaming",
+             "--decode", "beam", *wide, "--output",
+             os.path.join(tmp, "rnnt_stream.csv")]))
+        rnnt.update(test=r_test, infer_text=r_offline,
+                    infer_wall_s=r_offline_s, stream_text=r_stream,
+                    stream_wall_s=r_stream_s)
+
+        section("rnnt_clis")
+        # -- the CPU search's texts against the card's
+        proc.join(timeout=600)
+        if proc.exitcode != 0:
+            raise SystemExit(f"the CPU beam search failed ({proc.exitcode})")
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join()
+    with np.load(cpu_out) as cpu:
+        cpu_texts = _beam_texts(tok, cpu["prefixes"], cpu["plens"])
+        cpu_scores, cpu_s = cpu["scores"], float(cpu["seconds"])
+    differing = [{"row": i, "card": card_texts[i], "cpu": cpu_texts[i],
+                  "card_top2": card_scores[i, :2].tolist(),
+                  "cpu_top2": cpu_scores[i, :2].tolist()}
+                 for i in range(b) if card_texts[i] != cpu_texts[i]]
+    near_ties = all(
+        abs(d["card_top2"][0] - d["card_top2"][1]) <= TOL_NEAR_TIE
+        or abs(d["cpu_top2"][0] - d["cpu_top2"][1]) <= TOL_NEAR_TIE
+        for d in differing)
+    ctc["cpu"] = {"seconds": cpu_s, "threads": CPU_BEAM_THREADS,
+                  "rows_differing": differing, "near_tie_limit": TOL_NEAR_TIE,
+                  "max_score_diff": float(np.abs(cpu_scores[:, 0]
+                                                 - card_scores[:, 0]).max())}
+    finite = lambda m: all(math.isfinite(m[k]) for k in ("wer", "cer",
+                                                         "loss"))
+    ok = (ctc["graph_equals_eager_bit_for_bit"] and near_ties
+          and peaked["equal"] and ctc["words"] > 0
+          and finite(auto) and finite(token) and finite(r_test)
+          and isinstance(stream_text, str) and isinstance(r_stream, str)
+          and isinstance(r_offline, str) and serve_decode == "beam_device"
+          and isinstance(served.get("text"), str) and labelled >= 0
+          and runs["serve"]["launches"]["sincos_attention_fwd"] > 0
+          and rnnt[f"{RNNT_BEAM_SECONDS[0]}s"]["graph_equals_eager_bit_for_bit"]
+          and all(sum(rnnt[f"{s_}s"]["counts"]) > 0
+                  for s_ in RNNT_BEAM_SECONDS)
+          and runs["test_lm_auto"]["launches"]["sincos_attention_fwd"] > 0
+          and runs["rnnt_test"]["launches"]["sincos_attention_fwd"] > 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    emit({"phase": "beam_device", "card": smi, "config":
+          "Config() and configs/production_vi_transducer.json, "
+          "DecodeConfig's operating point, word LM from cli.create_lm",
+          "ctc": ctc, "peaked_vs_host": peaked, "clis": clis, "rnnt": rnnt,
+          "runs": runs, "sections_s": sections, "ok": ok})
+    if not ok:
+        raise SystemExit("beam_device phase failed")
+    return total
+
+
 def _profiled(torch, fn):
     """-> (host wall ms, device busy ms, kernel rows) of one fn() call."""
     from torch.profiler import ProfilerActivity, profile
@@ -3165,7 +3612,8 @@ def main(argv=None) -> int:
                           ("evaluate", phase_evaluate), ("tiny", phase_tiny),
                           ("stream", phase_stream),
                           ("transducer", phase_transducer),
-                          ("export", phase_export)):
+                          ("export", phase_export),
+                          ("beam_device", phase_beam_device)):
             if name in phases:
                 tmp = os.path.join(root, name)
                 os.makedirs(tmp)

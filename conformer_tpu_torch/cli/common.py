@@ -69,23 +69,14 @@ def load_tokenizer_from_args(args: argparse.Namespace, cfg: Config):
     return load_tokenizer(args.tokenizer or cfg.train.tokenizer_path or "vi")
 
 
-def refuse_lm_decode(cfg: Config) -> None:
-    """A token-level device LM (``decode.device_lm_path``) asks for the
-    device beam search, which is not ported yet: raise."""
-    if cfg.decode.device_lm_path:
-        from conformer_tpu_torch.decode.pipeline import DEVICE_BEAM_NOT_PORTED
-
-        raise NotImplementedError(DEVICE_BEAM_NOT_PORTED)
-
-
 def lm_decode(args: argparse.Namespace, cfg: Config) -> "tuple[Config, str]":
     """-> (cfg with ``--lm`` as decode.lm_path, the decode mode): ``--decode
-    auto`` is greedy without an LM and beam_auto with one, as in the JAX
-    CLIs; a device LM is refused (refuse_lm_decode)."""
+    auto`` is greedy without an LM (decode.lm_path or
+    decode.device_lm_path) and beam_auto with one, as in the JAX CLIs."""
     if args.lm:
         cfg = cfg.override(**{"decode.lm_path": args.lm})
-    refuse_lm_decode(cfg)
     decode = args.decode
     if decode == "auto":
-        decode = "beam_auto" if cfg.decode.lm_path else "greedy"
+        has_lm = cfg.decode.lm_path or cfg.decode.device_lm_path
+        decode = "beam_auto" if has_lm else "greedy"
     return cfg, decode

@@ -9,8 +9,8 @@ Weights come from the newest checkpoint in ``--checkpoint-dir`` (written by
 ``conformer_tpu_torch.cli.train``, whose ``config.json`` there also sets
 the model). A CTC program gives (logits, lengths), a transducer program
 (greedy tokens, counts); ``conformer_tpu_torch.export.ExportedModel`` runs
-them. ``--decode beam`` bakes in the device beam search, which is not
-ported yet: it raises.
+them. ``--decode beam`` would bake the device beam search into the
+program, which is not ported yet: it raises.
 """
 
 from __future__ import annotations

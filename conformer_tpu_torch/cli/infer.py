@@ -1,6 +1,7 @@
-"""Transcribe audio files or a CSV manifest with greedy CTC decoding or the
-host beam search fused with an n-gram LM (``--lm lm.arpa --decode beam``),
-on the GPU unless ``--device cpu`` is given.
+"""Transcribe audio files or a CSV manifest with greedy decoding or a beam
+search fused with an n-gram LM (``--lm lm.arpa --decode beam``: the host
+search; ``--decode beam_device``: the device search), on the GPU unless
+``--device cpu`` is given.
 
     python -m conformer_tpu_torch.cli.infer --audio a.wav b.flac --weights w.pt
     python -m conformer_tpu_torch.cli.infer --manifest batch.csv --output out.csv
@@ -9,8 +10,9 @@ on the GPU unless ``--device cpu`` is given.
 ``--weights`` takes a state dict written by ``conformer_tpu_torch.convert``;
 without it the model has seeded random weights. ``--decode auto`` is greedy
 without an LM and ``beam_auto`` with one, which offline on the GPU means the
-device beam search (not ported yet: it raises, as ``--decode beam_device``
-does) and for ``--streaming`` the host beam search. ``--streaming`` feeds
+device beam search (through CUDA graphs) and for ``--streaming`` the host
+beam search; a transducer runs its RNN-T beam search for any beam mode.
+``--streaming`` feeds
 each file through a ``StreamingTranscriber`` (decode/streaming.py) in chunks
 of ``--stream-chunk-seconds`` with ``--stream-context-seconds`` of left
 context.

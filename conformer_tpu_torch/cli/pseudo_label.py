@@ -2,10 +2,10 @@
 (counterpart of conformer_tpu/cli/pseudo_label.py), on the GPU unless
 ``--device cpu`` is given.
 
-The model's own transcripts (greedy, or the host beam search with an LM)
-become the labels, filtered by confidence: the mean over an utterance's
-frames of the largest log-probability, so that only utterances the model is
-sure of enter retraining.
+The model's own transcripts (greedy, or the host or device beam search
+with an LM) become the labels, filtered by confidence: the mean over an
+utterance's frames of the largest log-probability, so that only utterances
+the model is sure of enter retraining.
 
     python -m conformer_tpu_torch.cli.pseudo_label --manifest unlabeled.csv \\
         --checkpoint-dir ckpt --output labeled.csv [--min-confidence -1.0]

@@ -33,8 +33,8 @@ with failover, session-pinned /stream/*, aggregated /stats.
 ``--weights`` takes a state dict (``conformer_tpu_torch.convert``),
 ``--checkpoint-dir`` a training checkpoint directory; with neither the model
 has seeded random weights. ``--decode beam_auto`` means the device beam
-search for /transcribe on the GPU, which is not ported: it raises there, as
-``beam_device`` does.
+search for /transcribe on the GPU (``beam_device``, CUDA graphs) and the
+host beam search for streams, as in the JAX package.
 
 The model's functions run under ``torch.inference_mode`` in each thread that
 calls them (the batching worker and the stream handlers): the mode is

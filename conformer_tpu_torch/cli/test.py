@@ -1,6 +1,6 @@
-"""Evaluate a trained model: corpus WER/CER (x100) and the CTC loss, with
-greedy decoding or the host beam search fused with an n-gram LM, on the
-GPU unless ``--device cpu`` is given.
+"""Evaluate a trained model: corpus WER/CER (x100) and the loss, with
+greedy decoding or a beam search fused with an n-gram LM, on the GPU
+unless ``--device cpu`` is given.
 
     python -m conformer_tpu_torch.cli.test --manifest eval.csv \
         --checkpoint-dir ./checkpoints [--results results.csv] \
@@ -14,8 +14,12 @@ model) or from a state dict (``--weights``). ``--results`` writes the
 ``conformer_tpu_torch.cli.create_lm``) and ``--decode beam`` the host beam
 search at ``decode.*``'s operating point (beam 190, alpha 2.1, beta 9.2,
 ``--set decode.hotwords='["..."]'``). ``--decode auto`` is greedy without an
-LM and ``beam_auto`` with one, which on the GPU means the device beam
-search: not ported yet, so it raises, as ``--decode beam_device`` does.
+LM (``decode.lm_path`` or ``decode.device_lm_path``) and ``beam_auto``
+with one, which on the GPU means the device beam search (``--decode
+beam_device``: ops/beam_search_device.py through CUDA graphs, word-level
+fusion and hotwords from ``--lm``, token-level from
+``decode.device_lm_path``) and on the CPU the host one. A transducer
+checkpoint runs its RNN-T beam search for any beam mode.
 """
 
 from __future__ import annotations

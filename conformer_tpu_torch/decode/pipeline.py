@@ -1,12 +1,19 @@
 """Inference pipeline: weights -> batched transcription and evaluation with
-greedy decode or the host CTC beam search with n-gram LM fusion, and the
-streaming transcribers that share its model (counterpart of
-conformer_tpu/decode/pipeline.py; the device beam searches, CTC and RNN-T,
-are not ported and raise).
+greedy decode, the host CTC beam search or the device beam searches, each
+with n-gram LM fusion, and the streaming transcribers that share its model
+(counterpart of conformer_tpu/decode/pipeline.py, on one device).
 
-``model.arch='transducer'`` decodes greedily on the device
-(ops/rnnt.py::rnnt_greedy_decode): its eval step returns the emitted tokens
-under the CTC step's keys, and the texts come from them as the CTC ones do.
+CTC: ``decode="beam"`` runs the host prefix beam search over the device's
+log-softmax; ``"beam_device"`` the prefix beam search on the device
+(ops/beam_search_device.py, through CUDA graphs on the card), with
+token-level fusion from ``decode.device_lm_path`` or word-level fusion and
+hotwords from ``decode.lm_path``; ``"beam_auto"`` is the device search on
+the card and the host search on the CPU. ``model.arch='transducer'``
+decodes greedily on the device (ops/rnnt.py::rnnt_greedy_decode), or with
+any beam mode by the RNN-T beam search (ops/rnnt.py::rnnt_beam_search,
+fused as the CTC device search); its eval step returns the emitted tokens
+under the CTC step's keys, and the texts come from them as the CTC ones
+do.
 
 Runs on the CUDA device unless the caller passes ``device="cpu"``; with no
 CUDA device and no explicit CPU it raises. Weights come from a
@@ -17,6 +24,7 @@ checkpoint directory, or, with neither, from a seeded random init.
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -32,7 +40,8 @@ from conformer_tpu_torch.models.conformer import build_model
 from conformer_tpu_torch.text.metrics import cer, wer
 from conformer_tpu_torch.text.tokenizer import GraphemeTokenizer
 from conformer_tpu_torch.train.checkpoint import CheckpointManager
-from conformer_tpu_torch.train.steps import make_eval_step
+from conformer_tpu_torch.train.steps import (make_eval_step,
+                                             make_transducer_eval_step)
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -44,22 +53,6 @@ def resolve_device(device="cuda") -> torch.device:
     return device
 
 
-DEVICE_BEAM_NOT_PORTED = (
-    "the device beam search (decode='beam_device', decode.device_lm_path) "
-    "is not ported yet (ROADMAP.md §1, item 7); decode='beam' "
-    "(--decode beam) runs the host beam search with decode.lm_path")
-RNNT_BEAM_NOT_PORTED = (
-    "the RNN-T beam search (model.arch='transducer' with decode='beam', "
-    "'beam_device' or 'beam_auto') is not ported yet (ROADMAP.md §1, item "
-    "7); the transducer decodes greedily")
-
-
-def refuse_transducer_beam(cfg: Config, decode: str) -> None:
-    """The transducer decodes greedily only: any beam raises."""
-    if cfg.model.arch == "transducer" and decode != "greedy":
-        raise NotImplementedError(RNNT_BEAM_NOT_PORTED)
-
-
 def resolve_beam_backend(device: torch.device) -> str:
     """The backend ``decode='beam_auto'`` means on ``device``, as the JAX
     ``resolve_beam_backend`` picks it for a batch: the device beam search
@@ -68,12 +61,49 @@ def resolve_beam_backend(device: torch.device) -> str:
     return "beam_device" if device.type == "cuda" else "beam"
 
 
+def device_lm_kwargs(cfg: Config, tokenizer: GraphemeTokenizer,
+                     device: torch.device, word_fallback: bool = False
+                     ) -> dict:
+    """The device searches' fusion kwargs (the JAX ``_device_lm_kwargs``),
+    the tables on ``device``: token-level from ``decode.device_lm_path``
+    (a token ARPA, ``cli.create_lm --token-level``); otherwise, with
+    ``word_fallback``, word-level from ``decode.lm_path`` (the host
+    decoder's word ARPA) with ``decode.hotwords``; else none."""
+    from conformer_tpu_torch.lm.device_table import (DeviceHotwords,
+                                                     DeviceNgramTable,
+                                                     DeviceWordVocab)
+
+    common = dict(lm_alpha=float(cfg.decode.alpha),
+                  lm_beta=float(cfg.decode.beta), delim_id=tokenizer.delim_id)
+    path = cfg.decode.device_lm_path or (cfg.decode.lm_path if word_fallback
+                                         else None)
+    if not path:
+        return {}
+    table = DeviceNgramTable.from_arpa(path)
+    kwargs = dict(common, lm_tables=table.device_arrays(device),
+                  lm_bos_id=int(table.bos_id),
+                  lm_unk_logp=float(table.unk_logp), lm_order=int(table.order))
+    if cfg.decode.device_lm_path:
+        kwargs["tok2lm"] = torch.tensor(
+            [table.vocab.get(s, -1) for s in tokenizer.vocab],
+            dtype=torch.int64, device=device)
+        return kwargs
+    kwargs["word_arrays"] = DeviceWordVocab.build(
+        tokenizer.vocab, table.vocab).device_arrays(device)
+    if cfg.decode.hotwords and cfg.decode.hotword_weight:
+        kwargs.update(hot_arrays=DeviceHotwords.build(
+            cfg.decode.hotwords).device_arrays(device),
+            hot_weight=float(cfg.decode.hotword_weight))
+    return kwargs
+
+
 class InferencePipeline:
     """Builds the model on ``device``, transcribes batches and evaluates
     manifests. ``decode``: "greedy" (collapse on the device), "beam" (the
     host beam search with ``cfg.decode``'s LM and hotwords over the
-    device's log-softmax) or "beam_auto" (resolve_beam_backend);
-    "beam_device" and ``cfg.decode.device_lm_path`` raise.
+    device's log-softmax), "beam_device" (the device search, fused by
+    device_lm_kwargs) or "beam_auto" (resolve_beam_backend); a transducer
+    runs its beam search for any of the three beam modes.
 
     ``batch_log`` records one entry per batch: its size, its audio seconds,
     the padded seconds the model ran on, the wall seconds it took (the
@@ -96,13 +126,11 @@ class InferencePipeline:
         if weights and checkpoint_dir:
             raise ValueError("give weights or checkpoint_dir, not both")
         self.device = resolve_device(device)
-        refuse_transducer_beam(cfg, decode)
+        self.stream_decode = decode     # a stream resolves beam_auto itself
         if decode == "beam_auto":
             decode = resolve_beam_backend(self.device)
             print(f"[infer] beam_auto -> {decode}")
-        if decode == "beam_device" or cfg.decode.device_lm_path:
-            raise NotImplementedError(DEVICE_BEAM_NOT_PORTED)
-        if decode not in ("greedy", "beam"):
+        if decode not in ("greedy", "beam", "beam_device"):
             raise ValueError(f"unknown decode {decode!r}")
         cfg = cfg.override(**{"model.vocab_size": tokenizer.vocab_size})
         self.cfg, self.tok, self.decode = cfg, tokenizer, decode
@@ -124,19 +152,50 @@ class InferencePipeline:
             model = build_model(cfg.model, cfg.optim.compute_dtype, seed)
         self.model = model.to(self.device).eval()
         self.frontend = MelFrontend(cfg.audio, device=self.device)
+        self._beam = self._device_beam = None
+        self.batch_log: List[dict] = []
+        if cfg.model.arch == "transducer":
+            beam = decode != "greedy"
+            self.eval_step = make_transducer_eval_step(
+                cfg, self.model, self.frontend,
+                decode="beam" if beam else "greedy", unk_id=tokenizer.unk_id,
+                lm_kwargs=device_lm_kwargs(cfg, tokenizer, self.device,
+                                           word_fallback=True) if beam
+                else None)
+            return
         self.eval_step = make_eval_step(cfg, self.model, self.frontend,
                                         unk_id=tokenizer.unk_id)
-        self._beam = None
         if decode == "beam":
             from conformer_tpu_torch.decode.beam_search import BeamSearchDecoder
 
             self._beam = BeamSearchDecoder(tokenizer, cfg.decode)
-        self.batch_log: List[dict] = []
+        if decode == "beam_device":
+            from conformer_tpu_torch.ops.beam_search_device import \
+                ctc_beam_search_device
+
+            self._device_beam = functools.partial(
+                ctc_beam_search_device, beam_width=cfg.decode.beam_width,
+                top_k=cfg.decode.device_top_k, blank_id=tokenizer.pad_id,
+                unk_id=tokenizer.unk_id, max_len=cfg.data.max_tokens,
+                scan_unroll=cfg.decode.device_scan_unroll,
+                **device_lm_kwargs(cfg, tokenizer, self.device,
+                                   word_fallback=True))
 
     def texts_from_out(self, out: dict) -> List[str]:
-        """Eval-step outputs -> texts: the beam search over the log-softmax
-        (fp32 on the host, each row to its true length), or the greedy
-        tokens collapsed on the device."""
+        """Eval-step outputs -> texts: the device beam search over the
+        log-softmax (its best beam), the host beam search (fp32 on the
+        host, each row to its true length), or the tokens the eval step
+        emitted (greedy collapse; a transducer's best beam)."""
+        if self._device_beam is not None:
+            with torch.inference_mode():
+                prefixes, plens, _ = self._device_beam(out["log_probs"],
+                                                       out["lengths"])
+            prefixes, plens = prefixes[:, 0].cpu().numpy(), plens[:, 0].cpu()
+            # strip: a best beam may end in a delimiter, which the host
+            # search renders without a trailing space
+            return [self.tok.spec_decode(self.tok.collapsed_ids_to_text(
+                        prefixes[i], int(plens[i]))).strip()
+                    for i in range(len(prefixes))]
         if self._beam is not None:
             log_probs = out["log_probs"].float().cpu().numpy()
             lengths = out["lengths"].cpu().numpy()
@@ -195,14 +254,15 @@ class InferencePipeline:
                               pipeline_chunks: bool = True):
         """-> a ``StreamingTranscriber`` over this pipeline's model and
         frontend, with its config's LM and hotwords; ``decode`` defaults to
-        the pipeline's (decode/streaming.py resolves ``beam_auto`` for a
-        stream)."""
+        the mode the pipeline was asked for (decode/streaming.py resolves
+        ``beam_auto`` for a stream)."""
         from conformer_tpu_torch.decode.streaming import StreamingTranscriber
 
         return StreamingTranscriber(
             self.cfg, self.tok, self.model, self.frontend, chunk_s=chunk_s,
-            left_context_s=left_context_s, decode=decode or self.decode,
-            decode_cfg=self.cfg.decode, pipeline_chunks=pipeline_chunks)
+            left_context_s=left_context_s,
+            decode=decode or self.stream_decode, decode_cfg=self.cfg.decode,
+            pipeline_chunks=pipeline_chunks)
 
     def transcribe_files(self, paths: Sequence[str], batch_size: int = 8,
                          channel: Optional[int] = None,

@@ -1,6 +1,5 @@
 """Streaming transcription: a chunked encoder with left-context carry and
-frame-synchronous emission (counterpart of conformer_tpu/decode/streaming.py,
-CTC and the transducer's greedy decode).
+frame-synchronous emission (counterpart of conformer_tpu/decode/streaming.py).
 
 Each chunk is encoded together with the trailing ``left_context_s`` seconds
 of audio already seen; the context half of the output is dropped, and the
@@ -27,18 +26,31 @@ event alone (a blocking copy would wait for the chunk just enqueued too).
 Finalized text lags one chunk; ``.text`` and ``finish()`` drain it.
 ``pipeline_chunks=False`` emits each chunk at once.
 
+``decode="beam_device"`` (CTC) runs the device prefix beam search
+(ops/beam_search_device.py, CUDA graphs on the card) on each window's
+log-softmax from its first new frame, with word-level fusion and hotwords
+from ``decode.lm_path`` (or token-level from ``decode.device_lm_path``):
+the raw ``BeamState`` stays on the device from window to window, so the
+stream is the offline search over the streamed frames. The best beam is
+read only by ``.text``.
+
 The transducer (``model.arch='transducer'``) decodes each window greedily
 on the device from its first new frame (``rnnt_greedy_decode(start_frames=,
 return_carry=True)``, at most ``max(chunk frames * 4, 8)`` tokens a window)
 and carries the prediction network's (state, pred) on the device into the
 next window, so its label history is exact across windows; ``reset()``
-starts it again from ``predict_init(1)``. Its beam search and the device
-CTC beam search (``decode="beam_device"``) are not ported (ROADMAP.md §1,
-item 7): they raise.
+starts it again from ``predict_init(1)``. With ``decode="beam"`` (or
+``"beam_device"``) it runs the RNN-T beam search instead
+(``rnnt_beam_search(init_beams=, return_beams=True)``, token-level fusion
+from ``decode.device_lm_path``), the raw beams carried on the device from
+window to window. A device beam's hypothesis is revisable: ``feed``
+returns "" and the live hypothesis is ``.text``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import List, Optional
 
 import numpy as np
@@ -46,9 +58,9 @@ import torch
 
 from conformer_tpu_torch.audio.mel import MelFrontend
 from conformer_tpu_torch.config import Config, DecodeConfig
-from conformer_tpu_torch.decode.pipeline import (DEVICE_BEAM_NOT_PORTED,
-                                                 refuse_transducer_beam)
-from conformer_tpu_torch.ops.rnnt import rnnt_greedy_decode
+from conformer_tpu_torch.decode.pipeline import device_lm_kwargs
+from conformer_tpu_torch.ops.beam_search_device import ctc_beam_search_device
+from conformer_tpu_torch.ops.rnnt import rnnt_beam_search, rnnt_greedy_decode
 from conformer_tpu_torch.text.tokenizer import GraphemeTokenizer
 from conformer_tpu_torch.train.steps import make_forward
 
@@ -57,15 +69,15 @@ def resolve_streaming_decode(cfg: Config, decode: str) -> str:
     """-> the decode mode a stream runs: ``beam_auto`` is the host beam
     search ("beam"), as the JAX ``resolve_beam_backend(streaming=True)``
     picks it without an active mesh (the port has none): at batch 1 the
-    host search wins. ``beam_device`` and a transducer's beam raise."""
+    host search wins. A transducer's ``beam_device`` is its beam ("beam"),
+    which already runs on the device."""
     if decode == "beam_auto":
         decode = "beam"
     if decode not in ("greedy", "beam", "beam_device"):
         raise ValueError(f"decode must be greedy|beam|beam_device|beam_auto, "
                          f"got {decode!r}")
-    refuse_transducer_beam(cfg, decode)
-    if decode == "beam_device":
-        raise NotImplementedError(DEVICE_BEAM_NOT_PORTED)
+    if cfg.model.arch == "transducer" and decode == "beam_device":
+        decode = "beam"
     return decode
 
 
@@ -82,9 +94,9 @@ class StreamingTranscriber:
     same device (one is built when none is given). ``chunk_s``: audio
     emitted per encoder call; ``left_context_s``: audio already seen that
     each chunk attends to. ``keep_windows``: keep each encoded window's
-    fp32 log-softmax (CTC) or emitted token ids (transducer), one row on
-    the host, in ``windows``, for checks that hold the streamed outputs
-    against an offline run.
+    fp32 log-softmax (CTC) or emitted token ids (transducer greedy), one
+    row on the host, in ``windows``, for checks that hold the streamed
+    outputs against an offline run (the device beams keep none).
     """
 
     def __init__(self, cfg: Config, tokenizer: GraphemeTokenizer,
@@ -109,8 +121,25 @@ class StreamingTranscriber:
         self._model = model
         self._transducer = cfg.model.arch == "transducer"
         self._max_per_chunk = max(self.chunk // stride * 4, 8)
-        self._beam = None
-        if decode == "beam":
+        self._beam = self._device_search = None
+        dcfg = decode_cfg or cfg.decode
+        if self._transducer and decode == "beam":
+            lm = device_lm_kwargs(dataclasses.replace(cfg, decode=dcfg),
+                                  tokenizer, self.device)
+            self._device_search = functools.partial(
+                rnnt_beam_search, beam_width=dcfg.beam_width,
+                top_k=dcfg.rnnt_top_k, max_symbols=dcfg.rnnt_max_symbols,
+                max_len=cfg.data.max_tokens, unk_id=tokenizer.unk_id,
+                scan_unroll=dcfg.device_scan_unroll, return_beams=True, **lm)
+        elif decode == "beam_device":
+            lm = device_lm_kwargs(dataclasses.replace(cfg, decode=dcfg),
+                                  tokenizer, self.device, word_fallback=True)
+            self._device_search = functools.partial(
+                ctc_beam_search_device, beam_width=dcfg.beam_width,
+                top_k=dcfg.device_top_k, blank_id=tokenizer.pad_id,
+                unk_id=tokenizer.unk_id, max_len=cfg.data.max_tokens,
+                scan_unroll=dcfg.device_scan_unroll, return_state=True, **lm)
+        elif decode == "beam":
             from conformer_tpu_torch.decode.beam_search import \
                 BeamSearchDecoder
 
@@ -135,6 +164,8 @@ class StreamingTranscriber:
         self.windows: List[torch.Tensor] = []
         # the host beam search starts a fresh search; its LM stays loaded
         self._stream = self._beam.stream() if self._beam is not None else None
+        self._beams = None          # a device search's raw beams
+        self._best = None           # and its best (tokens, count), on device
 
     def _sub_frames(self, n_samples: int) -> int:
         """Samples -> subsampled encoder frames."""
@@ -190,11 +221,38 @@ class StreamingTranscriber:
         event.record()
         return host, host_len, event
 
+    @torch.inference_mode()
+    def _search_window(self, audio: np.ndarray, start: int) -> None:
+        """Encode ``audio`` padded to one window and advance the device
+        search's beams over its frames from ``start``, all on the device."""
+        window = self.ctx + self.chunk
+        padded = np.zeros((1, max(len(audio), window)), np.float32)
+        padded[0, : len(audio)] = audio
+        x = torch.from_numpy(padded).to(self.device)
+        n = torch.tensor([len(audio)], dtype=torch.int64, device=self.device)
+        out, out_len = self._forward(x, n)
+        start_frames = torch.tensor([start], dtype=torch.int64,
+                                    device=self.device)
+        if self._transducer:        # "out" are the encodings here
+            joint_fn, pred_step_fn = self._model.beam_fns()
+            prefixes, plens, _, self._beams = self._device_search(
+                joint_fn, out, out_len, pred_step_fn,
+                self._model.predict_init(1, self.device),
+                start_frames=start_frames, init_beams=self._beams)
+        else:
+            prefixes, plens, _, self._beams = self._device_search(
+                torch.log_softmax(out.float(), dim=-1), out_len,
+                start_frames=start_frames, init_state=self._beams)
+        self._best = (prefixes[0, 0], plens[0, 0])
+
     def _run_window(self, audio: np.ndarray, emit_from_sample: int) -> str:
         """Encode ``audio``; emit the collapsed text (greedy) or advance the
         beams (beam) for the frames at and after the subsampled position of
         ``emit_from_sample``, one chunk late when pipelined."""
         start = self._sub_frames(emit_from_sample) if emit_from_sample else 0
+        if self._device_search is not None:
+            self._search_window(audio, start)
+            return ""
         enqueued = self._enqueue(audio, start)
         piece = self._drain_pending()
         self._pending = (*enqueued, start)
@@ -273,7 +331,7 @@ class StreamingTranscriber:
         if tail:
             self._pieces.append(tail)
             emitted += tail
-        if self._stream is not None:
+        if self._stream is not None or self._device_search is not None:
             return self.text
         return emitted
 
@@ -287,5 +345,11 @@ class StreamingTranscriber:
             self._pieces.append(tail)
         if self._stream is not None:
             return self._stream.text()
+        if self._device_search is not None:
+            if self._best is None:
+                return ""
+            ids, n = self._best       # the only host read of a device beam
+            return self.tok.collapsed_ids_to_text(ids.cpu().numpy(),
+                                                  int(n)).strip()
         raw = "".join(self._pieces).replace(self.tok.delim_token, " ")
         return self.tok.spec_decode(raw).strip()

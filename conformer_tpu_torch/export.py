@@ -38,8 +38,10 @@ from conformer_tpu_torch.decode.pipeline import resolve_device
 from conformer_tpu_torch.ops.rnnt import rnnt_greedy_decode
 
 EXPORT_BEAM_NOT_PORTED = (
-    "decode='beam' export bakes in the device beam search (CTC or RNN-T), "
-    "which is not ported yet (ROADMAP.md §1, item 7); export decode='logits'")
+    "decode='beam' export bakes the device beam search (CTC or RNN-T) into "
+    "the program, which is not ported yet: torch.export unrolls its frame "
+    "loop (ROADMAP.md §1, item 3); export decode='logits' and run the "
+    "device search on the program's outputs")
 
 
 class _Program(nn.Module):
@@ -70,8 +72,9 @@ def export_model(cfg: Config, model: nn.Module, out_dir: str,
                  decode: str = "logits", tokenizer=None) -> List[str]:
     """Export ``model`` (on its device, in eval mode) with its frontend, one
     program per bucket of ``audio_seconds``; -> the program files.
-    ``decode='beam'`` raises: its device beam search is not ported.
-    ``tokenizer`` is what the beam would need, unused until then."""
+    ``decode='beam'`` raises: a program with the device beam search
+    baked in is not ported. ``tokenizer`` is what the beam would need,
+    unused until then."""
     del tokenizer
     if decode == "beam":
         raise NotImplementedError(EXPORT_BEAM_NOT_PORTED)

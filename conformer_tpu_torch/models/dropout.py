@@ -30,8 +30,9 @@ _coord_cache: Dict[tuple, torch.Tensor] = {}
 
 
 def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2^32 for int64 x in [0, 2^32) and a 32-bit constant, in
-    two 16-bit halves so no product leaves int64."""
+    """(x * c) mod 2^32 for int64 x in [0, 2^32) and a 32-bit constant or
+    int64 tensor c in [0, 2^32), in two 16-bit halves of c so no product
+    leaves int64."""
     lo = x * (c & 0xFFFF)
     hi = ((x * (c >> 16)) & 0xFFFF) << 16
     return (lo + hi) & M32

@@ -6,8 +6,9 @@ conformer_tpu/models/transducer.py).
 joint lattice, ``forward_factors`` the joint's additive halves for the
 lattice-free loss (ops/rnnt.py::rnnt_loss_scan), and ``encode``,
 ``joint_logits``, ``predict_init`` and ``predict_step`` are what the greedy
-decode (ops/rnnt.py::rnnt_greedy_decode) steps through (``greedy_fns``
-gives the last two with their weights cast once a decode).
+decode and the beam search (ops/rnnt.py) step through (``greedy_fns``
+gives the last two with their weights cast once a decode; ``beam_fns`` the
+same two functions for as long as the weights are unchanged).
 
 The LSTM cell is flax's ``OptimizedLSTMCell``: gates [i, f, g, o], input
 kernels without a bias and recurrent kernels with one, the products and
@@ -199,6 +200,19 @@ class Transducer(nn.Module):
     def predict_step(self, state: List[Carry], tokens: torch.Tensor):
         """state, (B,) ids -> (state, (B, H)): advance by one token."""
         return self.prediction.step_fn()(state, self.prediction.embed(tokens))
+
+    def beam_fns(self):
+        """greedy_fns for the beam search: the same two functions come back
+        while no parameter has moved or changed (its address and version
+        counter), so that the search's CUDA graph, which reads their
+        weights by address, is captured once for them
+        (ops/frame_graph.py)."""
+        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        cached = self.__dict__.get("_beam_fns")
+        if cached is None or cached[0] != key:
+            cached = (key, self.greedy_fns())
+            self.__dict__["_beam_fns"] = cached
+        return cached[1]
 
     def greedy_fns(self):
         """-> (joint_logits, predict_step) as functions for

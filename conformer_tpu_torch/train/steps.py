@@ -8,9 +8,9 @@ Mixed precision as in the JAX package: the compute dtype (bf16 by default)
 in the model, fp32 parameters, fp32 logits and loss. ``make_train_step`` and
 ``make_eval_step`` dispatch on ``model.arch``: the transducer trains on the
 lattice-free ``rnnt_loss_scan`` (or, with ``rnnt_loss_impl='lattice'``, on
-the full joint lattice) and decodes greedily (ops/rnnt.py). Its train step
-honours ``optim.accum_steps`` as the CTC one does; the JAX transducer step
-ignores it.
+the full joint lattice) and decodes greedily, or by its beam search
+(ops/rnnt.py). Its train step honours ``optim.accum_steps`` as the CTC one
+does; the JAX transducer step ignores it.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ from conformer_tpu_torch.audio.augment import spec_augment
 from conformer_tpu_torch.audio.mel import MelFrontend
 from conformer_tpu_torch.config import Config
 from conformer_tpu_torch.ops.ctc import ctc_loss, greedy_decode
-from conformer_tpu_torch.ops.rnnt import (rnnt_greedy_decode,
+from conformer_tpu_torch.ops.rnnt import (rnnt_beam_search,
+                                          rnnt_greedy_decode,
                                           rnnt_loss_from_logits,
                                           rnnt_loss_scan)
 from conformer_tpu_torch.train.state import Optimizer
@@ -160,15 +161,26 @@ def make_eval_step(cfg: Config, model: torch.nn.Module,
 
 
 def make_transducer_eval_step(cfg: Config, model: torch.nn.Module,
-                              frontend: Optional[MelFrontend] = None
-                              ) -> Callable:
+                              frontend: Optional[MelFrontend] = None,
+                              decode: str = "greedy",
+                              unk_id: Optional[int] = None,
+                              lm_kwargs: Optional[dict] = None) -> Callable:
     """-> step(audio, audio_lengths[, tokens, token_lengths]) -> {tokens,
     counts, lengths} (+ ``loss``, the lattice-free RNN-T loss over the rows
-    with a transcript, when transcripts are given): the greedy decode's
-    emitted tokens under the CTC eval step's keys, so that validation and
-    the pipeline assemble texts the same way. ``decode.rnnt_max_symbols``
-    tokens a frame at most, ``data.max_tokens`` a row."""
+    with a transcript, when transcripts are given): the emitted tokens
+    under the CTC eval step's keys, so that validation and the pipeline
+    assemble texts the same way. ``decode="greedy"``: the greedy decode,
+    ``decode.rnnt_max_symbols`` tokens a frame at most, ``data.max_tokens``
+    a row. ``decode="beam"``: the best beam of the RNN-T beam search at
+    ``decode.beam_width`` (``rnnt_top_k``, ``rnnt_max_symbols``,
+    ``rnnt_length_norm``, ``device_scan_unroll``; never ``unk_id``), fused
+    by ``lm_kwargs`` (decode/pipeline.py::device_lm_kwargs), and its
+    ``scores``."""
+    if decode not in ("greedy", "beam"):
+        raise ValueError(f"transducer decode must be greedy|beam, got "
+                         f"{decode!r}")
     forward = make_forward(cfg, model, frontend)
+    dc = cfg.decode
 
     @torch.inference_mode()
     def step(audio: torch.Tensor, audio_lengths: torch.Tensor,
@@ -176,13 +188,23 @@ def make_transducer_eval_step(cfg: Config, model: torch.nn.Module,
              token_lengths: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
         enc, enc_lengths = forward(audio, audio_lengths)
-        joint_fn, pred_step_fn = model.greedy_fns()
-        ids, counts = rnnt_greedy_decode(
-            joint_fn, enc, enc_lengths, pred_step_fn,
-            model.predict_init(enc.shape[0], enc.device),
-            max_symbols=cfg.decode.rnnt_max_symbols,
-            max_len=cfg.data.max_tokens)
-        out = {"tokens": ids, "counts": counts, "lengths": enc_lengths}
+        joint_fn, pred_step_fn = (model.beam_fns() if decode == "beam"
+                                  else model.greedy_fns())
+        pred_init = model.predict_init(enc.shape[0], enc.device)
+        if decode == "beam":
+            prefixes, plens, scores = rnnt_beam_search(
+                joint_fn, enc, enc_lengths, pred_step_fn, pred_init,
+                beam_width=dc.beam_width, top_k=dc.rnnt_top_k,
+                max_symbols=dc.rnnt_max_symbols, max_len=cfg.data.max_tokens,
+                unk_id=unk_id, length_norm=dc.rnnt_length_norm,
+                scan_unroll=dc.device_scan_unroll, **(lm_kwargs or {}))
+            out = {"tokens": prefixes[:, 0], "counts": plens[:, 0],
+                   "scores": scores[:, 0], "lengths": enc_lengths}
+        else:
+            ids, counts = rnnt_greedy_decode(
+                joint_fn, enc, enc_lengths, pred_step_fn, pred_init,
+                max_symbols=dc.rnnt_max_symbols, max_len=cfg.data.max_tokens)
+            out = {"tokens": ids, "counts": counts, "lengths": enc_lengths}
         if tokens is not None:
             e, p = model.joint.factors(enc, model.prediction(tokens))
             out["loss"] = rnnt_loss_scan(

@@ -14,8 +14,11 @@ the CPU.
 - ``InferencePipeline(decode="beam", device="cpu")`` at ``ModelConfig.tiny``
   with the JAX pipeline's weights gives its texts, WER and CER at beam 16
   with the LM;
-- the device beam search (beam_device, beam_auto on a CUDA device, a device
-  LM) raises instead of running the host beam.
+- ``beam_auto`` resolves as the JAX package resolves it (the host beam on
+  the CPU, the device beam on a CUDA device), and
+  ``InferencePipeline(decode="beam_device", device="cpu")`` (the port's
+  eager device search, word LM and a hotword, W 8) gives the JAX
+  pipeline's texts, WER and CER.
 """
 
 import csv
@@ -212,17 +215,25 @@ def _manifest(directory):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(directory, arpa):
+@functools.lru_cache(maxsize=None)
+def _variables():
+    """The tiny model's flax-initialised weights (the pipeline's key 0),
+    compiled once."""
+    jcfg = JConfig(model=JModelConfig.tiny(370)).override(**OVERRIDES)
+    return jax.jit(functools.partial(init_variables, jcfg, mel_frames=32))(
+        jax.random.PRNGKey(0))
+
+
+def _reference(directory, arpa, decode="beam", **overrides):
     """(port config, port state dict, JAX metrics, JAX pairs): the JAX
-    pipeline with seeded random weights, decode="beam" with the LM."""
+    pipeline with seeded random weights, ``decode`` with the LM."""
     jcfg = JConfig(model=JModelConfig.tiny(370)).override(**OVERRIDES)
     jcfg = jcfg.override(**{"train.checkpoint_dir": str(directory / "none"),
-                            "decode.lm_path": arpa})
-    init = jax.jit(functools.partial(init_variables, jcfg, mel_frames=32))
+                            "decode.lm_path": arpa, **overrides})
     with mock.patch.object(jpipeline, "init_variables",
-                           lambda cfg, key: init(key)):
+                           lambda cfg, key: _variables()):
         pipe = jpipeline.InferencePipeline(jcfg, j_load_tokenizer("vi"),
-                                           decode="beam")
+                                           decode=decode)
     metrics, pairs = pipe.evaluate(str(directory / "eval.csv"))
     variables = {"params": pipe.state.params,
                  "batch_stats": pipe.state.batch_stats}
@@ -249,21 +260,37 @@ def test_pipeline_beam_with_lm_matches_the_jax_pipeline(arpa, tmp_path_factory,
     assert all(b["decode_s"] <= b["seconds"] for b in pipe.batch_log)
 
 
-def test_device_beam_raises_where_the_jax_package_would_take_it(monkeypatch,
-                                                                 vi):
+@pytest.fixture(scope="module")
+def jax_device_beam(arpa, tmp_path_factory):
+    """(manifest, port config, weights file, JAX metrics, JAX pairs) of the
+    JAX pipeline with decode="beam_device" (word LM, a hotword, W 8)."""
+    directory = tmp_path_factory.mktemp("device_beam")
+    manifest = _manifest(directory)
+    over = {"decode.beam_width": 8, "decode.hotwords": ("XIN CHÀO",)}
+    tcfg, state, metrics, pairs = _reference(directory, arpa,
+                                             decode="beam_device", **over)
+    weights = directory / "w.pt"
+    torch.save(state, weights)
+    return manifest, tcfg, weights, metrics, pairs
+
+
+def test_device_beam_raises_where_the_jax_package_would_take_it(
+        jax_device_beam, vi):
     """beam_auto picks the backend as the JAX resolve_beam_backend does:
-    the host beam on the CPU, the device beam on an accelerator, where the
-    port raises (no host beam in its place); so do beam_device and a
-    device LM."""
-    cfg = Config().override(**{"model.n_blocks": 1})
+    the host beam on the CPU, the device beam on an accelerator. The
+    device beam no longer raises: ``decode="beam_device"`` on the CPU runs
+    the port's eager search (word LM from decode.lm_path, a hotword, W 8)
+    and gives the JAX pipeline's texts, WER, CER and loss."""
     assert resolve_beam_backend(torch.device("cpu")) == "beam" == \
         jpipeline.resolve_beam_backend(n_devices=1)
     assert resolve_beam_backend(torch.device("cuda")) == "beam_device"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        InferencePipeline(cfg, vi, decode="beam_device", device="cpu")
-    with pytest.raises(NotImplementedError, match="--decode beam"):
-        InferencePipeline(cfg.override(**{"decode.device_lm_path": "t.arpa"}),
-                          vi, decode="beam", device="cpu")
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        InferencePipeline(cfg, vi, decode="beam_auto", device="cuda")
+    manifest, tcfg, weights, want_metrics, want_pairs = jax_device_beam
+    pipe = InferencePipeline(tcfg, vi, weights=str(weights),
+                             decode="beam_device", device="cpu")
+    assert pipe._device_beam is not None and pipe._beam is None
+    metrics, pairs = pipe.evaluate(manifest)
+    assert pairs == want_pairs and len(pairs) == len(TEXTS)
+    assert metrics["wer"] == want_metrics["wer"]
+    assert metrics["cer"] == want_metrics["cer"]
+    np.testing.assert_allclose(metrics["loss"], want_metrics["loss"],
+                               rtol=1e-5)

@@ -98,32 +98,76 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
                        "--set", "model.n_blocks=1"])
 
 
-def test_unported_decoders_raise():
-    """The device beam search (decode beam_device, a device LM, offline or
-    streaming) is not ported: it raises; the host beam runs instead of
-    none of them."""
-    from conformer_tpu_torch.cli import test as cli_test
-    from conformer_tpu_torch.cli.infer import main
-    from conformer_tpu_torch.config import Config, ModelConfig
-    from conformer_tpu_torch.decode.pipeline import InferencePipeline
-    from conformer_tpu_torch.text.tokenizer import load_tokenizer
+_DEVICE_BEAMS = r'''
+import csv, os, sys
+import numpy as np
+from scipy.io import wavfile
 
-    cfg = Config(model=ModelConfig.tiny(370))
-    with pytest.raises(NotImplementedError):
-        InferencePipeline(cfg, load_tokenizer("vi"), decode="beam_device",
-                          device="cpu")
-    device_lm = ["--set", "decode.device_lm_path=lm_tokens.arpa"]
-    for flag in (["--streaming", "--decode", "beam_device"],
-                 ["--decode", "beam_device"], device_lm):
-        with pytest.raises(NotImplementedError):
-            main(["--audio", "a.wav", "--device", "cpu", *flag])
-    tiny = ["--set", "model.n_blocks=1", "--set", "model.d_model=64",
-            "--set", "model.n_heads=2", "--set", "model.kernel_size=7"]
-    for flag in (["--decode", "beam_device"], device_lm,
-                 ["--lm", "lm.arpa", *device_lm]):
-        with pytest.raises(NotImplementedError):
-            cli_test.main(["--manifest", "m.csv", "--device", "cpu", *tiny,
-                           *flag])
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {"jax", "jaxlib", "flax", "optax", "orbax",
+                                  "conformer_tpu"}:
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import torch
+torch.set_num_threads(1)
+from conformer_tpu_torch.cli import test as cli_test
+from conformer_tpu_torch.cli.infer import main
+from conformer_tpu_torch.text.tokenizer import load_tokenizer
+
+tok = load_tokenizer("vi")
+rng = np.random.default_rng(0)
+wav = os.path.abspath("a.wav")
+wavfile.write(wav, 16000, (rng.standard_normal(12000) * 3000).astype(np.int16))
+with open("m.csv", "w", newline="", encoding="utf8") as f:
+    csv.writer(f).writerows([["path", "text"], [wav, "xin chào"]])
+# a word ARPA and a token ARPA, written out
+words = ["XIN", "CHÀO"]
+with open("w.arpa", "w", encoding="utf8") as f:
+    f.write("\\data\\\nngram 1=4\n\n\\1-grams:\n-1.0\t<s>\t-0.3\n"
+            "-0.5\t</s>\n-0.6\tXIN\t-0.2\n-0.7\tCHÀO\t-0.2\n\n\\end\\\n")
+toks = [t for t in tok.vocab[1:40]]
+with open("t.arpa", "w", encoding="utf8") as f:
+    f.write("\\data\\\nngram 1=%d\nngram 2=1\n\n\\1-grams:\n" % (len(toks) + 2))
+    f.write("-1.0\t<s>\t-0.3\n-1.5\t</s>\n")
+    f.write("".join("-1.6\t%s\t-0.1\n" % t for t in toks))
+    f.write("\n\\2-grams:\n-0.4\t%s %s\n\n\\end\\\n" % (toks[0], toks[1]))
+tiny = ["--set", "model.n_blocks=1", "--set", "model.d_model=64",
+        "--set", "model.n_heads=2", "--set", "model.kernel_size=7",
+        "--set", "model.lstm_hidden_dim=80", "--set", "decode.beam_width=8",
+        "--decode", "beam_device"]
+device_lm = ["--set", "decode.device_lm_path=t.arpa"]
+decodes = []
+for flag in (["--streaming", "--lm", "w.arpa", "--set",
+              'decode.hotwords=["XIN CHÀO"]'], device_lm):
+    decodes.append(main(["--audio", wav, "--device", "cpu", *tiny,
+                         *flag]).decode)
+metrics = []
+for flag in (["--lm", "w.arpa"], device_lm):
+    metrics.append(cli_test.main(["--manifest", "m.csv", "--device", "cpu",
+                                  *tiny, *flag]))
+assert all(np.isfinite(m["loss"]) for m in metrics), metrics
+assert not {m for m in sys.modules
+            if m.split(".")[0] in {"jax", "flax", "conformer_tpu"}}
+print(decodes, len(metrics))
+'''
+
+
+def test_unported_decoders_raise(tmp_path):
+    """Once refused, the device beam paths (decode beam_device, offline and
+    streaming, word-level fusion and a hotword from --lm and token-level
+    from a device LM, through cli.infer and cli.test) now run the port's
+    eager search on the CPU, with JAX and the JAX package blocked from
+    import."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _DEVICE_BEAMS], cwd=tmp_path,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    # the streaming run's pipeline holds only the model (greedy)
+    assert out.stdout.strip().splitlines()[-1] == \
+        "['greedy', 'beam_device'] 2"
 
 
 def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():

@@ -646,14 +646,45 @@ def test_stream_sessions_give_the_jax_transcriber_text(served):
     assert stats["stream_sessions"] == 2 and stats["stream_active"] == 0
 
 
-def test_beam_auto_on_the_card_raises_as_infer_does(monkeypatch, tmp_path):
-    """Offline on the card beam_auto means the device beam search, which is
-    not ported: building the server raises before any model is made."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    args = serve.parse_args(["--decode", "beam_auto", "--device", "cuda",
-                             "--port", "0", "--set", "model.n_blocks=1"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        serve.make_server(args)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        serve.make_server(serve.parse_args(
-            ["--decode", "beam_device", "--device", "cpu", "--port", "0"]))
+def test_beam_auto_on_the_card_raises_as_infer_does():
+    """Offline on the card beam_auto means the device beam search, which
+    no longer raises: a server with ``--decode beam_device`` (here on the
+    CPU, the port's eager search, W 8) serves /transcribe with the texts
+    its pipeline gives the same padded batch, and its stream sessions run
+    the device search window by window; beam_auto on the CPU is the host
+    search."""
+    from conformer_tpu_torch.decode.pipeline import resolve_beam_backend
+
+    assert resolve_beam_backend(torch.device("cuda")) == "beam_device"
+    tiny = ["--device", "cpu", "--port", "0", "--buckets", "2.0",
+            "--window-ms", "10", "--stream-chunk-seconds", "1.0",
+            "--stream-context-seconds", "1.0", "--set", "model.n_blocks=1",
+            "--set", "model.d_model=64", "--set", "model.n_heads=2",
+            "--set", "model.kernel_size=7", "--set", "decode.beam_width=8"]
+    server = serve.make_server(serve.parse_args(
+        ["--decode", "beam_device", *tiny]))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        assert server.pipe.decode == "beam_device"
+        sig = np.clip(np.random.default_rng(4).standard_normal(SR) * 0.1,
+                      -1, 1).astype(np.float32)
+        body = _post(f"{base}/transcribe",
+                     _wav_bytes((sig * 32767).astype(np.int16)))[1]
+        padded = np.zeros((1, 2 * SR), np.float32)
+        padded[0, :SR] = np.round(sig * 32767) / 32768.0
+        assert body["text"] == server.pipe.transcribe_batch(
+            padded, np.array([SR]))[0]
+        sid = _post(f"{base}/stream/start")[1]["session"]
+        pcm = np.round(np.tile(sig, 3) * 32767).astype("<i2").tobytes()
+        assert _post(f"{base}/stream/{sid}", pcm,
+                     {"Content-Type": "audio/l16"})[1]["text_delta"] == ""
+        final = _post(f"{base}/stream/{sid}/finish")[1]["text"]
+        assert isinstance(final, str)
+    finally:
+        server.shutdown()
+        server.server_close()
+    auto = serve.make_server(serve.parse_args(["--decode", "beam_auto",
+                                               *tiny]))
+    assert auto.pipe.decode == "beam" and auto.pipe._beam is not None
+    auto.server_close()

@@ -10,8 +10,10 @@
   synchronous one, ``reset`` clears every carried state;
 - a single-chunk utterance gives the offline pipeline's text;
 - ``beam_auto`` is the host beam search, as the JAX package resolves it for a
-  stream; the transducer's beam and ``beam_device`` raise (the transducer's
-  greedy streaming is held against the JAX package in
+  stream; ``beam_device`` (the device search, word LM, W 8) gives the JAX
+  transcriber's texts whatever the block size, also through ``cli.infer
+  --streaming``; a transducer's ``beam_device`` is its beam (its greedy
+  streams are held against the JAX package and its beam stream runs in
   test_torch_transducer.py).
 """
 
@@ -69,6 +71,7 @@ AUDIO = {name: _audio(sec, seed=i) for i, (name, sec) in
          enumerate(SECONDS.items())}
 
 
+@functools.lru_cache(maxsize=None)
 @functools.lru_cache(maxsize=None)
 def _jax_model():
     jcfg = JConfig(model=JModelConfig.tiny(370)).override(
@@ -266,15 +269,47 @@ def test_beam_auto_is_the_host_beam_for_a_stream(port, arpa):
         _transcriber(port, "nonsense")
 
 
-def test_transducer_and_device_beam_raise(port):
-    cfg, model, tok = port
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _transcriber(port, "beam_device")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        StreamingTranscriber(cfg.override(**{"model.arch": "transducer"}),
-                             tok, model, decode="beam")
+def test_transducer_and_device_beam_raise(port, arpa, tmp_path, capsys):
+    """Once refused, the device beam streams: ``decode="beam_device"``
+    (word LM, W 8) gives the JAX transcriber's texts whatever the block
+    size, through the transcriber and ``cli.infer --streaming``; a
+    transducer's beam_device is its beam."""
+    import dataclasses
+
     from conformer_tpu_torch.cli.infer import main
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        main(["--audio", "a.wav", "--device", "cpu", "--streaming",
-              "--decode", "beam_device"])
+    cfg, model, tok = port
+    jcfg, variables = _jax_model()
+    jdec, dcfg = (dataclasses.replace(d, beam_width=8)
+                  for d in _decode_cfgs(arpa))
+    jst = JStreamingTranscriber(jcfg, j_load_tokenizer("vi"), variables,
+                                chunk_s=CHUNK_S, left_context_s=CONTEXT_S,
+                                decode="beam_device", decode_cfg=jdec)
+    st = StreamingTranscriber(cfg, tok, model, chunk_s=CHUNK_S,
+                              left_context_s=CONTEXT_S, decode="beam_device",
+                              decode_cfg=dcfg)
+    want = {}
+    for name in ("multi", "long"):
+        jst.reset()
+        jst.feed(AUDIO[name])
+        jst.finish()
+        want[name] = jst.text
+        for block in (5000, len(AUDIO[name])):
+            assert _run(st, AUDIO[name], block) == (want[name], want[name])
+        assert want[name]
+    tcfg = cfg.override(**{"model.arch": "transducer"})
+    assert streaming.resolve_streaming_decode(tcfg, "beam_device") == "beam"
+    weights, config = tmp_path / "w.pt", tmp_path / "c.json"
+    torch.save(model.state_dict(), weights)
+    cfg.to_json(str(config))
+    path = tmp_path / "multi.wav"
+    wavfile.write(path, SR, AUDIO["multi"])
+    main(["--audio", str(path), "--config", str(config), "--weights",
+          str(weights), "--device", "cpu", "--streaming", "--decode",
+          "beam_device", "--lm", arpa, "--stream-chunk-seconds",
+          str(CHUNK_S), "--stream-context-seconds", str(CONTEXT_S),
+          "--set", "decode.beam_width=8", "--set", "decode.alpha=0.8",
+          "--set", "decode.beta=1.0"])
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split("\t", 1)[1] for ln in lines if "\t" in ln] == \
+        [want["multi"]]

@@ -20,7 +20,9 @@ by ``conformer_tpu_torch.convert``, and seeded numpy inputs:
   streamed texts against the JAX ``StreamingTranscriber``; a served
   ``/transcribe`` text and a stream session against the JAX pipeline and
   transcriber; ``cli.train`` / ``cli.test`` on the CPU;
-- the beams and pseudo-labelling raise ``NotImplementedError``.
+- the beam search through the pipeline (texts, WER, CER and loss against
+  the JAX pipeline with ``decode="beam"``) and a stream; pseudo-labelling
+  a transducer raises ``NotImplementedError``.
 
 The joint's blank bias is raised (``BLANK_BIAS``) so that the random model
 mixes blanks and emissions, and the greedy decode's choices are not all
@@ -705,20 +707,55 @@ def test_cli_train_resume_and_test_on_cpu(jax_pipeline, tmp_path, capsys):
     assert np.isfinite(metrics["loss"]) and metrics["wer"] > 0
 
 
-def test_beams_and_pseudo_labels_raise(jax_pipeline):
+@pytest.fixture(scope="module")
+def jax_beam(jax_pipeline):
+    """(the config, the port's weights file, the JAX pipeline's evaluation
+    with decode="beam" at W 8) on the jax_pipeline fixture's manifest and
+    weights with the joint's output scaled by 4: a random model's flat
+    token choices make the empty text the likeliest, and the beam would
+    find nothing else."""
+    directory = jax_pipeline[0]
+    jcfg = _jcfg(**PIPE, **{"train.checkpoint_dir": str(directory / "none"),
+                            "decode.beam_width": 8})
+    variables = jax.tree_util.tree_map(np.copy, _variables())
+    variables["params"]["joint"]["out"]["kernel"] *= 4.0
+    with mock.patch.object(jpipeline, "init_variables",
+                           lambda cfg, key: variables):
+        jpipe = jpipeline.InferencePipeline(jcfg, j_load_tokenizer("vi"),
+                                            decode="beam")
+    cfg = Config.from_dict(jcfg.to_dict())
+    weights = str(directory / "w_beam.pt")
+    torch.save(convert.flax_to_state_dict(variables, cfg.model), weights)
+    return cfg, weights, jpipe.evaluate(str(directory / "eval.csv"))
+
+
+def test_beams_and_pseudo_labels_raise(jax_pipeline, jax_beam):
+    """Once refused, the transducer's beams now run: the pipeline with
+    decode="beam" (W 8) gives the JAX pipeline's texts, WER, CER and loss
+    with ``decode="beam"``; beam_device and beam_auto take the same search
+    on the CPU; a stream runs it window by window. Pseudo-labelling a
+    transducer still raises (a JAX fault, ROADMAP.md §3)."""
     from conformer_tpu_torch.cli import pseudo_label
-    from conformer_tpu_torch.cli.infer import main as infer
 
     directory = jax_pipeline[0]
-    cfg, tok = _port_cfg(), load_tokenizer("vi")
+    manifest = str(directory / "eval.csv")
+    cfg, weights, (want_metrics, want_pairs) = jax_beam
+    tok = load_tokenizer("vi")
     for decode in ("beam", "beam_device", "beam_auto"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            InferencePipeline(cfg, tok, decode=decode, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 7"):
-            StreamingTranscriber(cfg, tok, _port_model(), decode=decode)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        infer(["--audio", "a.wav", "--config", str(directory / "c.json"),
-               "--device", "cpu", "--streaming", "--decode", "beam"])
+        pipe = InferencePipeline(cfg, tok, weights=weights, decode=decode,
+                                 device="cpu")
+        assert pipe.decode in ("beam", "beam_device")
+    metrics, pairs = pipe.evaluate(manifest)
+    assert pairs == want_pairs and all(hyp for _, hyp in pairs)
+    assert metrics["wer"] == want_metrics["wer"]
+    assert metrics["cer"] == want_metrics["cer"]
+    np.testing.assert_allclose(metrics["loss"], want_metrics["loss"],
+                               rtol=1e-5)
+    st = StreamingTranscriber(cfg, tok, pipe.model, chunk_s=CHUNK_S,
+                              left_context_s=CONTEXT_S, decode="beam_device")
+    assert st.decode == "beam"
+    audio = _audio(STREAM_SECONDS["multi"], seed=31)
+    assert st.feed(audio) == "" and st.finish() == st.text
     with pytest.raises(NotImplementedError, match="CTC model"):
         pseudo_label.main(["--manifest", str(directory / "eval.csv"),
                            "--output", "o.csv", "--config",
