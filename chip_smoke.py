@@ -122,8 +122,21 @@ Phases, each printing one JSON line:
               and ``cli.infer --decode beam``, offline and ``--streaming``.
               Walls, capture seconds, launches a frame, the host search's
               seconds on the contended batch.
+12. pretrain -- self-supervised pretraining at the production width
+              (Config(), pretrain defaults): one wav2vec2 step at B 8 x 8 s
+              and one at 24 s (K3) and one BYOL step at B 8 x 8 s (16 rows
+              a tower, conv_impl pallas: K4a/K4b), each warm, timed
+              (median of 3) and counted through the kernels and held
+              against their plain versions on the same draws (loss, grad
+              norm; ``--phases profile`` profiles them);
+              ``cli.pretrain`` on configs/pretrain_wav2vec2.json (batch 32
+              -> 8) over the train phase's WAVs in a path-only manifest,
+              4 steps with checkpoints every 2, resumed to 6; then
+              ``cli.train --init-encoder-from`` for 2 steps, its encoder
+              held against the checkpoint's, bit for bit, before step 1.
 
-Then the card's name and power limit, the ``kernels`` line, and last
+Then each phase's wall seconds (``phase_seconds``), the card's name and
+power limit, the ``kernels`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
 ok line; so does a machine with no CUDA device.
 """
@@ -143,7 +156,8 @@ import time
 from unittest import mock
 
 PHASES = ("build", "kernels", "tolerance", "model", "serve", "train",
-          "evaluate", "tiny", "stream", "transducer", "export", "beam_device")
+          "evaluate", "tiny", "stream", "transducer", "export", "beam_device",
+          "pretrain")
 OPTIONAL_PHASES = ("profile",)
 # Published dense peaks of one H100 SXM (NVIDIA data sheet) at 700 W.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -3502,6 +3516,219 @@ def phase_beam_device(torch, tmp: str):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: self-supervised pretraining (wav2vec2, BYOL) and the encoder
+# transfer into supervised training.
+# ---------------------------------------------------------------------------
+
+PRETRAIN_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "configs", "pretrain_wav2vec2.json")
+# (method, seconds, conv_impl) at B 8: the 24 s batch takes K3 (2401 mel
+# frames), BYOL's 16 rows a tower take K4a/K4b under conv_impl pallas.
+PRETRAIN_CASES = (("wav2vec2", 8, "xla"), ("wav2vec2", 24, "xla"),
+                  ("byol", 8, "pallas"))
+
+
+def _pretrain_launches(method: str, seconds: int, conv_impl: str,
+                       n_blocks: int) -> dict:
+    """The kernels' launches in one production pretrain step under remat:
+    the online blocks' forward and recomputation (K1 with dropout), their
+    backward (K2) and, for BYOL, the target's forward (K1 without)."""
+    target = n_blocks if method == "byol" else 0
+    pallas = conv_impl == "pallas"
+    return {"sincos_attention_fwd": 2 * n_blocks + target,
+            "sincos_attention_fwd_dropout": 2 * n_blocks,
+            "sincos_attention_bwd": n_blocks,
+            "logmel_fwd": 1 if seconds >= 16 else 0,
+            "depthwise_conv_fwd": (3 * n_blocks + target) if pallas else 0,
+            "depthwise_conv_dw": n_blocks if pallas else 0}
+
+
+def _pretrain_setup(torch, method: str, seconds: int, conv_impl: str):
+    """-> (config, model on the card, its step, audio, lengths): Config()
+    with pretrain.method, Adam at learning rate 0, a seeded B 8 batch."""
+    from conformer_tpu_torch.config import Config
+    from conformer_tpu_torch.train.pretrain import (build_pretrain_model,
+                                                    make_pretrain_step)
+    from conformer_tpu_torch.train.state import make_optimizer
+
+    dev = torch.device(DEVICE)
+    cfg = Config().override(**{"pretrain.method": method,
+                               "model.conv_impl": conv_impl,
+                               "optim.learning_rate": 0.0})
+    model = build_pretrain_model(cfg, seed=0).to(dev)
+    step = make_pretrain_step(cfg, model,
+                              make_optimizer(cfg.optim, model.parameters()))
+    audio, lengths = _noise_batch(torch, 8, seconds, seed=300 + seconds)
+    return cfg, model, step, audio.to(dev), lengths.to(dev)
+
+
+def pretrain_step_case(torch, method: str, seconds: int, conv_impl: str):
+    """One production pretrain step (Config(): bf16, dropout 0.1, remat,
+    SpecAugment for BYOL, Adam at learning rate 0) from the same state and
+    the same draws: warm-up, then through the kernels three times (the
+    first counted, the median wall kept; peak memory beside what was
+    allocated before) and through their plain versions. The profile phase
+    profiles it."""
+    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    cfg, model, step, audio, lengths = _pretrain_setup(torch, method,
+                                                       seconds, conv_impl)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def run(patches=()):
+        model.load_state_dict(start)
+        out, ms = _run(torch, lambda: step(audio, lengths, 7), patches)
+        return {k: float(v) for k, v in out.items()}, ms
+
+    run()                                          # warm-up
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    k, first_ms = run()
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    walls = sorted([first_ms] + [run()[1] for _ in range(2)])
+    k_ms = walls[1]                                # the median of three
+    p, p_ms = run(_plain_versions())
+    del model, step, start
+    torch.cuda.empty_cache()
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    tol = TOL_TRAIN["bfloat16"]
+    want = _pretrain_launches(method, seconds, conv_impl,
+                              cfg.model.n_blocks)
+    ok = (all(math.isfinite(v) for v in k.values())
+          and rel(k["loss"], p["loss"]) <= tol["loss"]
+          and rel(k["grad_norm"], p["grad_norm"]) <= tol["grad_norm"]
+          and all(counts[n] == want[n] for n in want))
+    return {"method": method, "seconds": seconds, "conv_impl": conv_impl,
+            "kernels": k, "plain": p,
+            "loss_rel_diff": rel(k["loss"], p["loss"]),
+            "grad_norm_rel_diff": rel(k["grad_norm"], p["grad_norm"]),
+            "tolerance": {"loss": tol["loss"], "grad_norm": tol["grad_norm"]},
+            "step_ms": k_ms, "step_ms_runs": walls, "plain_step_ms": p_ms,
+            "audio_s_per_s": k["audio_seconds"] / (k_ms / 1e3),
+            "peak_memory_gb": peak_gb, "allocated_before_gb": before_gb,
+            "launches": counts,
+            "expected_launches": want, "ok": ok}
+
+
+def _encoder_equals_checkpoint(torch, model, ck: str) -> dict:
+    """The supervised model's encoder parameters against the newest
+    wav2vec2 checkpoint in ``ck`` (its subsample, input_proj, blocks)."""
+    from conformer_tpu_torch.train.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(ck)
+    saved = torch.load(mgr._path(mgr.latest_step()), map_location="cpu",
+                       weights_only=True)["model"]
+    params = dict(model.encoder.named_parameters())
+    equal = [torch.equal(p.detach().cpu(), saved[n])
+             for n, p in params.items()]
+    return {"checkpoint_step": mgr.latest_step(), "parameters": len(params),
+            "equal": sum(equal), "all_equal": all(equal)}
+
+
+def phase_pretrain(torch, tmp: str):
+    """-> launch counts of the driven runs."""
+    from conformer_tpu_torch.cli import pretrain, train
+    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from conformer_tpu_torch.train import trainer as trainer_mod
+
+    total = {}
+
+    def add(counts):
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+
+    cases = [pretrain_step_case(torch, *case) for case in PRETRAIN_CASES]
+    for case in cases:
+        add(case["launches"])
+    manifest, paths = _write_manifest(tmp, "train", TRAIN_SECONDS, seed=1)
+    unlabelled = os.path.join(tmp, "unlabelled.csv")
+    with open(unlabelled, "w", newline="", encoding="utf8") as f:
+        csv.writer(f).writerows([["path"]] + [[p] for p in paths])
+    ck = os.path.join(tmp, "pre")
+    argv = ["--manifest", unlabelled, "--method", "wav2vec2",
+            "--config", PRETRAIN_CONFIG, "--checkpoint-dir", ck,
+            "--device", DEVICE, "--set", "data.batch_size=8",
+            "--set", "train.checkpoint_every_steps=2",
+            "--set", "train.log_every_steps=1",
+            "--set", "train.num_epochs=100"]
+    runs = []
+    for num_steps in (4, 6):
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runner = pretrain.main(argv + ["--set", f"train.num_steps={num_steps}"])
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        add(counts)
+        runs.append({"num_steps": num_steps, "start_step": runner.start_step,
+                     "end_step": runner.step, "wall_s": wall,
+                     "launches": counts,
+                     "checkpoints": sorted(os.listdir(ck))})
+        del runner
+    with open(os.path.join(ck, "metrics.jsonl"), encoding="utf8") as f:
+        records = [json.loads(ln) for ln in f]
+    steps = [{"step": r["step"],
+              **{k: r.get(f"pretrain/{k}") for k in (
+                  "loss", "contrastive", "diversity", "accuracy",
+                  "perplexity", "grad_norm", "step_seconds",
+                  "audio_seconds", "peak_memory_gb")}}
+             for r in records if "pretrain/loss" in r]
+    for s_ in steps:
+        s_["audio_s_per_s"] = s_["audio_seconds"] / s_["step_seconds"]
+
+    # the transfer: cli.train from the pretrain checkpoint, 2 steps; the
+    # encoder is held against the checkpoint before step 1
+    transfer = {}
+    first_epoch = trainer_mod.Trainer.train_epoch
+
+    def checked_epoch(self, *args, **kwargs):
+        if not transfer:
+            transfer.update(_encoder_equals_checkpoint(torch, self.model, ck))
+            print(f"[pretrain phase] encoder before step 1 equals the "
+                  f"checkpoint's: {transfer['all_equal']} "
+                  f"({transfer['equal']}/{transfer['parameters']})",
+                  flush=True)
+        return first_epoch(self, *args, **kwargs)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(trainer_mod.Trainer, "train_epoch", checked_epoch):
+        trainer = train.main([
+            "--train-manifest", manifest, "--checkpoint-dir",
+            os.path.join(tmp, "sup"), "--device", DEVICE,
+            "--init-encoder-from", ck, "--init-method", "wav2vec2",
+            "--set", "data.batch_size=8", "--set", "train.num_steps=2",
+            "--set", "train.log_every_steps=1",
+            "--set", "train.num_epochs=100"])
+    sup = {"wall_s": time.perf_counter() - t0, "end_step": trainer.step,
+           "launches": launch_counts(), **transfer}
+    add(sup["launches"])
+    del trainer
+    torch.cuda.empty_cache()
+    ok = (all(c["ok"] for c in cases)
+          and [(r["start_step"], r["end_step"]) for r in runs]
+          == [(0, 4), (4, 6)]
+          and [s_["step"] for s_ in steps] == [1, 2, 3, 4, 5, 6]
+          and all(math.isfinite(s_["loss"]) and math.isfinite(s_["grad_norm"])
+                  for s_ in steps)
+          and all(r["launches"]["logmel_fwd"] > 0 for r in runs)
+          and sup["end_step"] == 2 and sup.get("all_equal") is True
+          and sup["launches"]["sincos_attention_bwd"] > 0)
+    emit({"phase": "pretrain", "config": "Config() production (17 blocks, "
+          "d_model 512, bf16, remat, dropout 0.1), pretrain defaults (proj "
+          "256, 2 x 320 codes, negatives 'all', predictor 1024), B=8; "
+          "cli.pretrain on configs/pretrain_wav2vec2.json, batch 32 -> 8",
+          "steps_kernels_vs_plain": cases, "cli_pretrain": {
+              "runs": runs, "steps": steps}, "cli_train_transfer": sup,
+          "ok": ok})
+    if not ok:
+        raise SystemExit("pretrain phase failed")
+    return total
+
+
 def _profiled(torch, fn):
     """-> (host wall ms, device busy ms, kernel rows) of one fn() call."""
     from torch.profiler import ProfilerActivity, profile
@@ -3540,7 +3767,7 @@ def phase_profile(torch):
     """One bf16 forward (serving) and one bf16 train step (dropout 0.1,
     SpecAugment, remat, Adam) of Config() at B = 8, 8 s and 24 s, warm,
     with the depthwise conv through F.conv1d (conv_impl xla) and through K4
-    (pallas)."""
+    (pallas); and the pretrain phase's steps (PRETRAIN_CASES)."""
     from conformer_tpu_torch.config import Config
     from conformer_tpu_torch.models.conformer import Conformer, init_weights
     from conformer_tpu_torch.train.state import make_optimizer
@@ -3565,8 +3792,15 @@ def phase_profile(torch):
             out[f"{impl}_train_step_{seconds}s"] = _profiled(
                 torch, lambda: train(*args, 1))
         del model, forward, train
+    for method, seconds, conv_impl in PRETRAIN_CASES:
+        _, model, step, audio, lengths = _pretrain_setup(torch, method,
+                                                         seconds, conv_impl)
+        step(audio, lengths, 0)
+        out[f"{method}_{conv_impl}_step_{seconds}s"] = _profiled(
+            torch, lambda: step(audio, lengths, 1))
+        del model, step
     emit({"phase": "profile", "config": "Config() bf16, B=8, conv_impl "
-          "xla and pallas", **out})
+          "xla and pallas; PRETRAIN_CASES", **out})
 
 
 # ---------------------------------------------------------------------------
@@ -3596,14 +3830,22 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     entries, launches = [], {}
+    walls = {}                       # each phase's wall seconds
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
     if "build" in phases:
-        phase_build()
+        timed("build", phase_build)
     if "kernels" in phases:
-        entries, launches = phase_kernels(torch)
+        entries, launches = timed("kernels", phase_kernels, torch)
     if "tolerance" in phases:
-        phase_tolerance(torch)
+        timed("tolerance", phase_tolerance, torch)
     if "model" in phases:
-        for key, n in phase_model(torch).items():
+        for key, n in timed("model", phase_model, torch).items():
             launches[key] = launches.get(key, 0) + n
     # one directory each, under one root: the export phase exports the
     # transducer phase's checkpoint
@@ -3613,16 +3855,18 @@ def main(argv=None) -> int:
                           ("stream", phase_stream),
                           ("transducer", phase_transducer),
                           ("export", phase_export),
-                          ("beam_device", phase_beam_device)):
+                          ("beam_device", phase_beam_device),
+                          ("pretrain", phase_pretrain)):
             if name in phases:
                 tmp = os.path.join(root, name)
                 os.makedirs(tmp)
-                for key, n in run(torch, tmp).items():
+                for key, n in timed(name, run, torch, tmp).items():
                     launches[key] = launches.get(key, 0) + n
     for entry in entries:
         entry["launches"] = launches.get(entry["name"], 0)
     if "profile" in phases:
-        phase_profile(torch)
+        timed("profile", phase_profile, torch)
+    emit({"phase_seconds": walls})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

@@ -7,9 +7,11 @@ GPU unless ``--device cpu`` is given.
 The flags are those of ``conformer_tpu.cli.train`` plus ``--device``. The
 manifest is a CSV of (path, text) rows pointing at WAV files. Checkpoints,
 ``config.json`` and ``metrics.jsonl`` go to ``--checkpoint-dir``; a second
-run with the same directory resumes from the newest checkpoint. Not ported
-yet, and refused: more than one device (``--dp``/``--tp``,
-``--multihost``), ``--init-encoder-from`` and ``--wandb``.
+run with the same directory resumes from the newest checkpoint.
+``--init-encoder-from DIR`` (with ``--init-method wav2vec2|byol``) starts
+the encoder from the newest checkpoint of a ``cli.pretrain`` run, unless a
+supervised checkpoint is resumed. Not ported yet, and refused: more than
+one device (``--dp``/``--tp``, ``--multihost``) and ``--wandb``.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ def main(argv=None):
     p.add_argument("--wandb", action="store_true",
                    help="not available: refused")
     p.add_argument("--init-encoder-from", default=None,
-                   help="not ported: refused")
+                   help="a cli.pretrain checkpoint directory: start the "
+                        "encoder from its newest checkpoint")
     p.add_argument("--init-method", choices=["wav2vec2", "byol"], default=None)
     args = p.parse_args(argv)
 
@@ -46,9 +49,6 @@ def main(argv=None):
         raise NotImplementedError(
             "multi-device training (--dp, --tp, --multihost) is not ported "
             "yet; train on one device")
-    if args.init_encoder_from:
-        raise NotImplementedError(
-            "--init-encoder-from: the pretraining transfer is not ported yet")
     cfg = load_config(args)
     overrides = {}
     if args.train_manifest:
@@ -57,6 +57,8 @@ def main(argv=None):
         overrides["data.val_manifest"] = args.val_manifest
     if args.checkpoint_dir:
         overrides["train.checkpoint_dir"] = args.checkpoint_dir
+    if args.init_encoder_from:
+        overrides["train.init_encoder_from"] = args.init_encoder_from
     if args.init_method:
         overrides["train.init_encoder_method"] = args.init_method
     if overrides:

@@ -1,6 +1,16 @@
 """Weight bridge: a flax ``{"params", "batch_stats"}`` tree of the JAX
-package's CTC Conformer or Transducer (``model.arch``) <-> this package's
-``state_dict``.
+package's CTC Conformer or Transducer (``model.arch``), or of one of its
+pretraining models, <-> this package's ``state_dict``.
+
+``tree`` names the model: "model" (the ``model.arch`` one), "wav2vec2"
+(``Wav2Vec2Pretrain``: ``subsample``, ``input_proj`` and the blocks at the
+top, ``quantizer/{weight_proj, codevectors}``, ``mask_embedding``,
+``target_proj``, ``context_proj``), "byol" (an online ``BYOLNet``:
+``encoder/...``, ``projector/{fc1, LayerNorm_0, fc2}``, ``predictor/...``)
+or "byol_target" (the target tower: no ``predictor``). With
+``model.conv_norm='group'`` a block's ``conv/norm`` is a GroupNorm
+(``scale``, ``bias`` -> ``conv.group_norm.weight``, ``.bias``; no
+``batch_stats``).
 
 The tree is nested dicts of numpy arrays, in either block layout: the
 scan-stacked ``encoder/blocks/block/...`` (a leading n_blocks axis; the JAX
@@ -85,7 +95,11 @@ def _batch_norm(flax: str, torch_name: str):
     yield ("batch_stats", f"{flax}/var", f"{torch_name}.var", "copy")
 
 
-def _block_entries() -> Iterator[Tuple[str, str, str, str]]:
+TREES = ("model", "wav2vec2", "byol", "byol_target")
+
+
+def _block_entries(conv_norm: str = "batch"
+                   ) -> Iterator[Tuple[str, str, str, str]]:
     """(collection, flax path in a block, torch name in a block, kind)."""
     for ffn in ("ffn1", "ffn2"):
         yield from _norm(f"{ffn}/LayerNorm_0", f"{ffn}.norm")
@@ -102,20 +116,52 @@ def _block_entries() -> Iterator[Tuple[str, str, str, str]]:
     yield ("params", "conv/depthwise/kernel", "conv.depthwise.weight",
            "depthwise")
     yield ("params", "conv/depthwise/bias", "conv.depthwise.bias", "copy")
-    yield from _batch_norm("conv/norm", "conv.bn")
+    if conv_norm == "group":
+        yield from _norm("conv/norm", "conv.group_norm")
+    else:
+        yield from _batch_norm("conv/norm", "conv.bn")
     yield from _dense("conv/pointwise2", "conv.pointwise2")
     yield from _norm("final_norm", "final_norm")
 
 
-def _top_entries(cfg: ModelConfig) -> Iterator[Tuple[str, str, str, str]]:
+def _encoder_prefix(tree: str) -> Tuple[str, str]:
+    """(flax, torch) prefix of the encoder's subsample, input_proj and
+    blocks in ``tree``: the wav2vec2 model holds them at its top."""
+    if tree not in TREES:
+        raise ValueError(f"unknown tree {tree!r}; one of {TREES}")
+    return ("", "") if tree == "wav2vec2" else ("encoder/", "encoder.")
+
+
+def _mlp_head(flax: str, torch_name: str):
+    yield from _dense(f"{flax}/fc1", f"{torch_name}.fc1")
+    yield from _norm(f"{flax}/LayerNorm_0", f"{torch_name}.norm")
+    yield from _dense(f"{flax}/fc2", f"{torch_name}.fc2")
+
+
+def _top_entries(cfg: ModelConfig, tree: str = "model"
+                 ) -> Iterator[Tuple[str, str, str, str]]:
+    fp, tp = _encoder_prefix(tree)
     convs = (("conv2_dw", "conv2_pw") if cfg.subsample_impl == "separable"
              else ("conv2",))
     for conv in ("conv1",) + convs:
-        yield ("params", f"encoder/subsample/{conv}/kernel",
-               f"encoder.subsample.{conv}.weight", "conv2d")
-        yield ("params", f"encoder/subsample/{conv}/bias",
-               f"encoder.subsample.{conv}.bias", "copy")
-    yield from _dense("encoder/input_proj", "encoder.input_proj")
+        yield ("params", f"{fp}subsample/{conv}/kernel",
+               f"{tp}subsample.{conv}.weight", "conv2d")
+        yield ("params", f"{fp}subsample/{conv}/bias",
+               f"{tp}subsample.{conv}.bias", "copy")
+    yield from _dense(f"{fp}input_proj", f"{tp}input_proj")
+    if tree == "wav2vec2":
+        yield from _dense("quantizer/weight_proj", "quantizer.weight_proj")
+        yield ("params", "quantizer/codevectors", "quantizer.codevectors",
+               "copy")
+        yield ("params", "mask_embedding", "mask_embedding", "copy")
+        yield from _dense("target_proj", "target_proj")
+        yield from _dense("context_proj", "context_proj")
+        return
+    if tree in ("byol", "byol_target"):
+        yield from _mlp_head("projector", "projector")
+        if tree == "byol":
+            yield from _mlp_head("predictor", "predictor")
+        return
     if cfg.arch == "transducer":
         yield ("params", "prediction/embed/embedding",
                "prediction.embedding", "copy")
@@ -154,41 +200,51 @@ def _set(tree: dict, path: str, value) -> None:
     tree[leaf] = value
 
 
-def is_scan_layout(variables: dict) -> bool:
-    return "blocks" in variables["params"]["encoder"]
+def is_scan_layout(variables: dict, tree: str = "model") -> bool:
+    params = variables["params"]
+    return "blocks" in (params if tree == "wav2vec2" else params["encoder"])
 
 
-def flax_to_state_dict(variables: dict, cfg: ModelConfig
-                       ) -> Dict[str, torch.Tensor]:
-    """{"params", "batch_stats"} (nested dicts of arrays) -> state_dict."""
+def _ctc_lstm_layers(cfg: ModelConfig, tree: str) -> int:
+    """The CTC decoder's LSTM layers in ``tree``, each with a zero
+    ``bias_hh``."""
+    return cfg.n_lstm_layers if tree == "model" and cfg.arch == "ctc" else 0
+
+
+def flax_to_state_dict(variables: dict, cfg: ModelConfig,
+                       tree: str = "model") -> Dict[str, torch.Tensor]:
+    """{"params", "batch_stats"} (nested dicts of arrays) of ``tree`` ->
+    state_dict."""
     state: Dict[str, torch.Tensor] = {}
     to_t = lambda a, kind: torch.from_numpy(
         np.array(_TO_TORCH[kind](np.asarray(a, np.float32)), order="C"))
-    for coll, fpath, tname, kind in _top_entries(cfg):
+    for coll, fpath, tname, kind in _top_entries(cfg, tree):
         state[tname] = to_t(_read(variables[coll], fpath), kind)
-    scan = is_scan_layout(variables)
-    for coll, fpath, tname, kind in _block_entries():
+    scan = is_scan_layout(variables, tree)
+    fp, tp = _encoder_prefix(tree)
+    for coll, fpath, tname, kind in _block_entries(cfg.conv_norm):
         for i in range(cfg.n_blocks):
             if scan:
                 arr = np.asarray(_get(variables[coll],
-                                      f"encoder/blocks/block/{fpath}"))[i]
+                                      f"{fp}blocks/block/{fpath}"))[i]
             else:
-                arr = _get(variables[coll], f"encoder/block_{i}/{fpath}")
-            state[f"encoder.blocks.{i}.{tname}"] = to_t(arr, kind)
-    for i in range(cfg.n_lstm_layers if cfg.arch == "ctc" else 0):
+                arr = _get(variables[coll], f"{fp}block_{i}/{fpath}")
+            state[f"{tp}blocks.{i}.{tname}"] = to_t(arr, kind)
+    for i in range(_ctc_lstm_layers(cfg, tree)):
         hidden = state[f"decoder.lstm.{i}.weight_hh"].shape[1]
         state[f"decoder.lstm.{i}.bias_hh"] = torch.zeros(4 * hidden)
     return state
 
 
-def block_part_to_state_dict(variables: dict, part: str
+def block_part_to_state_dict(variables: dict, part: str,
+                             conv_norm: str = "batch"
                              ) -> Dict[str, torch.Tensor]:
     """The flax tree of one module of a Conformer block, initialised on its
     own (``part`` is its path in the block: 'ffn1', 'mhsa',
     'mhsa/attention', 'conv') -> the state_dict of the port's module."""
     fprefix, tprefix = part + "/", part.replace("/", ".") + "."
     state = {}
-    for coll, fpath, tname, kind in _block_entries():
+    for coll, fpath, tname, kind in _block_entries(conv_norm):
         if fpath.startswith(fprefix):
             arr = np.asarray(_get(variables[coll], fpath[len(fprefix):]),
                              np.float32)
@@ -198,25 +254,26 @@ def block_part_to_state_dict(variables: dict, part: str
 
 
 def state_dict_to_flax(state: Dict[str, torch.Tensor], cfg: ModelConfig,
-                       scan: bool) -> dict:
-    """state_dict -> {"params", "batch_stats"} in the scan-stacked
-    (``scan=True``) or unrolled block layout. The LSTM ``bias_hh`` must be
-    zero: the JAX cell has no second bias."""
+                       scan: bool, tree: str = "model") -> dict:
+    """state_dict of ``tree`` -> {"params", "batch_stats"} in the
+    scan-stacked (``scan=True``) or unrolled block layout. The LSTM
+    ``bias_hh`` must be zero: the JAX cell has no second bias."""
     variables: dict = {"params": {}, "batch_stats": {}}
     to_f = lambda t, kind: np.ascontiguousarray(
         _TO_FLAX[kind](t.detach().cpu().float().numpy()))
-    for coll, fpath, tname, kind in _top_entries(cfg):
+    for coll, fpath, tname, kind in _top_entries(cfg, tree):
         _write(variables[coll], fpath, to_f(state[tname], kind))
-    for coll, fpath, tname, kind in _block_entries():
-        arrs = [to_f(state[f"encoder.blocks.{i}.{tname}"], kind)
+    fp, tp = _encoder_prefix(tree)
+    for coll, fpath, tname, kind in _block_entries(cfg.conv_norm):
+        arrs = [to_f(state[f"{tp}blocks.{i}.{tname}"], kind)
                 for i in range(cfg.n_blocks)]
         if scan:
-            _set(variables[coll], f"encoder/blocks/block/{fpath}",
+            _set(variables[coll], f"{fp}blocks/block/{fpath}",
                  np.stack(arrs))
         else:
             for i, arr in enumerate(arrs):
-                _set(variables[coll], f"encoder/block_{i}/{fpath}", arr)
-    for i in range(cfg.n_lstm_layers if cfg.arch == "ctc" else 0):
+                _set(variables[coll], f"{fp}block_{i}/{fpath}", arr)
+    for i in range(_ctc_lstm_layers(cfg, tree)):
         if torch.any(state[f"decoder.lstm.{i}.bias_hh"] != 0):
             raise ValueError(f"decoder.lstm.{i}.bias_hh is not zero: the JAX "
                              "LSTM cell has one bias only")

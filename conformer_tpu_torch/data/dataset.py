@@ -2,9 +2,11 @@
 (this package's copy of conformer_tpu/data/dataset.py).
 
 CSV manifests are read with the stdlib ``csv`` module (rows of column ->
-string; ``start``/``end`` become floats); a ``.parquet`` manifest raises
-``NotImplementedError`` until a reader without pyarrow is ported. Audio is
-WAV only (audio/io.py). Batches, buckets, shuffling, the skip of long
+string; ``start``/``end`` become floats), not pandas, which would read
+``""`` and ``"NA"`` as missing and ``"123"`` as a number; a ``.parquet``
+manifest is read with pyarrow (imported only then; without it the read
+raises ``ImportError``), its rows the typed values of its columns. Audio
+is WAV or FLAC (audio/io.py). Batches, buckets, shuffling, the skip of long
 audio, dummy-row padding for evaluation and the prefetch thread are the
 JAX package's. Its notes on the design follow.
 
@@ -41,11 +43,16 @@ _FLOAT_COLUMNS = ("start", "end")
 
 
 def load_manifest(manifest: str) -> List[dict]:
-    """CSV manifest -> rows (dicts) with at least (path, text)."""
+    """CSV or parquet manifest -> rows (dicts) with at least (path, text)."""
     if manifest.endswith(".parquet"):
-        raise NotImplementedError(
-            "parquet manifests are not ported yet (they need pyarrow); "
-            "use a CSV manifest")
+        try:
+            import pyarrow.parquet as pq
+        except ImportError as e:
+            raise ImportError(
+                f"reading the parquet manifest {manifest} needs pyarrow, "
+                "which is not installed; install it or use a CSV manifest"
+            ) from e
+        return pq.read_table(manifest).to_pylist()
     with open(manifest, newline="", encoding="utf8") as f:
         rows = list(csv.DictReader(f))
     for row in rows:
@@ -75,7 +82,7 @@ class ManifestDataset:
 
     def __init__(self, manifest, sample_rate: int = 16000,
                  num_examples: Optional[int] = None):
-        """manifest: a CSV path or a list of row dicts."""
+        """manifest: a CSV or parquet path, or a list of row dicts."""
         rows = load_manifest(manifest) if isinstance(manifest, str) else manifest
         if num_examples is not None:
             rows = rows[:num_examples]

@@ -22,8 +22,8 @@ from conformer_tpu_torch.models.attention import RelativeMultiHeadAttention
 from conformer_tpu_torch.models.decoder import LSTMDecoder, LSTMLayer
 from conformer_tpu_torch.models.encoder import ConformerEncoder
 from conformer_tpu_torch.models.layers import (DTYPES, Conv2d, Dense,
-                                               DepthwiseConv1d, LayerNorm,
-                                               MaskedBatchNorm)
+                                               DepthwiseConv1d, GroupNorm,
+                                               LayerNorm, MaskedBatchNorm)
 from conformer_tpu_torch.utils.masking import padding_mask
 
 class Conformer(nn.Module):
@@ -119,7 +119,7 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
             new["bias_ih"] = torch.zeros_like(mod.bias_ih)
             new["weight_hh"] = orthogonal(mod.hidden_dim, 4 * mod.hidden_dim,
                                            gen).T
-        elif isinstance(mod, (LayerNorm, MaskedBatchNorm)):
+        elif isinstance(mod, (LayerNorm, MaskedBatchNorm, GroupNorm)):
             for name, p in mod.named_parameters(recurse=False):
                 new[name] = (torch.zeros_like(p) if name == "bias"
                              else torch.ones_like(p))

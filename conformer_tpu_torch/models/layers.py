@@ -2,7 +2,8 @@
 
 - FFN: LN -> Linear d->4d -> swish -> Linear 4d->d.
 - Conv module: LN -> pointwise 2x expand -> GLU -> (zero pad frames) ->
-  depthwise conv (same pad) -> masked BatchNorm -> swish -> pointwise.
+  depthwise conv (same pad) -> masked BatchNorm (or, with
+  ``conv_norm='group'``, a one-group GroupNorm) -> swish -> pointwise.
 - Subsampling: two valid 3x3 stride-2 convs + ReLU over (B, 1, T, F), the
   output flattened as (B, T', F' * C) like the JAX (B, T', F', C) layout.
 
@@ -135,6 +136,27 @@ class MaskedBatchNorm(nn.Module):
         return ((x.float() - mean) * inv + self.bias).to(self.compute_dtype)
 
 
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups=1)`` over (B, L, C): per batch row, the
+    mean and variance of every frame and channel (padded frames included,
+    as in the JAX package), in fp32 (``E[x^2] - E[x]^2``, clamped at 0),
+    eps 1e-6; a per-channel scale and bias; output in ``dtype``."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.epsilon, self.compute_dtype = 1e-6, dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=(1, 2), keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=(1, 2), keepdim=True)
+                          - mean * mean, min=0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.epsilon) * self.weight)
+        return (y + self.bias).to(self.compute_dtype)
+
+
 class DepthwiseConv1d(nn.Module):
     """Depthwise same-pad conv1d over (B, L, C). Weight (C, 1, K), bias (C,).
 
@@ -173,14 +195,17 @@ class ConvolutionModule(nn.Module):
                  mask_pad: bool = True, dtype: torch.dtype = torch.float32,
                  dropout_rate: float = 0.0, dropout_impl: str = "hash"):
         super().__init__()
-        if conv_norm != "batch":
-            raise NotImplementedError(
-                f"conv_norm={conv_norm!r} is not ported yet (only 'batch')")
-        self.mask_pad = mask_pad
+        if conv_norm not in ("batch", "group"):
+            raise ValueError(f"unknown conv_norm {conv_norm!r}; 'batch' or "
+                             "'group'")
+        self.mask_pad, self.conv_norm = mask_pad, conv_norm
         self.norm = LayerNorm(channels, dtype)
         self.pointwise1 = Dense(channels, 2 * channels, dtype)
         self.depthwise = DepthwiseConv1d(channels, kernel_size, conv_impl, dtype)
-        self.bn = MaskedBatchNorm(channels, dtype=dtype)
+        if conv_norm == "batch":
+            self.bn = MaskedBatchNorm(channels, dtype=dtype)
+        else:
+            self.group_norm = GroupNorm(channels, dtype)
         self.pointwise2 = Dense(channels, channels, dtype)
         self.dropout = Dropout(dropout_rate, dropout_impl)
 
@@ -195,7 +220,10 @@ class ConvolutionModule(nn.Module):
             x = torch.where(mask[..., None], x, torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
         x = self.depthwise(x)
-        x = self.bn(x, mask=mask, use_running_average=not self.training)
+        if self.conv_norm == "batch":
+            x = self.bn(x, mask=mask, use_running_average=not self.training)
+        else:
+            x = self.group_norm(x)
         return self.dropout(self.pointwise2(swish(x)), seed)
 
 

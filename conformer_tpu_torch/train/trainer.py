@@ -5,11 +5,13 @@ Epoch loop with per-epoch shuffling, periodic checkpoints and resume,
 validation with the loss and greedy WER (CTC or transducer, by
 ``model.arch``), metric logging, and
 ``num_steps`` / ``log_every_steps`` / ``checkpoint_every_steps`` /
-``val_every_steps`` as in the JAX trainer. It runs on the CUDA device unless
-the caller passes ``device="cpu"``, and raises without a GPU. Not ported
-yet, and refused when set: a device mesh (``parallel.dp * parallel.tp > 1``),
-warm-up compilation (nothing is compiled ahead here) and the encoder
-transfer from a pretraining checkpoint.
+``val_every_steps`` as in the JAX trainer. With ``train.init_encoder_from``
+the encoder starts from a pretraining checkpoint's (``transfer_encoder`` in
+train/pretrain.py), unless a supervised checkpoint is resumed. It runs on
+the CUDA device unless the caller passes ``device="cpu"``, and raises
+without a GPU. Not ported yet, and refused when set: a device mesh
+(``parallel.dp * parallel.tp > 1``) and warm-up compilation (nothing is
+compiled ahead here).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from conformer_tpu_torch.text.metrics import wer
 from conformer_tpu_torch.text.tokenizer import GraphemeTokenizer
 from conformer_tpu_torch.train.checkpoint import CheckpointManager
 from conformer_tpu_torch.train.logging import EarlyStopping, MetricsLogger, Throughput
+from conformer_tpu_torch.train.pretrain import init_encoder_from
 from conformer_tpu_torch.train.state import make_optimizer, param_count
 from conformer_tpu_torch.train.steps import make_eval_step, make_train_step
 
@@ -43,10 +46,6 @@ def _refuse_unported(cfg: Config) -> None:
         raise NotImplementedError(
             "train.warmup_compile: this package compiles nothing ahead of "
             "time; set it to 'off'")
-    if cfg.train.init_encoder_from:
-        raise NotImplementedError(
-            "train.init_encoder_from: the pretraining transfer is not "
-            "ported yet")
 
 
 class Trainer:
@@ -67,14 +66,17 @@ class Trainer:
                 pass
         self.steps_per_epoch = steps_per_epoch
 
-        self.model = build_model(cfg.model, cfg.optim.compute_dtype,
-                                 cfg.train.seed).to(self.device)
+        self.ckpt = CheckpointManager(cfg.train.checkpoint_dir,
+                                      keep=cfg.train.keep_checkpoints)
+        resume = cfg.train.resume and self.ckpt.latest_step() is not None
+        model = build_model(cfg.model, cfg.optim.compute_dtype, cfg.train.seed)
+        if cfg.train.init_encoder_from and not resume:
+            init_encoder_from(cfg, model)
+        self.model = model.to(self.device)
         self.optimizer = make_optimizer(cfg.optim, self.model.parameters(),
                                         steps_per_epoch)
         self.step, self.epoch = 0, 0
-        self.ckpt = CheckpointManager(cfg.train.checkpoint_dir,
-                                      keep=cfg.train.keep_checkpoints)
-        if cfg.train.resume and self.ckpt.latest_step() is not None:
+        if resume:
             self.step, self.epoch = self.ckpt.restore(self.model, self.optimizer)
             print(f"[trainer] resumed from step {self.step} (epoch {self.epoch})")
         self.start_step = self.step

@@ -371,8 +371,20 @@ def test_bucketed_loader_batches_match_the_jax_loader(tmp_path, training):
                 np.testing.assert_array_equal(getattr(g, field),
                                               getattr(w, field))
             assert g.texts == w.texts
-    with pytest.raises(NotImplementedError):
-        tdata.ManifestDataset(str(tmp_path / "m.parquet"))
+    # the same rows as a parquet manifest give the same batches
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rows = tdata.load_manifest(manifest)
+    pq.write_table(pa.Table.from_pylist(rows), str(tmp_path / "m.parquet"))
+    p_loader = tdata.BucketedLoader(
+        tdata.ManifestDataset(str(tmp_path / "m.parquet")),
+        load_tokenizer("vi"), DataConfig(**kw), training=training)
+    got, want = list(p_loader.epoch(0)), list(t_loader.epoch(0))
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        for field in ("audio", "audio_lengths", "tokens", "token_lengths"):
+            np.testing.assert_array_equal(getattr(g, field), getattr(w, field))
 
 
 # ---------------------------------------------------------------------------
@@ -433,6 +445,10 @@ def test_cli_train_refuses_a_missing_gpu_and_unported_options(monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(base + ["--device", "cuda"])
-    for extra in (["--wandb"], ["--init-encoder-from", "pre"], ["--tp", "2"]):
+    for extra in (["--wandb"], ["--tp", "2"]):
         with pytest.raises(NotImplementedError):
             main(base + ["--device", "cpu", *extra])
+    # the encoder transfer is ported: a directory with no checkpoint raises
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        main(base + ["--device", "cpu", "--init-encoder-from",
+                     str(tmp_path / "pre")])
