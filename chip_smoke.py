@@ -134,6 +134,19 @@ Phases, each printing one JSON line:
               4 steps with checkpoints every 2, resumed to 6; then
               ``cli.train --init-encoder-from`` for 2 steps, its encoder
               held against the checkpoint's, bit for bit, before step 1.
+13. parallel -- multi-device training (parallel/mesh.py) on the one card:
+              two NCCL ranks on card 0, which NCCL refuses (recorded);
+              four ranks of this script (``--worker``) in a gloo group of
+              CUDA tensors on a dp 2 x tp 2 mesh of Config() cut to
+              PARALLEL_BLOCKS blocks, conv_impl pallas, ZeRO-1 and SP:
+              the fp32 agreement steps against this process's, then
+              ``cli.train`` for 4 steps with checkpoints, resumed to 6;
+              the checkpoint resumed at dp 1 and scored by ``cli.test``;
+              K1, K1-drop, K2, K4a and K4b at a rank's shapes against
+              their plain versions, timed; one mesh step over a world-1
+              NCCL group against the meshless step, bit for bit. Each
+              rank's step wall and peak memory (four ranks on one card:
+              correctness, not scaling).
 
 Then each phase's wall seconds (``phase_seconds``), the card's name and
 power limit, the ``kernels`` line, and last
@@ -157,7 +170,7 @@ from unittest import mock
 
 PHASES = ("build", "kernels", "tolerance", "model", "serve", "train",
           "evaluate", "tiny", "stream", "transducer", "export", "beam_device",
-          "pretrain")
+          "pretrain", "parallel")
 OPTIONAL_PHASES = ("profile",)
 # Published dense peaks of one H100 SXM (NVIDIA data sheet) at 700 W.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -288,22 +301,24 @@ def phase_build():
 # ---------------------------------------------------------------------------
 
 def _attention_inputs(torch, b: int, l: int, dtype, seed: int, h: int = 8,
-                      dh: int = 64):
+                      dh: int = 64, dp: int = 0):
     """Packed attention operands (production width H = 8, dh = 64, D = 512
-    by default), scale folded into qu/qv, key lengths full, partial and
+    by default; ``dp``: the position width, D unless a mesh gives the call
+    a rank's heads), scale folded into qu/qv, key lengths full, partial and
     0."""
     from conformer_tpu_torch.ops.cuda import sincos_attention as sa
 
     d = h * dh
+    dp = dp or d
     gen = torch.Generator().manual_seed(seed)
     mk = lambda *s: torch.randn(*s, generator=gen)
     dev = torch.device(DEVICE)
     qu, qv, k, v = (mk(b, l, d).to(dev, dtype) for _ in range(4))
-    wh = sa.prep_pos_kernel((mk(d, d) / math.sqrt(d)).to(dev, dtype), h)
+    wh = sa.prep_pos_kernel((mk(dp, d) / math.sqrt(dp)).to(dev, dtype), h)
     lens = [l, l - 1, l // 2, 1, 0, l, 3 * l // 4, 7][:b]
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     s = torch.tensor(1.0 / math.sqrt(dh), dtype=dtype, device=dev)
-    sin_t, cos_t = sa.sincos_tables(l, d, dtype, dev)
+    sin_t, cos_t = sa.sincos_tables(l, dp, dtype, dev)
     dout = mk(b, l, d).to(dev, dtype)
     return ((qu * s).contiguous(), (qv * s).contiguous(), k, v, wh, lengths,
             sin_t, cos_t), dout
@@ -316,7 +331,7 @@ def _augmented(torch, args):
     qu_s, qv_s, k, v, wh, lengths, sin_t, cos_t = args
     b, l, d = qu_s.shape
     h, dh = wh.shape[0], wh.shape[1]
-    d2 = d // 2
+    d2 = wh.shape[2] // 2
     split = lambda x: x.reshape(b, l, h, dh).transpose(1, 2)
     a = torch.einsum("bhld,hdx->bhlx", split(qv_s).float(), wh.float())
     sq, cq = sin_t.float(), cos_t.float()
@@ -392,16 +407,18 @@ def export_shapes():
 
 
 def k1_case(torch, b: int, l: int, dtype, seed: int, time_it: bool,
-            rate: float = 0.0, h: int = 8, dh: int = 64):
-    """K1 at (b, l, h, dh), production width by default; output and row
-    statistics, and the kernel the selector picked (its launch counted in
-    that kernel's counter)."""
+            rate: float = 0.0, h: int = 8, dh: int = 64, dp: int = 0):
+    """K1 at (b, l, h, dh), production width by default (``dp``: the
+    position width, as _attention_inputs); output and row statistics, and
+    the kernel the selector picked (its launch counted in that kernel's
+    counter)."""
     from conformer_tpu_torch.ops.cuda import sincos_attention as sa
 
     d = h * dh
-    args, _ = _attention_inputs(torch, b, l, dtype, seed, h, dh)
+    dp = dp or d
+    args, _ = _attention_inputs(torch, b, l, dtype, seed, h, dh, dp)
     drop = (rate, DROPOUT_SEED, sa.hash_tq(l))
-    variant = sa.attention_variant(dtype, h, dh, d)
+    variant = sa.attention_variant(dtype, h, dh, d, dp)
     general_before = sa.sincos_attention_fwd.general_launches
     got, got_st = sa.sincos_attention_fwd(*args, *drop, stats=True)
     general = sa.sincos_attention_fwd.general_launches - general_before
@@ -413,16 +430,17 @@ def k1_case(torch, b: int, l: int, dtype, seed: int, time_it: bool,
                    .max())
     finite = bool(torch.isfinite(got.float()).all())
     name = "bfloat16" if dtype == torch.bfloat16 else "float32"
-    case = {"b": b, "l": l, "h": h, "dh": dh, "dtype": name, "rate": rate,
-            "variant": variant, "max_abs_err": err,
+    case = {"b": b, "l": l, "h": h, "dh": dh, "dp": dp, "dtype": name,
+            "rate": rate, "variant": variant, "max_abs_err": err,
             "tolerance": TOL_K1[name], "stats_rel_err": st_err,
             "stats_tolerance": TOL_STATS[name], "finite": finite,
             "ok": (finite and err <= TOL_K1[name] and st_err <= TOL_STATS[name]
                    and general == (variant == "general"))}
     if time_it:
         itemsize = torch.tensor([], dtype=dtype).element_size()
-        flops = 2.0 * b * h * l * l * (dh + d + dh) + 2.0 * b * h * l * dh * d
-        nbytes = (5 * b * l * d + h * dh * d + l * d) * itemsize + 4 * b
+        flops = (2.0 * b * h * l * l * (dh + dp + dh)
+                 + 2.0 * b * h * l * dh * dp)
+        nbytes = (5 * b * l * d + h * dh * dp + l * dp) * itemsize + 4 * b
         bounds = attention_bounds(flops, nbytes, name)
         q_aug, k_aug, v_h, mask = _augmented(torch, args)
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -459,7 +477,7 @@ def k2_rel_err(got, want, key: str, h: int) -> float:
 
 
 def k2_case(torch, b: int, l: int, dtype, seed: int, rate: float,
-            time_it: bool, h: int = 8, dh: int = 64):
+            time_it: bool, h: int = 8, dh: int = 64, dp: int = 0):
     """K2 at (b, l, h, dh) against its plain version, each gradient held per
     slice (k2_rel_err), and two controls that must exceed the limit: the
     kernel's gradients with slice (batch row 0, a full row; head 0) scaled
@@ -468,9 +486,10 @@ def k2_case(torch, b: int, l: int, dtype, seed: int, rate: float,
     from conformer_tpu_torch.ops.cuda import sincos_attention as sa
 
     d = h * dh
-    args, dout = _attention_inputs(torch, b, l, dtype, seed, h, dh)
+    dp = dp or d
+    args, dout = _attention_inputs(torch, b, l, dtype, seed, h, dh, dp)
     drop = (rate, DROPOUT_SEED, sa.hash_tq(l))
-    variant = sa.attention_variant(dtype, h, dh, d)
+    variant = sa.attention_variant(dtype, h, dh, d, dp)
     out, stats = sa.sincos_attention_fwd(*args, *drop, stats=True)
     bwd_args = (*args, stats, dout, *drop)
     general_before = sa.sincos_attention_bwd.general_launches
@@ -494,8 +513,9 @@ def k2_case(torch, b: int, l: int, dtype, seed: int, rate: float,
         controls["other_seed"] = max(k2_rel_err(g_, o_, key, h) for key, g_, o_
                                      in zip(K2_GRADS, got, other))
     finite = all(bool(torch.isfinite(g_.float()).all()) for g_ in got)
-    case = {"b": b, "l": l, "h": h, "dh": dh, "dtype": name, "rate": rate,
-            "variant": variant, "max_abs_err": err, "rel_err": rel,
+    case = {"b": b, "l": l, "h": h, "dh": dh, "dp": dp, "dtype": name,
+            "rate": rate, "variant": variant, "max_abs_err": err,
+            "rel_err": rel,
             "max_rel_err": max(rel.values()), "tolerance": tol,
             "controls": controls, "finite": finite,
             "ok": (finite and max(rel.values()) <= tol
@@ -503,9 +523,9 @@ def k2_case(torch, b: int, l: int, dtype, seed: int, rate: float,
                    and general == (variant == "general"))}
     if time_it:
         itemsize = torch.tensor([], dtype=dtype).element_size()
-        flops = (2.0 * b * h * l * l * (2 * d + 5 * dh)
-                 + 3 * 2.0 * b * h * l * dh * d)
-        nbytes = ((9 * b * l * d + 2 * h * dh * d + l * d) * itemsize
+        flops = (2.0 * b * h * l * l * (2 * dp + 5 * dh)
+                 + 3 * 2.0 * b * h * l * dh * dp)
+        nbytes = ((9 * b * l * d + 2 * h * dh * dp + l * dp) * itemsize
                   + 8 * b * h * l + 4 * b)
         bounds = attention_bounds(flops, nbytes, name)
         q_aug, k_aug, v_h, mask = _augmented(torch, args)
@@ -539,7 +559,7 @@ def k2_case(torch, b: int, l: int, dtype, seed: int, rate: float,
                             "[k|cos|sin], v",
             "library_fwd_bwd_ms": both[best_both],
             "library_fwd_bwd_backends_ms": both, **bounds,
-            "scratch_bytes": sa.bwd_scratch_bytes(b, l, h, dh, dtype),
+            "scratch_bytes": sa.bwd_scratch_bytes(b, l, h, dh, dtype, dp),
         })
     return case
 
@@ -3729,6 +3749,470 @@ def phase_pretrain(torch, tmp: str):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the mesh (parallel/mesh.py): DP x TP with SP, ZeRO-1 and
+# cross-replica BatchNorm, four ranks on the one card.
+# ---------------------------------------------------------------------------
+
+PARALLEL_RANKS = 4
+# Config() at the production width; its depth cut from 17 to
+# PARALLEL_BLOCKS blocks for time (the shard shapes do not depend on it)
+PARALLEL_BLOCKS = 4
+PARALLEL_MESH = ["--dp", "2", "--tp", "2", "--set", "model.conv_impl=pallas",
+                 "--set", "parallel.zero=true", "--set", "model.seq_shard=true",
+                 "--set", f"model.n_blocks={PARALLEL_BLOCKS}"]
+# The agreement check: fp32 at the production widths, dropout 0, on the
+# mesh and in one process on the same weights and batch; its depth cut to
+# AGREE_BLOCKS for time (the shard shapes do not depend on it). The
+# gradients of step 1 are held directly; the parameters after 2 steps of
+# Adam at a learning rate of 1e-3 with eps 1.0: Adam's update of an element
+# whose gradient is near zero moves by lr * dg / eps for a gradient
+# difference dg, and this random model's fp32 gradients (norm ~2e4) differ
+# by up to ~1e-4 between two summation orders (at eps 1e-3 the parameters
+# read 2.1e-4 apart on an H100, the losses 1.6e-6).
+AGREE_BLOCKS = 2
+AGREE = {"optim.compute_dtype": "float32", "model.dropout_rate": 0.0,
+         "model.conv_impl": "pallas", "parallel.zero": True,
+         "model.seq_shard": True, "model.n_blocks": AGREE_BLOCKS,
+         "optim.learning_rate": 1e-3, "optim.eps": 1.0,
+         "model.vocab_size": 370}
+AGREE_ROWS, AGREE_SECONDS = 8, 8.0
+# Parameters as the CPU tests hold the mesh. Step 1's gradients relative
+# to each tensor's largest element (floored, see phase_parallel): fp32
+# sums over the batch's positions taken in another order (two data ranks'
+# partial sums, SP's reduce-scatters), 8.4e-5 at most on an H100, where a
+# missing or doubled reduction reads 0.5 or more. The BatchNorm
+# statistics relative to each tensor's largest (global sums of x and x^2
+# in another order: E[x^2] - E[x]^2 cancels).
+TOL_AGREE = {"loss_rtol": 2e-4, "grad_rtol": 1e-3, "param_atol": 1e-5,
+             "stats_rtol": 1e-4}
+# A rank's shapes at dp 2 x tp 2 on the train phase's batches of 8 in the
+# 24 s bucket: 4 rows, L 599 (K1/K2: H 4 of dh 64, packed D 256, position
+# width 512; K4a/K4b: C 256).
+SHARD_B, SHARD_L, SHARD_H, SHARD_C = 4, 599, 4, 256
+NCCL_TIMEOUT_S = 120
+WORKER_TIMEOUT_S = 600
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _start_ranks(kind: str, ranks: int, tmp: str, extra: dict) -> list:
+    """Start ``ranks`` worker processes of this script (``--worker``), each
+    with a spec, a log and a result file in ``tmp``."""
+    port, procs = _free_port(), []
+    for r in range(ranks):
+        spec = {"kind": kind, "rank": r, "world": ranks, "port": port,
+                "out": os.path.join(tmp, f"{kind}{r}.json"), **extra}
+        path = os.path.join(tmp, f"{kind}{r}.spec.json")
+        with open(path, "w", encoding="utf8") as f:
+            json.dump(spec, f)
+        log = open(os.path.join(tmp, f"{kind}{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker", path],
+            stdout=log, stderr=subprocess.STDOUT), log, spec["out"]))
+    return procs
+
+
+def _finish_ranks(procs: list, timeout: float) -> list:
+    """-> the started ranks' results (None where a rank wrote none); a rank
+    still running at ``timeout`` is killed."""
+    t_end, results = time.monotonic() + timeout, []
+    for proc, log, out in procs:
+        try:
+            proc.wait(timeout=max(t_end - time.monotonic(), 1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+        result = None
+        if os.path.exists(out):
+            with open(out, encoding="utf8") as f:
+                result = json.load(f)
+        results.append(result)
+    return results
+
+
+def _tail(tmp: str, name: str, n: int = 1500) -> str:
+    with open(os.path.join(tmp, name), encoding="utf8", errors="replace") as f:
+        return f.read()[-n:]
+
+
+def _agree_batch(torch):
+    """Seeded audio and transcripts of the agreement check, on the card."""
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    n = int(AGREE_SECONDS * 16000)
+    audio = (rng.standard_normal((AGREE_ROWS, n)) * 0.1).astype(np.float32)
+    lengths = rng.integers(n // 2, n + 1, AGREE_ROWS)
+    audio[np.arange(n)[None] >= lengths[:, None]] = 0.0
+    token_lengths = rng.integers(10, 40, AGREE_ROWS)
+    tokens = rng.integers(1, 370, (AGREE_ROWS, 40))
+    tokens[np.arange(40)[None] >= token_lengths[:, None]] = 0
+    return audio, lengths, tokens, token_lengths
+
+
+def _agree_steps(torch, mesh):
+    """Two fp32 steps of AGREE on the agreement batch (this rank's stripe
+    under ``mesh``) -> (global losses, the single-device state_dict on the
+    CPU, step 1's whole gradients on the CPU)."""
+    from conformer_tpu_torch.config import Config
+    from conformer_tpu_torch.models.conformer import build_model
+    from conformer_tpu_torch.parallel.mesh import (batch_stripe,
+                                                   full_state_dict,
+                                                   gather_tensor,
+                                                   shard_model)
+    from conformer_tpu_torch.train.state import make_optimizer
+    from conformer_tpu_torch.train.steps import make_train_step
+
+    cfg = Config().override(**AGREE)
+    model = build_model(cfg.model, "float32", seed=0)
+    if mesh is not None:
+        shard_model(model, mesh, cfg.model)
+    model = model.to(DEVICE)
+    opt = make_optimizer(cfg.optim, model.parameters(), 10, mesh,
+                         zero=cfg.parallel.zero)
+    step = make_train_step(cfg, model, opt, mesh=mesh)
+    args = [torch.from_numpy(a).to(DEVICE)
+            for a in batch_stripe(_agree_batch(torch), mesh)]
+    losses = [float(step(*args, 0)["loss"])]
+    grads = {n: (p.grad if mesh is None else gather_tensor(
+        p.grad, p.tp_spec, mesh.model_group)).cpu()
+        for n, p in model.named_parameters()}
+    losses.append(float(step(*args, 1)["loss"]))
+    state = {k: v.detach().cpu() for k, v in
+             full_state_dict(model, mesh).items()}
+    return losses, state, grads
+
+
+def _mesh_cli_runs(torch, spec: dict) -> list:
+    """This rank's share of ``cli.train`` on the 2 x 2 mesh: 4 steps with a
+    checkpoint every 2, then resumed to 6; each run's launches (counts set
+    to 0 just before it), wall, steps and peak memory."""
+    from conformer_tpu_torch.cli import train
+    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    argv = ["--train-manifest", spec["manifest"], "--checkpoint-dir",
+            spec["ck"], "--device", DEVICE, "--set", "data.batch_size=8",
+            "--set", "train.checkpoint_every_steps=2",
+            "--set", "train.log_every_steps=1",
+            "--set", "train.num_epochs=100", *PARALLEL_MESH]
+    from conformer_tpu_torch.train.trainer import Trainer
+
+    fit = Trainer.fit
+
+    def timed_fit(self):        # the training loop alone, set-up aside
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit(self)
+        torch.cuda.synchronize()
+        self.fit_seconds = time.perf_counter() - t0
+
+    runs = []
+    for num_steps in (4, 6):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(Trainer, "fit", timed_fit):
+            trainer = train.main(argv + ["--set",
+                                         f"train.num_steps={num_steps}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        steps = trainer.step - trainer.start_step
+        runs.append({"num_steps": num_steps, "start_step": trainer.start_step,
+                     "end_step": trainer.step, "wall_s": wall,
+                     "fit_s": trainer.fit_seconds,
+                     "step_wall_s": trainer.fit_seconds / max(steps, 1),
+                     "peak_memory_gb":
+                         torch.cuda.max_memory_allocated() / 1e9,
+                     "launches": counts})
+        del trainer
+        torch.cuda.empty_cache()
+    return runs
+
+
+def _worker(spec_path: str) -> int:
+    """One rank of the parallel phase (``--worker SPEC``): ``nccl`` tries
+    NCCL with every rank on card 0; ``mesh`` joins a gloo group of CUDA
+    tensors, runs the agreement steps on the 2 x 2 mesh (rank 0 writes the
+    state) and its share of the cli.train runs."""
+    with open(spec_path, encoding="utf8") as f:
+        spec = json.load(f)
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)           # four ranks on the host's cores
+    init = f"tcp://127.0.0.1:{spec['port']}"
+    rank, world = spec["rank"], spec["world"]
+    out = {"rank": rank}
+    if spec["kind"] == "nccl":
+        try:
+            dev = torch.device("cuda", 0)
+            torch.cuda.set_device(dev)
+            dist.init_process_group("nccl", init_method=init, rank=rank,
+                                    world_size=world, device_id=dev)
+            t = torch.ones(1024, device=dev)
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            out.update(refused=False, sum=float(t[0]))
+        except Exception as e:  # noqa: BLE001 (the refusal is the finding)
+            out.update(refused=True, error=f"{type(e).__name__}: {e}"[:600])
+        with open(spec["out"], "w", encoding="utf8") as f:
+            json.dump(out, f)
+        os._exit(0)       # NCCL may be left unusable: no teardown
+    from conformer_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    mesh = make_mesh(2, 2, DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, state, grads = _agree_steps(torch, mesh)
+    out["agree_losses"] = losses
+    out["agree_wall_s"] = time.perf_counter() - t0
+    if rank == 0:
+        torch.save({"state": state, "grads": grads}, spec["agree_state"])
+    del state, grads
+    torch.cuda.empty_cache()
+    out["runs"] = _mesh_cli_runs(torch, spec)
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(spec["out"], "w", encoding="utf8") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _shard_kernels(torch) -> dict:
+    """K1 (rates 0 and 0.1), K2 (rate 0.1), K4a and K4b at a rank's shapes,
+    bf16 as the mesh runs launch them, and fp32 K1/K2 at the agreement
+    check's (the general kernels), against their plain versions at the
+    kernels phase's limits, timed beside their bounds."""
+    from conformer_tpu_torch.config import AudioConfig
+
+    b, l, h, c = SHARD_B, SHARD_L, SHARD_H, SHARD_C
+    bf16, f32 = torch.bfloat16, torch.float32
+    agree_l = _sub_frames(AudioConfig(), int(AGREE_SECONDS * 16000))
+    return {
+        "k1": [k1_case(torch, b, l, bf16, seed=60, time_it=True, h=h, dp=512),
+               k1_case(torch, b, l, bf16, seed=61, time_it=True, rate=0.1,
+                       h=h, dp=512),
+               k1_case(torch, AGREE_ROWS // 2, agree_l, f32, seed=62,
+                       time_it=False, h=h, dp=512)],
+        "k2": [k2_case(torch, b, l, bf16, seed=63, rate=0.1, time_it=True,
+                       h=h, dp=512),
+               k2_case(torch, AGREE_ROWS // 2, agree_l, f32, seed=64, rate=0.0,
+                       time_it=False, h=h, dp=512)],
+        "k4a": [k4a_case(torch, b, l, bf16, seed=65, time_it=True, c=c)],
+        "k4b": [k4b_case(torch, b, l, bf16, seed=66, time_it=True, c=c)],
+    }
+
+
+def _nccl_world_one(torch) -> dict:
+    """One train step on a dp 1 x tp 1 mesh over a world-1 NCCL group (every
+    collective of the step runs, on one rank) against the meshless step,
+    from the same weights and batch: production Config() (bf16, dropout
+    0.1 hash, SpecAugment, remat) at AGREE_BLOCKS blocks; the meshless step
+    twice, so that a difference of the kernels' own between two runs would
+    show."""
+    import torch.distributed as dist
+
+    from conformer_tpu_torch.config import Config
+    from conformer_tpu_torch.models.conformer import build_model
+    from conformer_tpu_torch.parallel.mesh import make_mesh, shard_model
+    from conformer_tpu_torch.train.state import make_optimizer
+    from conformer_tpu_torch.train.steps import make_train_step
+
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        mesh = make_mesh(1, 1, DEVICE)
+        cfg = Config().override(**{"model.n_blocks": AGREE_BLOCKS,
+                                   "model.vocab_size": 370})
+        args = [torch.from_numpy(a).to(DEVICE) for a in _agree_batch(torch)]
+        runs = {}
+        for name, m in (("meshless", None), ("mesh", mesh),
+                        ("meshless_again", None)):
+            model = build_model(cfg.model, cfg.optim.compute_dtype, seed=0)
+            if m is not None:
+                shard_model(model, m, cfg.model)
+            model = model.to(DEVICE)
+            opt = make_optimizer(cfg.optim, model.parameters(), 10, m)
+            metrics = make_train_step(cfg, model, opt, mesh=m)(*args, 0)
+            runs[name] = ([metrics["loss"].cpu(), metrics["grad_norm"].cpu()],
+                          {k: v.cpu() for k, v in model.state_dict().items()})
+            del model, opt
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    def equal(a, b):
+        (ma, sa), (mb, sb) = runs[a], runs[b]
+        return (all(torch.equal(x, y) for x, y in zip(ma, mb))
+                and all(torch.equal(sa[k], sb[k]) for k in sa))
+
+    return {"backend": "nccl", "world": 1, "loss": float(runs["mesh"][0][0]),
+            "mesh_equals_meshless": equal("mesh", "meshless"),
+            "meshless_twice_equal": equal("meshless", "meshless_again")}
+
+
+def phase_parallel(torch, tmp: str):
+    """-> launch counts of the mesh's cli.train runs, over all ranks."""
+    from conformer_tpu_torch.cli import test as cli_test
+    from conformer_tpu_torch.cli import train
+    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    parts, t_part = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        parts[name] = now - t_part
+        t_part = now
+
+    shard = _shard_kernels(torch)           # timed with the card to itself
+    part("shard_kernels")
+    # the ranks start while this process takes the single-process reference
+    manifest, _ = _write_manifest(tmp, "train", TRAIN_SECONDS, seed=1)
+    ck = os.path.join(tmp, "ck")
+    agree_state = os.path.join(tmp, "agree_mesh.pt")
+    nccl_procs = _start_ranks("nccl", 2, tmp, {})
+    mesh_procs = _start_ranks("mesh", PARALLEL_RANKS, tmp,
+                              {"manifest": manifest, "ck": ck,
+                               "agree_state": agree_state})
+    ref_losses, ref_state, ref_grads = _agree_steps(torch, None)
+    torch.cuda.empty_cache()
+    nccl = _finish_ranks(nccl_procs, NCCL_TIMEOUT_S)
+    nccl_found = {"ranks": nccl, "refused": any(
+        r is None or r.get("refused") for r in nccl)}
+    ranks = _finish_ranks(mesh_procs, WORKER_TIMEOUT_S)
+    part("ranks_and_reference")
+    if any(r is None for r in ranks):
+        emit({"phase": "parallel", "ok": False, "rank_logs": {
+            i: _tail(tmp, f"mesh{i}.log") for i in range(PARALLEL_RANKS)}})
+        raise SystemExit("parallel phase failed: a rank did not finish")
+    from conformer_tpu_torch.models.conformer import build_model
+    from conformer_tpu_torch.config import Config
+
+    saved = torch.load(agree_state)
+    mesh_state, mesh_grads = saved["state"], saved["grads"]
+    names = {n for n, _ in build_model(Config().override(**AGREE).model,
+                                       "float32", seed=None).named_parameters()}
+    errs = {k: float((mesh_state[k].float() - v.float()).abs().max())
+            for k, v in ref_state.items()}
+    # each gradient relative to its own largest element, floored at
+    # K2_FLOOR of the model's largest (a bias before a BatchNorm, or the
+    # attention's key bias, has a gradient of 0 up to rounding)
+    floor = K2_FLOOR * max(float(g.abs().max()) for g in ref_grads.values())
+    grad_rel = {k: float((mesh_grads[k] - g).abs().max())
+                / max(float(g.abs().max()), floor)
+                for k, g in ref_grads.items()}
+    stats_rel = {k: errs[k] / max(float(v.float().abs().max()), 1e-30)
+                 for k, v in ref_state.items() if k not in names}
+    param_err = max(errs[k] for k in names)
+    worst = sorted(names, key=errs.get)[-3:]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(ranks[0]["agree_losses"], ref_losses))
+    agreement = {"config": f"Config() fp32, {AGREE_BLOCKS} blocks, dropout 0, "
+                 "conv_impl pallas, zero, seq_shard; B 8 x 8 s, 2 steps",
+                 "single_process_losses": ref_losses,
+                 "mesh_losses": [r["agree_losses"] for r in ranks],
+                 "mesh_wall_s": [r["agree_wall_s"] for r in ranks],
+                 "loss_rel_err": loss_rel,
+                 "grad_max_rel_err": max(grad_rel.values()),
+                 "worst_grads": {k: grad_rel[k] for k in
+                                 sorted(grad_rel, key=grad_rel.get)[-3:]},
+                 "param_max_abs_err": param_err,
+                 "worst_params": {k: errs[k] for k in worst},
+                 "stats_max_rel_err": max(stats_rel.values()),
+                 **TOL_AGREE,
+                 "ok": (loss_rel <= TOL_AGREE["loss_rtol"]
+                        and max(grad_rel.values()) <= TOL_AGREE["grad_rtol"]
+                        and param_err <= TOL_AGREE["param_atol"]
+                        and max(stats_rel.values())
+                        <= TOL_AGREE["stats_rtol"])}
+
+    total = {}
+    for r in ranks:
+        for run in r["runs"]:
+            for key, n in run["launches"].items():
+                total[key] = total.get(key, 0) + n
+    with open(os.path.join(ck, "metrics.jsonl"), encoding="utf8") as f:
+        records = [json.loads(ln) for ln in f]
+    steps = [{"step": x["step"], "loss": x["train/ctc_loss"],
+              "grad_norm": x["train/grad_norm"],
+              "step_seconds": x["train/step_seconds"],
+              "peak_memory_gb": x.get("train/peak_memory_gb")}
+             for x in records if "train/ctc_loss" in x]
+
+    # resumed at dp 1 in this process, then scored
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    single = train.main(["--train-manifest", manifest, "--checkpoint-dir", ck,
+                         "--device", DEVICE, "--dp", "1",
+                         "--set", "train.num_steps=7"])
+    dp1 = {"start_step": single.start_step, "end_step": single.step,
+           "wall_s": time.perf_counter() - t0, "launches": launch_counts()}
+    part("resume_dp1")
+    del single
+    torch.cuda.empty_cache()
+    results = os.path.join(tmp, "results.csv")
+    scored = cli_test.main(["--manifest", manifest, "--checkpoint-dir", ck,
+                            "--device", DEVICE, "--results", results])
+    with open(results, newline="", encoding="utf8") as f:
+        scored_rows = len(list(csv.reader(f))) - 1
+    part("cli_test")
+
+    world_one = _nccl_world_one(torch)
+    part("nccl_world_one")
+
+    kernels_ok = all(case["ok"] for cases in shard.values() for case in cases)
+    per_rank = [{"rank": r["rank"], "runs": [
+        {k: run[k] for k in ("num_steps", "start_step", "end_step", "wall_s",
+                             "fit_s", "step_wall_s", "peak_memory_gb")}
+        for run in r["runs"]]} for r in ranks]
+    need = ("sincos_attention_fwd", "sincos_attention_fwd_dropout",
+            "sincos_attention_bwd", "logmel_fwd", "depthwise_conv_fwd",
+            "depthwise_conv_dw")
+    ok = (kernels_ok and nccl_found["refused"] and agreement["ok"]
+          and all(run["start_step"] == start and run["end_step"] == end
+                  for r in ranks
+                  for run, (start, end) in zip(r["runs"], ((0, 4), (4, 6))))
+          and [s["step"] for s in steps] == [1, 2, 3, 4, 5, 6]
+          and all(math.isfinite(s["loss"]) for s in steps)
+          and all(total.get(k, 0) > 0 for k in need)
+          and (dp1["start_step"], dp1["end_step"]) == (6, 7)
+          and dp1["launches"]["sincos_attention_bwd"] > 0
+          and scored_rows == len(TRAIN_SECONDS)
+          and math.isfinite(scored.get("loss", float("nan")))
+          and world_one["mesh_equals_meshless"])
+    emit({"phase": "parallel",
+          "note": "four ranks share one card: correctness, not scaling",
+          "mesh": f"Config() at {PARALLEL_BLOCKS} blocks, dp 2 x tp 2, gloo "
+                  "on CUDA tensors (all_gather and reduce_scatter built from "
+                  "all_reduce), zero, seq_shard, conv_impl pallas",
+          "shard_kernels": shard, "nccl_two_ranks_one_card": nccl_found,
+          "agreement": agreement, "per_rank": per_rank, "steps": steps,
+          "launches": total, "resumed_dp1": dp1, "seconds": parts,
+          "cli_test": {"rows": scored_rows, **{k: scored.get(k) for k in
+                                               ("wer", "cer", "loss")}},
+          "nccl_world_one": world_one, "ok": ok})
+    if not ok:
+        raise SystemExit("parallel phase failed")
+    return total
+
+
 def _profiled(torch, fn):
     """-> (host wall ms, device busy ms, kernel rows) of one fn() call."""
     from torch.profiler import ProfilerActivity, profile
@@ -3808,6 +4292,9 @@ def phase_profile(torch):
 # ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--worker"]:            # a rank of the parallel phase
+        return _worker(argv[1])
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--phases", default=",".join(PHASES),
@@ -3856,7 +4343,8 @@ def main(argv=None) -> int:
                           ("transducer", phase_transducer),
                           ("export", phase_export),
                           ("beam_device", phase_beam_device),
-                          ("pretrain", phase_pretrain)):
+                          ("pretrain", phase_pretrain),
+                          ("parallel", phase_parallel)):
             if name in phases:
                 tmp = os.path.join(root, name)
                 os.makedirs(tmp)

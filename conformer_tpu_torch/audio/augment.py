@@ -31,16 +31,24 @@ def _axis_masks(gen: torch.Generator, b: int, n_masks: int, mask_param: int,
 
 
 def spec_augment(gen: torch.Generator, mel: torch.Tensor, cfg: AugmentConfig,
-                 lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 lengths: Optional[torch.Tensor] = None,
+                 rows: Optional[slice] = None,
+                 global_rows: Optional[int] = None) -> torch.Tensor:
     """Apply SpecAugment to a (B, T, F) log-mel batch. Time-mask starts are
-    drawn over the padded axis; masking padded frames is harmless."""
+    drawn over the padded axis; masking padded frames is harmless. Under a
+    mesh, ``mel`` is the ``rows`` of a global batch of ``global_rows``: the
+    masks are drawn for the whole of it, as one device draws them, and the
+    rank keeps its own."""
     if not cfg.enabled:
         return mel
     b, t, f = mel.shape
-    tmask = _axis_masks(gen, b, cfg.n_time_masks, cfg.time_mask_param, t,
+    n = b if global_rows is None else global_rows
+    tmask = _axis_masks(gen, n, cfg.n_time_masks, cfg.time_mask_param, t,
                         cfg.prob)
-    fmask = _axis_masks(gen, b, cfg.n_freq_masks, cfg.freq_mask_param, f,
+    fmask = _axis_masks(gen, n, cfg.n_freq_masks, cfg.freq_mask_param, f,
                         cfg.prob)
+    if rows is not None:
+        tmask, fmask = tmask[rows], fmask[rows]
     masked = (tmask[:, :, None] | fmask[:, None, :]).to(mel.device)
     if cfg.zero_masking:
         fill = torch.zeros((), dtype=mel.dtype, device=mel.device)

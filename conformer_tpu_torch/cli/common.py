@@ -1,6 +1,6 @@
 """Shared CLI plumbing: ``--config`` JSON plus dotted ``--set`` overrides,
-the tokenizer choice and the device (counterpart of the single-device part
-of conformer_tpu/cli/common.py)."""
+the tokenizer choice, the device and the mesh (counterpart of
+conformer_tpu/cli/common.py)."""
 
 from __future__ import annotations
 
@@ -23,6 +23,41 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device: 'cuda' (default; fails without a GPU), "
                         "'cuda:N' or 'cpu'")
+
+
+def add_mesh_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel mesh size (0 = the ranks there are / "
+                        "tp)")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh size")
+    p.add_argument("--multihost", action="store_true",
+                   help="a launch over several nodes: initialise from the "
+                        "launcher's environment and give each node its "
+                        "stripe of the manifest")
+
+
+def setup_mesh(args: argparse.Namespace, device):
+    """-> the (dp, tp) mesh over the launcher's ranks, or None for one rank
+    (counterpart of the JAX setup_mesh). One process per rank, as
+    ``torch.distributed.run`` starts them: the default process group comes
+    from its environment (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE; NCCL
+    for a CUDA device, gloo for the CPU) unless the caller initialised one.
+    ``--multihost`` insists on that environment (the counterpart of
+    ``jax.distributed.initialize``). A world size other than dp * tp
+    raises."""
+    from conformer_tpu_torch.parallel.mesh import (init_process_group,
+                                                   make_mesh, world_size)
+
+    if args.multihost and "RANK" not in os.environ:
+        raise SystemExit("--multihost needs a launcher's environment "
+                         "(MASTER_ADDR, RANK, WORLD_SIZE): launch with "
+                         "torch.distributed.run")
+    init_process_group(device)
+    n = world_size()
+    dp = args.dp or max(n // args.tp, 1)
+    if dp * args.tp == 1 and n == 1:
+        return None
+    return make_mesh(dp, args.tp, device)
 
 
 def parse_value(raw: str):
@@ -55,8 +90,11 @@ def load_config(args: argparse.Namespace) -> Config:
 
 def save_config(cfg: Config, directory: Optional[str]) -> None:
     """Write the composed config next to the checkpoints, so that a resumed
-    run and the other CLIs rebuild the same model."""
-    if not directory:
+    run and the other CLIs rebuild the same model (under a mesh, rank 0
+    writes it)."""
+    import torch.distributed as dist
+
+    if not directory or (dist.is_initialized() and dist.get_rank() != 0):
         return
     os.makedirs(directory, exist_ok=True)
     cfg.to_json(os.path.join(directory, "config.json"))

@@ -10,17 +10,27 @@ manifest is a CSV of (path, text) rows pointing at WAV files. Checkpoints,
 run with the same directory resumes from the newest checkpoint.
 ``--init-encoder-from DIR`` (with ``--init-method wav2vec2|byol``) starts
 the encoder from the newest checkpoint of a ``cli.pretrain`` run, unless a
-supervised checkpoint is resumed. Not ported yet, and refused: more than
-one device (``--dp``/``--tp``, ``--multihost``) and ``--wandb``.
+supervised checkpoint is resumed. ``--wandb`` is refused (not installed).
+
+Over several ranks, one process each, a (dp, tp) mesh (parallel/mesh.py):
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m conformer_tpu_torch.cli.train --dp 2 --tp 2 --train-manifest ... \
+        [--set parallel.zero=true] [--set model.seq_shard=true]
+
+with ``--device cpu`` over gloo, or one card a rank (LOCAL_RANK) over NCCL.
+Its checkpoints are in the single-device format: a run resumes under
+another mesh or none, and ``cli.test`` reads them.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from conformer_tpu_torch.cli.common import (add_common_args, load_config,
+from conformer_tpu_torch.cli.common import (add_common_args, add_mesh_args,
+                                            load_config,
                                             load_tokenizer_from_args,
-                                            save_config)
+                                            save_config, setup_mesh)
 
 
 def main(argv=None):
@@ -28,12 +38,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     add_common_args(p)
-    p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel size (only 0 or 1: one device)")
-    p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel size (only 1: one device)")
-    p.add_argument("--multihost", action="store_true",
-                   help="not ported: refused")
+    add_mesh_args(p)
     p.add_argument("--train-manifest", default=None)
     p.add_argument("--val-manifest", default=None)
     p.add_argument("--checkpoint-dir", default=None)
@@ -45,10 +50,6 @@ def main(argv=None):
     p.add_argument("--init-method", choices=["wav2vec2", "byol"], default=None)
     args = p.parse_args(argv)
 
-    if args.dp > 1 or args.tp > 1 or args.multihost:
-        raise NotImplementedError(
-            "multi-device training (--dp, --tp, --multihost) is not ported "
-            "yet; train on one device")
     cfg = load_config(args)
     overrides = {}
     if args.train_manifest:
@@ -68,13 +69,21 @@ def main(argv=None):
     tokenizer = load_tokenizer_from_args(args, cfg)
 
     from conformer_tpu_torch.decode.pipeline import resolve_device
+    from conformer_tpu_torch.parallel.mesh import local_device
     from conformer_tpu_torch.train.logging import MetricsLogger
     from conformer_tpu_torch.train.trainer import Trainer
 
     resolve_device(args.device)       # no GPU and no --device cpu: raise now
-    logger = MetricsLogger(cfg.train.checkpoint_dir, use_wandb=args.wandb)
+    device = local_device(args.device)
+    mesh = setup_mesh(args, device)
+    cfg = cfg.override(**{"parallel.dp": mesh.dp if mesh else 1,
+                          "parallel.tp": mesh.tp if mesh else 1})
+    lead = mesh is None or mesh.rank == 0
+    logger = MetricsLogger(cfg.train.checkpoint_dir if lead else None,
+                           use_wandb=args.wandb)
     save_config(cfg, cfg.train.checkpoint_dir)
-    trainer = Trainer(cfg, tokenizer, logger=logger, device=args.device)
+    trainer = Trainer(cfg, tokenizer, logger=logger, device=device, mesh=mesh,
+                      multihost=args.multihost)
     trainer.fit()
     logger.close()
     return trainer

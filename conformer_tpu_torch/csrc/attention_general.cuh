@@ -11,6 +11,11 @@
 // than one tile is summed per tile (at most 64 deep, 24 TF32 products) from
 // zero and each tile's sum added to the result in fp32.
 //
+// Widths. The packed operands (qu, qv, k, v, out) are (B, L, D) with
+// D = H * dh; the position side (wh's last axis, the sin/cos tables, da)
+// is Dp wide, which is D on one device and the whole model's width when a
+// mesh gives this call a rank's H/tp heads (Dp = tp * D).
+//
 // Layout. Head widths and table widths are arbitrary, so each segment of
 // a product's depth is zero-padded to 16 on its own (dhp and d2p: dh and
 // D/2 rounded up to 16), and the score depth is the virtual row
@@ -63,7 +68,7 @@ __host__ __device__ inline int padded_head(int dh) {
 
 // Everything about a call's shapes that the kernels and the host share.
 struct Geo {
-  int B, L, H, dh, D, D2;
+  int B, L, H, dh, D, Dp, D2;  // D = H * dh packed; Dp position width, D2 = Dp/2
   int esz;         // bytes of T
   int pa;          // row pad (elements) of tiles read by ldmatrix or permuted
   int dhp, d2p;    // dh and D/2 rounded up to 16
@@ -77,14 +82,15 @@ struct Geo {
   int stages;      // the query pass's ring stages, 3 or 4
 };
 
-inline Geo make_geo(int B, int L, int H, int dh, int esz) {
+inline Geo make_geo(int B, int L, int H, int dh, int Dp, int esz) {
   Geo g;
   g.B = B;
   g.L = L;
   g.H = H;
   g.dh = dh;
   g.D = H * dh;
-  g.D2 = g.D / 2;
+  g.Dp = Dp;
+  g.D2 = Dp / 2;
   g.esz = esz;
   g.pa = 16 / esz;
   g.dhp = round_up(dh, 16);
@@ -565,12 +571,12 @@ __device__ void build_query_tile(const Geo& g, T* qt, T* work, const T* qu,
             g.dh, g.vb);
   load_tile(qvt, qvs, qv + row0 * g.D + h * g.dh, g.D, rows, g.L - q0, g.dhp,
             g.dh, g.vb);
-  const T* whh = wh + (size_t)h * g.dh * g.D;
+  const T* whh = wh + (size_t)h * g.dh * g.Dp;
   auto load_w = [&](int xc) {
     const int x0 = xc * XW;
     T* dst = wbuf + (size_t)(xc & 1) * 2 * wsz;
     for (int half = 0; half < 2; ++half)
-      load_tile(dst + half * wsz, ws, whh + half * g.D2 + x0, g.D, g.dhp,
+      load_tile(dst + half * wsz, ws, whh + half * g.D2 + x0, g.Dp, g.dhp,
                 g.dh, XW, g.D2 - x0, g.vb);
   };
   const int nx = (g.d2p + XW - 1) / XW;

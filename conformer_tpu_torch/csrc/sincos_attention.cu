@@ -3,9 +3,12 @@
 // Replaces: conformer_tpu/ops/pallas/sincos_attention.py::_fwd_kernel (with
 // _scores and, at a dropout rate above 0, _dropout_keep: K1-drop), reached
 // through _fwd_call and rel_attention_sincos_packed. Same function, packed
-// (B, L, D) layout with head h in columns [h*dh, (h+1)*dh):
-//   a      = qv_h . wh[h]                        (TQ, D), fp32 sums
-//   alpha  = T(a_s * sin_q + a_c * cos_q)        (TQ, D/2), rounded to T
+// (B, L, D) layout with head h in columns [h*dh, (h+1)*dh), D = H * dh, and
+// a position side Dp wide (wh (H, dh, Dp), sin/cos (L, Dp/2)): Dp = D on
+// one device, the whole model's width on a rank that a mesh gives H/tp
+// heads (the JAX shard_map body's shapes):
+//   a      = qv_h . wh[h]                        (TQ, Dp), fp32 sums
+//   alpha  = T(a_s * sin_q + a_c * cos_q)        (TQ, Dp/2), rounded to T
 //   beta   = T(-a_s * cos_q + a_c * sin_q)
 //   s[i,j] = qu_i . k_j + alpha_i . cos_j + beta_i . sin_j   (fp32)
 //   s      = s where j < min(len_b, L) else float32.min      (a select)
@@ -143,7 +146,7 @@ struct FwdArgs {
   const int* lengths;
   void* out;
   float* stats;  // (B, H, L, 2) [row max, row sum], or null
-  int B, L, H, dh;
+  int B, L, H, dh, Dp;    // Dp: the position width (wh's last axis)
   uint32_t seed, thresh;  // dropout: keep where hash >= thresh
   float inv_keep;         // 1 / (1 - rate)
   int tq;                 // the JAX kernel's q-tile rows, for the hash
@@ -169,8 +172,8 @@ constexpr int THREADS = 128 * (CONSUMERS + 1);  // the last warpgroup produces
 struct Maps {
   CUtensorMap qu, qv;         // (B, L, D), 64-row boxes
   CUtensorMap k, v;           // (B, L, D), BN-row boxes
-  CUtensorMap wh;             // (H*64, D), 64-row boxes
-  CUtensorMap cos_t, sin_t;   // (L, D/2), BN-row boxes
+  CUtensorMap wh;             // (H*64, Dp), 64-row boxes
+  CUtensorMap cos_t, sin_t;   // (L, Dp/2), BN-row boxes
 };
 
 using Ring = RingOf<STAGES, STAGE>;
@@ -180,17 +183,17 @@ __global__ void __launch_bounds__(THREADS, 1)
 fwd_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ sin_t,
            const bf16* __restrict__ cos_t, const int* __restrict__ lengths,
            bf16* __restrict__ out, float* __restrict__ stats, int L, int H,
-           uint32_t seed, uint32_t thresh, float inv_keep, int tq) {
+           int Dp, uint32_t seed, uint32_t thresh, float inv_keep, int tq) {
   constexpr float LOG2E = 1.4426950408889634f;
-  const int D = H * DH, D2 = D / 2, n_half = D2 / 64;
+  const int D = H * DH, D2 = Dp / 2, n_half = D2 / 64;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * STAGES + 1];
-  // The query tile: 1 + D/64 panels of BM rows x 64 columns, [qu | alpha |
+  // The query tile: 1 + Dp/64 panels of BM rows x 64 columns, [qu | alpha |
   // beta]; then the ring. Both 1024-byte aligned for the 128-byte swizzle.
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t q_tile = (raw + 1023u) & ~1023u;
   uint8_t* q_ptr = smem_raw + (q_tile - raw);
-  const uint32_t ring = q_tile + (1 + D / 64) * PANEL;
+  const uint32_t ring = q_tile + (1 + Dp / 64) * PANEL;
   const uint32_t full = smem_u32(bars), empty = full + 8 * STAGES,
                  q_full = full + 16 * STAGES;
 
@@ -255,7 +258,7 @@ fwd_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ sin_t,
 
     // 1. a = qv . wh[h] on wgmma, 64 coefficient columns of each half at a
     // time; alpha and beta rounded into the query panels 1.. and
-    // 1 + D/128.. . The ring's stage 0 holds qv, until every chunk is done.
+    // 1 + Dp/128.. . The ring's stage 0 holds qv, until every chunk is done.
     const uint32_t qv_tile = take(r, full, ring, st) + wg * BOX;
     for (int c = 0; c < n_half; ++c) {
       const uint32_t wh_sin = take(r, full, ring, st), wh_cos = wh_sin + BOX;
@@ -308,7 +311,7 @@ fwd_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ sin_t,
     // 2. Key tiles with an online softmax. Rows r_lo and r_lo + 8 are this
     // thread's; m, l are per row, l summed over the quad at the end.
     const int len = min(lengths[b], L);
-    const int n_chunks = 1 + D / 64;  // [k | cos (D2/64) | sin (D2/64)]
+    const int n_chunks = 1 + Dp / 64;  // [k | cos (D2/64) | sin (D2/64)]
     const uint32_t q_rows = q_tile + wrow * 128;
     float o[32], m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 #pragma unroll
@@ -426,18 +429,18 @@ fwd_kernel(const __grid_constant__ Maps maps, const bf16* __restrict__ sin_t,
 
 template <bool DROP>
 int launch(const FwdArgs& a, cudaStream_t stream) {
-  const int D = a.H * DH, D2 = D / 2;
+  const int D = a.H * DH, Dp = a.Dp, D2 = Dp / 2;
   // qv (stage 0) and every wh chunk pair are in the ring before stage 0 is
-  // released: 1 + D/128 <= STAGES.
-  if (1 + D / 128 > STAGES || D2 % 64 != 0) return cudaErrorInvalidValue;
+  // released: 1 + Dp/128 <= STAGES.
+  if (1 + Dp / 128 > STAGES || D2 % 64 != 0) return cudaErrorInvalidValue;
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return cudaErrorNotSupported;
   Maps m;
   const cuuint64_t packed[3] = {(cuuint64_t)D, (cuuint64_t)a.L, (cuuint64_t)a.B};
   const cuuint64_t packed_strides[2] = {(cuuint64_t)D * 2,
                                         (cuuint64_t)a.L * D * 2};
-  const cuuint64_t wh_dims[2] = {(cuuint64_t)D, (cuuint64_t)a.H * DH};
-  const cuuint64_t wh_strides[1] = {(cuuint64_t)D * 2};
+  const cuuint64_t wh_dims[2] = {(cuuint64_t)Dp, (cuuint64_t)a.H * DH};
+  const cuuint64_t wh_strides[1] = {(cuuint64_t)Dp * 2};
   const cuuint64_t tab[2] = {(cuuint64_t)D2, (cuuint64_t)a.L};
   const cuuint64_t tab_strides[1] = {(cuuint64_t)D2 * 2};
   if (!(encode(fn, &m.qu, a.qu, 3, packed, packed_strides, 64) &&
@@ -448,14 +451,14 @@ int launch(const FwdArgs& a, cudaStream_t stream) {
         encode(fn, &m.cos_t, a.cos_t, 2, tab, tab_strides, BN) &&
         encode(fn, &m.sin_t, a.sin_t, 2, tab, tab_strides, BN)))
     return cudaErrorInvalidValue;
-  const size_t smem = 1024 + (size_t)(1 + D / 64) * PANEL + (size_t)STAGES * STAGE;
+  const size_t smem = 1024 + (size_t)(1 + Dp / 64) * PANEL + (size_t)STAGES * STAGE;
   cudaError_t err = cudaFuncSetAttribute(
       fwd_kernel<DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.L + BM - 1) / BM, a.H, a.B);
   fwd_kernel<DROP><<<grid, THREADS, smem, stream>>>(
       m, static_cast<const bf16*>(a.sin_t), static_cast<const bf16*>(a.cos_t),
-      a.lengths, static_cast<bf16*>(a.out), a.stats, a.L, a.H, a.seed,
+      a.lengths, static_cast<bf16*>(a.out), a.stats, a.L, a.H, Dp, a.seed,
       a.thresh, a.inv_keep, a.tq);
   return cudaGetLastError();
 }
@@ -645,8 +648,8 @@ fwd_kernel(const __grid_constant__ Params p) {
 }
 
 // The geometry the forward launches with: rows 0 when no query tile fits.
-inline Geo plan(int B, int L, int H, int dh, int esz) {
-  Geo g = make_geo(B, L, H, dh, esz);
+inline Geo plan(int B, int L, int H, int dh, int Dp, int esz) {
+  Geo g = make_geo(B, L, H, dh, Dp, esz);
   g.rows = query_rows(g, false);
   g.stages = g.rows ? query_stages(g, g.rows, false) : 0;
   return g;
@@ -668,7 +671,7 @@ int run(const FwdArgs& a, const Geo& g, cudaStream_t stream) {
 
 template <class T, bool DROP>
 int launch(const FwdArgs& a, cudaStream_t stream) {
-  const Geo g = plan(a.B, a.L, a.H, a.dh, sizeof(T));
+  const Geo g = plan(a.B, a.L, a.H, a.dh, a.Dp, sizeof(T));
   if (g.rows == 0) return cudaErrorInvalidValue;
   switch (g.dvp) {
     case 16: return run<T, 16, DROP>(a, g, stream);
@@ -688,7 +691,7 @@ extern "C" const char* sincos_attention_error_string(int err) {
 }
 
 // The kernels of sincos_attention_fwd: 0 the bf16 wgmma kernel (namespace
-// hopper; dh 64, D/2 a multiple of 64, D <= 512), 1 the general one.
+// hopper; dh 64, Dp/2 a multiple of 64, Dp <= 512), 1 the general one.
 enum Variant { WGMMA = 0, GENERAL = 1 };
 
 // The general kernels' geometry for these shapes (dtype 0 float32, 1
@@ -696,9 +699,10 @@ enum Variant { WGMMA = 0, GENERAL = 1 };
 // the copy width in bytes, the forward's query rows, ring stages and shared
 // memory, the backward query pass's, and the score chunks.
 extern "C" void sincos_attention_general_geometry(int B, int L, int H, int dh,
-                                                  int dtype, long long* out) {
+                                                  int Dp, int dtype,
+                                                  long long* out) {
   using namespace attn::gen;
-  const Geo g = make_geo(B, L, H, dh, dtype == 0 ? 4 : 2);
+  const Geo g = make_geo(B, L, H, dh, Dp, dtype == 0 ? 4 : 2);
   const int fr = query_rows(g, false), br = query_rows(g, true);
   const int fs = fr ? query_stages(g, fr, false) : 0;
   const int bs = br ? query_stages(g, br, true) : 0;
@@ -710,8 +714,8 @@ extern "C" void sincos_attention_general_geometry(int B, int L, int H, int dh,
   for (int i = 0; i < 10; ++i) out[i] = v[i];
 }
 
-// qu, qv, k, v, out: (B, L, H*dh); wh: (H, dh, H*dh); sin_t, cos_t:
-// (L, H*dh/2); all of one dtype (0 = float32, 1 = bfloat16), contiguous and
+// qu, qv, k, v, out: (B, L, H*dh); wh: (H, dh, Dp); sin_t, cos_t:
+// (L, Dp/2) (Dp = H*dh on one device); all of one dtype (0 = float32, 1 = bfloat16), contiguous and
 // 16-byte aligned, on the current device. lengths: (B,) int32. stats: null,
 // or (B, H, L, 2) float32 for each row's max and sum. scratch: unused
 // (neither kernel needs any; null). Dropout keeps an element where
@@ -723,13 +727,13 @@ extern "C" int sincos_attention_fwd(const void* qu, const void* qv,
                                     const void* wh, const void* sin_t,
                                     const void* cos_t, const void* lengths,
                                     void* out, void* stats, void* scratch,
-                                    int B, int L, int H, int dh, int dtype,
-                                    int variant, uint32_t seed,
+                                    int B, int L, int H, int dh, int Dp,
+                                    int dtype, int variant, uint32_t seed,
                                     uint32_t thresh, float inv_keep, int tq,
                                     void* stream) {
   const FwdArgs a{qu, qv, k, v, wh, sin_t, cos_t,
                   static_cast<const int*>(lengths), out,
-                  static_cast<float*>(stats), B, L, H, dh, seed, thresh,
+                  static_cast<float*>(stats), B, L, H, dh, Dp, seed, thresh,
                   inv_keep, tq};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool drop = thresh != 0u;

@@ -2,7 +2,10 @@
 // (sm_90a).
 //
 // Replaces: conformer_tpu/ops/pallas/sincos_attention.py::_bwd_kernel,
-// reached through _bwd_call and the custom VJP _fused. Packed (B, L, D)
+// reached through _bwd_call and the custom VJP _fused. The position side
+// is Dp wide (wh and dwh (H, dh, Dp), sin/cos (L, Dp/2), da (B*H, L, Dp)):
+// Dp = D on one device, the whole model's width on a rank that a mesh gives
+// H/tp heads (sincos_attention.cu). Packed (B, L, D)
 // layout, head h in columns [h*dh, (h+1)*dh); the caller has folded the
 // score scale into qu and qv. With s the scores of the forward
 // (sincos_attention.cu), m and l each row's softmax max and sum from K1's
@@ -129,7 +132,7 @@ struct BwdArgs {
   const float* stats;  // (B, H, L, 2): K1's row max and row sum
   const void* dout;
   void *dqu, *dqv, *dk, *dv, *dwh;
-  int B, L, H, dh;
+  int B, L, H, dh, Dp;    // Dp: the position width (wh's last axis)
   uint32_t seed, thresh;  // dropout: keep where hash >= thresh (0: none)
   float inv_keep;         // 1 / (1 - rate)
   int tq;                 // the JAX kernel's q-tile rows, for the hash
@@ -162,8 +165,8 @@ using Ring = RingOf<STAGES, STAGE>;
 struct QMaps {                // q_pass: K1's operands
   CUtensorMap qu, qv;         // (B, L, D), 64-row boxes
   CUtensorMap k, v;           // (B, L, D), BN-row boxes
-  CUtensorMap wh;             // (H*64, D), 64-row boxes
-  CUtensorMap cos_t, sin_t;   // (L, D/2), BN-row boxes
+  CUtensorMap wh;             // (H*64, Dp), 64-row boxes
+  CUtensorMap cos_t, sin_t;   // (L, Dp/2), BN-row boxes
 };
 struct KMaps {                // k_pass
   CUtensorMap ds, pd;         // (B*H, L, L) scratch, 64-row boxes
@@ -171,12 +174,12 @@ struct KMaps {                // k_pass
 };
 struct AMaps {                // da_pass
   CUtensorMap ds;             // (B*H, L, L), 64-row boxes
-  CUtensorMap cos_t, sin_t;   // (L, D/2), 64-row boxes
-  CUtensorMap wh;             // (H*64, D), 64-row boxes
+  CUtensorMap cos_t, sin_t;   // (L, Dp/2), 64-row boxes
+  CUtensorMap wh;             // (H*64, Dp), 64-row boxes
 };
 struct WMaps {                // dwh_pass
   CUtensorMap qv;             // (B, L, D), 64-row boxes
-  CUtensorMap da;             // (B*H, L, D) scratch, 64-row boxes
+  CUtensorMap da;             // (B*H, L, Dp) scratch, 64-row boxes
 };
 
 __device__ __forceinline__ void init_ring(uint32_t full, uint32_t empty,
@@ -238,7 +241,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 q_pass(const __grid_constant__ QMaps maps, const BwdArgs a,
        bf16* __restrict__ ds_out, bf16* __restrict__ pd_out, int LP) {
   constexpr float LOG2E = 1.4426950408889634f;
-  const int L = a.L, H = a.H, D = H * DH, D2 = D / 2, n_half = D2 / 64;
+  const int L = a.L, H = a.H, D = H * DH, D2 = a.Dp / 2, n_half = D2 / 64;
   const bf16* sin_t = static_cast<const bf16*>(a.sin_t);
   const bf16* cos_t = static_cast<const bf16*>(a.cos_t);
   extern __shared__ uint8_t smem_raw[];
@@ -246,7 +249,7 @@ q_pass(const __grid_constant__ QMaps maps, const BwdArgs a,
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t q_tile = (raw + 1023u) & ~1023u;
   uint8_t* q_ptr = smem_raw + (q_tile - raw);
-  const uint32_t ring = q_tile + (1 + D / 64) * PANEL;
+  const uint32_t ring = q_tile + (1 + a.Dp / 64) * PANEL;
   const uint32_t full = smem_u32(bars), empty = full + 8 * Q_STAGES,
                  q_full = full + 16 * Q_STAGES;
 
@@ -361,7 +364,7 @@ q_pass(const __grid_constant__ QMaps maps, const BwdArgs a,
     // sum; rows past L take p = 0), and dO of the warp's 16 rows as the A
     // fragments of dO . v^T.
     const int len = min(a.lengths[b], L);
-    const int n_chunks = 1 + D / 64;
+    const int n_chunks = 1 + a.Dp / 64;
     const uint32_t q_rows = q_tile + wrow * 128;
     const size_t bh = (size_t)b * H + h;
     float m_r[2], il_r[2], dl[2] = {0.f, 0.f};
@@ -584,7 +587,8 @@ k_pass(const __grid_constant__ KMaps maps, const BwdArgs a) {
 __global__ void __launch_bounds__(THREADS, 1)
 da_pass(const __grid_constant__ AMaps maps, const BwdArgs a,
         bf16* __restrict__ da_out) {
-  const int L = a.L, H = a.H, D = H * DH, D2 = D / 2, n_half = D2 / 64;
+  const int L = a.L, H = a.H, D = H * DH, Dp = a.Dp, D2 = Dp / 2,
+            n_half = D2 / 64;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * STAGES];
   const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -687,7 +691,7 @@ da_pass(const __grid_constant__ AMaps maps, const BwdArgs a,
           fs[j / 2][2 * (j % 2) + hf] = us;
           fc[j / 2][2 * (j % 2) + hf] = uc;
           if (q < L) {
-            bf16* dst = da_out + ((size_t)bh * L + q) * D + x;
+            bf16* dst = da_out + ((size_t)bh * L + q) * Dp + x;
             *reinterpret_cast<uint32_t*>(dst) = us;
             *reinterpret_cast<uint32_t*>(dst + D2) = uc;
           }
@@ -718,14 +722,14 @@ da_pass(const __grid_constant__ AMaps maps, const BwdArgs a,
   }
 }
 
-// One CTA per (64 columns of D, head): dwh[h][:, cols] = sum over batch
+// One CTA per (64 columns of Dp, head): dwh[h][:, cols] = sum over batch
 // rows and 64-query tiles, in that fixed order, of qv_h^T . da (qv read
 // MN-major as A, da MN-major as B), one consumer warpgroup.
 constexpr int W_THREADS = 256;
 
 __global__ void __launch_bounds__(W_THREADS, 1)
 dwh_pass(const __grid_constant__ WMaps maps, const BwdArgs a) {
-  const int L = a.L, H = a.H, D = H * DH;
+  const int L = a.L, H = a.H, Dp = a.Dp;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * STAGES];
   const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -779,7 +783,7 @@ dwh_pass(const __grid_constant__ WMaps maps, const BwdArgs a) {
     bf16* dwh = static_cast<bf16*>(a.dwh);
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      bf16* dst = dwh + ((size_t)h * DH + r_lo + 8 * hf) * D + x0 + 2 * t;
+      bf16* dst = dwh + ((size_t)h * DH + r_lo + 8 * hf) * Dp + x0 + 2 * t;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         *reinterpret_cast<uint32_t*>(dst + j * 8) =
@@ -795,11 +799,12 @@ struct Scratch {
 };
 
 // ds and p_drop (B*H, L, LP) with rows padded to LP (16-byte TMA strides),
-// da (B*H, L, D).
-inline size_t scratch_layout(int B, int L, int H, char* base, Scratch* s) {
+// da (B*H, L, Dp).
+inline size_t scratch_layout(int B, int L, int H, int Dp, char* base,
+                             Scratch* s) {
   const size_t rows = (size_t)B * H * L;
   const size_t n_sq = align256(sizeof(bf16) * rows * padded_len(L));
-  const size_t n_da = align256(sizeof(bf16) * rows * H * DH);
+  const size_t n_da = align256(sizeof(bf16) * rows * Dp);
   if (s != nullptr) {
     s->ds = reinterpret_cast<bf16*>(base);
     s->pd = reinterpret_cast<bf16*>(base + n_sq);
@@ -816,23 +821,25 @@ int set_smem(K kernel, size_t bytes) {
 
 template <bool DROP>
 int launch(const BwdArgs& a, void* scratch, cudaStream_t stream) {
-  const int B = a.B, L = a.L, H = a.H, D = H * DH, D2 = D / 2, LP = padded_len(L);
+  const int B = a.B, L = a.L, H = a.H, D = H * DH, Dp = a.Dp, D2 = Dp / 2,
+            LP = padded_len(L);
   // qv (stage 0) and every wh chunk pair are in q_pass's ring before stage
-  // 0 is released: 1 + D/128 <= Q_STAGES.
-  if (1 + D / 128 > Q_STAGES || D2 % 64 != 0) return cudaErrorInvalidValue;
+  // 0 is released: 1 + Dp/128 <= Q_STAGES.
+  if (1 + Dp / 128 > Q_STAGES || D2 % 64 != 0) return cudaErrorInvalidValue;
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return cudaErrorNotSupported;
   Scratch s;
-  scratch_layout(B, L, H, static_cast<char*>(scratch), &s);
+  scratch_layout(B, L, H, Dp, static_cast<char*>(scratch), &s);
   const cuuint64_t packed[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)B};
   const cuuint64_t packed_strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
-  const cuuint64_t wh_dims[2] = {(cuuint64_t)D, (cuuint64_t)H * DH};
-  const cuuint64_t wh_strides[1] = {(cuuint64_t)D * 2};
+  const cuuint64_t wh_dims[2] = {(cuuint64_t)Dp, (cuuint64_t)H * DH};
+  const cuuint64_t wh_strides[1] = {(cuuint64_t)Dp * 2};
   const cuuint64_t tab[2] = {(cuuint64_t)D2, (cuuint64_t)L};
   const cuuint64_t tab_strides[1] = {(cuuint64_t)D2 * 2};
   const cuuint64_t sq[3] = {(cuuint64_t)L, (cuuint64_t)L, (cuuint64_t)B * H};
   const cuuint64_t sq_strides[2] = {(cuuint64_t)LP * 2, (cuuint64_t)L * LP * 2};
-  const cuuint64_t da_dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)B * H};
+  const cuuint64_t da_dims[3] = {(cuuint64_t)Dp, (cuuint64_t)L, (cuuint64_t)B * H};
+  const cuuint64_t da_strides[2] = {(cuuint64_t)Dp * 2, (cuuint64_t)L * Dp * 2};
   QMaps qm;
   KMaps km;
   AMaps am;
@@ -850,12 +857,12 @@ int launch(const BwdArgs& a, void* scratch, cudaStream_t stream) {
         encode(fn, &km.dout, a.dout, 3, packed, packed_strides, 64) &&
         encode(fn, &am.cos_t, a.cos_t, 2, tab, tab_strides, 64) &&
         encode(fn, &am.sin_t, a.sin_t, 2, tab, tab_strides, 64) &&
-        encode(fn, &wm.da, s.da, 3, da_dims, packed_strides, 64)))
+        encode(fn, &wm.da, s.da, 3, da_dims, da_strides, 64)))
     return cudaErrorInvalidValue;
   am.ds = km.ds;
   am.wh = qm.wh;
   wm.qv = qm.qv;
-  const size_t smem_q = 1024 + (size_t)(1 + D / 64) * PANEL + (size_t)Q_STAGES * STAGE;
+  const size_t smem_q = 1024 + (size_t)(1 + Dp / 64) * PANEL + (size_t)Q_STAGES * STAGE;
   const size_t smem_r = 1024 + (size_t)STAGES * STAGE;
   int err;
   if ((err = set_smem(q_pass<DROP>, smem_q)) || (err = set_smem(k_pass, smem_r)) ||
@@ -868,7 +875,7 @@ int launch(const BwdArgs& a, void* scratch, cudaStream_t stream) {
   if ((err = cudaGetLastError())) return err;
   da_pass<<<rows, THREADS, smem_r, stream>>>(am, a, s.da);
   if ((err = cudaGetLastError())) return err;
-  dwh_pass<<<dim3(D / 64, H), W_THREADS, smem_r, stream>>>(wm, a);
+  dwh_pass<<<dim3(Dp / 64, H), W_THREADS, smem_r, stream>>>(wm, a);
   return cudaGetLastError();
 }
 
@@ -883,8 +890,8 @@ namespace general {
 
 using namespace attn::gen;
 
-// Scratch: ds and p_drop (B*H, L, lp) in T, da (B*H, L, D) in T, and the
-// dwh partials (B * splits, H, dh, D) in fp32.
+// Scratch: ds and p_drop (B*H, L, lp) in T, da (B*H, L, Dp) in T, and the
+// dwh partials (B * splits, H, dh, Dp) in fp32.
 struct Scratch {
   void *ds, *pd, *da;
   float* part;
@@ -898,7 +905,7 @@ __host__ __device__ inline int ds_stride(int L) { return round_up(L, 8); }
 // Row-tile splits of each batch row in the dwh pass: enough CTAs for two
 // per SM, at most one split per 64-row tile.
 inline int dwh_splits(const Geo& g) {
-  const int base = ((g.D + 63) / 64) * g.H * g.B, nqt = (g.L + TK - 1) / TK;
+  const int base = ((g.Dp + 63) / 64) * g.H * g.B, nqt = (g.L + TK - 1) / TK;
   const int want = (2 * SMS + base - 1) / base;
   return want < 1 ? 1 : (want > nqt ? nqt : want);
 }
@@ -908,8 +915,8 @@ inline size_t scratch_layout(const Geo& g, char* base, Scratch* s) {
   const size_t sizes[4] = {
       align256(bh * g.L * ds_stride(g.L) * g.esz),
       align256(bh * g.L * ds_stride(g.L) * g.esz),
-      align256(bh * g.L * g.D * g.esz),
-      align256((size_t)g.B * dwh_splits(g) * g.H * g.dh * g.D * 4)};
+      align256(bh * g.L * g.Dp * g.esz),
+      align256((size_t)g.B * dwh_splits(g) * g.H * g.dh * g.Dp * 4)};
   size_t off = 0;
   for (int i = 0; i < 4; ++i) {
     if (s != nullptr) {
@@ -1335,7 +1342,7 @@ da_pass(const __grid_constant__ AParams p) {
   const size_t bh = (size_t)b * g.H + h;
   const T* sin_t = static_cast<const T*>(p.sin_t);
   const T* cos_t = static_cast<const T*>(p.cos_t);
-  const T* whh = static_cast<const T*>(p.wh) + (size_t)h * g.dh * g.D;
+  const T* whh = static_cast<const T*>(p.wh) + (size_t)h * g.dh * g.Dp;
   const int lp = ds_stride(g.L), nkt = (g.L + TK - 1) / TK;
   const int nx = (g.d2p + TK - 1) / TK, n_items = nx * (nkt + 1);
   auto issue = [&](int i) {
@@ -1353,8 +1360,8 @@ da_pass(const __grid_constant__ AParams p) {
         load_tile(tab + TK * cs, cs, sin_t + (size_t)j0 * g.D2 + x0, g.D2,
                   TK, g.L - j0, TK, g.D2 - x0, g.vb);
       } else {
-        load_tile(slot, cs, whh + x0, g.D, g.dvp, g.dh, TK, g.D2 - x0, g.vb);
-        load_tile(slot + g.dvp * cs, cs, whh + g.D2 + x0, g.D, g.dvp, g.dh,
+        load_tile(slot, cs, whh + x0, g.Dp, g.dvp, g.dh, TK, g.D2 - x0, g.vb);
+        load_tile(slot + g.dvp * cs, cs, whh + g.D2 + x0, g.Dp, g.dvp, g.dh,
                   TK, g.D2 - x0, g.vb);
       }
     }
@@ -1433,7 +1440,7 @@ da_pass(const __grid_constant__ AParams p) {
         dal[nt][e] = rnd<T>(__fsub_rn(__fmul_rn(a_, sq), __fmul_rn(b_, cq)));
         dbe[nt][e] = rnd<T>(__fadd_rn(__fmul_rn(a_, cq), __fmul_rn(b_, sq)));
         if (in) {
-          T* dst = static_cast<T*>(p.da) + (bh * g.L + q) * g.D + x;
+          T* dst = static_cast<T*>(p.da) + (bh * g.L + q) * g.Dp + x;
           dst[0] = from_f<T>(dal[nt][e]);
           dst[g.D2] = from_f<T>(dbe[nt][e]);
         }
@@ -1520,7 +1527,7 @@ struct WParams {
   int splits;
 };
 
-// dwh_partial: one CTA per (64 columns of D, head, batch row x split), a
+// dwh_partial: one CTA per (64 columns of Dp, head, batch row x split), a
 // warp per 16 columns: the partial qv^T . da over the split's 64-row
 // tiles, both read k-major, to part[(b * splits + split), h] in fp32.
 template <class T, int DVP>
@@ -1544,8 +1551,8 @@ dwh_partial(const __grid_constant__ WParams p) {
       const int q0 = (t0 + i) * TK;
       load_head_rows(g, slot, qs, static_cast<const T*>(p.qv), b, h, q0, TK);
       load_tile(slot + TK * qs, ts,
-                static_cast<const T*>(p.da) + (bh * g.L + q0) * g.D + x0, g.D,
-                TK, g.L - q0, TK, g.D - x0, g.vb);
+                static_cast<const T*>(p.da) + (bh * g.L + q0) * g.Dp + x0, g.Dp,
+                TK, g.L - q0, TK, g.Dp - x0, g.vb);
     }
     cp_commit();
   };
@@ -1594,7 +1601,7 @@ dwh_partial(const __grid_constant__ WParams p) {
     }
   }
   const int l = lane_id(), gq = l >> 2, t = l & 3;
-  float* out = p.part + ((size_t)z * g.H + h) * g.dh * g.D;
+  float* out = p.part + ((size_t)z * g.H + h) * g.dh * g.Dp;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -1603,7 +1610,7 @@ dwh_partial(const __grid_constant__ WParams p) {
       for (int e = 0; e < 4; ++e) {
         const int d = 16 * mt + gq + 8 * (e >> 1);
         const int x = x0 + n0 + 8 * j + 2 * t + (e & 1);
-        if (d < g.dh && x < g.D) out[(size_t)d * g.D + x] = acc[mt][j][e];
+        if (d < g.dh && x < g.Dp) out[(size_t)d * g.Dp + x] = acc[mt][j][e];
       }
 }
 
@@ -1618,8 +1625,8 @@ __global__ void dwh_reduce(const float* __restrict__ part, T* __restrict__ dwh,
   dwh[i] = from_f<T>(acc);
 }
 
-inline Geo plan(int B, int L, int H, int dh, int esz) {
-  Geo g = make_geo(B, L, H, dh, esz);
+inline Geo plan(int B, int L, int H, int dh, int Dp, int esz) {
+  Geo g = make_geo(B, L, H, dh, Dp, esz);
   g.rows = query_rows(g, true);
   g.stages = g.rows ? query_stages(g, g.rows, true) : 0;
   return g;
@@ -1671,12 +1678,12 @@ int run(const BwdArgs& a, const Geo& g, void* scratch, cudaStream_t stream) {
   const size_t w_smem =
       (size_t)STAGES * (TK * (g.dvp + g.pa) + TK * (TK + g.pa)) * g.esz;
   if ((err = set_smem(dwh_partial<T, DVP>, w_smem))) return err;
-  dwh_partial<T, DVP><<<dim3((g.D + TK - 1) / TK, g.H, g.B * splits), THREADS,
+  dwh_partial<T, DVP><<<dim3((g.Dp + TK - 1) / TK, g.H, g.B * splits), THREADS,
                         w_smem, stream>>>(
       WParams{a.qv, s.da, s.part, g, splits});
   if ((err = cudaGetLastError())) return err;
 
-  const size_t n = (size_t)g.H * g.dh * g.D;
+  const size_t n = (size_t)g.H * g.dh * g.Dp;
   dwh_reduce<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
       s.part, static_cast<T*>(a.dwh), n, g.B * splits);
   return cudaGetLastError();
@@ -1684,7 +1691,7 @@ int run(const BwdArgs& a, const Geo& g, void* scratch, cudaStream_t stream) {
 
 template <class T, bool DROP>
 int launch(const BwdArgs& a, void* scratch, cudaStream_t stream) {
-  const Geo g = plan(a.B, a.L, a.H, a.dh, sizeof(T));
+  const Geo g = plan(a.B, a.L, a.H, a.dh, a.Dp, sizeof(T));
   if (g.rows == 0) return cudaErrorInvalidValue;
   switch (g.dvp) {
     case 16: return run<T, 16, DROP>(a, g, scratch, stream);
@@ -1704,24 +1711,26 @@ extern "C" const char* sincos_attention_bwd_error_string(int err) {
 }
 
 // The kernels of sincos_attention_bwd, as in the forward: 0 the bf16 wgmma
-// kernels (namespace hopper; dh 64, D/2 a multiple of 64, D <= 512), 1 the
-// general ones.
+// kernels (namespace hopper; dh 64, Dp/2 a multiple of 64, Dp <= 512), 1
+// the general ones.
 enum Variant { WGMMA = 0, GENERAL = 1 };
 
 // Bytes of device scratch sincos_attention_bwd needs for these shapes
 // (dtype 0 float32, 1 bfloat16).
 extern "C" long long sincos_attention_bwd_scratch_bytes(int B, int L, int H,
-                                                        int dh, int dtype,
+                                                        int dh, int Dp,
+                                                        int dtype,
                                                         int variant) {
   if (variant == GENERAL)
     return (long long)general::scratch_layout(
-        attn::gen::make_geo(B, L, H, dh, dtype == 0 ? 4 : 2), nullptr,
+        attn::gen::make_geo(B, L, H, dh, Dp, dtype == 0 ? 4 : 2), nullptr,
         nullptr);
-  return (long long)hopper::scratch_layout(B, L, H, nullptr, nullptr);
+  return (long long)hopper::scratch_layout(B, L, H, Dp, nullptr, nullptr);
 }
 
 // qu, qv, k, v, dout, dqu, dqv, dk, dv: (B, L, H*dh); wh, dwh:
-// (H, dh, H*dh); sin_t, cos_t: (L, H*dh/2); all of one dtype (0 = float32,
+// (H, dh, Dp); sin_t, cos_t: (L, Dp/2) (Dp = H*dh on one device); all of
+// one dtype (0 = float32,
 // 1 = bfloat16), contiguous, 16-byte aligned, on the current device.
 // lengths: (B,) int32; stats: (B, H, L, 2) float32 from the forward;
 // scratch: sincos_attention_bwd_scratch_bytes bytes. Dropout as in the
@@ -1732,12 +1741,12 @@ extern "C" int sincos_attention_bwd(
     const void* wh, const void* sin_t, const void* cos_t, const void* lengths,
     const void* stats, const void* dout, void* dqu,
     void* dqv, void* dk, void* dv, void* dwh, void* scratch, int B, int L,
-    int H, int dh, int dtype, int variant, uint32_t seed, uint32_t thresh,
-    float inv_keep, int tq, void* stream) {
+    int H, int dh, int Dp, int dtype, int variant, uint32_t seed,
+    uint32_t thresh, float inv_keep, int tq, void* stream) {
   const BwdArgs a{qu, qv, k, v, wh, sin_t, cos_t,
                   static_cast<const int*>(lengths),
                   static_cast<const float*>(stats), dout, dqu, dqv, dk, dv,
-                  dwh, B, L, H, dh, seed, thresh, inv_keep, tq};
+                  dwh, B, L, H, dh, Dp, seed, thresh, inv_keep, tq};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool drop = thresh != 0u;
   if (variant == WGMMA) {

@@ -7,6 +7,14 @@ shift-free kernels (``ops/cuda/sincos_attention.py``: K1 forward with its
 in-kernel dropout mask, K2 backward) in the packed (B, L, D) layout;
 ``impl='xla'`` is the dense (B, H, L, L) rel-shift path. Dropout, as in the
 JAX module, drops the attention probabilities and the module's output.
+
+Under a mesh whose tp divides the heads (``rel_attention_sincos_sharded``
+and ``shardable_axes`` of the JAX package), q/k/v, the two biases and the
+position projection are column-parallel over heads: each rank runs K1/K2
+on its (B/dp, L, D/tp) operands with its H/tp heads, and ``out`` is
+row-parallel. The kernels' dropout seed is mixed with the rank's data and
+model indices as the JAX shard_map body mixes it. Otherwise the module runs
+whole on every rank of the model group, as the JAX body does.
 """
 
 from __future__ import annotations
@@ -17,8 +25,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from conformer_tpu_torch.models.dropout import Dropout
-from conformer_tpu_torch.models.layers import Dense, LayerNorm
+from conformer_tpu_torch.models.dropout import M32, Dropout
+from conformer_tpu_torch.models.layers import (Dense, LayerNorm, column_in,
+                                               row_offsets, row_out)
 from conformer_tpu_torch.ops.cuda.sincos_attention import (
     prep_pos_kernel, rel_attention_sincos_packed)
 from conformer_tpu_torch.ops.rel_shift import rel_shift
@@ -45,6 +54,23 @@ class RelativeMultiHeadAttention(nn.Module):
         self.pos = Dense(d_model, d_model, dtype)
         self.content_bias = nn.Parameter(torch.empty(n_heads, dh))
         self.position_bias = nn.Parameter(torch.empty(n_heads, dh))
+        self.mesh, self.split = None, False
+
+    def kernel_seed(self, word: int) -> int:
+        """The kernels' int32 dropout seed from the site's first word: under
+        a mesh, mixed as the JAX shard_map body mixes it,
+        ``seed + data_index * 40503 + model_index * 2654435`` with int32
+        wrap-around (each index where its axis shards the call)."""
+        seed = word & 0x7FFFFFFF
+        mesh = self.mesh
+        if mesh is not None:
+            if mesh.dp > 1:
+                seed += mesh.data_index * 40503
+            if self.split:
+                seed += mesh.model_index * 2654435
+            seed &= M32
+            seed -= (seed >> 31) << 32
+        return seed
 
     def forward(self, x: torch.Tensor, pos_emb: Optional[torch.Tensor],
                 mask: Optional[torch.Tensor] = None,
@@ -53,9 +79,10 @@ class RelativeMultiHeadAttention(nn.Module):
         """x: (B, L, D); pos_emb: (2L-1, D) (xla path only); mask:
         (B, 1, 1, L) True at PAD; lengths: (B,) valid keys; seed: the
         probability dropout's seed words, or None. The kernel path hashes
-        with the first word as its int32 seed."""
+        with kernel_seed of the first word. Split over the model group, the
+        result is this rank's row-parallel part, without ``out``'s bias."""
         b, l, _ = x.shape
-        h, dh = self.n_heads, self.d_model // self.n_heads
+        h, dh = self.content_bias.shape       # this rank's heads
         dt = self.compute_dtype
         q, k, v = self.query(x), self.key(x), self.value(x)
         u = self.content_bias.to(dt)
@@ -70,7 +97,7 @@ class RelativeMultiHeadAttention(nn.Module):
             rate = self.dropout.rate if seed is not None else 0.0
             context = rel_attention_sincos_packed(
                 q + u.reshape(-1), q + vb.reshape(-1), k, v, wh, lengths, scale,
-                rate, seed[0] & 0x7FFFFFFF if rate > 0.0 else 0)
+                rate, self.kernel_seed(seed[0]) if rate > 0.0 else 0)
         else:
             q = q.reshape(b, l, h, dh)
             k = k.reshape(b, l, h, dh)
@@ -85,11 +112,15 @@ class RelativeMultiHeadAttention(nn.Module):
             scores = ((content + rel_shift(pos)) * scale).to(f32)
             if mask is not None:
                 scores = torch.where(mask, torch.finfo(f32).min, scores)
-            weights = self.dropout(torch.softmax(scores, dim=-1), seed)
+            off = None
+            if self.mesh is not None:
+                off = (self.mesh.batch_offset(b),
+                       self.mesh.model_index * h if self.split else 0, 0, 0)
+            weights = self.dropout(torch.softmax(scores, dim=-1), seed, off)
             context = torch.einsum("bhlm,bmhd->blhd", weights.to(dt).to(f32),
                                    v.to(f32))
-        context = context.reshape(b, l, self.d_model).to(dt)
-        return self.out(context)
+        context = context.reshape(b, l, h * dh).to(dt)
+        return self.out.partial(context) if self.split else self.out(context)
 
 
 class MHSAModule(nn.Module):
@@ -109,9 +140,18 @@ class MHSAModule(nn.Module):
     def forward(self, x: torch.Tensor, pos_emb: Optional[torch.Tensor],
                 mask: Optional[torch.Tensor] = None,
                 lengths: Optional[torch.Tensor] = None,
-                seeds: Optional[Sequence] = None) -> torch.Tensor:
+                seeds: Optional[Sequence] = None, sp=None) -> torch.Tensor:
         """seeds: None, or the seed words of (the probabilities, the
-        output)."""
+        output); sp: the forward's SeqShard (x is then the rank's rows),
+        or None."""
         s_attn, s_out = seeds if seeds is not None else (None, None)
-        x = self.attention(self.norm(x), pos_emb, mask, lengths, s_attn)
-        return self.dropout(x, s_out)
+        att = self.attention
+        mesh = att.mesh
+        if not att.split:
+            whole = sp.gather_replicated(x) if sp is not None else x
+            y = att(self.norm(whole), pos_emb, mask, lengths, s_attn)
+            y = self.dropout(y, s_out, row_offsets(mesh, None, y.shape[0]))
+            return sp.scatter(y) if sp is not None else y
+        h = column_in(self.norm(x), mesh, sp)
+        y = row_out(att(h, pos_emb, mask, lengths, s_attn), att.out, mesh, sp)
+        return self.dropout(y, s_out, row_offsets(mesh, sp, y.shape[0]))

@@ -6,6 +6,13 @@ in the compute dtype like the JAX scan (the cell state is carried in that
 dtype too). Gate order [i, f, g, o], torch's. Parameters carry
 ``nn.LSTMCell``'s names; ``bias_hh`` is a zero buffer, since the JAX cell has
 one bias only.
+
+Under a mesh the input projection of each LSTM layer is column-parallel
+over the gates, gathered whole before the recurrence, which every rank of
+the model group runs alike; the classifier is column-parallel over the
+vocabulary, gathered whole; each only where tp divides its width (370 over
+4 does not: the classifier then stays whole, with the same numbers). The
+BatchNorm sums its statistics over the data group.
 """
 
 from __future__ import annotations
@@ -17,6 +24,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from conformer_tpu_torch.models.layers import Dense, MaskedBatchNorm, swish
+from conformer_tpu_torch.parallel.collectives import (copy_to_model,
+                                                      gather_from_model)
 
 
 class LSTMLayer(nn.Module):
@@ -29,11 +38,16 @@ class LSTMLayer(nn.Module):
         self.weight_hh = nn.Parameter(torch.empty(4 * hidden_dim, hidden_dim))
         self.register_buffer("bias_hh", torch.zeros(4 * hidden_dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(L, B, D) time-major -> (L, B, H)."""
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """(L, B, D) time-major -> (L, B, H). group: the model group when
+        the input weights hold this rank's gates."""
         dt = self.compute_dtype
+        if group is not None:
+            x = copy_to_model(x, group)
         gates_x = F.linear(x.to(dt), self.weight_ih.to(dt),
                            (self.bias_ih + self.bias_hh).to(dt))
+        if group is not None:
+            gates_x = gather_from_model(gates_x, group, -1)
         w_hh_t = self.weight_hh.to(dt).T
         b = x.shape[1]
         h = torch.zeros(b, self.hidden_dim, dtype=dt, device=x.device)
@@ -58,14 +72,21 @@ class LSTMDecoder(nn.Module):
             for i in range(n_layers))
         self.norm = MaskedBatchNorm(hidden_dim, dtype=dtype)
         self.classifier = Dense(hidden_dim, vocab_size, dtype)
+        self.mesh, self.lstm_split, self.classifier_split = None, False, False
 
     def forward(self, x: torch.Tensor,
                 frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, L, d_model) -> (B, L, vocab) unnormalised logits."""
+        group = None if self.mesh is None else self.mesh.model_group
         x = x.transpose(0, 1)
         for layer in self.lstm:
-            x = layer(x)
+            x = layer(x, group if self.lstm_split else None)
         x = swish(x)
         x = self.norm(x, mask=None if frame_mask is None else frame_mask.T,
                       use_running_average=not self.training)
-        return self.classifier(x).transpose(0, 1)
+        if self.classifier_split:
+            logits = gather_from_model(self.classifier(copy_to_model(x, group)),
+                                       group, -1)
+        else:
+            logits = self.classifier(x)
+        return logits.transpose(0, 1)

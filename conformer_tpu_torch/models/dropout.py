@@ -69,19 +69,26 @@ def _coords(shape: Sequence[int], device) -> torch.Tensor:
 
 
 def hash_keep(shape: Sequence[int], seed_words: Sequence[int], rate: float,
-              device="cpu") -> torch.Tensor:
+              device="cpu", offsets: Optional[Sequence[int]] = None
+              ) -> torch.Tensor:
     """Boolean keep mask of ``shape``, P(keep) = 1 - rate; seed_words: the
-    uint32 words mixed into the hash, as Python ints."""
+    uint32 words mixed into the hash, as Python ints. ``offsets``: where
+    the tensor starts in a larger one on each axis (a rank's part of the
+    global array under a mesh): the mask is then that part of the larger
+    one's. The coordinate sum is linear in each index, so the offsets add
+    one constant to the hash input."""
     h = 0x9E3779B9
     for w in seed_words:
         h = (h * 0x01000193 + (int(w) & M32)) & M32
+    for axis, off in enumerate(offsets or ()):
+        h = (h + int(off) * _AXIS_MULTS[axis % len(_AXIS_MULTS)]) & M32
     x = (_coords(shape, device) + h) & M32
     return finalize(x) >= threshold(rate)
 
 
 class Dropout(nn.Module):
-    """``forward(x, seed_words)``: identity when ``seed_words`` is None (no
-    mask drawn: evaluation) or the rate is 0."""
+    """``forward(x, seed_words[, offsets])``: identity when ``seed_words``
+    is None (no mask drawn: evaluation) or the rate is 0."""
 
     def __init__(self, rate: float, impl: str = "hash"):
         super().__init__()
@@ -90,12 +97,14 @@ class Dropout(nn.Module):
         self.rate, self.impl = float(rate), impl
 
     def forward(self, x: torch.Tensor,
-                seed_words: Optional[Sequence[int]]) -> torch.Tensor:
+                seed_words: Optional[Sequence[int]],
+                offsets: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """offsets: as hash_keep's."""
         if seed_words is None or self.rate == 0.0:
             return x
         if self.impl == "prng":
             return F.dropout(x, self.rate, training=True)
-        keep = hash_keep(x.shape, seed_words, self.rate, x.device)
+        keep = hash_keep(x.shape, seed_words, self.rate, x.device, offsets)
         # the scale is rounded to x's dtype first, as jnp.asarray(.., x.dtype)
         scale = torch.tensor(1.0 / (1.0 - self.rate), dtype=x.dtype).item()
         return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype,

@@ -13,6 +13,14 @@ integer seed per forward, and ``dropout_seed_words`` expands it on the host
 into the seed words of every site (7 per block: 6 hash sites and the
 attention kernel's seed), so a checkpointed block's recomputation and a
 resumed run draw the same masks.
+
+Under a mesh (parallel/mesh.py) with ``model.seq_shard`` and tp > 1 the
+stack runs sequence-parallel (Megatron-SP, the counterpart of the JAX
+``seq_shard_constraint`` pins at each block's ends): the input is split
+along L over the model group (padded to a multiple of tp), LayerNorm,
+dropout and the residuals run on the rank's rows, each split module
+gathers L before its column-parallel product and reduce-scatters after its
+row-parallel one, and the output is gathered whole again.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from conformer_tpu_torch.models.layers import (DTYPES, ConvolutionModule,
                                                FeedForwardModule, LayerNorm,
                                                MaskedBatchNorm)
 from conformer_tpu_torch.models.position import relative_positional_encoding
+from conformer_tpu_torch.parallel.mesh import seq_shard
 from conformer_tpu_torch.utils.masking import (attention_pad_mask,
                                                padding_mask, subsampled_length)
 
@@ -67,14 +76,16 @@ class ConformerBlock(nn.Module):
                 attn_mask: Optional[torch.Tensor],
                 frame_mask: Optional[torch.Tensor],
                 lengths: Optional[torch.Tensor],
-                seeds: Optional[List[List[int]]] = None) -> torch.Tensor:
-        """seeds: None (no dropout) or this block's SITES_PER_BLOCK words."""
+                seeds: Optional[List[List[int]]] = None,
+                sp=None) -> torch.Tensor:
+        """seeds: None (no dropout) or this block's SITES_PER_BLOCK words;
+        sp: the forward's SeqShard (x is then the rank's rows), or None."""
         s = seeds if seeds is not None else [None] * SITES_PER_BLOCK
-        x = 0.5 * self.ffn1(x, s[0:2] if seeds else None) + x
+        x = 0.5 * self.ffn1(x, s[0:2] if seeds else None, sp) + x
         x = self.mhsa(x, pos_emb, attn_mask, lengths,
-                      s[2:4] if seeds else None) + x
-        x = self.conv(x, frame_mask, s[4]) + x
-        x = 0.5 * self.ffn2(x, s[5:7] if seeds else None) + x
+                      s[2:4] if seeds else None, sp) + x
+        x = self.conv(x, frame_mask, s[4], sp) + x
+        x = 0.5 * self.ffn2(x, s[5:7] if seeds else None, sp) + x
         return self.final_norm(x)
 
 
@@ -112,11 +123,12 @@ def apply_block_stack(blocks: nn.ModuleList, x: torch.Tensor,
                       frame_mask: Optional[torch.Tensor],
                       lengths: Optional[torch.Tensor],
                       seeds: Optional[List] = None,
-                      remat: bool = False) -> torch.Tensor:
-    """Apply the N-block stack in order; ``remat`` checkpoints each block."""
+                      remat: bool = False, sp=None) -> torch.Tensor:
+    """Apply the N-block stack in order; ``remat`` checkpoints each block;
+    sp: the forward's SeqShard, or None."""
     for i, block in enumerate(blocks):
         args = (x, pos_emb, attn_mask, frame_mask, lengths,
-                seeds[i] if seeds is not None else None)
+                seeds[i] if seeds is not None else None, sp)
         x = _remat(block, *args) if remat else block(*args)
     return x
 
@@ -133,6 +145,7 @@ class ConformerEncoder(nn.Module):
         self.dropout = Dropout(cfg.dropout_rate, cfg.dropout_impl)
         self.blocks = nn.ModuleList(ConformerBlock(cfg, dtype)
                                     for _ in range(cfg.n_blocks))
+        self.mesh = None
 
     def forward(self, mels: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None,
@@ -145,7 +158,10 @@ class ConformerEncoder(nn.Module):
         if dropout_seed is not None and self.cfg.dropout_rate > 0.0:
             input_seed, block_seeds = dropout_seed_words(dropout_seed,
                                                          self.cfg.n_blocks)
-        x = self.dropout(self.input_proj(self.subsample(mels)), input_seed)
+        x = self.input_proj(self.subsample(mels))
+        off = None if self.mesh is None else (
+            self.mesh.batch_offset(x.shape[0]), 0, 0)
+        x = self.dropout(x, input_seed, off)
         l = x.shape[1]
         attn_mask = frame_mask = out_lengths = None
         if lengths is not None:
@@ -158,6 +174,11 @@ class ConformerEncoder(nn.Module):
                                                    self.compute_dtype, x.device)
         remat = (self.cfg.use_remat and self.training
                  and torch.is_grad_enabled())
+        sp = seq_shard(self.mesh, self.cfg, l)
+        if sp is not None:
+            x = sp.scatter(x)
         x = apply_block_stack(self.blocks, x, pos_emb, attn_mask, frame_mask,
-                              out_lengths, block_seeds, remat)
+                              out_lengths, block_seeds, remat, sp)
+        if sp is not None:
+            x = sp.gather_replicated(x)
         return x, out_lengths

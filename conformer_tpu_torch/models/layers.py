@@ -12,6 +12,17 @@ with ``dtype=bf16, param_dtype=fp32``. Dropout sites are where the JAX
 modules have them (models/dropout.py): after the FFN's swish and its output,
 and after the conv module's output. Each takes its seed words from the
 caller; with none (evaluation) it drops nothing.
+
+Under a mesh (parallel/mesh.py::shard_model sets ``mesh`` and ``split``)
+the FFN and the conv module are split over the model group when their
+width divides by tp: the first product column-parallel (hidden units; the
+conv module's value and gate channels, so that the GLU, the depthwise conv
+and its norm stay on the rank's C/tp channels), the last row-parallel, its
+bias added after the reduction. With a SeqShard (``sp``) their input and
+output are the rank's rows of the sequence. A module that is not split
+runs whole on every rank. MaskedBatchNorm sums its statistics over the
+data group; a split GroupNorm sums its per-row statistics over the model
+group. Dropout masks are the rank's part of the global array's.
 """
 
 from __future__ import annotations
@@ -24,6 +35,9 @@ import torch.nn.functional as F
 
 from conformer_tpu_torch.models.dropout import Dropout
 from conformer_tpu_torch.ops.cuda.depthwise_conv import depthwise_conv1d
+from conformer_tpu_torch.parallel.collectives import (all_reduce_sum,
+                                                      copy_to_model,
+                                                      reduce_from_model)
 
 # Config dtype names (optim.compute_dtype, model.attention_score_dtype).
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -57,6 +71,33 @@ class Dense(nn.Linear):
         return F.linear(cast(x, dt), cast(self.weight, dt),
                         cast(self.bias, dt))
 
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """The product without the bias: a row-parallel part."""
+        dt = self.compute_dtype
+        return F.linear(cast(x, dt), cast(self.weight, dt))
+
+
+def column_in(x: torch.Tensor, mesh, sp) -> torch.Tensor:
+    """The input of a column-parallel product: the whole sequence gathered
+    from the ranks' rows (sp), or x, whose gradient the model group sums."""
+    return sp.gather(x) if sp is not None else copy_to_model(x, mesh.model_group)
+
+
+def row_out(y: torch.Tensor, dense: Dense, mesh, sp) -> torch.Tensor:
+    """A row-parallel product's partial ``y`` summed over the model group
+    (this rank's rows of the sum under sp), plus ``dense``'s bias."""
+    y = (sp.reduce_scatter(y) if sp is not None
+         else reduce_from_model(y, mesh.model_group))
+    return y + cast(dense.bias, y.dtype)
+
+
+def row_offsets(mesh, sp, rows: int):
+    """Dropout offsets of a (B, L, D) tensor that holds ``rows`` batch rows
+    of each data rank (and, under sp, the rank's part of the sequence)."""
+    if mesh is None:
+        return None
+    return (mesh.batch_offset(rows), sp.offset if sp is not None else 0, 0)
+
 
 class LayerNorm(nn.LayerNorm):
     """flax LayerNorm: eps 1e-6, statistics in fp32, output in ``dtype``."""
@@ -79,17 +120,36 @@ class FeedForwardModule(nn.Module):
         self.hidden = Dense(d_model, expansion * d_model, dtype)
         self.out = Dense(expansion * d_model, d_model, dtype)
         self.dropout = Dropout(dropout_rate, dropout_impl)
+        self.mesh, self.split = None, False
 
-    def forward(self, x: torch.Tensor,
-                seeds: Optional[Sequence] = None) -> torch.Tensor:
-        """seeds: None, or the seed words of its two dropout sites."""
+    def forward(self, x: torch.Tensor, seeds: Optional[Sequence] = None,
+                sp=None) -> torch.Tensor:
+        """seeds: None, or the seed words of its two dropout sites; sp: the
+        forward's SeqShard (x is then the rank's rows), or None."""
         s_hidden, s_out = seeds if seeds is not None else (None, None)
-        x = self.dropout(swish(self.hidden(self.norm(x))), s_hidden)
-        return self.dropout(self.out(x), s_out)
+        mesh = self.mesh
+        if not self.split:
+            if sp is not None:
+                return sp.scatter(self._whole(sp.gather_replicated(x),
+                                              s_hidden, s_out))
+            return self._whole(x, s_hidden, s_out)
+        b = x.shape[0]
+        h = swish(self.hidden(column_in(self.norm(x), mesh, sp)))
+        h = self.dropout(h, s_hidden, (mesh.batch_offset(b), 0,
+                                       mesh.model_index * h.shape[-1]))
+        y = row_out(self.out.partial(h), self.out, mesh, sp)
+        return self.dropout(y, s_out, row_offsets(mesh, sp, b))
+
+    def _whole(self, x: torch.Tensor, s_hidden, s_out) -> torch.Tensor:
+        off = row_offsets(self.mesh, None, x.shape[0])
+        x = self.dropout(swish(self.hidden(self.norm(x))), s_hidden, off)
+        return self.dropout(self.out(x), s_out, off)
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over (batch, time) with an optional validity mask.
+    """BatchNorm over (batch, time) with an optional validity mask; under a
+    mesh, over the global batch (count, sum and sum of squares summed over
+    the data group, gradients through the sum).
 
     Normalises with the biased batch variance; the running statistics take
     the unbiased estimate with momentum 0.1 (torch BatchNorm1d semantics),
@@ -106,6 +166,7 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.mesh = None
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 use_running_average: bool = True) -> torch.Tensor:
@@ -124,6 +185,13 @@ class MaskedBatchNorm(nn.Module):
                                    device=x.device)
                 total = xf.sum(dim=(0, 1))
                 total_sq = (xf * xf).sum(dim=(0, 1))
+            if self.mesh is not None:
+                # cross-replica statistics, as the JAX psum over axis_name
+                c = total.shape[0]
+                stats = all_reduce_sum(torch.cat([count.reshape(1), total,
+                                                  total_sq]),
+                                       self.mesh.data_group)
+                count, total, total_sq = stats[0], stats[1:1 + c], stats[1 + c:]
             count = torch.clamp(count, min=1.0)
             mean = total / count
             var = torch.clamp(total_sq / count - mean * mean, min=0.0)
@@ -147,12 +215,24 @@ class GroupNorm(nn.Module):
         self.epsilon, self.compute_dtype = 1e-6, dtype
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
+        self.mesh, self.split = None, False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, L, C); split: C is this rank's channels, and each row's
+        sums run over the model group's."""
         xf = x.float()
-        mean = xf.mean(dim=(1, 2), keepdim=True)
-        var = torch.clamp((xf * xf).mean(dim=(1, 2), keepdim=True)
-                          - mean * mean, min=0.0)
+        if self.split:
+            n = xf.shape[1] * xf.shape[2] * self.mesh.tp
+            sums = all_reduce_sum(torch.stack([xf.sum(dim=(1, 2)),
+                                               (xf * xf).sum(dim=(1, 2))]),
+                                  self.mesh.model_group)
+            mean = (sums[0] / n)[:, None, None]
+            var = torch.clamp((sums[1] / n)[:, None, None] - mean * mean,
+                              min=0.0)
+        else:
+            mean = xf.mean(dim=(1, 2), keepdim=True)
+            var = torch.clamp((xf * xf).mean(dim=(1, 2), keepdim=True)
+                              - mean * mean, min=0.0)
         y = (xf - mean) * (torch.rsqrt(var + self.epsilon) * self.weight)
         return (y + self.bias).to(self.compute_dtype)
 
@@ -208,12 +288,20 @@ class ConvolutionModule(nn.Module):
             self.group_norm = GroupNorm(channels, dtype)
         self.pointwise2 = Dense(channels, channels, dtype)
         self.dropout = Dropout(dropout_rate, dropout_impl)
+        self.mesh, self.split = None, False
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                seed: Optional[Sequence[int]] = None) -> torch.Tensor:
+                seed: Optional[Sequence[int]] = None, sp=None) -> torch.Tensor:
         """x: (B, L, C); mask: (B, L) True at valid frames; seed: the output
-        dropout's seed words, or None."""
-        x = glu(self.pointwise1(self.norm(x)), dim=-1)
+        dropout's seed words, or None; sp: the forward's SeqShard (x is
+        then the rank's rows; mask stays whole), or None."""
+        mesh, whole, out_sp = self.mesh, not self.split, None
+        if whole and sp is not None:     # runs whole on every rank
+            x, out_sp, sp = sp.gather_replicated(x), sp, None
+        x = self.norm(x)
+        if not whole:
+            x = column_in(x, mesh, sp)
+        x = glu(self.pointwise1(x), dim=-1)
         if not self.mask_pad:
             mask = None
         if mask is not None:
@@ -224,7 +312,13 @@ class ConvolutionModule(nn.Module):
             x = self.bn(x, mask=mask, use_running_average=not self.training)
         else:
             x = self.group_norm(x)
-        return self.dropout(self.pointwise2(swish(x)), seed)
+        x = swish(x)
+        b = x.shape[0]
+        if whole:
+            y = self.dropout(self.pointwise2(x), seed, row_offsets(mesh, None, b))
+            return out_sp.scatter(y) if out_sp is not None else y
+        y = row_out(self.pointwise2.partial(x), self.pointwise2, mesh, sp)
+        return self.dropout(y, seed, row_offsets(mesh, sp, b))
 
 
 class Conv2d(nn.Conv2d):

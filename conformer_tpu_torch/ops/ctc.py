@@ -28,10 +28,13 @@ from conformer_tpu_torch.utils.masking import padding_mask
 def ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor,
              labels: torch.Tensor, label_lengths: torch.Tensor,
              blank_id: int = 0, zero_infinity: bool = True,
-             row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+             row_mask: Optional[torch.Tensor] = None,
+             count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean CTC loss. logits: (B, T, V) unnormalised; logit_lengths: (B,);
     labels: (B, N) int; label_lengths: (B,); row_mask: optional (B,) bool,
-    rows where False are left out of the mean."""
+    rows where False are left out of the mean; count: optional, the number
+    of such rows in the global batch of a mesh (the rows' sum over it: the
+    data group then sums the ranks' losses to the global mean)."""
     log_probs = torch.log_softmax(logits.float(), dim=-1).transpose(0, 1)
     per_seq = F.ctc_loss(log_probs, labels.long(), logit_lengths.long(),
                          label_lengths.long(), blank=blank_id,
@@ -39,7 +42,8 @@ def ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor,
     per_seq = per_seq / torch.clamp(label_lengths.float(), min=1.0)
     if row_mask is not None:
         w = row_mask.float()
-        return (per_seq * w).sum() / torch.clamp(w.sum(), min=1.0)
+        n = w.sum() if count is None else count
+        return (per_seq * w).sum() / torch.clamp(n, min=1.0)
     return per_seq.mean()
 
 

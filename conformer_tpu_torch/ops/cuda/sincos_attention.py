@@ -80,12 +80,13 @@ def sincos_tables(length: int, d_model: int, dtype=torch.float32,
 
 
 def prep_pos_kernel(pos_kernel: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """(D, D) position-projection kernel (flax (in, out) layout) -> (H, dh, D)
-    per-head operand with the embedding axis permuted to
-    [sin coefficients (D/2) | cos coefficients (D/2)]. Differentiable, so
-    the operand's gradient flows back to the kernel."""
+    """(D, H * dh) position-projection kernel (flax (in, out) layout; a
+    rank's heads under a mesh) -> (H, dh, D) per-head operand with the
+    embedding axis permuted to [sin coefficients (D/2) | cos coefficients
+    (D/2)]. Differentiable, so the operand's gradient flows back to the
+    kernel."""
     d = pos_kernel.shape[0]
-    dh = d // n_heads
+    dh = pos_kernel.shape[1] // n_heads
     wh = pos_kernel.reshape(d, n_heads, dh).permute(1, 2, 0)
     dev = pos_kernel.device
     perm = torch.cat([torch.arange(0, d, 2, device=dev),
@@ -134,7 +135,7 @@ def _scores_plain(qu, qv, k, wh, lengths, sin_t, cos_t):
     float32.min."""
     b, l, d = qu.shape
     h = wh.shape[0]
-    d2 = d // 2
+    d2 = wh.shape[2] // 2
     dt = qu.dtype
     sq, cq = sin_t.float(), cos_t.float()
     content = _split_f32(qu, h) @ _split_f32(k, h).transpose(-1, -2)
@@ -154,8 +155,10 @@ def sincos_attention_plain(qu, qv, k, v, wh, lengths, sin_t, cos_t,
     """Plain PyTorch version of K1, rounding where it rounds.
 
     qu/qv/k/v: (B, L, D) packed, head h in columns [h*dh, (h+1)*dh), with the
-    score scale already folded into qu/qv; wh: (H, dh, D); lengths: (B,)
-    int; sin_t/cos_t: (L, D/2) in the input dtype; rate/seed/tq: the
+    score scale already folded into qu/qv; wh: (H, dh, Dp); lengths: (B,)
+    int; sin_t/cos_t: (L, Dp/2) in the input dtype (Dp, the position
+    width, is D on one device and the whole model's width on a rank that a
+    mesh gives H/tp heads); rate/seed/tq: the
     probability dropout (``tq`` 0 = ``hash_tq(L)``). Products take fp32 sums
     of the input-dtype operands; alpha/beta and the (dropped, rescaled)
     probabilities are rounded to the input dtype before their products, and
@@ -185,10 +188,10 @@ def sincos_attention_bwd_plain(qu, qv, k, v, wh, lengths, sin_t, cos_t,
     """Plain PyTorch version of K2, following the JAX ``_bwd_kernel``'s math
     and rounding in whole-row form (``stats`` is not needed: the
     probabilities and delta = sum p * dp are recomputed).
-    -> (dqu, dqv, dk, dv) (B, L, D) and dwh (H, dh, D), in the input dtype."""
+    -> (dqu, dqv, dk, dv) (B, L, D) and dwh (H, dh, Dp), in the input dtype."""
     b, l, d = qu.shape
     h, dh = wh.shape[0], wh.shape[1]
-    d2 = d // 2
+    d2 = wh.shape[2] // 2
     dt = qu.dtype
     scores, sq, cq = _scores_plain(qu, qv, k, wh, lengths, sin_t, cos_t)
     e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
@@ -210,7 +213,7 @@ def sincos_attention_bwd_plain(qu, qv, k, v, wh, lengths, sin_t, cos_t,
     dk = ds.transpose(-1, -2) @ _split_f32(qu, h)
     dalpha, dbeta = ds @ cq, ds @ sq
     da = torch.cat([dalpha * sq - dbeta * cq, dalpha * cq + dbeta * sq],
-                   dim=-1).to(dt).float()                     # (B, H, L, D)
+                   dim=-1).to(dt).float()                    # (B, H, L, Dp)
     dqv = torch.einsum("bhlx,hdx->bhld", da, wh.float())
     dwh = torch.einsum("bhld,bhlx->hdx", _split_f32(qv, h), da)
     pack = lambda x: x.transpose(1, 2).reshape(b, l, d).to(dt)
@@ -233,51 +236,55 @@ VARIANTS = ("wgmma", "general")
 MAX_GENERAL_DH = 128
 
 
-def attention_variant(dtype, h: int, dh: int, d: int) -> str:
+def attention_variant(dtype, h: int, dh: int, d: int,
+                      dp: Optional[int] = None) -> str:
     """The kernel a CUDA call with these shapes launches: "wgmma" (bf16,
-    dh 64, D/2 a multiple of 64, D <= 512) or "general" (fp32, and bf16 at
-    every other head width up to 128). Raises for a shape no kernel takes:
-    another dtype, h * dh != D, an odd D (the JAX kernels' sin/cos halves
-    need an even D too) or dh past 128."""
+    dh 64, Dp/2 a multiple of 64, Dp <= 512) or "general" (fp32, and bf16
+    at every other head width up to 128). ``dp``: the position width (wh's
+    last axis), D unless a mesh gives the call a rank's heads. Raises for a
+    shape no kernel takes: another dtype, h * dh != D, an odd D or Dp (the
+    JAX kernels' sin/cos halves need an even width too) or dh past 128."""
+    dp = d if dp is None else dp
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"kernel takes float32 or bfloat16, got {dtype}")
-    if h < 1 or dh < 1 or h * dh != d or d % 2:
-        raise ValueError(f"kernel needs D = H * dh with D even, got H={h}, "
-                         f"dh={dh}, D={d}")
+    if h < 1 or dh < 1 or h * dh != d or d % 2 or dp % 2 or dp < 2:
+        raise ValueError(f"kernel needs D = H * dh with D and Dp even, got "
+                         f"H={h}, dh={dh}, D={d}, Dp={dp}")
     if dh > MAX_GENERAL_DH:
         raise ValueError(f"kernel takes head widths up to {MAX_GENERAL_DH}, "
                          f"got dh={dh}")
-    if dtype == torch.bfloat16 and dh == 64 and (d // 2) % 64 == 0 and d <= 512:
+    if (dtype == torch.bfloat16 and dh == 64 and (dp // 2) % 64 == 0
+            and dp <= 512):
         return "wgmma"
     return "general"
 
 
 def _check_common(qu, qv, k, v, wh, lengths, sin_t, cos_t):
     """Shapes, dtypes and layout the kernels take.
-    -> (b, l, h, dh, dtype code, variant code)."""
+    -> (b, l, h, dh, dp, dtype code, variant code)."""
     if qu.device.type != "cuda":
         raise ValueError(f"no kernel for device {qu.device}")
     b, l, d = qu.shape
-    h, dh = wh.shape[0], wh.shape[1]
-    variant = attention_variant(qu.dtype, h, dh, d)
+    h, dh, dp = wh.shape
+    variant = attention_variant(qu.dtype, h, dh, d, dp)
     dev, dt = qu.device, qu.dtype
     for name, x in (("qu", qu), ("qv", qv), ("k", k), ("v", v)):
         _check(name, x, (b, l, d), dt, dev)
-    _check("wh", wh, (h, dh, d), dt, dev)
-    _check("sin_t", sin_t, (l, d // 2), dt, dev)
-    _check("cos_t", cos_t, (l, d // 2), dt, dev)
+    _check("wh", wh, (h, dh, dp), dt, dev)
+    _check("sin_t", sin_t, (l, dp // 2), dt, dev)
+    _check("cos_t", cos_t, (l, dp // 2), dt, dev)
     _check("lengths", lengths, (b,), torch.int32, dev)
-    return b, l, h, dh, _DTYPE_CODES[dt], VARIANTS.index(variant)
+    return b, l, h, dh, dp, _DTYPE_CODES[dt], VARIANTS.index(variant)
 
 
 def _scratch_bytes(lib, name: str, b: int, l: int, h: int, dh: int,
-                   code: int, variant: int) -> int:
+                   dp: int, code: int, variant: int) -> int:
     """The bytes of device scratch the library's ``<name>_scratch_bytes``
     asks for."""
     size = getattr(lib, f"{name}_scratch_bytes")
     size.restype = ctypes.c_longlong
-    size.argtypes = [ctypes.c_int] * 6
-    return int(size(b, l, h, dh, code, variant))
+    size.argtypes = [ctypes.c_int] * 7
+    return int(size(b, l, h, dh, dp, code, variant))
 
 
 # The general kernels' tiling, as csrc/attention_general.cuh computes it.
@@ -295,8 +302,10 @@ def _align256(n: int) -> int:
     return _round_up(n, 256)
 
 
-def general_geometry(dtype, b: int, l: int, h: int, dh: int) -> dict:
-    """The general kernels' tiling for these shapes, the host's copy of
+def general_geometry(dtype, b: int, l: int, h: int, dh: int,
+                     dp: Optional[int] = None) -> dict:
+    """The general kernels' tiling for these shapes (``dp``: the position
+    width, default H * dh), the host's copy of
     ``attn::gen::make_geo``/``query_rows``/``query_stages`` and the
     backward's scratch layout: the padded head and half widths (16), the
     copy width in bytes (the widest of 16, 8, 4 that divides dh and D/2 in
@@ -306,7 +315,7 @@ def general_geometry(dtype, b: int, l: int, h: int, dh: int) -> dict:
     query pass (``bwd_*``; rows 0 = no tile fits), the dwh pass's row
     splits and the backward's scratch bytes."""
     esz = 4 if dtype == torch.float32 else 2
-    d = h * dh
+    d = h * dh if dp is None else dp       # the position width
     d2 = d // 2
     pa, pb = 16 // esz, 8
     dhp, d2p = _round_up(dh, 16), _round_up(d2, 16)
@@ -370,7 +379,8 @@ def split_tf32_trunc(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return hi, lo
 
 
-def library_geometry(dtype, b: int, l: int, h: int, dh: int) -> dict:
+def library_geometry(dtype, b: int, l: int, h: int, dh: int,
+                     dp: Optional[int] = None) -> dict:
     """The same keys of ``general_geometry`` (all but the dwh splits) as
     the built forward library computes them
     (``sincos_attention_general_geometry``) and the backward library's
@@ -379,25 +389,26 @@ def library_geometry(dtype, b: int, l: int, h: int, dh: int) -> dict:
     lib = build.load("sincos_attention")
     fn = lib.sincos_attention_general_geometry
     fn.restype = None
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     out = (ctypes.c_longlong * 10)()
     code = _DTYPE_CODES[dtype]
-    fn(b, l, h, dh, code, ctypes.addressof(out))
+    dp = h * dh if dp is None else dp
+    fn(b, l, h, dh, dp, code, ctypes.addressof(out))
     keys = ("dhp", "d2p", "vec_bytes", "fwd_rows", "fwd_stages", "fwd_smem",
             "bwd_rows", "bwd_stages", "bwd_smem", "chunks")
     geo = dict(zip(keys, (int(x) for x in out)))
     geo["bwd_scratch"] = _scratch_bytes(
         build.load("sincos_attention_bwd"), "sincos_attention_bwd", b, l, h,
-        dh, code, VARIANTS.index("general"))
+        dh, dp, code, VARIANTS.index("general"))
     return geo
 
 
-def _check_fits(dtype, b: int, l: int, h: int, dh: int, variant: int,
-                key: str) -> None:
+def _check_fits(dtype, b: int, l: int, h: int, dh: int, dp: int,
+                variant: int, key: str) -> None:
     """Raise where the general kernel's query tile does not fit in shared
-    memory even at 16 rows (D past ~3000 in fp32, ~6000 in bf16)."""
+    memory even at 16 rows (Dp past ~3000 in fp32, ~6000 in bf16)."""
     if VARIANTS[variant] == "general" and not general_geometry(
-            dtype, b, l, h, dh)[key]:
+            dtype, b, l, h, dh, dp)[key]:
         raise ValueError(f"no query tile of the general kernel fits for "
                          f"H={h}, dh={dh}, {dtype}")
 
@@ -424,16 +435,16 @@ def sincos_attention_fwd(qu, qv, k, v, wh, lengths, sin_t, cos_t,
     if qu.device.type == "cpu":
         return sincos_attention_plain(qu, qv, k, v, wh, lengths, sin_t, cos_t,
                                       rate, seed, tq, stats)
-    b, l, h, dh, code, variant = _check_common(qu, qv, k, v, wh, lengths,
-                                               sin_t, cos_t)
-    _check_fits(qu.dtype, b, l, h, dh, variant, "fwd_rows")
+    b, l, h, dh, dp, code, variant = _check_common(qu, qv, k, v, wh, lengths,
+                                                   sin_t, cos_t)
+    _check_fits(qu.dtype, b, l, h, dh, dp, variant, "fwd_rows")
     thresh, inv_keep, seed32, tq = _dropout_args(rate, seed, tq, l)
     out = torch.empty_like(qu)
     st = (torch.empty((b, h, l, 2), dtype=torch.float32, device=qu.device)
           if stats else None)
     lib = build.load("sincos_attention")
     fn = lib.sincos_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                    + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -443,7 +454,7 @@ def sincos_attention_fwd(qu, qv, k, v, wh, lengths, sin_t, cos_t,
                  wh.data_ptr(), sin_t.data_ptr(), cos_t.data_ptr(),
                  lengths.data_ptr(), out.data_ptr(),
                  st.data_ptr() if st is not None else None,
-                 None, b, l, h, dh, code, variant,
+                 None, b, l, h, dh, dp, code, variant,
                  seed32, thresh, inv_keep, tq, stream)
     build.check(lib, "sincos_attention", err)
     counters = ["launches"]
@@ -485,17 +496,19 @@ def _(qu, qv, k, v, wh, lengths, sin_t, cos_t, rate, seed, tq):
     return torch.empty_like(qu)
 
 
-def bwd_scratch_bytes(b: int, l: int, h: int, dh: int, dtype) -> int:
+def bwd_scratch_bytes(b: int, l: int, h: int, dh: int, dtype,
+                      dp: Optional[int] = None) -> int:
     """Bytes of device scratch K2 takes at these shapes (wgmma: ds and
-    p_drop (B*H, L, L) and da (B*H, L, D) in bf16, as its library computes
+    p_drop (B*H, L, L) and da (B*H, L, Dp) in bf16, as its library computes
     them; general: ``general_geometry``'s, ds, p_drop and da in the input
     dtype and the dwh partials in fp32), so they grow with L^2 and not in
-    shared memory."""
-    variant = attention_variant(dtype, h, dh, h * dh)
+    shared memory. ``dp``: the position width, default H * dh."""
+    dp = h * dh if dp is None else dp
+    variant = attention_variant(dtype, h, dh, h * dh, dp)
     if variant == "general":
-        return general_geometry(dtype, b, l, h, dh)["bwd_scratch"]
+        return general_geometry(dtype, b, l, h, dh, dp)["bwd_scratch"]
     return _scratch_bytes(build.load("sincos_attention_bwd"),
-                          "sincos_attention_bwd", b, l, h, dh,
+                          "sincos_attention_bwd", b, l, h, dh, dp,
                           _DTYPE_CODES[dtype], VARIANTS.index(variant))
 
 
@@ -511,21 +524,21 @@ def sincos_attention_bwd(qu, qv, k, v, wh, lengths, sin_t, cos_t, stats,
         return sincos_attention_bwd_plain(qu, qv, k, v, wh, lengths, sin_t,
                                           cos_t, stats, dout, rate,
                                           seed, tq)
-    b, l, h, dh, code, variant = _check_common(qu, qv, k, v, wh, lengths,
-                                               sin_t, cos_t)
+    b, l, h, dh, dp, code, variant = _check_common(qu, qv, k, v, wh, lengths,
+                                                   sin_t, cos_t)
     dev, dt = qu.device, qu.dtype
     _check("dout", dout, (b, l, h * dh), dt, dev)
     _check("stats", stats, (b, h, l, 2), torch.float32, dev)
-    _check_fits(dt, b, l, h, dh, variant, "bwd_rows")
+    _check_fits(dt, b, l, h, dh, dp, variant, "bwd_rows")
     thresh, inv_keep, seed32, tq = _dropout_args(rate, seed, tq, l)
     lib = build.load("sincos_attention_bwd")
     dqu, dqv, dk, dv = (torch.empty_like(qu) for _ in range(4))
     dwh = torch.empty_like(wh)
     scratch = torch.empty(_scratch_bytes(lib, "sincos_attention_bwd", b, l,
-                                         h, dh, code, variant),
+                                         h, dh, dp, code, variant),
                           dtype=torch.uint8, device=dev)
     run = lib.sincos_attention_bwd
-    run.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
+    run.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
                     + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
                        ctypes.c_int, ctypes.c_void_p])
     run.restype = ctypes.c_int
@@ -533,7 +546,7 @@ def sincos_attention_bwd(qu, qv, k, v, wh, lengths, sin_t, cos_t, stats,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = run(*(x.data_ptr() for x in (
             qu, qv, k, v, wh, sin_t, cos_t, lengths, stats, dout,
-            dqu, dqv, dk, dv, dwh, scratch)), b, l, h, dh, code, variant,
+            dqu, dqv, dk, dv, dwh, scratch)), b, l, h, dh, dp, code, variant,
             seed32, thresh, inv_keep, tq, stream)
     build.check(lib, "sincos_attention_bwd", err)
     counters = ["launches"]
@@ -574,7 +587,8 @@ def rel_attention_sincos_packed(qu, qv, k, v, wh, lengths: Optional[torch.Tensor
     """Fused shift-free relative attention, packed (B, L, D) layout.
 
     qu = q + content_bias, qv = q + position_bias; k, v: (B, L, D); wh:
-    (H, dh, D) from prep_pos_kernel; lengths: (B,) valid key counts or None;
+    (H, dh, Dp) from prep_pos_kernel (Dp: the position width, the model's
+    whole width also when a mesh gives this call a rank's heads); lengths: (B,) valid key counts or None;
     seed: the int32 dropout seed; tq: the JAX kernel's q-tile rows (None =
     auto), which the dropout mask depends on. The scale, rounded to qu's
     dtype, is folded into qu/qv outside the kernels, so autograd restores it
@@ -582,7 +596,7 @@ def rel_attention_sincos_packed(qu, qv, k, v, wh, lengths: Optional[torch.Tensor
     wrapper does."""
     b, l, d = qu.shape
     s = torch.tensor(scale, dtype=qu.dtype).item()   # a host scalar: no copy
-    sin_t, cos_t = sincos_tables(l, d, qu.dtype, qu.device)
+    sin_t, cos_t = sincos_tables(l, wh.shape[2], qu.dtype, qu.device)
     if lengths is None:
         lengths = torch.full((b,), l, dtype=torch.int32, device=qu.device)
     args = ((qu * s).contiguous(), (qv * s).contiguous(), k.contiguous(),

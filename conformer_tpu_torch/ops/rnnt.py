@@ -92,14 +92,17 @@ def rnnt_alpha_final(lp_blank: torch.Tensor, lp_emit: torch.Tensor,
 
 def nll_from_planes(lp_blank: torch.Tensor, lp_emit: torch.Tensor,
                     t_lengths: torch.Tensor, u_lengths: torch.Tensor,
-                    row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    row_mask: Optional[torch.Tensor] = None,
+                    count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """-> the mean over rows of -log P(y | x) / max(U, 1); with
-    ``row_mask`` only the rows it marks count (dummy rows out)."""
+    ``row_mask`` only the rows it marks count (dummy rows out); with
+    ``count`` (a mesh's global count of such rows) the rows' sum over it."""
     ll = rnnt_alpha_final(lp_blank, lp_emit, t_lengths, u_lengths)
     per_seq = -ll / u_lengths.float().clamp(min=1.0)
     if row_mask is not None:
         w = row_mask.float()
-        return (per_seq * w).sum() / w.sum().clamp(min=1.0)
+        n = w.sum() if count is None else count
+        return (per_seq * w).sum() / n.clamp(min=1.0)
     return per_seq.mean()
 
 
@@ -111,14 +114,15 @@ def _emit_index(labels: torch.Tensor, frames: int) -> torch.Tensor:
 def rnnt_loss_from_logits(logits: torch.Tensor, labels: torch.Tensor,
                           t_lengths: torch.Tensor, u_lengths: torch.Tensor,
                           blank_id: int = 0,
-                          row_mask: Optional[torch.Tensor] = None
+                          row_mask: Optional[torch.Tensor] = None,
+                          count: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """Mean RNN-T loss from the full (B, T, U+1, V) joint lattice; labels
-    (B, U)."""
+    (B, U); row_mask and count as nll_from_planes's."""
     lp = torch.log_softmax(logits.float(), dim=-1)
     lp_emit = lp[:, :, :-1].gather(-1, _emit_index(labels, lp.shape[1]))
     return nll_from_planes(lp[..., blank_id], lp_emit[..., 0], t_lengths,
-                           u_lengths, row_mask)
+                           u_lengths, row_mask, count)
 
 
 def _planes(e, p, out_weight, out_bias, index, blank_id: int):
@@ -136,11 +140,12 @@ def rnnt_loss_scan(e: torch.Tensor, p: torch.Tensor, out_weight: torch.Tensor,
                    out_bias: torch.Tensor, labels: torch.Tensor,
                    t_lengths: torch.Tensor, u_lengths: torch.Tensor,
                    blank_id: int = 0,
-                   row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   row_mask: Optional[torch.Tensor] = None,
+                   count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Lattice-free RNN-T loss from the additive joint factors e = W_e enc
     (B, T, J) and p = W_p pred (B, U+1, J), with the joint's ``out``
     Linear parameters (out_weight (V, J), out_bias (V,), fp32); labels
-    (B, U). The same numbers as rnnt_loss_from_logits on the joint's
+    (B, U); row_mask and count as nll_from_planes's. The same numbers as rnnt_loss_from_logits on the joint's
     lattice. Frames go a chunk at a time (SCAN_CHUNK_ELEMENTS logits), each
     under checkpoint when a gradient is wanted."""
     b, t, _ = e.shape
@@ -158,7 +163,7 @@ def rnnt_loss_scan(e: torch.Tensor, p: torch.Tensor, out_weight: torch.Tensor,
         blanks.append(lpb)
         emits.append(lpe)
     return nll_from_planes(torch.cat(blanks, 1), torch.cat(emits, 1),
-                           t_lengths, u_lengths, row_mask)
+                           t_lengths, u_lengths, row_mask, count)
 
 
 def _select(keep: torch.Tensor, new, old):

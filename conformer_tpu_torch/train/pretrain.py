@@ -223,8 +223,9 @@ class Pretrainer:
                  logger: Optional[MetricsLogger] = None, device="cuda"):
         if cfg.parallel.dp * cfg.parallel.tp > 1:
             raise NotImplementedError(
-                "data/tensor parallelism (parallel.dp, parallel.tp) is not "
-                "ported yet; pretrain on one device")
+                "pretraining under a mesh (parallel.dp, parallel.tp) is not "
+                "ported yet (ROADMAP.md §1 item 5: the wav2vec2 and BYOL "
+                "steps under a mesh); pretrain on one device")
         _refuse_accumulation(cfg)
         self.cfg, self.tok = cfg, tokenizer
         self.method = _method(cfg.pretrain.method)

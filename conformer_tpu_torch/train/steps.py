@@ -11,6 +11,13 @@ lattice-free ``rnnt_loss_scan`` (or, with ``rnnt_loss_impl='lattice'``, on
 the full joint lattice) and decodes greedily, or by its beam search
 (ops/rnnt.py). Its train step honours ``optim.accum_steps`` as the CTC one
 does; the JAX transducer step ignores it.
+
+Under a mesh (parallel/mesh.py) a step takes this rank's stripe of the
+global batch: SpecAugment draws for the whole batch and keeps the rank's
+rows, each loss is the rank's rows' sum over the global count of rows with
+a transcript (so the data group's sum of gradients is the global mean's,
+and a stripe without transcripts adds nothing), micro-batches split the
+stripe, and the loss and audio seconds returned are the global ones.
 """
 
 from __future__ import annotations
@@ -38,10 +45,19 @@ def step_generator(seed: int, step: int) -> torch.Generator:
         ((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
 
 
-def _ctc_train_loss(model, mels, mel_lengths, tokens, token_lengths, seed):
+def _ctc_train_loss(model, mels, mel_lengths, tokens, token_lengths, seed,
+                    count=None):
     logits, out_lengths = model(mels, mel_lengths, dropout_seed=seed)
     return ctc_loss(logits, out_lengths, tokens, token_lengths,
-                    row_mask=token_lengths > 0)
+                    row_mask=token_lengths > 0, count=count)
+
+
+def _global_count(mesh, token_lengths: torch.Tensor):
+    """The global batch's count of rows with a transcript, or None without
+    a mesh."""
+    if mesh is None:
+        return None
+    return mesh.data_count((token_lengths > 0).float().sum())
 
 
 def _transducer_train_loss(cfg: Config) -> Callable:
@@ -49,31 +65,36 @@ def _transducer_train_loss(cfg: Config) -> Callable:
     if impl not in ("scan", "lattice"):
         raise ValueError(f"rnnt_loss_impl must be scan|lattice, got {impl!r}")
 
-    def loss(model, mels, mel_lengths, tokens, token_lengths, seed):
+    def loss(model, mels, mel_lengths, tokens, token_lengths, seed,
+             count=None):
         if impl == "lattice":
             lattice, enc_lengths = model(mels, mel_lengths, tokens,
                                          dropout_seed=seed)
             return rnnt_loss_from_logits(lattice, tokens, enc_lengths,
                                          token_lengths,
-                                         row_mask=token_lengths > 0)
+                                         row_mask=token_lengths > 0,
+                                         count=count)
         (e, p), enc_lengths = model.forward_factors(mels, mel_lengths, tokens,
                                                     dropout_seed=seed)
         out = model.joint.out
         return rnnt_loss_scan(e, p, out.weight, out.bias, tokens, enc_lengths,
-                              token_lengths, row_mask=token_lengths > 0)
+                              token_lengths, row_mask=token_lengths > 0,
+                              count=count)
 
     return loss
 
 
 def make_train_step(cfg: Config, model: torch.nn.Module, optimizer: Optimizer,
-                    frontend: Optional[MelFrontend] = None) -> Callable:
+                    frontend: Optional[MelFrontend] = None,
+                    mesh=None) -> Callable:
     """-> step(audio (B, S) fp32, audio_lengths (B,), tokens (B, N),
     token_lengths (B,), step_index) -> {loss, grad_norm, audio_seconds} as
     device scalars. Order: log-mels (no gradient) -> SpecAugment -> model in
     training mode -> the loss of ``model.arch`` (CTC, or RNN-T) over the
     rows with a transcript -> backward -> optimizer. ``optim.accum_steps >
     1`` runs that many micro-batches in sequence, averages their gradients
-    and threads the BatchNorm statistics through them in order."""
+    and threads the BatchNorm statistics through them in order. Under
+    ``mesh`` the arguments are this rank's stripe of the global batch."""
     loss_fn = (_transducer_train_loss(cfg) if cfg.model.arch == "transducer"
                else _ctc_train_loss)
     device = next(model.parameters()).device
@@ -89,9 +110,14 @@ def make_train_step(cfg: Config, model: torch.nn.Module, optimizer: Optimizer,
         with torch.no_grad():
             mels = frontend(audio)
         mel_lengths = frontend.frame_lengths(audio_lengths)
-        mels = spec_augment(gen, mels, cfg.augment, mel_lengths)
-        seeds = torch.randint(0, 2 ** 62, (accum,), generator=gen).tolist()
         b = audio.shape[0]
+        if mesh is None:
+            mels = spec_augment(gen, mels, cfg.augment, mel_lengths)
+        else:
+            off = mesh.batch_offset(b)
+            mels = spec_augment(gen, mels, cfg.augment, mel_lengths,
+                                slice(off, off + b), b * mesh.dp)
+        seeds = torch.randint(0, 2 ** 62, (accum,), generator=gen).tolist()
         if b % accum:
             raise ValueError(f"batch {b} does not split into {accum} "
                              "micro-batches")
@@ -101,14 +127,25 @@ def make_train_step(cfg: Config, model: torch.nn.Module, optimizer: Optimizer,
         for i in range(accum):
             sl = slice(i * m, (i + 1) * m)
             loss = loss_fn(model, mels[sl], mel_lengths[sl], tokens[sl],
-                           token_lengths[sl], seeds[i])
+                           token_lengths[sl], seeds[i],
+                           _global_count(mesh, token_lengths[sl]))
             (loss / accum).backward()
             loss_sum = loss_sum + loss.detach()
         grad_norm = optimizer.step()
+        if mesh is not None:
+            sums = mesh.data_count(torch.stack([loss_sum / accum,
+                                                audio_lengths.sum() / sr]))
+            return {"loss": sums[0], "grad_norm": grad_norm,
+                    "audio_seconds": sums[1]}
         return {"loss": loss_sum / accum, "grad_norm": grad_norm,
                 "audio_seconds": audio_lengths.sum() / sr}
 
     return step
+
+
+def _global_loss(mesh, loss: torch.Tensor) -> torch.Tensor:
+    """A rank's share of a loss -> the global loss (the data group's sum)."""
+    return loss if mesh is None else mesh.data_count(loss)
 
 
 def make_forward(cfg: Config, model: torch.nn.Module,
@@ -132,14 +169,15 @@ def make_forward(cfg: Config, model: torch.nn.Module,
 
 def make_eval_step(cfg: Config, model: torch.nn.Module,
                    frontend: Optional[MelFrontend] = None,
-                   unk_id: Optional[int] = None) -> Callable:
+                   unk_id: Optional[int] = None, mesh=None) -> Callable:
     """-> step(audio, audio_lengths[, tokens, token_lengths]) -> {tokens,
     counts, log_probs, lengths} (+ ``loss`` when transcripts are given, over
     the rows that have one): collapsed greedy tokens on the device, text
     assembly left to the host. The transducer's step is
-    make_transducer_eval_step's."""
+    make_transducer_eval_step's. Under ``mesh`` the arguments are this
+    rank's stripe, the tokens its rows', the loss the global one."""
     if cfg.model.arch == "transducer":
-        return make_transducer_eval_step(cfg, model, frontend)
+        return make_transducer_eval_step(cfg, model, frontend, mesh=mesh)
     forward = make_forward(cfg, model, frontend)
 
     @torch.inference_mode()
@@ -153,8 +191,10 @@ def make_eval_step(cfg: Config, model: torch.nn.Module,
                "log_probs": torch.log_softmax(logits, dim=-1),
                "lengths": out_lengths}
         if tokens is not None:
-            out["loss"] = ctc_loss(logits, out_lengths, tokens, token_lengths,
-                                   row_mask=token_lengths > 0)
+            out["loss"] = _global_loss(mesh, ctc_loss(
+                logits, out_lengths, tokens, token_lengths,
+                row_mask=token_lengths > 0,
+                count=_global_count(mesh, token_lengths)))
         return out
 
     return step
@@ -164,7 +204,8 @@ def make_transducer_eval_step(cfg: Config, model: torch.nn.Module,
                               frontend: Optional[MelFrontend] = None,
                               decode: str = "greedy",
                               unk_id: Optional[int] = None,
-                              lm_kwargs: Optional[dict] = None) -> Callable:
+                              lm_kwargs: Optional[dict] = None,
+                              mesh=None) -> Callable:
     """-> step(audio, audio_lengths[, tokens, token_lengths]) -> {tokens,
     counts, lengths} (+ ``loss``, the lattice-free RNN-T loss over the rows
     with a transcript, when transcripts are given): the emitted tokens
@@ -175,10 +216,15 @@ def make_transducer_eval_step(cfg: Config, model: torch.nn.Module,
     ``decode.beam_width`` (``rnnt_top_k``, ``rnnt_max_symbols``,
     ``rnnt_length_norm``, ``device_scan_unroll``; never ``unk_id``), fused
     by ``lm_kwargs`` (decode/pipeline.py::device_lm_kwargs), and its
-    ``scores``."""
+    ``scores``. ``mesh``: as make_eval_step's (greedy only: the sharded
+    beam search is not ported)."""
     if decode not in ("greedy", "beam"):
         raise ValueError(f"transducer decode must be greedy|beam, got "
                          f"{decode!r}")
+    if mesh is not None and decode == "beam":
+        raise NotImplementedError(
+            "the RNN-T beam search under a mesh (rnnt_beam_search_sharded) "
+            "is not ported yet (ROADMAP.md §1 item 5); decode greedily")
     forward = make_forward(cfg, model, frontend)
     dc = cfg.decode
 
@@ -207,9 +253,10 @@ def make_transducer_eval_step(cfg: Config, model: torch.nn.Module,
             out = {"tokens": ids, "counts": counts, "lengths": enc_lengths}
         if tokens is not None:
             e, p = model.joint.factors(enc, model.prediction(tokens))
-            out["loss"] = rnnt_loss_scan(
+            out["loss"] = _global_loss(mesh, rnnt_loss_scan(
                 e, p, model.joint.out.weight, model.joint.out.bias, tokens,
-                enc_lengths, token_lengths, row_mask=token_lengths > 0)
+                enc_lengths, token_lengths, row_mask=token_lengths > 0,
+                count=_global_count(mesh, token_lengths)))
         return out
 
     return step

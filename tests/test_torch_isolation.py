@@ -72,6 +72,21 @@ print(len(names))
 '''
 
 
+def test_the_mesh_modules_are_held_to_it_too():
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"conformer_tpu_torch/parallel/mesh.py",
+            "conformer_tpu_torch/parallel/collectives.py"} <= files
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT.replace(
+            "print(len(names))", "print(sorted(n for n in names "
+            "if '.parallel' in n))")],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "conformer_tpu_torch.parallel.mesh" in out.stdout
+    assert "conformer_tpu_torch.parallel.collectives" in out.stdout
+
+
 def test_every_module_imports_with_jax_blocked_and_builds_nothing():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,

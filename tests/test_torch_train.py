@@ -445,9 +445,12 @@ def test_cli_train_refuses_a_missing_gpu_and_unported_options(monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(base + ["--device", "cuda"])
-    for extra in (["--wandb"], ["--tp", "2"]):
-        with pytest.raises(NotImplementedError):
-            main(base + ["--device", "cpu", *extra])
+    with pytest.raises(NotImplementedError):
+        main(base + ["--device", "cpu", "--wandb"])
+    # a mesh is ported (tests/test_torch_parallel.py); one process is a
+    # world of one rank, which a 1 x 2 mesh does not fit
+    with pytest.raises(ValueError, match="ranks"):
+        main(base + ["--device", "cpu", "--tp", "2"])
     # the encoder transfer is ported: a directory with no checkpoint raises
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         main(base + ["--device", "cpu", "--init-encoder-from",
