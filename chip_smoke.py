@@ -93,13 +93,16 @@ Phases, each printing one JSON line:
               --streaming`` (a one-chunk utterance against the offline
               decode of the same window); the greedy decode of a B 8 x
               24 s batch timed, its kernel launches counted.
-10. export  -- the production Config() with conv_impl pallas through
+10. export  -- (run after pretrain; its cli.export processes start ahead:
+              the CTC ones before serve, the transducer's after the
+              transducer phase) the production Config() with conv_impl
+              pallas, cut to EXPORT_BLOCKS blocks, through
               ``cli.export --device cuda`` at 8 and 24 s, batch 1 and 8,
               each program against the live forward (bf16 tolerance) with
               K1, K3 (24 s) and K4a counted while it runs; a tiny program
               exported on the CPU and moved to the card against the live
               model; the transducer phase's mixing checkpoint exported
-              greedy at 8 s, batch 1: the live greedy tokens. The kernels
+              greedy at 4 s, batch 1: the live greedy tokens. The kernels
               phase holds every shape these programs launch
               (export_shapes). Export seconds, program
               bytes, program against live forward ms.
@@ -134,19 +137,31 @@ Phases, each printing one JSON line:
               4 steps with checkpoints every 2, resumed to 6; then
               ``cli.train --init-encoder-from`` for 2 steps, its encoder
               held against the checkpoint's, bit for bit, before step 1.
-13. parallel -- multi-device training (parallel/mesh.py) on the one card:
-              two NCCL ranks on card 0, which NCCL refuses (recorded);
-              four ranks of this script (``--worker``) in a gloo group of
-              CUDA tensors on a dp 2 x tp 2 mesh of Config() cut to
-              PARALLEL_BLOCKS blocks, conv_impl pallas, ZeRO-1 and SP:
-              the fp32 agreement steps against this process's, then
-              ``cli.train`` for 4 steps with checkpoints, resumed to 6;
-              the checkpoint resumed at dp 1 and scored by ``cli.test``;
-              K1, K1-drop, K2, K4a and K4b at a rank's shapes against
-              their plain versions, timed; one mesh step over a world-1
-              NCCL group against the meshless step, bit for bit. Each
-              rank's step wall and peak memory (four ranks on one card:
-              correctness, not scaling).
+13. parallel -- multi-device training, decoding and pretraining
+              (parallel/mesh.py) on the one card: two NCCL ranks on card
+              0, which NCCL refuses (recorded); four ranks of this script
+              (``--worker``) in a gloo group of CUDA tensors on a dp 2 x tp
+              2 mesh of Config() cut to PARALLEL_BLOCKS blocks, conv_impl
+              pallas, ZeRO-1 and SP: the fp32 agreement steps against this
+              process's, then ``cli.train`` for 4 steps with checkpoints,
+              resumed to 6; ``cli.test --dp 2 --tp 2 --lm --decode
+              beam_device`` (fp32) against this process's metrics and
+              results file; the sharded CTC search (the contended 8 x 599
+              batch) and RNN-T search (the transducer's mixing checkpoint,
+              B 8 x 8 s) at beam 190 with the word LM and the hotword,
+              each rank's stripe against this process's, the frame steps
+              eager over gloo; the wav2vec2 and BYOL steps on the mesh
+              against this process's; ``cli.pretrain --dp 2 --tp 2`` for 4
+              steps, resumed at dp 1 to 6, then ``cli.train
+              --init-encoder-from`` it, the encoder held against the
+              checkpoint's; the mesh's checkpoint resumed at dp 1 and
+              scored by ``cli.test``; K1, K1-drop, K2, K4a and K4b at a
+              rank's shapes against their plain versions, timed; one mesh
+              step over a world-1 NCCL group against the meshless step, bit
+              for bit, and the CTC search with its LM probe sum over that
+              group captured in the frame graph, bit for bit. Each rank's
+              step wall, peak memory and search walls (four ranks on one
+              card: correctness, not scaling).
 
 Then each phase's wall seconds (``phase_seconds``), the card's name and
 power limit, the ``kernels`` line, and last
@@ -169,8 +184,8 @@ import time
 from unittest import mock
 
 PHASES = ("build", "kernels", "tolerance", "model", "serve", "train",
-          "evaluate", "tiny", "stream", "transducer", "export", "beam_device",
-          "pretrain", "parallel")
+          "evaluate", "tiny", "stream", "transducer", "beam_device",
+          "pretrain", "export", "parallel")
 OPTIONAL_PHASES = ("profile",)
 # Published dense peaks of one H100 SXM (NVIDIA data sheet) at 700 W.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -2875,14 +2890,23 @@ def phase_transducer(torch, tmp: str):
 # every shape these launch.
 EXPORT_BATCHES = (1, 8)
 EXPORT_SECONDS = (8, 24)
-TRANSDUCER_EXPORT = (1, 8)
+# The exported CTC model at the production width, its depth cut from 17
+# blocks for time: each program's weights and nodes (~980 MB, ~71 s to
+# export and ~36 s to load at 17) scale with it, the shapes do not.
+EXPORT_BLOCKS = 6
+# the transducer's program at batch 1 and 4 s: cut from 8 s for time (its
+# greedy rounds are unrolled, 4 a frame: 796 at 8 s took ~186 s to export
+# and ~76 s to load, 396 at 4 s ~99 s and ~41 s; at 2 s the mixing copy
+# emits nothing on this seed, which the check refuses)
+TRANSDUCER_EXPORT = (1, 4)
 TINY_EXPORT = (2, 2)
 
 
 def _export_cfg():
     from conformer_tpu_torch.config import Config
 
-    return Config().override(**{"model.conv_impl": "pallas"})
+    return Config().override(**{"model.conv_impl": "pallas",
+                                "model.n_blocks": EXPORT_BLOCKS})
 
 
 def _tiny_export_cfg():
@@ -2913,6 +2937,76 @@ def _logits_agree(torch, got, want, lengths, tol: dict) -> dict:
             "token_agreement": agree, "tolerance": tol, "ok": ok}
 
 
+# cli.export processes started ahead of the export phase (name -> (process,
+# log, out directory, start time)): tracing and saving is host work, which
+# runs beside the phases in between on the host's other cores
+_EXPORTS: dict = {}
+
+
+def _export_checkpoint(cfg, directory: str):
+    """A checkpoint of cli.train's kind with seeded weights -> the model."""
+    from conformer_tpu_torch.cli.common import save_config
+    from conformer_tpu_torch.models.conformer import build_model
+    from conformer_tpu_torch.train.checkpoint import CheckpointManager
+    from conformer_tpu_torch.train.state import make_optimizer
+
+    model = build_model(cfg.model, cfg.optim.compute_dtype, seed=0)
+    CheckpointManager(directory).save(
+        model, make_optimizer(cfg.optim, model.parameters()), step=0)
+    save_config(cfg, directory)
+    return model
+
+
+def _start_export(tmp: str, name: str, ck: str, *flags) -> None:
+    out = os.path.join(tmp, name)
+    log = open(os.path.join(tmp, f"{name}.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "conformer_tpu_torch.cli.export",
+         "--checkpoint-dir", ck, "--out", out, "--device", DEVICE, *flags],
+        stdout=log, stderr=subprocess.STDOUT,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    _EXPORTS[name] = (proc, log, out, time.perf_counter())
+
+
+def start_ctc_exports(tmp: str) -> None:
+    """The CTC programs' cli.export runs (a seeded checkpoint in ``tmp``),
+    batch 1 and 8, both buckets each."""
+    ck = os.path.join(tmp, "ck")
+    _export_checkpoint(_export_cfg(), ck)
+    for b in EXPORT_BATCHES:
+        _start_export(tmp, f"ctc_b{b}", ck, "--batch-size", str(b),
+                      "--audio-seconds", *[str(s_) for s_ in EXPORT_SECONDS])
+
+
+def _export_transducer_ck(tmp: str) -> "tuple[str, bool]":
+    """The transducer phase's mixing checkpoint, or (run without it) a
+    seeded one in ``tmp`` -> (its directory, whether from the phase)."""
+    t_ck = os.path.join(os.path.dirname(tmp), "transducer", "ck_mixed")
+    if os.path.isdir(t_ck):
+        return t_ck, True
+    t_ck = os.path.join(tmp, "transducer_ck")
+    if not os.path.isdir(t_ck):
+        _export_checkpoint(_transducer_cfg(), t_ck)
+    return t_ck, False
+
+
+def start_transducer_export(tmp: str) -> None:
+    """The transducer's greedy program's cli.export run."""
+    t_b, t_s = TRANSDUCER_EXPORT
+    _start_export(tmp, "transducer", _export_transducer_ck(tmp)[0],
+                  "--batch-size", str(t_b), "--audio-seconds", str(t_s))
+
+
+def stop_exports() -> None:
+    """Kill the cli.export runs still going (a phase failed)."""
+    for proc, log, _, _ in _EXPORTS.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    _EXPORTS.clear()
+
+
 def phase_export(torch, tmp: str):
     """The production ``Config()`` with conv_impl=pallas (seeded random
     weights, a checkpoint of cli.train's kind) exported by ``cli.export
@@ -2923,44 +3017,26 @@ def phase_export(torch, tmp: str):
     exported on the CPU and moved to the card against the live tiny model;
     the transducer phase's checkpoint (its decode checks' copy, which
     mixes blanks and emissions; run alone, seeded weights) exported greedy
-    at 8 s,
-    batch 1, against the live greedy tokens. The
-    three ``cli.export`` runs are processes of their own, started together
-    (tracing and saving is host work, minutes for the unrolled frame
-    loops), and are killed if the phase fails. Export seconds (meta.json),
+    at TRANSDUCER_EXPORT's 4 s, batch 1, against the live greedy tokens. The
+    three ``cli.export`` runs are processes of their own (tracing and
+    saving is host work, minutes for the unrolled frame loops), which
+    main() starts ahead (the CTC ones before the serve phase, the
+    transducer's after the transducer phase; run alone, the phase starts
+    them) and which are killed if the phase fails. Export seconds (meta.json),
     program bytes, load seconds, and the programs' forward ms beside the
     live forward's. -> launch counts of the programs' runs."""
-    from conformer_tpu_torch.cli.common import save_config
     from conformer_tpu_torch.config import Config
     from conformer_tpu_torch.export import ExportedModel, export_model
     from conformer_tpu_torch.models.conformer import build_model
     from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from conformer_tpu_torch.train.checkpoint import CheckpointManager
-    from conformer_tpu_torch.train.state import make_optimizer
     from conformer_tpu_torch.train.steps import make_eval_step, make_forward
 
     dev = torch.device(DEVICE)
-    total, procs = {}, {}
-    here = os.path.dirname(os.path.abspath(__file__))
-
-    def checkpoint(cfg, directory):
-        model = build_model(cfg.model, cfg.optim.compute_dtype, seed=0)
-        CheckpointManager(directory).save(
-            model, make_optimizer(cfg.optim, model.parameters()), step=0)
-        save_config(cfg, directory)
-        return model
-
-    def start(name, ck, *flags):
-        out = os.path.join(tmp, name)
-        log = open(os.path.join(tmp, f"{name}.log"), "w")
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "conformer_tpu_torch.cli.export",
-             "--checkpoint-dir", ck, "--out", out, "--device", DEVICE,
-             *flags], stdout=log, stderr=subprocess.STDOUT, cwd=here)
-        procs[name] = (proc, log, out, time.perf_counter())
+    total = {}
 
     def finish(name):
-        proc, log, out, t0 = procs[name]
+        proc, log, out, t0 = _EXPORTS[name]
         rc = proc.wait()
         process_s = time.perf_counter() - t0
         log.close()
@@ -2986,23 +3062,17 @@ def phase_export(torch, tmp: str):
 
     cfg = _export_cfg()
     n_blocks = cfg.model.n_blocks
-    ck = os.path.join(tmp, "ck")
-    model = checkpoint(cfg, ck)
-    t_ck = os.path.join(os.path.dirname(tmp), "transducer", "ck_mixed")
-    from_phase = os.path.isdir(t_ck)
-    if not from_phase:
-        t_ck = os.path.join(tmp, "transducer_ck")
-        checkpoint(_transducer_cfg(), t_ck)
+    # the runs main() started ahead, or (the phase run alone) now
+    if "ctc_b1" not in _EXPORTS:
+        start_ctc_exports(tmp)
+    if "transducer" not in _EXPORTS:
+        start_transducer_export(tmp)
+    # the exported checkpoint's seeded weights, rebuilt
+    model = build_model(cfg.model, cfg.optim.compute_dtype, seed=0)
+    t_ck, from_phase = _export_transducer_ck(tmp)
     t_b, t_s = TRANSDUCER_EXPORT
     tiny_b, tiny_s = TINY_EXPORT
-    seconds_flag = [str(s_) for s_ in EXPORT_SECONDS]
     try:
-        start("transducer", t_ck, "--batch-size", str(t_b),
-              "--audio-seconds", str(t_s))
-        for b in EXPORT_BATCHES:
-            start(f"ctc_b{b}", ck, "--batch-size", str(b),
-                  "--audio-seconds", *seconds_flag)
-
         # meanwhile: a tiny program exported on the CPU, moved to the card
         tcfg = _tiny_export_cfg()
         tiny = build_model(tcfg.model, "float32", seed=0).eval()
@@ -3060,11 +3130,7 @@ def phase_export(torch, tmp: str):
         # the transducer, greedy decode baked in
         program, info = finish("transducer")
     finally:
-        for proc, log, _, _ in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
+        stop_exports()
     tcfg = Config.from_json(os.path.join(t_ck, "config.json"))
     t_model = build_model(tcfg.model, tcfg.optim.compute_dtype, seed=None)
     CheckpointManager(t_ck).restore(t_model)
@@ -3090,9 +3156,10 @@ def phase_export(torch, tmp: str):
                         and t_counts["sincos_attention_fwd"]
                         == tcfg.model.n_blocks)
     ok = all(c["ok"] for c in ctc) and tiny_case["ok"] and transducer["ok"]
-    emit({"phase": "export", "config": "Config() production, conv_impl "
-          "pallas, seeded random weights; ModelConfig.tiny fp32 exported on "
-          "the CPU; configs/production_vi_transducer.json greedy",
+    emit({"phase": "export", "config": f"Config() production width at "
+          f"{n_blocks} blocks, conv_impl pallas, seeded random weights; "
+          "ModelConfig.tiny fp32 exported on the CPU; "
+          "configs/production_vi_transducer.json greedy",
           "ctc": ctc, "tiny_moved_from_cpu": tiny_case,
           "transducer_greedy": transducer, "ok": ok})
     if not ok:
@@ -3125,14 +3192,40 @@ def _beam_texts(tok, prefixes, plens):
         for i in range(prefixes.shape[0])]
 
 
-def _ctc_beam_kwargs(torch, cfg, tok, device):
+def _ctc_beam_kwargs(torch, cfg, tok, device, mesh=None):
     from conformer_tpu_torch.decode.pipeline import device_lm_kwargs
 
     dc = cfg.decode
     return dict(beam_width=dc.beam_width, top_k=dc.device_top_k,
                 blank_id=tok.pad_id, unk_id=tok.unk_id,
                 max_len=cfg.data.max_tokens,
-                **device_lm_kwargs(cfg, tok, device, word_fallback=True))
+                **device_lm_kwargs(cfg, tok, device, word_fallback=True,
+                                   mesh=mesh))
+
+
+def _rnnt_beam_kwargs(t_cfg, tok, device, mesh=None):
+    from conformer_tpu_torch.decode.pipeline import device_lm_kwargs
+
+    dc = t_cfg.decode
+    return dict(beam_width=dc.beam_width, top_k=dc.rnnt_top_k,
+                max_symbols=dc.rnnt_max_symbols,
+                max_len=t_cfg.data.max_tokens, unk_id=tok.unk_id,
+                **device_lm_kwargs(t_cfg, tok, device, word_fallback=True,
+                                   mesh=mesh))
+
+
+def _beam_lm(tmp: str, rng) -> "tuple[str, str]":
+    """The word 5-gram and the token 5-gram that ``cli.create_lm`` builds
+    from 300 transcripts drawn from ``rng`` -> (word ARPA, token ARPA)."""
+    from conformer_tpu_torch.cli import create_lm
+
+    corpus = os.path.join(tmp, "corpus.txt")
+    with open(corpus, "w", encoding="utf8") as f:
+        f.write("\n".join(_transcript(rng) for _ in range(300)))
+    lm_dir = os.path.join(tmp, "lm")
+    create_lm.main(["--text", corpus, "--out", lm_dir, "--token-level"])
+    return (os.path.join(lm_dir, "lm.arpa"),
+            os.path.join(lm_dir, "lm_tokens.arpa"))
 
 
 def cpu_beam_search(arpa: str, out: str, b: int, t: int) -> None:
@@ -3237,12 +3330,11 @@ def phase_beam_device(torch, tmp: str):
     import numpy as np
     from scipy.io import wavfile
 
-    from conformer_tpu_torch.cli import create_lm, pseudo_label, serve
+    from conformer_tpu_torch.cli import pseudo_label, serve
     from conformer_tpu_torch.cli import test as cli_test
     from conformer_tpu_torch.config import Config
     from conformer_tpu_torch.decode.beam_search import BeamSearchDecoder
-    from conformer_tpu_torch.decode.pipeline import (InferencePipeline,
-                                                     device_lm_kwargs)
+    from conformer_tpu_torch.decode.pipeline import InferencePipeline
     from conformer_tpu_torch.models.conformer import build_model
     from conformer_tpu_torch.ops import frame_graph
     from conformer_tpu_torch.ops.beam_search_device import \
@@ -3272,13 +3364,7 @@ def phase_beam_device(torch, tmp: str):
         sections[name] = time.perf_counter() - t_phase
 
     rng = np.random.default_rng(5)
-    corpus = os.path.join(tmp, "corpus.txt")
-    with open(corpus, "w", encoding="utf8") as f:
-        f.write("\n".join(_transcript(rng) for _ in range(300)))
-    lm_dir = os.path.join(tmp, "lm")
-    create_lm.main(["--text", corpus, "--out", lm_dir, "--token-level"])
-    arpa = os.path.join(lm_dir, "lm.arpa")
-    token_arpa = os.path.join(lm_dir, "lm_tokens.arpa")
+    arpa, token_arpa = _beam_lm(tmp, rng)
     hot = ["--set", f'decode.hotwords=["{HOTWORD}"]']
     cfg = Config().override(**{"decode.lm_path": arpa,
                                "decode.hotwords": [HOTWORD]})
@@ -3301,9 +3387,9 @@ def phase_beam_device(torch, tmp: str):
         capture_s = frame_graph.capture_seconds()
         graph_walls = _walls(torch, search)
         graph_prof = _profiled(torch, part)
-        with frame_graph.eager():
-            eager_out = search()
-            eager_walls = _walls(torch, search)
+        with frame_graph.eager():     # one timed run: it is slow
+            eager_out, eager_ms = _run(torch, search)
+            eager_walls = [eager_ms / 1e3]
             eager_prof = _profiled(torch, part)
         bits = all(torch.equal(x, y) for x, y in zip(graph_out, eager_out))
         card_texts = _beam_texts(tok, graph_out[0].cpu(), graph_out[1].cpu())
@@ -3427,10 +3513,7 @@ def phase_beam_device(torch, tmp: str):
         model = model.to(dev).eval()
         joint_fn, pred_step_fn = model.beam_fns()
         dc = t_cfg.decode
-        r_kw = dict(beam_width=dc.beam_width, top_k=dc.rnnt_top_k,
-                    max_symbols=dc.rnnt_max_symbols,
-                    max_len=t_cfg.data.max_tokens, unk_id=tok.unk_id,
-                    **device_lm_kwargs(t_cfg, tok, dev, word_fallback=True))
+        r_kw = _rnnt_beam_kwargs(t_cfg, tok, dev)
         rnnt = {"checkpoint": ck_from, "beam_width": dc.beam_width,
                 "top_k": dc.rnnt_top_k, "max_symbols": dc.rnnt_max_symbols}
         for seconds in RNNT_BEAM_SECONDS:
@@ -3441,8 +3524,11 @@ def phase_beam_device(torch, tmp: str):
                 joint_fn, enc, enc_len, pred_step_fn,
                 model.predict_init(8, dev), **r_kw)
             r_out, r_first = _run(torch, r_search)
+            # 24 s timed once, for time (~3.2 s a run)
             case = {"frames": enc.shape[1], "first_call_s": r_first / 1e3,
-                    "graph_s": _walls(torch, r_search)}
+                    "graph_s": _walls(torch, r_search,
+                                      3 if seconds == RNNT_BEAM_SECONDS[0]
+                                      else 1)}
             if seconds == RNNT_BEAM_SECONDS[0]:
                 r_part = lambda: rnnt_beam_search(
                     joint_fn, enc[:, :PROFILE_FRAMES // 3],
@@ -3791,7 +3877,15 @@ TOL_AGREE = {"loss_rtol": 2e-4, "grad_rtol": 1e-3, "param_atol": 1e-5,
 # width 512; K4a/K4b: C 256).
 SHARD_B, SHARD_L, SHARD_H, SHARD_C = 4, 599, 4, 256
 NCCL_TIMEOUT_S = 120
-WORKER_TIMEOUT_S = 600
+WORKER_TIMEOUT_S = 900
+# A sharded search's scores against one process's: bit for bit expected
+# (exactly one rank adds a non-zero term to each probe sum); otherwise at
+# most this, as tests/test_device_lm.py holds the JAX package's.
+TOL_SHARDED_SCORE = 1e-5
+# The mesh's fp32 log-probs against one process's: another summation order
+# (the row-parallel products' sums over the model group) and other kernels
+# for another batch size round differently.
+TOL_LAYOUT_LOG_PROBS = 1e-4
 
 
 def _free_port() -> int:
@@ -3939,11 +4033,215 @@ def _mesh_cli_runs(torch, spec: dict) -> list:
     return runs
 
 
+# The mesh for decoding and pretraining: the pretraining steps'
+# agreement at AGREE's settings (fp32, dropout 0, 2 blocks, K4 on channel
+# shards, ZeRO-1, SP), Config()'s pretrain defaults otherwise.
+PRETRAIN_AGREE_METHODS = ("wav2vec2", "byol")
+PRETRAIN_AGREE_STEPS = 2
+
+
+def _beam_test_argv(manifest: str, ck: str, arpa: str) -> list:
+    """cli.test through the CTC device search with the word LM and the
+    hotword, in fp32: bf16 logits differ between layouts (another summation
+    order, other kernels for another batch) by more than a random model's
+    beam margins."""
+    return ["--manifest", manifest, "--checkpoint-dir", ck, "--device",
+            DEVICE, "--lm", arpa, "--decode", "beam_device",
+            "--set", f'decode.hotwords=["{HOTWORD}"]',
+            "--set", "optim.compute_dtype=float32"]
+
+
+def _cli_test_kept(torch, argv: list):
+    """``cli.test.main(argv)`` with the pipeline keeping each batch's
+    log-probs and lengths on the host -> (metrics, [(log_probs, lengths)]
+    a batch: under a mesh this rank's stripe, the pipeline)."""
+    from conformer_tpu_torch.cli import test as cli_test
+    from conformer_tpu_torch.decode.pipeline import InferencePipeline
+
+    pipes = []
+    evaluate = InferencePipeline.evaluate
+
+    def kept(self, *args, **kwargs):
+        pipes.append(self)
+        return evaluate(self, *args, **kwargs)
+
+    with mock.patch.object(InferencePipeline, "evaluate", kept), \
+            mock.patch.object(InferencePipeline, "keep_outputs", True):
+        metrics = cli_test.main(argv)
+    return metrics, [(e["log_probs"], e["lengths"])
+                     for e in pipes[0].batch_log], pipes[0]
+
+
+def _mesh_cli_test(torch, spec: dict) -> dict:
+    """This rank's share of ``cli.test --dp 2 --tp 2 --lm --decode
+    beam_device`` on the mesh's checkpoint (rank 0 writes the results);
+    its stripes' log-probs go to ``spec["mesh_log_probs"]``."""
+    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics, kept, _ = _cli_test_kept(
+        torch, _beam_test_argv(spec["manifest"], spec["ck"], spec["arpa"])
+        + ["--dp", "2", "--tp", "2", "--results", spec["mesh_results"]])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    import torch.distributed as dist
+
+    torch.save(kept, spec["mesh_log_probs"].format(rank=dist.get_rank()))
+    return {"metrics": metrics, "wall_s": wall, "launches": launch_counts()}
+
+
+def _transducer_search_setup(torch, t_ck: str, arpa: str, mesh=None):
+    """The transducer's joint, prediction step and beam kwargs at the
+    reference's operating point (beam 190, the word LM, the hotword), its
+    tables split over ``mesh``'s model group."""
+    from conformer_tpu_torch.config import Config
+    from conformer_tpu_torch.models.conformer import build_model
+    from conformer_tpu_torch.text.tokenizer import load_tokenizer
+    from conformer_tpu_torch.train.checkpoint import CheckpointManager
+
+    tok = load_tokenizer("vi")
+    t_cfg = Config.from_json(os.path.join(t_ck, "config.json")).override(
+        **{"decode.lm_path": arpa, "decode.hotwords": [HOTWORD],
+           "decode.beam_width": RNNT_BEAM_WIDTH})
+    model = build_model(t_cfg.model, t_cfg.optim.compute_dtype, seed=None)
+    CheckpointManager(t_ck).restore(model)
+    model = model.to(DEVICE).eval()
+    return model, _rnnt_beam_kwargs(t_cfg, tok, torch.device(DEVICE), mesh)
+
+
+def _searches(torch, spec: dict, mesh=None) -> "tuple[dict, dict]":
+    """The CTC search on the beam_device phase's contended B 8 x 599 batch
+    and the RNN-T search on the transducer's B 8 x 8 s encodings
+    (``spec["t_enc"]``), at the reference's operating point: sharded over
+    ``mesh`` (this rank's stripe) or in one process. -> (the outputs on the
+    CPU, walls and the frame steps' mode)."""
+    from conformer_tpu_torch.config import Config
+    from conformer_tpu_torch.ops.beam_search_device import (
+        ctc_beam_search_device_sharded)
+    from conformer_tpu_torch.ops.rnnt import rnnt_beam_search_sharded
+    from conformer_tpu_torch.parallel.collectives import capturable
+    from conformer_tpu_torch.text.tokenizer import load_tokenizer
+
+    dev = torch.device(DEVICE)
+    tok = load_tokenizer("vi")
+    cfg = Config().override(**{"decode.lm_path": spec["arpa"],
+                               "decode.hotwords": [HOTWORD]})
+    b, t = BEAM_CONTENDED
+    lp = torch.from_numpy(contended_log_probs(tok.vocab_size, tok.pad_id, b,
+                                              t, seed=9)).to(dev)
+    kw = _ctc_beam_kwargs(torch, cfg, tok, dev, mesh)
+    out, info = {}, {"frame_steps": "graph"}
+    if mesh is not None and not capturable(mesh.model_group):
+        info["frame_steps"] = "eager"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["ctc"] = ctc_beam_search_device_sharded(lp, None, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    info["ctc_wall_s"] = time.perf_counter() - t0
+    model, r_kw = _transducer_search_setup(torch, spec["t_ck"], spec["arpa"],
+                                           mesh)
+    enc, enc_len = (x.to(dev) for x in torch.load(spec["t_enc"]))
+    joint_fn, pred_step_fn = model.beam_fns()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["rnnt"] = rnnt_beam_search_sharded(
+        joint_fn, enc, enc_len, pred_step_fn,
+        model.predict_init(enc.shape[0], dev), mesh=mesh, **r_kw)
+    torch.cuda.synchronize()
+    info["rnnt_wall_s"] = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    return ({k: [x.cpu() for x in v] for k, v in out.items()}, info)
+
+
+def _pretrain_agree(torch, mesh=None) -> "tuple[dict, dict]":
+    """PRETRAIN_AGREE_STEPS wav2vec2 and BYOL steps at AGREE's settings on
+    the agreement batch (this rank's stripe under ``mesh``), every draw at
+    the global batch -> ({method: the single-device state_dict on the
+    CPU}, {method: losses, step walls, peak memory})."""
+    from conformer_tpu_torch.config import Config
+    from conformer_tpu_torch.parallel.mesh import (batch_stripe,
+                                                   full_state_dict,
+                                                   shard_model)
+    from conformer_tpu_torch.train.pretrain import (build_pretrain_model,
+                                                    make_pretrain_step)
+    from conformer_tpu_torch.train.state import make_optimizer
+
+    audio, lengths = batch_stripe(_agree_batch(torch)[:2], mesh)
+    audio = torch.from_numpy(audio).to(DEVICE)
+    lengths = torch.from_numpy(lengths).to(DEVICE)
+    states, info = {}, {}
+    for method in PRETRAIN_AGREE_METHODS:
+        cfg = Config().override(**AGREE, **{"pretrain.method": method})
+        model = build_pretrain_model(cfg, seed=0)
+        if mesh is not None:
+            shard_model(model, mesh, cfg.model)
+        model = model.to(DEVICE)
+        opt = make_optimizer(cfg.optim, model.parameters(), 10, mesh,
+                             zero=cfg.parallel.zero)
+        step = make_pretrain_step(cfg, model, opt, mesh=mesh)
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls = [], []
+        for i in range(PRETRAIN_AGREE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(audio, lengths, i)["loss"]))
+            walls.append(time.perf_counter() - t0)
+        info[method] = {"losses": losses, "step_wall_s": walls,
+                        "peak_memory_gb":
+                            torch.cuda.max_memory_allocated() / 1e9}
+        states[method] = {k: v.detach().cpu() for k, v in
+                          full_state_dict(model, mesh).items()}
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return states, info
+
+
+def _pretrain_argv(spec: dict) -> list:
+    """cli.pretrain on configs/pretrain_wav2vec2.json (batch 32 -> 8) at
+    PARALLEL_BLOCKS blocks, checkpoints every 2 steps."""
+    return ["--manifest", spec["unlabelled"], "--method", "wav2vec2",
+            "--config", PRETRAIN_CONFIG, "--checkpoint-dir", spec["pre_ck"],
+            "--device", DEVICE, "--set", "data.batch_size=8",
+            "--set", "train.checkpoint_every_steps=2",
+            "--set", "train.log_every_steps=1",
+            "--set", "train.num_epochs=100",
+            "--set", f"model.n_blocks={PARALLEL_BLOCKS}"]
+
+
+def _mesh_pretrain_run(torch, spec: dict) -> dict:
+    """This rank's share of ``cli.pretrain --dp 2 --tp 2`` (ZeRO-1, SP) for
+    4 steps: its launches, wall, steps and peak memory."""
+    from conformer_tpu_torch.cli import pretrain
+    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    runner = pretrain.main(_pretrain_argv(spec) + [
+        "--dp", "2", "--tp", "2", "--set", "parallel.zero=true",
+        "--set", "model.seq_shard=true", "--set", "train.num_steps=4"])
+    torch.cuda.synchronize()
+    run = {"start_step": runner.start_step, "end_step": runner.step,
+           "wall_s": time.perf_counter() - t0,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launch_counts()}
+    del runner
+    torch.cuda.empty_cache()
+    return run
+
+
 def _worker(spec_path: str) -> int:
     """One rank of the parallel phase (``--worker SPEC``): ``nccl`` tries
     NCCL with every rank on card 0; ``mesh`` joins a gloo group of CUDA
     tensors, runs the agreement steps on the 2 x 2 mesh (rank 0 writes the
-    state) and its share of the cli.train runs."""
+    state), its share of the cli.train runs and of cli.test with the device
+    beam, the sharded CTC and RNN-T searches (each rank writes its
+    stripe), the pretraining agreement steps (rank 0 writes the states)
+    and its share of cli.pretrain."""
     with open(spec_path, encoding="utf8") as f:
         spec = json.load(f)
     import torch
@@ -3985,6 +4283,14 @@ def _worker(spec_path: str) -> int:
     del state, grads
     torch.cuda.empty_cache()
     out["runs"] = _mesh_cli_runs(torch, spec)
+    out["test"] = _mesh_cli_test(torch, spec)
+    searched, out["searches"] = _searches(torch, spec, mesh)
+    torch.save(searched, spec["searches"].format(rank=rank))
+    states, out["pretrain_agree"] = _pretrain_agree(torch, mesh)
+    if rank == 0:
+        torch.save(states, spec["pretrain_state"])
+    del states
+    out["pretrain_run"] = _mesh_pretrain_run(torch, spec)
     dist.barrier()
     dist.destroy_process_group()
     with open(spec["out"], "w", encoding="utf8") as f:
@@ -4017,14 +4323,24 @@ def _shard_kernels(torch) -> dict:
     }
 
 
-def _nccl_world_one(torch) -> dict:
+def _nccl_world_one(torch, arpa: str) -> dict:
     """One train step on a dp 1 x tp 1 mesh over a world-1 NCCL group (every
     collective of the step runs, on one rank) against the meshless step,
     from the same weights and batch: production Config() (bf16, dropout
     0.1 hash, SpecAugment, remat) at AGREE_BLOCKS blocks; the meshless step
     twice, so that a difference of the kernels' own between two runs would
-    show."""
+    show. Then the CTC device search on the contended batch at the
+    reference's operating point with the LM probes' sum over the group
+    issued (a TableShard of the whole table over the world-1 model group):
+    through the frame graph, the NCCL all-reduce captured in it, against
+    the meshless graph, bit for bit."""
     import torch.distributed as dist
+
+    from conformer_tpu_torch.lm.device_table import TableShard
+    from conformer_tpu_torch.ops import frame_graph
+    from conformer_tpu_torch.ops.beam_search_device import (
+        ctc_beam_search_device, frame_mode)
+    from conformer_tpu_torch.text.tokenizer import load_tokenizer
 
     from conformer_tpu_torch.config import Config
     from conformer_tpu_torch.models.conformer import build_model
@@ -4054,6 +4370,27 @@ def _nccl_world_one(torch) -> dict:
                           {k: v.cpu() for k, v in model.state_dict().items()})
             del model, opt
         torch.cuda.empty_cache()
+        tok = load_tokenizer("vi")
+        b, t = BEAM_CONTENDED
+        lp = torch.from_numpy(contended_log_probs(
+            tok.vocab_size, tok.pad_id, b, t, seed=9)).to(DEVICE)
+        kw = _ctc_beam_kwargs(torch, Config().override(**{
+            "decode.lm_path": arpa, "decode.hotwords": [HOTWORD]}), tok,
+            torch.device(DEVICE))
+        shard = TableShard(0, kw["lm_tables"].n_slots, mesh.model_group)
+        frame_graph.clear_cache()
+        meshless = ctc_beam_search_device(lp, **kw)
+        graphs = len(frame_graph.capture_seconds())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summed = ctc_beam_search_device(lp, lm_shard=shard, **kw)
+        torch.cuda.synchronize()
+        search = {"frame_steps": frame_mode(shard),
+                  "graphs_captured": len(frame_graph.capture_seconds())
+                  - graphs, "wall_s": time.perf_counter() - t0,
+                  "bit_for_bit": all(torch.equal(x, y)
+                                     for x, y in zip(summed, meshless))}
+        frame_graph.clear_cache()
     finally:
         dist.destroy_process_group()
 
@@ -4064,13 +4401,18 @@ def _nccl_world_one(torch) -> dict:
 
     return {"backend": "nccl", "world": 1, "loss": float(runs["mesh"][0][0]),
             "mesh_equals_meshless": equal("mesh", "meshless"),
-            "meshless_twice_equal": equal("meshless", "meshless_again")}
+            "meshless_twice_equal": equal("meshless", "meshless_again"),
+            "ctc_search_sum_captured": search}
 
 
 def phase_parallel(torch, tmp: str):
-    """-> launch counts of the mesh's cli.train runs, over all ranks."""
+    """-> launch counts of the mesh's runs (cli.train, cli.test with the
+    device beam, cli.pretrain), over all ranks, and of this process's."""
+    import numpy as np
+
     from conformer_tpu_torch.cli import test as cli_test
     from conformer_tpu_torch.cli import train
+    from conformer_tpu_torch.config import Config
     from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     parts, t_part = {}, time.perf_counter()
@@ -4083,16 +4425,37 @@ def phase_parallel(torch, tmp: str):
 
     shard = _shard_kernels(torch)           # timed with the card to itself
     part("shard_kernels")
+    manifest, paths = _write_manifest(tmp, "train", TRAIN_SECONDS, seed=1)
+    unlabelled = os.path.join(tmp, "unlabelled.csv")
+    with open(unlabelled, "w", newline="", encoding="utf8") as f:
+        csv.writer(f).writerows([["path"]] + [[p_] for p_ in paths])
+    arpa, _ = _beam_lm(tmp, np.random.default_rng(5))
+    # the transducer's B 8 x 8 s encodings for the RNN-T searches
+    t_ck, t_from = _transducer_ck(torch, tmp)
+    t_model, _ = _transducer_search_setup(torch, t_ck, arpa)
+    t_enc = os.path.join(tmp, "t_enc.pt")
+    torch.save([x.cpu() for x in _encode(
+        torch, t_model, Config.from_json(os.path.join(t_ck, "config.json")),
+        *_noise_batch(torch, 8, 8, seed=98))], t_enc)
+    del t_model
+    torch.cuda.empty_cache()
+    part("setup")
     # the ranks start while this process takes the single-process reference
-    manifest, _ = _write_manifest(tmp, "train", TRAIN_SECONDS, seed=1)
     ck = os.path.join(tmp, "ck")
-    agree_state = os.path.join(tmp, "agree_mesh.pt")
+    spec = {"manifest": manifest, "ck": ck, "arpa": arpa,
+            "agree_state": os.path.join(tmp, "agree_mesh.pt"),
+            "mesh_results": os.path.join(tmp, "results_mesh.csv"),
+            "t_ck": t_ck, "t_enc": t_enc,
+            "searches": os.path.join(tmp, "searches{rank}.pt"),
+            "mesh_log_probs": os.path.join(tmp, "mesh_log_probs{rank}.pt"),
+            "pretrain_state": os.path.join(tmp, "pretrain_mesh.pt"),
+            "unlabelled": unlabelled, "pre_ck": os.path.join(tmp, "pre")}
     nccl_procs = _start_ranks("nccl", 2, tmp, {})
-    mesh_procs = _start_ranks("mesh", PARALLEL_RANKS, tmp,
-                              {"manifest": manifest, "ck": ck,
-                               "agree_state": agree_state})
+    mesh_procs = _start_ranks("mesh", PARALLEL_RANKS, tmp, spec)
     ref_losses, ref_state, ref_grads = _agree_steps(torch, None)
     torch.cuda.empty_cache()
+    ref_searched, ref_search_info = _searches(torch, spec)
+    ref_pre_states, ref_pre = _pretrain_agree(torch)
     nccl = _finish_ranks(nccl_procs, NCCL_TIMEOUT_S)
     nccl_found = {"ranks": nccl, "refused": any(
         r is None or r.get("refused") for r in nccl)}
@@ -4103,9 +4466,8 @@ def phase_parallel(torch, tmp: str):
             i: _tail(tmp, f"mesh{i}.log") for i in range(PARALLEL_RANKS)}})
         raise SystemExit("parallel phase failed: a rank did not finish")
     from conformer_tpu_torch.models.conformer import build_model
-    from conformer_tpu_torch.config import Config
 
-    saved = torch.load(agree_state)
+    saved = torch.load(spec["agree_state"])
     mesh_state, mesh_grads = saved["state"], saved["grads"]
     names = {n for n, _ in build_model(Config().override(**AGREE).model,
                                        "float32", seed=None).named_parameters()}
@@ -4156,6 +4518,18 @@ def phase_parallel(torch, tmp: str):
               "peak_memory_gb": x.get("train/peak_memory_gb")}
              for x in records if "train/ctc_loss" in x]
 
+    decode = _decode_agreement(torch, tmp, spec, ranks, ref_searched,
+                               ref_search_info)
+    for r in ranks:
+        for key, n in r["test"]["launches"].items():
+            total[key] = total.get(key, 0) + n
+    part("decode")
+    pre = _pretrain_agreement(torch, tmp, spec, ranks, ref_pre_states,
+                              ref_pre)
+    for key, n in pre.pop("launches").items():
+        total[key] = total.get(key, 0) + n
+    part("pretrain")
+
     # resumed at dp 1 in this process, then scored
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -4174,7 +4548,7 @@ def phase_parallel(torch, tmp: str):
         scored_rows = len(list(csv.reader(f))) - 1
     part("cli_test")
 
-    world_one = _nccl_world_one(torch)
+    world_one = _nccl_world_one(torch, arpa)
     part("nccl_world_one")
 
     kernels_ok = all(case["ok"] for cases in shard.values() for case in cases)
@@ -4196,7 +4570,11 @@ def phase_parallel(torch, tmp: str):
           and dp1["launches"]["sincos_attention_bwd"] > 0
           and scored_rows == len(TRAIN_SECONDS)
           and math.isfinite(scored.get("loss", float("nan")))
-          and world_one["mesh_equals_meshless"])
+          and world_one["mesh_equals_meshless"]
+          and world_one["ctc_search_sum_captured"]["bit_for_bit"]
+          and world_one["ctc_search_sum_captured"]["frame_steps"] == "graph"
+          and world_one["ctc_search_sum_captured"]["graphs_captured"] >= 1
+          and decode["ok"] and pre["ok"])
     emit({"phase": "parallel",
           "note": "four ranks share one card: correctness, not scaling",
           "mesh": f"Config() at {PARALLEL_BLOCKS} blocks, dp 2 x tp 2, gloo "
@@ -4207,10 +4585,196 @@ def phase_parallel(torch, tmp: str):
           "launches": total, "resumed_dp1": dp1, "seconds": parts,
           "cli_test": {"rows": scored_rows, **{k: scored.get(k) for k in
                                                ("wer", "cer", "loss")}},
-          "nccl_world_one": world_one, "ok": ok})
+          "nccl_world_one": world_one, "decode": decode, "pretrain": pre,
+          "transducer_checkpoint": t_from, "ok": ok})
     if not ok:
         raise SystemExit("parallel phase failed")
     return total
+
+
+def _decode_agreement(torch, tmp: str, spec: dict, ranks: list,
+                      ref_searched: dict, ref_info: dict) -> dict:
+    """The mesh's searches and cli.test against this process's: every
+    rank's stripe of the CTC and RNN-T outputs (prefixes and lengths equal,
+    scores bit for bit or within TOL_SHARDED_SCORE), and ``cli.test --lm
+    --decode beam_device`` in one process (graph) against the mesh's
+    metrics and results file (or, where a row differs, the mesh's text
+    against the one-process search on the mesh's own log-probs)."""
+    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    searches = {}
+    for kind in ("ctc", "rnnt"):
+        worst, same, bits = 0.0, True, True
+        for r in range(PARALLEL_RANKS):
+            got = torch.load(spec["searches"].format(rank=r))[kind]
+            b = ref_searched[kind][0].shape[0] // 2
+            rows = slice((r // 2) * b, (r // 2 + 1) * b)
+            want = [x[rows] for x in ref_searched[kind]]
+            same = (same and torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1]))
+            bits = bits and torch.equal(got[2], want[2])
+            worst = max(worst, float((got[2] - want[2]).abs().max()))
+        searches[kind] = {
+            "prefixes_and_lengths_equal": same, "scores_bit_for_bit": bits,
+            "scores_max_abs_diff": worst,
+            "rank_walls_s": [r["searches"][f"{kind}_wall_s"] for r in ranks],
+            "one_process_wall_s": ref_info[f"{kind}_wall_s"],
+            "ok": same and worst <= TOL_SHARDED_SCORE}
+    one_results = os.path.join(tmp, "results_one.csv")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    one, one_kept, one_pipe = _cli_test_kept(
+        torch, _beam_test_argv(spec["manifest"], spec["ck"], spec["arpa"])
+        + ["--results", one_results])
+    one_run = {"wall_s": time.perf_counter() - t0,
+               "launches": launch_counts(), "metrics": one}
+    with open(one_results, encoding="utf8") as f, \
+            open(spec["mesh_results"], encoding="utf8") as g:
+        one_rows, mesh_rows = list(csv.reader(f)), list(csv.reader(g))
+    mesh_metrics = [r["test"]["metrics"] for r in ranks]
+    same = (one_rows == mesh_rows and all(
+        m["wer"] == one["wer"] and m["cer"] == one["cer"]
+        and abs(m["loss"] - one["loss"]) <= 1e-4 * abs(one["loss"])
+        for m in mesh_metrics))
+    test = {"one_process": one_run, "mesh_metrics": mesh_metrics,
+            "mesh_walls_s": [r["test"]["wall_s"] for r in ranks],
+            "results_equal": one_rows == mesh_rows, "metrics_equal": same}
+    test.update(_mesh_texts_from_rounding(torch, spec, one_pipe, one_kept,
+                                          mesh_rows))
+    del one_pipe
+    # equal; or, where a row differs, the mesh's text is the one-process
+    # search's on the mesh's own log-probs, which differ from one process's
+    # by the layouts' fp32 rounding alone
+    test["ok"] = same or (test["rounding_explains"]
+                          and test["log_prob_max_abs_diff"]
+                          <= TOL_LAYOUT_LOG_PROBS)
+    return {"frame_steps": [r["searches"]["frame_steps"] for r in ranks],
+            "operating_point": "beam 190, K 8, alpha 2.1, beta 9.2, "
+                               f"hotword {HOTWORD}, the word 5-gram",
+            "searches": searches, "cli_test": test,
+            "ok": all(x["ok"] for x in searches.values()) and test["ok"]
+            and all(r["searches"]["frame_steps"] == "eager" for r in ranks)}
+
+
+def _mesh_texts_from_rounding(torch, spec: dict, pipe, one_kept: list,
+                              mesh_rows: list) -> dict:
+    """The mesh's log-probs (data ranks' stripes of each batch, model index
+    0) against one process's, and the one-process pipeline's search on
+    them: do its texts equal the mesh's results?"""
+    stripes = [torch.load(spec["mesh_log_probs"].format(rank=r))
+               for r in range(0, PARALLEL_RANKS, 2)]
+    worst, texts = 0.0, []
+    for i, (one_lp, one_len) in enumerate(one_kept):
+        lp = torch.cat([st[i][0] for st in stripes])
+        lengths = torch.cat([st[i][1] for st in stripes])
+        for row in range(len(lp)):
+            n = int(one_len[row])
+            if n:
+                worst = max(worst, float((lp[row, :n] - one_lp[row, :n])
+                                         .abs().max()))
+        texts += pipe.texts_from_out({"log_probs": lp.to(DEVICE),
+                                      "lengths": lengths.to(DEVICE)})
+    hyps = [row[1] for row in mesh_rows[1:]]
+    return {"log_prob_max_abs_diff": worst,
+            "rows_differing_from_the_redecode": sum(
+                a != b for a, b in zip(hyps, texts)),
+            "rounding_explains": texts[:len(hyps)] == hyps}
+
+
+def _pretrain_agreement(torch, tmp: str, spec: dict, ranks: list,
+                        ref_states: dict, ref_info: dict) -> dict:
+    """The mesh's wav2vec2 and BYOL steps against this process's (losses,
+    parameters, the BYOL target's too, and the BatchNorm statistics), then
+    the mesh's cli.pretrain checkpoint resumed at dp 1 to step 6 and
+    ``cli.train --init-encoder-from`` it, the encoder held against the
+    checkpoint's before step 1."""
+    from conformer_tpu_torch.cli import pretrain, train
+    from conformer_tpu_torch.config import Config
+    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from conformer_tpu_torch.train import trainer as trainer_mod
+    from conformer_tpu_torch.train.pretrain import build_pretrain_model
+
+    mesh_states = torch.load(spec["pretrain_state"])
+    agree = {}
+    for method in PRETRAIN_AGREE_METHODS:
+        names = {n for n, _ in build_pretrain_model(
+            Config().override(**AGREE, **{"pretrain.method": method}),
+            seed=None).named_parameters()}
+        got, want = mesh_states[method], ref_states[method]
+        errs = {k: float((got[k].float() - v.float()).abs().max())
+                for k, v in want.items()}
+        stats = [errs[k] / max(float(v.float().abs().max()), 1e-30)
+                 for k, v in want.items() if k not in names
+                 and v.is_floating_point()]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(
+            ranks[0]["pretrain_agree"][method]["losses"],
+            ref_info[method]["losses"]))
+        param_err = max(errs[k] for k in names)
+        agree[method] = {
+            "single_process_losses": ref_info[method]["losses"],
+            "mesh_losses": [r["pretrain_agree"][method]["losses"]
+                            for r in ranks],
+            "loss_rel_err": loss_rel, "param_max_abs_err": param_err,
+            "worst_params": {k: errs[k] for k in sorted(
+                names, key=errs.get)[-3:]},
+            "stats_max_rel_err": max(stats, default=0.0),
+            "rank_step_wall_s": [r["pretrain_agree"][method]["step_wall_s"]
+                                 for r in ranks],
+            "rank_peak_memory_gb": [
+                r["pretrain_agree"][method]["peak_memory_gb"] for r in ranks],
+            "single_step_wall_s": ref_info[method]["step_wall_s"],
+            "ok": (loss_rel <= TOL_AGREE["loss_rtol"]
+                   and param_err <= TOL_AGREE["param_atol"]
+                   and max(stats, default=0.0) <= TOL_AGREE["stats_rtol"])}
+    launches = {}
+    for r in ranks:
+        for key, n in r["pretrain_run"]["launches"].items():
+            launches[key] = launches.get(key, 0) + n
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    runner = pretrain.main(_pretrain_argv(spec) + [
+        "--dp", "1", "--set", "train.num_steps=6"])
+    resumed = {"start_step": runner.start_step, "end_step": runner.step,
+               "wall_s": time.perf_counter() - t0}
+    del runner
+    transfer = {}
+    first_epoch = trainer_mod.Trainer.train_epoch
+
+    def checked_epoch(self, *args, **kwargs):
+        if not transfer:
+            transfer.update(_encoder_equals_checkpoint(torch, self.model,
+                                                       spec["pre_ck"]))
+        return first_epoch(self, *args, **kwargs)
+
+    with mock.patch.object(trainer_mod.Trainer, "train_epoch", checked_epoch):
+        trainer = train.main([
+            "--train-manifest", spec["manifest"], "--checkpoint-dir",
+            os.path.join(tmp, "sup"), "--device", DEVICE,
+            "--init-encoder-from", spec["pre_ck"], "--init-method",
+            "wav2vec2", "--set", "data.batch_size=8",
+            "--set", f"model.n_blocks={PARALLEL_BLOCKS}",
+            "--set", "train.num_steps=1", "--set", "train.num_epochs=100"])
+    transfer["end_step"] = trainer.step
+    del trainer
+    torch.cuda.empty_cache()
+    for key, n in launch_counts().items():
+        launches[key] = launches.get(key, 0) + n
+    runs = [{k: r["pretrain_run"][k] for k in (
+        "start_step", "end_step", "wall_s", "peak_memory_gb")}
+        for r in ranks]
+    with open(os.path.join(spec["pre_ck"], "metrics.jsonl"),
+              encoding="utf8") as f:
+        steps = [json.loads(ln)["step"] for ln in f
+                 if "pretrain/loss" in ln]
+    return {"agreement": agree, "mesh_runs": runs, "resumed_dp1": resumed,
+            "steps": steps, "transfer": transfer, "launches": launches,
+            "ok": (all(a["ok"] for a in agree.values())
+                   and all((r["start_step"], r["end_step"]) == (0, 4)
+                           for r in runs)
+                   and (resumed["start_step"], resumed["end_step"]) == (4, 6)
+                   and steps == [1, 2, 3, 4, 5, 6]
+                   and transfer.get("all_equal") is True
+                   and transfer["end_step"] == 1)}
 
 
 def _profiled(torch, fn):
@@ -4335,21 +4899,33 @@ def main(argv=None) -> int:
         for key, n in timed("model", phase_model, torch).items():
             launches[key] = launches.get(key, 0) + n
     # one directory each, under one root: the export phase exports the
-    # transducer phase's checkpoint
+    # transducer phase's checkpoint. Its cli.export runs start ahead and
+    # trace on the host's other cores while the phases in between run: the
+    # CTC ones now, the transducer's once its phase has made the checkpoint
+    # (the export phase runs after pretrain, to give them the time).
     with tempfile.TemporaryDirectory() as root:
-        for name, run in (("serve", phase_serve), ("train", phase_train),
-                          ("evaluate", phase_evaluate), ("tiny", phase_tiny),
-                          ("stream", phase_stream),
-                          ("transducer", phase_transducer),
-                          ("export", phase_export),
-                          ("beam_device", phase_beam_device),
-                          ("pretrain", phase_pretrain),
-                          ("parallel", phase_parallel)):
-            if name in phases:
-                tmp = os.path.join(root, name)
-                os.makedirs(tmp)
-                for key, n in timed(name, run, torch, tmp).items():
-                    launches[key] = launches.get(key, 0) + n
+        export_tmp = os.path.join(root, "export")
+        try:
+            if "export" in phases:
+                os.makedirs(export_tmp)
+                start_ctc_exports(export_tmp)
+            for name, run in (("serve", phase_serve), ("train", phase_train),
+                              ("evaluate", phase_evaluate),
+                              ("tiny", phase_tiny), ("stream", phase_stream),
+                              ("transducer", phase_transducer),
+                              ("beam_device", phase_beam_device),
+                              ("pretrain", phase_pretrain),
+                              ("export", phase_export),
+                              ("parallel", phase_parallel)):
+                if name in phases:
+                    tmp = os.path.join(root, name)
+                    os.makedirs(tmp, exist_ok=True)
+                    for key, n in timed(name, run, torch, tmp).items():
+                        launches[key] = launches.get(key, 0) + n
+                if name == "transducer" and "export" in phases:
+                    start_transducer_export(export_tmp)
+        finally:
+            stop_exports()
     for entry in entries:
         entry["launches"] = launches.get(entry["name"], 0)
     if "profile" in phases:

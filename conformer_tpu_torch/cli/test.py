@@ -20,6 +20,19 @@ beam_device``: ops/beam_search_device.py through CUDA graphs, word-level
 fusion and hotwords from ``--lm``, token-level from
 ``decode.device_lm_path``) and on the CPU the host one. A transducer
 checkpoint runs its RNN-T beam search for any beam mode.
+
+Over several ranks, one process each, a (dp, tp) mesh (decode/pipeline.py:
+each data rank evaluates its stripe of every batch, the n-gram table's
+buckets split over the model group):
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m conformer_tpu_torch.cli.test --dp 2 --tp 2 --manifest ... \
+        [--lm lm.arpa --decode beam_device]
+
+with ``--device cpu`` over gloo (the device search's frame steps then run
+eagerly: gloo's sums go through the host), or one card a rank over NCCL
+(the frame steps in CUDA graphs, the sums captured). Every rank computes the
+same metrics; rank 0 alone prints them and writes ``--results``.
 """
 
 from __future__ import annotations
@@ -27,9 +40,10 @@ from __future__ import annotations
 import argparse
 import csv
 
-from conformer_tpu_torch.cli.common import (add_common_args, load_config,
-                                            lm_decode,
-                                            load_tokenizer_from_args)
+from conformer_tpu_torch.cli.common import (add_common_args, add_mesh_args,
+                                            load_config, lm_decode,
+                                            load_tokenizer_from_args,
+                                            setup_mesh)
 
 
 def main(argv=None) -> dict:
@@ -37,6 +51,7 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     add_common_args(p)
+    add_mesh_args(p)
     p.add_argument("--manifest", required=True)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--weights", default=None,
@@ -54,12 +69,29 @@ def main(argv=None) -> dict:
     cfg, decode = lm_decode(args, cfg)
     tokenizer = load_tokenizer_from_args(args, cfg)
 
-    from conformer_tpu_torch.decode.pipeline import InferencePipeline
+    from conformer_tpu_torch.decode.pipeline import (InferencePipeline,
+                                                     resolve_device)
+    from conformer_tpu_torch.parallel.mesh import local_device
 
+    resolve_device(args.device)       # no GPU and no --device cpu: raise now
+    device = local_device(args.device)
+    mesh = setup_mesh(args, device)
+    if mesh is not None:
+        cfg = cfg.override(**{"parallel.dp": mesh.dp, "parallel.tp": mesh.tp})
     pipe = InferencePipeline(cfg, tokenizer, weights=args.weights,
-                             decode=decode, device=args.device,
-                             checkpoint_dir=args.checkpoint_dir)
+                             decode=decode, device=device,
+                             checkpoint_dir=args.checkpoint_dir, mesh=mesh)
+    if mesh is not None:
+        from conformer_tpu_torch.parallel.collectives import capturable
+
+        # the device searches' frame steps on the card: a sum over a gloo
+        # model group goes through the host, which no CUDA graph holds
+        eager = mesh.tp > 1 and not capturable(mesh.model_group)
+        pipe.print(f"[test] mesh dp {mesh.dp} x tp {mesh.tp}, frame steps "
+                   f"{'eager' if eager else 'graph'}")
     metrics, pairs = pipe.evaluate(args.manifest)
+    if not pipe.lead:
+        return metrics
     print(f"WER: {metrics['wer']:.2f}%  CER: {metrics['cer']:.2f}%  "
           f"loss: {metrics['loss']:.4f}")
     if args.results:

@@ -15,6 +15,14 @@ fused as the CTC device search); its eval step returns the emitted tokens
 under the CTC step's keys, and the texts come from them as the CTC ones
 do.
 
+Under a (dp, tp) mesh (``mesh=``, parallel/mesh.py; the counterpart of the
+JAX pipeline under ``jax.set_mesh``) the model is split over the model
+group as in training, each data rank runs the eval step on its stripe of a
+batch, ``beam_device`` runs ``ctc_beam_search_device_sharded`` and a
+transducer's beam ``rnnt_beam_search_sharded`` (the n-gram table's
+buckets split over the model group), and ``evaluate`` sums the edit counts
+over the data group, so every rank reports the same metrics and pairs.
+
 Runs on the CUDA device unless the caller passes ``device="cpu"``; with no
 CUDA device and no explicit CPU it raises. Weights come from a
 ``torch.save``d state dict (``conformer_tpu_torch.convert`` writes one from
@@ -37,7 +45,7 @@ from conformer_tpu_torch.audio.mel import MelFrontend
 from conformer_tpu_torch.config import Config
 from conformer_tpu_torch.data.dataset import BucketedLoader, ManifestDataset
 from conformer_tpu_torch.models.conformer import build_model
-from conformer_tpu_torch.text.metrics import cer, wer
+from conformer_tpu_torch.text.metrics import edit_counts
 from conformer_tpu_torch.text.tokenizer import GraphemeTokenizer
 from conformer_tpu_torch.train.checkpoint import CheckpointManager
 from conformer_tpu_torch.train.steps import (make_eval_step,
@@ -53,22 +61,32 @@ def resolve_device(device="cuda") -> torch.device:
     return device
 
 
-def resolve_beam_backend(device: torch.device) -> str:
-    """The backend ``decode='beam_auto'`` means on ``device``, as the JAX
-    ``resolve_beam_backend`` picks it for a batch: the device beam search
-    wherever an accelerator runs the model ("beam_device"), the host beam
-    search on the CPU ("beam")."""
+def resolve_beam_backend(device: torch.device, mesh=None,
+                         streaming: bool = False) -> str:
+    """The backend ``decode='beam_auto'`` means, as the JAX
+    ``resolve_beam_backend`` picks it: under a mesh the device beam search
+    ("beam_device": the logits are split over the ranks and stay there),
+    for a stream too; otherwise a stream's is the host search ("beam": at
+    batch 1 it wins), and a batch's the device search wherever an
+    accelerator runs the model, the host search on the CPU."""
+    if mesh is not None:
+        return "beam_device"
+    if streaming:
+        return "beam"
     return "beam_device" if device.type == "cuda" else "beam"
 
 
 def device_lm_kwargs(cfg: Config, tokenizer: GraphemeTokenizer,
-                     device: torch.device, word_fallback: bool = False
-                     ) -> dict:
+                     device: torch.device, word_fallback: bool = False,
+                     mesh=None) -> dict:
     """The device searches' fusion kwargs (the JAX ``_device_lm_kwargs``),
     the tables on ``device``: token-level from ``decode.device_lm_path``
     (a token ARPA, ``cli.create_lm --token-level``); otherwise, with
     ``word_fallback``, word-level from ``decode.lm_path`` (the host
-    decoder's word ARPA) with ``decode.hotwords``; else none."""
+    decoder's word ARPA) with ``decode.hotwords``; else none. Under a mesh
+    with tp > 1 each rank keeps its part of the n-gram table's buckets when
+    they split evenly (the sharded searches sum the probes over the model
+    group), the whole table otherwise."""
     from conformer_tpu_torch.lm.device_table import (DeviceHotwords,
                                                      DeviceNgramTable,
                                                      DeviceWordVocab)
@@ -80,7 +98,10 @@ def device_lm_kwargs(cfg: Config, tokenizer: GraphemeTokenizer,
     if not path:
         return {}
     table = DeviceNgramTable.from_arpa(path)
-    kwargs = dict(common, lm_tables=table.device_arrays(device),
+    part = None
+    if mesh is not None and mesh.tp > 1 and table.n_slots % mesh.tp == 0:
+        part = (mesh.model_index, mesh.tp)
+    kwargs = dict(common, lm_tables=table.device_arrays(device, part),
                   lm_bos_id=int(table.bos_id),
                   lm_unk_logp=float(table.unk_logp), lm_order=int(table.order))
     if cfg.decode.device_lm_path:
@@ -103,7 +124,9 @@ class InferencePipeline:
     host beam search with ``cfg.decode``'s LM and hotwords over the
     device's log-softmax), "beam_device" (the device search, fused by
     device_lm_kwargs) or "beam_auto" (resolve_beam_backend); a transducer
-    runs its beam search for any of the three beam modes.
+    runs its beam search for any of the three beam modes. ``mesh``: a
+    (dp, tp) mesh over the launcher's ranks (module docstring); the model
+    then lives on ``device``, this rank's card or the CPU.
 
     ``batch_log`` records one entry per batch: its size, its audio seconds,
     the padded seconds the model ran on, the wall seconds it took (the
@@ -122,14 +145,16 @@ class InferencePipeline:
     def __init__(self, cfg: Config, tokenizer: GraphemeTokenizer,
                  weights: Optional[str] = None, decode: str = "greedy",
                  device="cuda", seed: int = 0,
-                 checkpoint_dir: Optional[str] = None):
+                 checkpoint_dir: Optional[str] = None, mesh=None):
         if weights and checkpoint_dir:
             raise ValueError("give weights or checkpoint_dir, not both")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.lead = mesh is None or mesh.rank == 0
         self.stream_decode = decode     # a stream resolves beam_auto itself
         if decode == "beam_auto":
-            decode = resolve_beam_backend(self.device)
-            print(f"[infer] beam_auto -> {decode}")
+            decode = resolve_beam_backend(self.device, mesh)
+            self.print(f"[infer] beam_auto -> {decode}")
         if decode not in ("greedy", "beam", "beam_device"):
             raise ValueError(f"unknown decode {decode!r}")
         cfg = cfg.override(**{"model.vocab_size": tokenizer.vocab_size})
@@ -140,16 +165,20 @@ class InferencePipeline:
         if weights:
             state = torch.load(weights, map_location="cpu")
             model.load_state_dict(state)
-            print(f"[infer] loaded weights from {weights}")
+            self.print(f"[infer] loaded weights from {weights}")
         elif ckpt is not None and ckpt.latest_step() is not None:
             step, _ = ckpt.restore(model)
-            print(f"[infer] restored step {step} from {checkpoint_dir}")
+            self.print(f"[infer] restored step {step} from {checkpoint_dir}")
         else:
             where = f"no checkpoint in {checkpoint_dir}" if checkpoint_dir \
                 else "no weights given"
-            print(f"[infer] WARNING: {where}; seeded random weights "
-                  f"(seed {seed})")
+            self.print(f"[infer] WARNING: {where}; seeded random weights "
+                       f"(seed {seed})")
             model = build_model(cfg.model, cfg.optim.compute_dtype, seed)
+        if mesh is not None:
+            from conformer_tpu_torch.parallel.mesh import shard_model
+
+            shard_model(model, mesh, cfg.model)
         self.model = model.to(self.device).eval()
         self.frontend = MelFrontend(cfg.audio, device=self.device)
         self._beam = self._device_beam = None
@@ -160,26 +189,33 @@ class InferencePipeline:
                 cfg, self.model, self.frontend,
                 decode="beam" if beam else "greedy", unk_id=tokenizer.unk_id,
                 lm_kwargs=device_lm_kwargs(cfg, tokenizer, self.device,
-                                           word_fallback=True) if beam
-                else None)
+                                           word_fallback=True, mesh=mesh)
+                if beam else None, mesh=mesh)
             return
         self.eval_step = make_eval_step(cfg, self.model, self.frontend,
-                                        unk_id=tokenizer.unk_id)
+                                        unk_id=tokenizer.unk_id, mesh=mesh)
         if decode == "beam":
             from conformer_tpu_torch.decode.beam_search import BeamSearchDecoder
 
             self._beam = BeamSearchDecoder(tokenizer, cfg.decode)
         if decode == "beam_device":
             from conformer_tpu_torch.ops.beam_search_device import \
-                ctc_beam_search_device
+                ctc_beam_search_device_sharded
 
+            # the eval step's outputs are this rank's stripe already
             self._device_beam = functools.partial(
-                ctc_beam_search_device, beam_width=cfg.decode.beam_width,
+                ctc_beam_search_device_sharded, mesh=mesh, striped=True,
+                beam_width=cfg.decode.beam_width,
                 top_k=cfg.decode.device_top_k, blank_id=tokenizer.pad_id,
                 unk_id=tokenizer.unk_id, max_len=cfg.data.max_tokens,
                 scan_unroll=cfg.decode.device_scan_unroll,
                 **device_lm_kwargs(cfg, tokenizer, self.device,
-                                   word_fallback=True))
+                                   word_fallback=True, mesh=mesh))
+
+    def print(self, *args) -> None:
+        """Print on one rank: the only one, or rank 0 of a mesh."""
+        if self.lead:
+            print(*args, flush=True)
 
     def texts_from_out(self, out: dict) -> List[str]:
         """Eval-step outputs -> texts: the device beam search over the
@@ -211,13 +247,20 @@ class InferencePipeline:
                   ) -> Tuple[dict, List[str]]:
         """One eval step on the device -> (its outputs: tokens, counts,
         lengths, log_probs (CTC) and, with transcripts, loss; the texts);
-        logs the batch in ``batch_log``."""
+        logs the batch in ``batch_log``. Under a mesh the outputs and texts
+        are those of this rank's stripe of the batch (the loss the global
+        one)."""
         t0 = time.perf_counter()
         to = lambda a, dt: torch.from_numpy(
             np.ascontiguousarray(a, dt)).to(self.device)
-        args = [to(audio, np.float32), to(audio_lengths, np.int64)]
-        if tokens is not None:
-            args += [to(tokens, np.int64), to(token_lengths, np.int64)]
+        arrays = [a for a in (audio, audio_lengths, tokens, token_lengths)
+                  if a is not None]
+        if self.mesh is not None:
+            from conformer_tpu_torch.parallel.mesh import batch_stripe
+
+            arrays = batch_stripe(arrays, self.mesh)
+        args = [to(arrays[0], np.float32)] + [to(a, np.int64)
+                                              for a in arrays[1:]]
         out = self.eval_step(*args)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -245,8 +288,22 @@ class InferencePipeline:
 
     def transcribe_batch(self, audio: np.ndarray, audio_lengths: np.ndarray
                          ) -> List[str]:
-        """audio (B, S) float32 zero-padded; audio_lengths (B,) samples."""
-        return self.run_batch(audio, audio_lengths)[1]
+        """audio (B, S) float32 zero-padded; audio_lengths (B,) samples.
+        Under a mesh every rank gets the whole batch's texts."""
+        texts = self.run_batch(audio, audio_lengths)[1]
+        return self._gather_rows(texts)
+
+    def _gather_rows(self, rows: list) -> list:
+        """Per-row host values of this rank's stripe -> those of the whole
+        batch, in row order (the data group's, a collective); unchanged
+        without a mesh."""
+        if self.mesh is None or self.mesh.dp == 1:
+            return rows
+        import torch.distributed as dist
+
+        parts = [None] * self.mesh.dp
+        dist.all_gather_object(parts, rows, group=self.mesh.data_group)
+        return [r for part in parts for r in part]
 
     def streaming_transcriber(self, chunk_s: float = 2.0,
                               left_context_s: float = 6.0,
@@ -332,26 +389,41 @@ class InferencePipeline:
                  ) -> Tuple[dict, List[Tuple[str, str]]]:
         """-> (metrics {loss, wer, cer}, [(ref, hyp), ...]) over a CSV
         manifest of (path, text) rows: the mean eval-step loss (CTC or
-        RNN-T) over the batches, and corpus WER/CER x100 against the cleaned, upper-cased
-        transcripts. Rows without a transcript count in no metric."""
+        RNN-T) over the batches, and corpus WER/CER x100 against the
+        cleaned, upper-cased transcripts. Rows without a transcript count in
+        no metric. Under a mesh each rank scores its stripes' rows, the
+        edit counts are summed over the data group and the pairs gathered
+        in row order, so every rank returns what one process would."""
         data_cfg = self.cfg.data
         ds = ManifestDataset(manifest, self.cfg.audio.sample_rate,
                              num_examples=data_cfg.num_examples)
         loader = BucketedLoader(ds, self.tok, data_cfg, training=False,
                                 batch_size=batch_size or data_cfg.batch_size)
-        refs, hyps, losses = [], [], []
+        batches, losses = [], []      # this rank's (ref, hyp) per batch
         for batch in loader.epoch(0):
             out, texts = self.run_batch(batch.audio, batch.audio_lengths,
                                          batch.tokens, batch.token_lengths)
             losses.append(float(out["loss"]))
-            for i, ref_text in enumerate(batch.texts or []):
-                if not ref_text:
-                    continue
-                refs.append(self.tok.clean_text(ref_text.upper()))
-                hyps.append(texts[i])
+            row0 = 0
+            if self.mesh is not None:
+                row0 = self.mesh.batch_offset(len(texts))
+            refs = (batch.texts or [])[row0:row0 + len(texts)]
+            batches.append([(self.tok.clean_text(ref.upper()), texts[i])
+                            for i, ref in enumerate(refs) if ref])
+        pairs = [p for rows in batches for p in rows]
+        counts = np.array(edit_counts([h for _, h in pairs],
+                                      [r for r, _ in pairs]), np.int64)
+        if self.mesh is not None and self.mesh.dp > 1:
+            counts = self.mesh.data_count(
+                torch.from_numpy(counts).to(self.device)).cpu().numpy()
+            # every data rank's rows of each batch, in row order
+            every = self._gather_rows([batches])
+            pairs = [p for i in range(len(batches)) for rank in every
+                     for p in rank[i]]
+        w_err, words, c_err, chars = (int(c) for c in counts)
         metrics = {
             "loss": float(np.mean(losses)) if losses else float("nan"),
-            "wer": wer(hyps, refs) * 100 if refs else float("nan"),
-            "cer": cer(hyps, refs) * 100 if refs else float("nan"),
+            "wer": w_err / max(words, 1) * 100 if pairs else float("nan"),
+            "cer": c_err / max(chars, 1) * 100 if pairs else float("nan"),
         }
-        return metrics, list(zip(refs, hyps))
+        return metrics, pairs

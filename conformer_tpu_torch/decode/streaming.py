@@ -58,21 +58,24 @@ import torch
 
 from conformer_tpu_torch.audio.mel import MelFrontend
 from conformer_tpu_torch.config import Config, DecodeConfig
-from conformer_tpu_torch.decode.pipeline import device_lm_kwargs
+from conformer_tpu_torch.decode.pipeline import (device_lm_kwargs,
+                                                 resolve_beam_backend)
 from conformer_tpu_torch.ops.beam_search_device import ctc_beam_search_device
 from conformer_tpu_torch.ops.rnnt import rnnt_beam_search, rnnt_greedy_decode
 from conformer_tpu_torch.text.tokenizer import GraphemeTokenizer
 from conformer_tpu_torch.train.steps import make_forward
 
 
-def resolve_streaming_decode(cfg: Config, decode: str) -> str:
-    """-> the decode mode a stream runs: ``beam_auto`` is the host beam
-    search ("beam"), as the JAX ``resolve_beam_backend(streaming=True)``
-    picks it without an active mesh (the port has none): at batch 1 the
-    host search wins. A transducer's ``beam_device`` is its beam ("beam"),
-    which already runs on the device."""
+def resolve_streaming_decode(cfg: Config, decode: str, mesh=None) -> str:
+    """-> the decode mode a stream runs: ``beam_auto`` is the backend
+    decode/pipeline.py::resolve_beam_backend picks for a stream, as the JAX
+    ``resolve_beam_backend(mesh=, streaming=True)`` does: the host beam
+    search ("beam"; at batch 1 it wins) without a mesh, the device search
+    ("beam_device") under one. A transducer's ``beam_device`` is its beam
+    ("beam"), which already runs on the device."""
     if decode == "beam_auto":
-        decode = "beam"
+        decode = resolve_beam_backend(torch.device("cpu"), mesh,
+                                      streaming=True)
     if decode not in ("greedy", "beam", "beam_device"):
         raise ValueError(f"decode must be greedy|beam|beam_device|beam_auto, "
                          f"got {decode!r}")

@@ -17,6 +17,13 @@ torch has no general uint32 arithmetic. Every 32-bit hash is an int64 in
 to 32 bits by ``models/dropout.py::mul32`` in two 16-bit halves (a
 constant or a tensor factor), so no product leaves int64. The tables'
 float planes stay float tensors.
+
+Over a mesh (ops/beam_search_device.py::ctc_beam_search_device_sharded) the
+n-gram pools' buckets split over the model group: ``device_arrays(...,
+part=(index, n))`` keeps rank ``index``'s contiguous bucket rows, and a probe
+given the rank's ``TableShard`` looks up only the global buckets the rank
+owns, then sums found, logp and backoff over the group. At most one rank
+hits, so the sums equal the unsharded probe bit for bit.
 """
 
 from __future__ import annotations
@@ -40,11 +47,6 @@ _BUCKET = 8                    # entries per bucket
 # that no size separates).
 _LOAD = 2.0
 _MAX_GROWTH = 8
-
-SHARDED_LM_NOT_PORTED = (
-    "an LM table sharded over a mesh axis (lm_axis_name) goes with the "
-    "sharded beam searches, which are not ported yet (ROADMAP.md §1, item "
-    "5, parallelism)")
 
 
 def _bucket_layout(hashes, n_buckets: int) -> "list | None":
@@ -78,11 +80,43 @@ class NgramTables(NamedTuple):
     """An n-gram table on a device: keys (order, n_buckets, 8) int64,
     values (order, n_buckets, 8, 2) f32 (logp, backoff), and the dense
     unigrams uni (V_lm, 2) f32 (logp, backoff) or None. Order 0's hash
-    rows stay empty when the unigrams are dense."""
+    rows stay empty when the unigrams are dense. ``part``: (index, n) when
+    the bucket rows are part ``index`` of ``n`` of the table's (the
+    unigrams stay whole), else None."""
 
     keys: torch.Tensor
     values: torch.Tensor
     uni: Optional[torch.Tensor]
+    part: Optional[Tuple[int, int]] = None
+
+    @property
+    def n_slots(self) -> int:
+        """The whole table's bucket count."""
+        return self.keys.shape[1] * (self.part[1] if self.part else 1)
+
+    def take_part(self, index: int, n: int) -> "NgramTables":
+        """Part ``index`` of ``n`` of a whole table's bucket rows (a
+        contiguous copy)."""
+        if self.part is not None:
+            raise ValueError(f"the table is already part {self.part}")
+        s = self.keys.shape[1]
+        if s % n:
+            raise ValueError(f"{s} buckets do not split into {n} parts")
+        rows = slice(index * s // n, (index + 1) * s // n)
+        return NgramTables(self.keys[:, rows].contiguous(),
+                           self.values[:, rows].contiguous(), self.uni,
+                           (index, n))
+
+
+class TableShard(NamedTuple):
+    """How a rank probes its part of a table split over a group (the JAX
+    ``lm_axis_name`` with ``lm_n_slots_global``): its part ``index``, the
+    whole table's bucket count ``n_slots``, and the process group whose
+    ranks hold the parts (None: no sum, each part's own probe)."""
+
+    index: int
+    n_slots: int
+    group: object = None
 
 
 @dataclass
@@ -169,7 +203,11 @@ class DeviceNgramTable:
                    n_probes=1, uni_logps=uni_logps,
                    uni_backoffs=uni_backoffs)
 
-    def device_arrays(self, device) -> NgramTables:
+    def device_arrays(self, device, part: Optional[Tuple[int, int]] = None
+                      ) -> NgramTables:
+        """The table on ``device``; ``part=(index, n)`` keeps bucket rows
+        [index * S / n, (index + 1) * S / n) of every order (S must divide
+        by n), the dense unigrams whole."""
         shape = (self.order, self.n_slots, _BUCKET)
         keys = torch.from_numpy(self.keys.astype(np.int64).reshape(shape))
         values = torch.from_numpy(np.stack(
@@ -178,8 +216,12 @@ class DeviceNgramTable:
         if self.uni_logps is not None:
             uni = torch.from_numpy(np.stack([self.uni_logps,
                                              self.uni_backoffs], -1))
-            uni = uni.to(device)
-        return NgramTables(keys.to(device), values.to(device), uni)
+        tables = NgramTables(keys, values, uni)
+        if part is not None:
+            tables = tables.take_part(*part)
+        return NgramTables(tables.keys.to(device), tables.values.to(device),
+                           None if uni is None else uni.to(device),
+                           tables.part)
 
 
 # ---------------------------------------------------------------------------
@@ -435,29 +477,50 @@ def _fingerprint(ids: torch.Tensor) -> torch.Tensor:
 
 
 def _probe_rows(tables: NgramTables, fps: torch.Tensor, rows: Sequence[int],
-                axis_name=None):
+                shard: Optional[TableShard] = None):
     """Probe g looks up fingerprint fps[..., g] in order rows[g]'s pool:
     one bucket gather a probe, the 8 keys compared in-vector. -> (found
     (..., G) bool, logp (..., G) f32, backoff (..., G) f32). Each order's
     pool is deduplicated by fingerprint, so at most one entry hits; empty
-    entries hold
-    key 0, which no fingerprint equals."""
-    if axis_name is not None:
-        raise NotImplementedError(SHARDED_LM_NOT_PORTED)
-    n_buckets = tables.keys.shape[1]
-    flat = torch.stack([(fps[..., g] & (n_buckets - 1)) + row * n_buckets
+    entries hold key 0, which no fingerprint equals.
+
+    With ``shard`` the tables hold part ``shard.index`` of a table of
+    ``shard.n_slots`` buckets: the rank probes only the buckets it owns
+    (any other gives no hit) and, given ``shard.group``, sums found, logp
+    and backoff over the group in one all-reduce (in place, no autograd;
+    NCCL's can be captured in a CUDA graph). Exactly one rank owns each
+    bucket, so every sum has one non-zero term and equals the unsharded
+    probe."""
+    s_local = tables.keys.shape[1]
+    bucket = fps & ((shard.n_slots if shard else s_local) - 1)
+    in_range = None
+    if shard is not None:
+        bucket = bucket - shard.index * s_local
+        in_range = (bucket >= 0) & (bucket < s_local)
+        bucket = torch.where(in_range, bucket, 0)
+    flat = torch.stack([bucket[..., g] + row * s_local
                         for g, row in enumerate(rows)], -1)
     keys = tables.keys.reshape(-1, _BUCKET)[flat]         # (..., G, 8)
     values = tables.values.reshape(-1, _BUCKET, 2)[flat]  # (..., G, 8, 2)
     hit = keys == fps[..., None]
+    if in_range is not None:
+        hit = hit & in_range[..., None]
     logp = torch.where(hit, values[..., 0], 0.0).sum(-1)
     backoff = torch.where(hit, values[..., 1], 0.0).sum(-1)
-    return hit.any(-1), logp, backoff
+    found = hit.any(-1)
+    if shard is not None and shard.group is not None:
+        from conformer_tpu_torch.parallel.collectives import all_reduce_
+
+        sums = all_reduce_(torch.stack([found.float(), logp, backoff]),
+                           shard.group)
+        found, logp, backoff = sums[0] > 0, sums[1], sums[2]
+    return found, logp, backoff
 
 
 def score_tokens(tables: NgramTables, ctx: torch.Tensor,
                  ctx_len: torch.Tensor, tok: torch.Tensor, unk_logp: float,
-                 axis_name=None, dense_pre=None) -> torch.Tensor:
+                 shard: Optional[TableShard] = None,
+                 dense_pre=None) -> torch.Tensor:
     """Exact ARPA backoff log10 P(tok | ctx), elementwise.
 
     ctx (..., order-1) int64: the last order-1 LM ids, right-aligned
@@ -465,7 +528,8 @@ def score_tokens(tables: NgramTables, ctx: torch.Tensor,
     many trailing ids are valid; tok (...,) LM ids, < 0 for OOV (the unk
     penalty). ``dense_pre``: (uni logp at tok, uni backoff at ctx[-1]
     already zeroed for an invalid last id), when the caller has them.
-    ``axis_name`` (an LM sharded over a mesh axis) raises."""
+    ``shard``: the tables are a rank's part of a table split over a group
+    (``_probe_rows``; the JAX ``axis_name`` and ``n_slots_global``)."""
     order = tables.keys.shape[0]
     m_ctx = order - 1
     dense = tables.uni is not None
@@ -489,7 +553,7 @@ def score_tokens(tables: NgramTables, ctx: torch.Tensor,
         n_lp = len(lp_rows)
         f_all, lp_all, bo_all = _probe_rows(
             tables, torch.stack(fp_list + bo_fp_list, -1), lp_rows + bo_rows,
-            axis_name)
+            shard)
         found_list = [f_all[..., i] & usable_list[i] for i in range(n_lp)]
         logp_list = [lp_all[..., i] for i in range(n_lp)]
         # backoff probe j was made in iteration j, so usable_list[j] gates

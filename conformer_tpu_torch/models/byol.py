@@ -10,7 +10,9 @@ both towers in one module, the target's parameters frozen, so that one
 ``state_dict`` and one checkpoint carry a whole run and the optimizer sees
 only the online parameters. The target always runs as in evaluation: no
 dropout, BatchNorm on its running statistics, which nothing updates (the
-JAX step never updates ``target_batch_stats`` either).
+JAX step never updates ``target_batch_stats`` either). Under a mesh both
+encoders split over the model group alike (parallel/mesh.py), so the EMA
+runs on each rank's shards; the projector and predictor stay whole.
 """
 
 from __future__ import annotations
@@ -94,9 +96,11 @@ class BYOLPretrain(nn.Module):
 
 
 def byol_loss(pred: torch.Tensor, target: torch.Tensor,
-              frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+              frame_mask: Optional[torch.Tensor] = None,
+              count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """2 - 2 cos per frame, the mean over the valid frames; ``target``
-    carries no gradient."""
+    carries no gradient. ``count``: the valid frames to divide by (under a
+    mesh the global batch's); default these rows'."""
     pred = pred / (torch.linalg.vector_norm(pred, dim=-1, keepdim=True) + 1e-8)
     target = target / (torch.linalg.vector_norm(target, dim=-1, keepdim=True)
                        + 1e-8)
@@ -104,7 +108,8 @@ def byol_loss(pred: torch.Tensor, target: torch.Tensor,
     if frame_mask is None:
         return per_frame.mean()
     m = frame_mask.float()
-    return (per_frame * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (per_frame * m).sum() / torch.clamp(
+        m.sum() if count is None else count, min=1.0)
 
 
 @torch.no_grad()

@@ -76,13 +76,23 @@ def hash_keep(shape: Sequence[int], seed_words: Sequence[int], rate: float,
     the tensor starts in a larger one on each axis (a rank's part of the
     global array under a mesh): the mask is then that part of the larger
     one's. The coordinate sum is linear in each index, so the offsets add
-    one constant to the hash input."""
+    one constant to the hash input. The first axis's offset may also be a
+    (shape[0],) int64 tensor, one offset a row (rows that are not one
+    contiguous run of the larger array)."""
     h = 0x9E3779B9
     for w in seed_words:
         h = (h * 0x01000193 + (int(w) & M32)) & M32
+    rows = None
     for axis, off in enumerate(offsets or ()):
-        h = (h + int(off) * _AXIS_MULTS[axis % len(_AXIS_MULTS)]) & M32
+        mult = _AXIS_MULTS[axis % len(_AXIS_MULTS)]
+        if isinstance(off, torch.Tensor):
+            rows = mul32(off.to(device) & M32, mult).view(
+                (-1,) + (1,) * (len(shape) - 1))
+        else:
+            h = (h + int(off) * mult) & M32
     x = (_coords(shape, device) + h) & M32
+    if rows is not None:
+        x = (x + rows) & M32
     return finalize(x) >= threshold(rate)
 
 

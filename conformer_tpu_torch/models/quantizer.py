@@ -11,6 +11,12 @@ noise in training, the one-hot in evaluation).
 The Gumbel noise is an input: by default it is drawn on the features'
 device from the caller's generator (``gumbel_noise``); a test passes the
 JAX package's draw.
+
+Under a mesh (parallel/mesh.py::shard_model sets ``mesh``) the marginal is
+the global batch's, as the JAX masked mean over the whole batch: its
+numerator and count are summed over the data group, the numerator through
+an all-reduce whose backward hands each rank its own share, so that the
+gradients summed over the data group count the diversity term once.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from conformer_tpu_torch.models.layers import Dense
+from conformer_tpu_torch.parallel.collectives import reduce_from_model
 
 
 def gumbel_noise(shape, generator: torch.Generator,
@@ -46,6 +53,7 @@ class GumbelQuantizer(nn.Module):
         self.weight_proj = Dense(input_dim, num_groups * num_vars, dtype)
         self.codevectors = nn.Parameter(
             torch.empty(num_groups * num_vars, codevector_dim // num_groups))
+        self.mesh = None
 
     def forward(self, features: torch.Tensor,
                 mask_time_indices: Optional[torch.Tensor] = None,
@@ -75,8 +83,15 @@ class GumbelQuantizer(nn.Module):
             probs = F.one_hot(logits.argmax(dim=-1), v).float()
             soft_dist = probs
 
-        if mask_time_indices is not None:
-            m = mask_time_indices.float()[..., None, None]
+        m = (torch.ones((b, t, 1, 1), device=logits.device)
+             if mask_time_indices is None
+             else mask_time_indices.float()[..., None, None])
+        mesh = self.mesh
+        if mesh is not None and mesh.dp > 1:
+            total = reduce_from_model((soft_dist * m).sum(dim=(0, 1)),
+                                      mesh.data_group)
+            marginal = total / torch.clamp(mesh.data_count(m.sum()), min=1.0)
+        elif mask_time_indices is not None:
             marginal = (soft_dist * m).sum(dim=(0, 1)) / torch.clamp(
                 m.sum(), min=1.0)
         else:

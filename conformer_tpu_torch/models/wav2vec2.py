@@ -18,6 +18,11 @@ dropout, as in the supervised encoder.
 The random draws (mask starts, Gumbel noise, sampled negatives) come from
 the caller's generators; each can be given instead, so that a test feeds
 the JAX package's draws.
+
+Under a mesh (parallel/mesh.py::shard_model sets ``mesh``) the blocks are
+split over the model group as in the supervised encoder, with sequence
+parallelism when ``model.seq_shard`` is on; ``contrastive_loss`` then takes
+the global batch's count of masked steps.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from conformer_tpu_torch.config import ModelConfig, PretrainConfig
 from conformer_tpu_torch.models.encoder import (ConformerBlock,
                                                 apply_block_stack,
                                                 dropout_seed_words)
+from conformer_tpu_torch.parallel.mesh import seq_shard
 from conformer_tpu_torch.models.layers import ConvolutionSubsampling, Dense
 from conformer_tpu_torch.models.position import relative_positional_encoding
 from conformer_tpu_torch.models.quantizer import GumbelQuantizer
@@ -98,6 +104,7 @@ class Wav2Vec2Pretrain(nn.Module):
         self.blocks = nn.ModuleList(ConformerBlock(cfg, dtype)
                                     for _ in range(cfg.n_blocks))
         self.context_proj = Dense(d, pre.proj_dim, dtype)
+        self.mesh = None
 
     def forward(self, mels: torch.Tensor, lengths: Optional[torch.Tensor],
                 mask_time_indices: torch.Tensor, temperature: float = 2.0,
@@ -134,8 +141,13 @@ class Wav2Vec2Pretrain(nn.Module):
             _, block_seeds = dropout_seed_words(dropout_seed, self.cfg.n_blocks)
         remat = (self.cfg.use_remat and self.training
                  and torch.is_grad_enabled())
+        sp = seq_shard(self.mesh, self.cfg, t)
+        if sp is not None:
+            x = sp.scatter(x)
         x = apply_block_stack(self.blocks, x, pos_emb, attn_mask, frame_mask,
-                              out_lengths, block_seeds, remat)
+                              out_lengths, block_seeds, remat, sp)
+        if sp is not None:
+            x = sp.gather_replicated(x)
         context = self.context_proj(x)
         return context.float(), target.float(), perplexity
 
@@ -149,7 +161,8 @@ def contrastive_loss(context: torch.Tensor, target: torch.Tensor,
                      num_negatives: int = 100, temperature: float = 0.1,
                      negatives_impl: str = "sampled",
                      negatives: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None
+                     generator: Optional[torch.Generator] = None,
+                     count: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """InfoNCE over the masked steps with in-utterance negatives, on cosine
     logits over ``temperature``. context/target (B, T, D) fp32;
@@ -161,11 +174,13 @@ def contrastive_loss(context: torch.Tensor, target: torch.Tensor,
     (cosine > 1 - 1e-5) are masked, the positive itself never; padded
     steps stay candidates, as in the JAX package. ``'sampled'``: K
     negatives per step, ``negatives`` (B, T, K) or drawn from ``generator``
-    (on the context's device), the same-target ones masked."""
+    (on the context's device), the same-target ones masked. ``count``: the
+    masked steps to divide by (under a mesh the global batch's, so that the
+    loss is the rank's share of the global mean); default these rows'."""
     b, t, _ = context.shape
     ctx_n, tgt_n = _unit(context), _unit(target)
     m = mask_time_indices.float()
-    denom = torch.clamp(m.sum(), min=1.0)
+    denom = torch.clamp(m.sum() if count is None else count, min=1.0)
     if negatives_impl == "all":
         cos_all = torch.einsum("btd,bsd->bts", ctx_n, tgt_n)
         with torch.no_grad():

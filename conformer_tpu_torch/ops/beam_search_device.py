@@ -1,6 +1,6 @@
-"""Device CTC prefix beam search with n-gram LM fusion and hotwords
-(counterpart of conformer_tpu/ops/beam_search_device.py, without the sharded
-variant).
+"""Device CTC prefix beam search with n-gram LM fusion and hotwords, and its
+sharded wrapper over a (dp, tp) mesh (counterpart of
+conformer_tpu/ops/beam_search_device.py).
 
 The JAX package runs the search as one XLA program, ``lax.scan`` over
 frames and ``vmap`` over the batch. Here the batch is a leading B axis of
@@ -39,6 +39,14 @@ the trailing partial word scored into the final ranking. Delimiter runs
 normalise to one token. Streaming: ``return_state`` gives the raw batched
 ``BeamState`` and ``init_state`` resumes from it; ``start_frames`` skips
 each row's leading (left-context) frames.
+
+``ctc_beam_search_device_sharded`` runs the search over a mesh
+(parallel/mesh.py), as the JAX wrapper's ``shard_map`` does: each data rank
+searches its stripe of the batch, and the n-gram table's buckets split over
+the model group (lm/device_table.py::TableShard), every model rank running
+the same beams and sharing only the probe sums. A sum over an NCCL group
+is captured in the frame graph; over gloo, whose collectives go through the
+host, the frame steps run eagerly (``frame_mode``).
 """
 
 from __future__ import annotations
@@ -49,12 +57,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from conformer_tpu_torch.lm.device_table import (HotArrays, NgramTables,
-                                                 WordArrays, _FNV_BASIS,
-                                                 fnv_fold, hotword_hit,
-                                                 lookup_word_ids,
+                                                 TableShard, WordArrays,
+                                                 _FNV_BASIS, fnv_fold,
+                                                 hotword_hit, lookup_word_ids,
                                                  score_tokens)
 from conformer_tpu_torch.models.dropout import M32, mul32
 from conformer_tpu_torch.ops.frame_graph import run_frames
+from conformer_tpu_torch.parallel.mesh import batch_stripe
 from conformer_tpu_torch.ops.topk import argsort_desc, topk_lastaxis, \
     topk_stable
 
@@ -102,6 +111,7 @@ class WordFusion(NamedTuple):
     beta: float
     unk_logp: float
     hot_weight: float
+    shard: Optional[TableShard] = None
 
 
 def word_delta(f: WordFusion, ctx, ctx_len, wf1, wf2, rw1, rw2, rcount,
@@ -124,7 +134,7 @@ def word_delta(f: WordFusion, ctx, ctx_len, wf1, wf2, rw1, rw2, rcount,
                                   uni[last.clamp(0, v_lm - 1), 1], 0.0)
         dense_pre = (row[..., 0], bo_last)
     lm10 = score_tokens(f.tables, ctx, ctx_len, wid, f.unk_logp,
-                        dense_pre=dense_pre)
+                        shard=f.shard, dense_pre=dense_pre)
     delta = f.alpha * _LOG10_TO_LN * lm10 + f.beta
     if f.hot is not None and f.hot_weight:
         # the last k completed words and this one (k = 0..3), folded
@@ -205,7 +215,8 @@ def ctc_beam_search_device(log_probs: torch.Tensor,
                            init_state: Optional[BeamState] = None,
                            return_state: bool = False,
                            start_frames: Optional[torch.Tensor] = None,
-                           scan_unroll: int = 1):
+                           scan_unroll: int = 1,
+                           lm_shard: Optional[TableShard] = None):
     """(B, T, V) log-softmax -> (prefixes (B, W, U) int32, lengths (B, W)
     int32, scores (B, W) fp32), best beam first (and the raw BeamState
     with ``return_state``).
@@ -219,7 +230,9 @@ def ctc_beam_search_device(log_probs: torch.Tensor,
     (DeviceHotwords.device_arrays) and ``hot_weight`` (log10 units, as
     decode.hotword_weight). Streaming: ``init_state`` / ``return_state``
     / ``start_frames`` (pass a ``max_len`` that covers the stream).
-    ``scan_unroll``: frame steps a CUDA graph holds."""
+    ``scan_unroll``: frame steps a CUDA graph holds. ``lm_shard``:
+    ``lm_tables`` is this rank's part of a table split over a group (the
+    JAX ``lm_axis_name`` and ``lm_n_slots_global``)."""
     log_probs = log_probs.float()
     b, t, v = log_probs.shape
     dev = log_probs.device
@@ -230,7 +243,7 @@ def ctc_beam_search_device(log_probs: torch.Tensor,
     use_lm = lm_tables is not None and lm_order >= 2 and not word_mode
     m_ctx = max(lm_order - 1, 1)
     fusion = (WordFusion(lm_tables, word_arrays, hot_arrays, lm_alpha,
-                         lm_beta, lm_unk_logp, hot_weight)
+                         lm_beta, lm_unk_logp, hot_weight, lm_shard)
               if word_mode else None)
 
     if init_state is None:
@@ -304,7 +317,8 @@ def ctc_beam_search_device(log_probs: torch.Tensor,
             lm10 = score_tokens(
                 lm_tables, lm_ctx[:, :, None, :].expand(b, w, k, m_ctx),
                 lm_len[..., None].expand(b, w, k),
-                tok2lm[cand_tok][:, None, :].expand(b, w, k), lm_unk_logp)
+                tok2lm[cand_tok][:, None, :].expand(b, w, k), lm_unk_logp,
+                shard=lm_shard)
             lm_delta = lm_alpha * _LOG10_TO_LN * lm10
             if delim_id is not None and lm_beta:
                 lm_delta = lm_delta + torch.where(ct == delim_id, lm_beta,
@@ -408,13 +422,14 @@ def ctc_beam_search_device(log_probs: torch.Tensor,
 
     key = ("ctc_beam", w, k, u, blank_id, unk_id, delim_id, use_lm, word_mode,
            hot_arrays is not None, lm_alpha, lm_beta, lm_unk_logp, m_ctx,
-           hot_weight)
-    consts = tuple(x for x in (lm_tables, tok2lm, word_arrays, hot_arrays)
-                   if x is not None)
+           hot_weight, shard_key(lm_shard))
+    consts = tuple(x for x in (lm_tables, tok2lm, word_arrays, hot_arrays,
+                               lm_shard and lm_shard.group) if x is not None)
     if t:
         (S, h1, h2, p_b, p_nb, _), bps = run_frames(
             step, carry0, log_probs.transpose(0, 1), (n, start), key=key,
-            consts=consts, unroll=scan_unroll)
+            consts=consts, unroll=scan_unroll,
+            graph=frame_mode(lm_shard) == "graph")
         origin, path_toks = _walk_back(bps, scan_unroll)
     else:
         S, h1, h2, p_b, p_nb, _ = carry0
@@ -446,6 +461,91 @@ def ctc_beam_search_device(log_probs: torch.Tensor,
         torch.int32), final.plen.gather(1, order).to(torch.int32),
         score.gather(1, order))
     return out + (final,) if return_state else out
+
+
+def shard_key(shard: Optional[TableShard]) -> tuple:
+    """What of a TableShard fixes a frame step (the group goes in the
+    consts)."""
+    return () if shard is None else (shard.index, shard.n_slots)
+
+
+def frame_mode(shard: Optional[TableShard]) -> str:
+    """How a search's frame steps run on the card: "graph" (one CUDA graph
+    a window, the probe sums captured when the group is NCCL's) or "eager"
+    (the sums go over a gloo group, through the host, which no graph can
+    hold). Decided by the group's backend, never by a failed capture."""
+    if shard is None or shard.group is None:
+        return "graph"
+    from conformer_tpu_torch.parallel.collectives import capturable
+
+    return "graph" if capturable(shard.group) else "eager"
+
+
+_PARTS: dict = {}
+
+
+def split_over_mesh(mesh, b: int, lm_tables: Optional[NgramTables],
+                    striped: bool):
+    """The JAX wrapper's choice of axes for a batch of ``b`` rows -> (split
+    the rows over the data group, this rank's tables, its TableShard or
+    None). The data group applies at dp > 1 when b divides by dp (and the
+    rows are not a stripe already); the model group at tp > 1 when the
+    table's buckets divide by tp, or when it is already this rank's part
+    (``device_arrays(part=...)``). A whole table is split here, its parts
+    kept for the next call, so that a captured graph finds the same
+    tensors."""
+    data = (mesh is not None and not striped and mesh.dp > 1
+            and b % mesh.dp == 0)
+    if mesh is None or mesh.tp <= 1 or lm_tables is None:
+        if lm_tables is not None and lm_tables.part is not None:
+            raise ValueError(f"a table part {lm_tables.part} without a "
+                             "model group to sum over")
+        return data, lm_tables, None
+    index = mesh.model_index
+    if lm_tables.part is None:
+        if lm_tables.keys.shape[1] % mesh.tp:
+            return data, lm_tables, None        # stays whole on each rank
+        key = (id(lm_tables.keys), index, mesh.tp)
+        if key not in _PARTS:
+            while len(_PARTS) >= 4:
+                _PARTS.pop(next(iter(_PARTS)))
+            _PARTS[key] = (lm_tables.keys,
+                           lm_tables.take_part(index, mesh.tp))
+        lm_tables = _PARTS[key][1]
+    elif lm_tables.part != (index, mesh.tp):
+        raise ValueError(f"table part {lm_tables.part} on model rank "
+                         f"{index} of {mesh.tp}")
+    return data, lm_tables, TableShard(index, lm_tables.n_slots,
+                                       mesh.model_group)
+
+
+def ctc_beam_search_device_sharded(log_probs: torch.Tensor,
+                                   lengths: Optional[torch.Tensor] = None,
+                                   mesh=None, striped: bool = False, **kw):
+    """The device search over a (dp, tp) mesh (counterpart of the JAX
+    ``ctc_beam_search_device_sharded``): each data rank searches its
+    stripe of the batch, the n-gram table's buckets split over the model
+    group with the probe results summed over it, every model rank running
+    the same beams. -> the outputs of the rows this rank searched: its
+    stripe, or the whole batch where the data group does not apply
+    (``b % dp``); the caller gathers them over the data group. Without a
+    mesh, or when no axis applies (no table, tp 1, dp 1 or an uneven
+    batch), it is the unsharded search. ``striped``: the rows are this
+    rank's stripe already (an eval step under the mesh gives them), so only
+    the model group applies. ``kw``: ctc_beam_search_device's, without the
+    streaming carry."""
+    if kw.get("init_state") is not None or kw.get("return_state"):
+        raise ValueError("init_state/return_state are unsupported in the "
+                         "sharded CTC search")
+    b = log_probs.shape[0]
+    data, tables, shard = split_over_mesh(mesh, b, kw.pop("lm_tables", None),
+                                          striped)
+    start = kw.pop("start_frames", None)
+    if data:
+        log_probs, lengths, start = batch_stripe([log_probs, lengths, start],
+                                                 mesh)
+    return ctc_beam_search_device(log_probs, lengths, lm_tables=tables,
+                                  start_frames=start, lm_shard=shard, **kw)
 
 
 def _walk_back(bps: torch.Tensor, unroll: int):

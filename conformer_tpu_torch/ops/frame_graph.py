@@ -26,7 +26,10 @@ card take turns.
 
 No fallback: a capture or replay that fails on the card raises. The eager
 loop runs on the card only inside ``eager()``, which a check uses to hold
-the graph against it. On the CPU the loop is always eager.
+the graph against it, or when the caller passes ``graph=False``: the
+sharded searches do so for a step that sums over a gloo group, whose
+collectives go through the host (parallel/collectives.py::capturable),
+and never after a failed capture. On the CPU the loop is always eager.
 """
 
 from __future__ import annotations
@@ -145,7 +148,8 @@ def _signature(tensors: Sequence[torch.Tensor]) -> tuple:
 
 def run_frames(step: Step, carry: Sequence[torch.Tensor],
                frames: torch.Tensor, inputs: Sequence[torch.Tensor] = (),
-               key: tuple = (), consts: Sequence = (), unroll: int = 1
+               key: tuple = (), consts: Sequence = (), unroll: int = 1,
+               graph: bool = True
                ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
     """Scan ``step`` over the leading (time) axis of ``frames`` (T, ...)
     -> (the last carry, the outputs (T, ...)). ``step(carry, frame, t,
@@ -153,17 +157,19 @@ def run_frames(step: Step, carry: Sequence[torch.Tensor],
     the device and the per-call ``inputs``, and returns (the new carry,
     one tensor). ``key``: what else fixes the step (its static
     arguments); ``consts``: the tensors and functions it reads besides
-    its arguments. T must be at least 1. Runs under inference mode (the
-    static buffers of a graph are inference tensors)."""
+    its arguments. T must be at least 1. ``graph=False`` runs the steps
+    eagerly on the card too. Runs under inference mode (the static buffers
+    of a graph are inference tensors)."""
     carry, inputs = tuple(carry), tuple(inputs)
     if frames.shape[0] < 1:
         raise ValueError("run_frames needs at least one frame")
     with torch.inference_mode():
-        return _run(step, carry, frames, inputs, key, consts, unroll)
+        return _run(step, carry, frames, inputs, key, consts, unroll, graph)
 
 
-def _run(step, carry, frames, inputs, key, consts, unroll):
-    if frames.device.type != "cuda" or getattr(_LOCAL, "eager", False):
+def _run(step, carry, frames, inputs, key, consts, unroll, graph):
+    if (frames.device.type != "cuda" or not graph
+            or getattr(_LOCAL, "eager", False)):
         t = torch.zeros((), dtype=torch.int64, device=frames.device)
         outs = []
         for i in range(frames.shape[0]):

@@ -1,5 +1,5 @@
 """RNN-T loss, greedy decode and beam search (counterpart of
-conformer_tpu/ops/rnnt.py, without the sharded beam search).
+conformer_tpu/ops/rnnt.py).
 
 Loss: the forward recursion over the (T, U+1) lattice,
 
@@ -40,6 +40,8 @@ axis: the B x W hypotheses step through the joint and the prediction
 network as one batch of B * W rows, the merges and top-k selections are
 those of the CTC device search (ops/beam_search_device.py), and the frames
 go through ops/frame_graph.py (one CUDA graph a frame step on the card).
+``rnnt_beam_search_sharded`` runs it over a mesh as the CTC search's
+sharded wrapper does.
 """
 
 from __future__ import annotations
@@ -53,9 +55,10 @@ from torch.utils.checkpoint import checkpoint
 from conformer_tpu_torch.lm.device_table import score_tokens
 from conformer_tpu_torch.models.dropout import M32, mul32
 from conformer_tpu_torch.ops.beam_search_device import (
-    _LOG10_TO_LN, NEG, WordFusion, hash_pair_order, logaddexp, next_or_neg,
-    run_heads, word_delta)
+    _LOG10_TO_LN, NEG, WordFusion, frame_mode, hash_pair_order, logaddexp,
+    next_or_neg, run_heads, shard_key, split_over_mesh, word_delta)
 from conformer_tpu_torch.ops.frame_graph import run_frames
+from conformer_tpu_torch.parallel.mesh import batch_stripe
 from conformer_tpu_torch.ops.topk import (argsort_desc, topk_lastaxis,
                                           topk_stable)
 
@@ -303,9 +306,10 @@ def rnnt_beam_search(joint_fn: Callable, enc: torch.Tensor,
                      hot_weight: float = 0.0,
                      start_frames: Optional[torch.Tensor] = None,
                      init_beams: Optional[RnntBeams] = None,
-                     return_beams: bool = False, scan_unroll: int = 1):
+                     return_beams: bool = False, scan_unroll: int = 1,
+                     lm_shard=None):
     """Batched time-synchronous RNN-T beam search (counterpart of the JAX
-    ``rnnt_beam_search``, without the sharded variant).
+    ``rnnt_beam_search``).
 
     Per frame, ``max_symbols`` + 1 rounds: each round the top-``top_k``
     non-blank extensions of every active hypothesis compete for the
@@ -326,7 +330,8 @@ def rnnt_beam_search(joint_fn: Callable, enc: torch.Tensor,
     -> (tokens (B, W, U) int32, counts (B, W) int32, scores (B, W)), best
     first (and the raw ``RnntBeams`` with ``return_beams``);
     ``start_frames`` skips each row's leading frames and ``init_beams``
-    resumes a stream."""
+    resumes a stream. ``lm_shard``: ``lm_tables`` is this rank's part of a
+    table split over a group (lm/device_table.py::TableShard)."""
     b, t, d = enc.shape
     dev = enc.device
     w, kk = beam_width, top_k
@@ -335,7 +340,7 @@ def rnnt_beam_search(joint_fn: Callable, enc: torch.Tensor,
     use_lm = lm_tables is not None and lm_order >= 2 and not word_mode
     m_ctx = max(lm_order - 1, 1)
     fusion = (WordFusion(lm_tables, word_arrays, hot_arrays, lm_alpha,
-                         lm_beta, lm_unk_logp, hot_weight)
+                         lm_beta, lm_unk_logp, hot_weight, lm_shard)
               if word_mode else None)
 
     if init_beams is None:
@@ -419,7 +424,7 @@ def rnnt_beam_search(joint_fn: Callable, enc: torch.Tensor,
                 lm10 = score_tokens(
                     lm_tables, a_ctx[:, :, None, :].expand(b, w, kk, m_ctx),
                     a_cl[..., None].expand(b, w, kk), tok2lm[cand_tok],
-                    lm_unk_logp)
+                    lm_unk_logp, shard=lm_shard)
                 delta = lm_alpha * _LOG10_TO_LN * lm10
                 if delim_id is not None and lm_beta:
                     delta = delta + torch.where(cand_tok == delim_id, lm_beta,
@@ -495,13 +500,15 @@ def rnnt_beam_search(joint_fn: Callable, enc: torch.Tensor,
 
     key = ("rnnt_beam", w, kk, max_symbols, u, blank_id, unk_id, delim_id,
            use_lm, word_mode, hot_arrays is not None, lm_alpha, lm_beta,
-           lm_unk_logp, m_ctx, hot_weight)
+           lm_unk_logp, m_ctx, hot_weight, shard_key(lm_shard))
     consts = tuple(x for x in (joint_fn, pred_step_fn, lm_tables, tok2lm,
-                               word_arrays, hot_arrays) if x is not None)
+                               word_arrays, hot_arrays,
+                               lm_shard and lm_shard.group) if x is not None)
     final = carry0
     if t:
         final, _ = run_frames(step, carry0, enc.transpose(0, 1), (n, start),
-                              key=key, consts=consts, unroll=scan_unroll)
+                              key=key, consts=consts, unroll=scan_unroll,
+                              graph=frame_mode(lm_shard) == "graph")
     score, buf, sm, pr = final[:4]
     unflat = lambda x: x.reshape(b, w, *x.shape[1:])
     beams = RnntBeams(
@@ -520,3 +527,35 @@ def rnnt_beam_search(joint_fn: Callable, enc: torch.Tensor,
     out = (buf.gather(1, order[..., None].expand(b, w, u)).to(torch.int32),
            beams.cnt.gather(1, order).to(torch.int32), score.gather(1, order))
     return out + (beams,) if return_beams else out
+
+
+def rnnt_beam_search_sharded(joint_fn: Callable, enc: torch.Tensor,
+                             enc_lengths: Optional[torch.Tensor],
+                             pred_step_fn: Callable, pred_init, mesh=None,
+                             striped: bool = False, **kw):
+    """The RNN-T beam search over a (dp, tp) mesh (counterpart of the JAX
+    ``rnnt_beam_search_sharded``), as ctc_beam_search_device_sharded: the
+    batch (enc, its lengths, the prediction network's initial state,
+    ``start_frames``) split over the data group, the n-gram table's buckets
+    over the model group with the probe sums; joint_fn and pred_step_fn
+    are replicated over the model group. -> the outputs of the rows this
+    rank searched. ``init_beams``/``return_beams`` (the streaming carry)
+    are refused, as in the JAX wrapper."""
+    if kw.get("init_beams") is not None or kw.get("return_beams"):
+        raise ValueError("init_beams/return_beams are unsupported in the "
+                         "sharded RNN-T search")
+    b = enc.shape[0]
+    if enc_lengths is None:   # before the fallback, so both paths take it
+        enc_lengths = torch.full((b,), enc.shape[1], dtype=torch.int64,
+                                 device=enc.device)
+    data, tables, shard = split_over_mesh(mesh, b, kw.pop("lm_tables", None),
+                                          striped)
+    start = kw.pop("start_frames", None)
+    if data:
+        state0, pred0 = pred_init
+        enc, enc_lengths, start, pred0 = batch_stripe(
+            [enc, enc_lengths, start, pred0], mesh)
+        pred_init = ([batch_stripe([c, h], mesh) for c, h in state0], pred0)
+    return rnnt_beam_search(joint_fn, enc, enc_lengths, pred_step_fn,
+                            pred_init, lm_tables=tables, start_frames=start,
+                            lm_shard=shard, **kw)

@@ -45,8 +45,17 @@ def _wire(t: torch.Tensor, group) -> torch.Tensor:
     return t
 
 
+def capturable(group) -> bool:
+    """Whether a CUDA graph can hold the collectives of ``group``: NCCL's
+    run on the card's stream and can be captured; gloo's stage CUDA
+    tensors through the host and cannot."""
+    return dist.get_backend(group) == "nccl"
+
+
 def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum ``t`` over ``group`` in place; -> t."""
+    """Sum ``t`` over ``group`` in place (no autograd); -> t. Over an NCCL
+    group of fp32 tensors this is one collective that a CUDA graph can
+    capture (the device beam searches' LM probe sums)."""
     w = _wire(t, group)
     dist.all_reduce(w, op=dist.ReduceOp.SUM, group=group)
     if w is not t:

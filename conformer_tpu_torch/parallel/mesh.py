@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import os
 import re
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -56,6 +57,9 @@ class Mesh:
     model_group: object
     device: torch.device
     axis_names: Tuple[str, str] = (DATA_AXIS, MODEL_AXIS)
+    # per-row (global row - local row) of the batch in flight, when its rows
+    # are not one contiguous run of the global batch (row_map)
+    row_deltas: Optional[torch.Tensor] = None
 
     @property
     def data_index(self) -> int:
@@ -69,10 +73,24 @@ class Mesh:
     def shape(self) -> Dict[str, int]:
         return {self.axis_names[0]: self.dp, self.axis_names[1]: self.tp}
 
-    def batch_offset(self, rows: int) -> int:
+    def batch_offset(self, rows: int) -> Union[int, torch.Tensor]:
         """The global row of this rank's first row, when each data rank
-        holds ``rows`` rows."""
+        holds ``rows`` rows; inside ``row_map``, each row's offset."""
+        if self.row_deltas is not None and len(self.row_deltas) == rows:
+            return self.row_deltas
         return self.data_index * rows
+
+    @contextmanager
+    def row_map(self, global_rows: torch.Tensor):
+        """Hash dropout's row coordinates for a batch whose rows are not a
+        contiguous run of the global batch (BYOL's two views of a stripe):
+        row i is global row ``global_rows[i]``. Spans the forward and the
+        backward (which recomputes checkpointed blocks)."""
+        self.row_deltas = global_rows - torch.arange(len(global_rows))
+        try:
+            yield
+        finally:
+            self.row_deltas = None
 
     def data_count(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the data group (no gradient)."""
@@ -109,10 +127,16 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def make_mesh(dp: Optional[int] = None, tp: int = 1, device="cpu",
+def make_mesh(dp: Optional[int] = None, tp: int = 1, device="cuda",
               axis_names: Tuple[str, str] = (DATA_AXIS, MODEL_AXIS)) -> Mesh:
-    """The (dp, tp) mesh over the default process group; dp defaults to
-    world size // tp. A world of another size than dp * tp raises."""
+    """The (dp, tp) mesh over the default process group, its tensors on
+    ``device`` (the card unless the caller passes "cpu"; a CUDA device
+    that does not exist raises); dp defaults to world size // tp. A world
+    of another size than dp * tp raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available; pass device='cpu' "
+                           "(--device cpu) to run on the CPU")
     n = world_size()
     if dp is None or dp == 0:
         dp = n // tp
@@ -133,12 +157,29 @@ def make_mesh(dp: Optional[int] = None, tp: int = 1, device="cpu",
         if rank // tp == d:
             model_group = g
     return Mesh(dp, tp, rank, data_group, model_group,
-                torch.device(device), tuple(axis_names))
+                device, tuple(axis_names))
 
 
-def mesh_from_config(cfg: ParallelConfig, device="cpu") -> Mesh:
+def mesh_from_config(cfg: ParallelConfig, device="cuda") -> Mesh:
     return make_mesh(cfg.dp or None, cfg.tp, device,
                      (cfg.data_axis, cfg.model_axis))
+
+
+def loader_layout(mesh: Optional[Mesh], multihost: bool = False
+                  ) -> Tuple[Tuple[int, int], int]:
+    """-> ((the first data index of this process's loader, how many data
+    ranks split its batches), the number of loaders): one loader of the
+    global batch, or under ``multihost`` one a node, each node's data
+    ranks splitting its batches."""
+    if mesh is None:
+        return (0, 1), 1
+    if not multihost:
+        return (0, mesh.dp), 1
+    node, nodes = node_layout()
+    if mesh.dp % nodes:
+        raise ValueError(f"dp {mesh.dp} does not split over {nodes} nodes")
+    per = mesh.dp // nodes
+    return (node * per, per), nodes
 
 
 def node_layout() -> Tuple[int, int]:
@@ -320,7 +361,8 @@ def batch_stripe(arrays: Sequence, mesh: Optional[Mesh], first_index: int = 0,
     """This rank's rows of each array of a batch (counterpart of
     shard_batch_tree / make_global_batch): the batch holds the rows of
     ``ranks`` data ranks (default: all of them) from data index
-    ``first_index`` on, split evenly in data-index order."""
+    ``first_index`` on, split evenly in data-index order; None stays
+    None."""
     if mesh is None:
         return tuple(arrays)
     ranks = ranks or mesh.dp
@@ -330,7 +372,7 @@ def batch_stripe(arrays: Sequence, mesh: Optional[Mesh], first_index: int = 0,
                          "data ranks")
     m = b // ranks
     i = mesh.data_index - first_index
-    return tuple(a[i * m:(i + 1) * m] for a in arrays)
+    return tuple(None if a is None else a[i * m:(i + 1) * m] for a in arrays)
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,19 @@ def _corpus_rate(pairs: List[Tuple[Sequence, Sequence]]) -> float:
     return errors / max(total, 1)
 
 
+def edit_counts(predictions: List[str], targets: List[str]
+                ) -> Tuple[int, int, int, int]:
+    """-> (word edits, reference words, character edits, reference
+    characters) over the pairs: the sums behind ``wer`` and ``cer``, which
+    a mesh adds over its data ranks."""
+    words = [(t.split(), p.split()) for p, t in zip(predictions, targets)]
+    chars = [(list(t), list(p)) for p, t in zip(predictions, targets)]
+    return (sum(edit_distance(r, h) for r, h in words),
+            sum(len(r) for r, _ in words),
+            sum(edit_distance(r, h) for r, h in chars),
+            sum(len(r) for r, _ in chars))
+
+
 def wer(predictions: "str | List[str]", targets: "str | List[str]") -> float:
     """Corpus word error rate (fraction, not percent)."""
     if isinstance(predictions, str):

@@ -18,10 +18,22 @@ those words, so a step on one device draws the same numbers however the
 model computes. ``optim.accum_steps > 1`` raises: splitting the batch would
 change the masked-mean losses and the batch statistics, and the JAX
 pretraining steps ignore it.
+
+Under a mesh (parallel/mesh.py; the JAX steps are sharding-invariant under
+GSPMD) a step takes this rank's stripe of the global batch: every draw is
+made at the global batch and the rank keeps its rows (the mask starts, the
+Gumbel noise, the negatives, BYOL's two SpecAugment views), so a mesh draws
+what one device does; hash dropout takes global coordinates (BYOL's two
+views of a stripe through ``Mesh.row_map``); the losses are the rank's
+sums over the global counts, the diversity term the global marginal's
+(models/quantizer.py), the BatchNorm statistics cross-replica, and the
+optimizer sums the gradients over the data group (ZeRO-1 with
+``parallel.zero``). The metrics returned are the global ones.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from typing import Callable, Dict, List, Optional
@@ -35,12 +47,17 @@ from conformer_tpu_torch.audio.mel import MelFrontend
 from conformer_tpu_torch.config import Config
 from conformer_tpu_torch.data.dataset import Batch, BucketedLoader, ManifestDataset
 from conformer_tpu_torch.decode.pipeline import resolve_device
+from conformer_tpu_torch.models import quantizer, wav2vec2
 from conformer_tpu_torch.models.byol import BYOLPretrain, byol_loss, ema_update
 from conformer_tpu_torch.models.conformer import init_weights
 from conformer_tpu_torch.models.layers import DTYPES
 from conformer_tpu_torch.models.wav2vec2 import (Wav2Vec2Pretrain,
                                                  contrastive_loss,
-                                                 sample_mask_spans)
+                                                 dilate_mask_starts)
+from conformer_tpu_torch.parallel.mesh import (batch_stripe,
+                                               init_process_group,
+                                               loader_layout, local_device,
+                                               mesh_from_config, shard_model)
 from conformer_tpu_torch.text.tokenizer import GraphemeTokenizer
 from conformer_tpu_torch.train.checkpoint import CheckpointManager
 from conformer_tpu_torch.train.logging import MetricsLogger, Throughput
@@ -106,14 +123,30 @@ def _device_generator(gen: torch.Generator, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def _rows(mesh, b: int):
+    """-> (this rank's rows of the global batch, the global batch size)
+    for a stripe of ``b`` rows (all of them without a mesh)."""
+    if mesh is None:
+        return slice(0, b), b
+    off = mesh.batch_offset(b)
+    return slice(off, off + b), b * mesh.dp
+
+
+def _global_sum(mesh, x: torch.Tensor) -> torch.Tensor:
+    """A rank's share -> the data group's sum (no gradient)."""
+    return x if mesh is None else mesh.data_count(x)
+
+
 def make_wav2vec2_step(cfg: Config, model: Wav2Vec2Pretrain,
                        optimizer: Optimizer,
-                       frontend: Optional[MelFrontend] = None) -> Callable:
+                       frontend: Optional[MelFrontend] = None,
+                       mesh=None) -> Callable:
     """-> step(audio (B, S), audio_lengths (B,), step_index) -> {loss,
     contrastive, diversity, accuracy, perplexity, grad_norm,
     audio_seconds} as device scalars. The loss is ``contrastive +
     diversity_weight * (G V - perplexity) / (G V)`` at the Gumbel
-    temperature of ``step_index`` (gumbel_temperature_at)."""
+    temperature of ``step_index`` (gumbel_temperature_at). Under ``mesh``
+    the arguments are this rank's stripe of the global batch."""
     _refuse_accumulation(cfg)
     pre = cfg.pretrain
     device = next(model.parameters()).device
@@ -130,38 +163,53 @@ def make_wav2vec2_step(cfg: Config, model: Wav2Vec2Pretrain,
         mel_lengths = frontend.frame_lengths(audio_lengths)
         t_sub = subsampled_length(mels.shape[1])
         valid = padding_mask(subsampled_length(mel_lengths), t_sub)
-        mask = sample_mask_spans(gen, mels.shape[0], t_sub, pre.mask_prob,
-                                 pre.mask_span, valid)
+        rows, n = _rows(mesh, mels.shape[0])
+        starts = wav2vec2.sample_mask_starts(gen, n, t_sub, pre.mask_prob)
+        mask = dilate_mask_starts(starts[rows].to(device), pre.mask_span,
+                                  valid)
         gumbel_gen = _device_generator(gen, device)
         negatives_gen = _device_generator(gen, device)
         dropout_seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+        gumbels = quantizer.gumbel_noise((n, t_sub, pre.num_groups,
+                                          pre.num_vars), gumbel_gen, device)
+        negatives = None
+        if pre.negatives_impl == "sampled":
+            negatives = wav2vec2.sample_negatives(
+                negatives_gen, n, t_sub, pre.num_negatives, device)[rows]
         optimizer.zero_grad()
         context, target, perplexity = model(
             mels, mel_lengths, mask, gumbel_temperature_at(cfg, step_index),
-            dropout_seed=dropout_seed, generator=gumbel_gen)
+            dropout_seed=dropout_seed, gumbels=gumbels[rows])
+        count = _global_sum(mesh, mask.float().sum())
         c_loss, acc = contrastive_loss(
             context, target, mask, num_negatives=pre.num_negatives,
             temperature=pre.contrastive_temperature,
-            negatives_impl=pre.negatives_impl, generator=negatives_gen)
+            negatives_impl=pre.negatives_impl, negatives=negatives,
+            count=count)
         d_loss = (gv - perplexity) / gv
         loss = c_loss + pre.diversity_weight * d_loss
         loss.backward()
         grad_norm = optimizer.step()
-        return {"loss": loss.detach(), "contrastive": c_loss.detach(),
-                "diversity": d_loss.detach(), "accuracy": acc,
-                "perplexity": perplexity.detach(), "grad_norm": grad_norm,
-                "audio_seconds": audio_lengths.sum() / sr}
+        c_loss, acc = (_global_sum(mesh, x.detach()) for x in (c_loss, acc))
+        return {"loss": c_loss + pre.diversity_weight * d_loss.detach(),
+                "contrastive": c_loss, "diversity": d_loss.detach(),
+                "accuracy": acc, "perplexity": perplexity.detach(),
+                "grad_norm": grad_norm,
+                "audio_seconds": _global_sum(mesh, audio_lengths.sum() / sr)}
 
     return step
 
 
 def make_byol_step(cfg: Config, model: BYOLPretrain, optimizer: Optimizer,
-                   frontend: Optional[MelFrontend] = None) -> Callable:
+                   frontend: Optional[MelFrontend] = None,
+                   mesh=None) -> Callable:
     """-> step(audio, audio_lengths, step_index) -> {loss, grad_norm,
     audio_seconds}. Both SpecAugment views ride one 2B-row batch through
     each tower (the online BatchNorm normalises over 2B); the loss is the
     symmetric cross-view regression; after the update the target's encoder
-    and projector move toward the online ones by ``pretrain.ema_decay``."""
+    and projector move toward the online ones by ``pretrain.ema_decay``.
+    Under ``mesh`` the arguments are this rank's stripe of the global
+    batch."""
     _refuse_accumulation(cfg)
     pre = cfg.pretrain
     device = next(model.parameters()).device
@@ -175,36 +223,51 @@ def make_byol_step(cfg: Config, model: BYOLPretrain, optimizer: Optimizer,
         with torch.no_grad():
             mels = frontend(audio)
         mel_lengths = frontend.frame_lengths(audio_lengths)
-        view1 = spec_augment(gen, mels, cfg.augment, mel_lengths)
-        view2 = spec_augment(gen, mels, cfg.augment, mel_lengths)
+        b = mels.shape[0]
+        rows, n = _rows(mesh, b)
+        view1 = spec_augment(gen, mels, cfg.augment, mel_lengths, rows, n)
+        view2 = spec_augment(gen, mels, cfg.augment, mel_lengths, rows, n)
         views = torch.cat([view1, view2])
         lengths2 = torch.cat([mel_lengths, mel_lengths])
         dropout_seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
-        b = mels.shape[0]
         with torch.no_grad():
             tgt, out_lengths2 = model.target(views, lengths2)
         tgt1, tgt2 = tgt[:b], tgt[b:]
         frame_mask = padding_mask(out_lengths2[:b], tgt.shape[1])
+        count = _global_sum(mesh, frame_mask.float().sum())
         optimizer.zero_grad()
-        p, _ = model.online(views, lengths2, dropout_seed)
-        # each view's prediction regresses the OTHER view's target
-        loss = 0.5 * (byol_loss(p[:b], tgt2, frame_mask)
-                      + byol_loss(p[b:], tgt1, frame_mask))
-        loss.backward()
+        with _view_rows(mesh, rows, n):
+            p, _ = model.online(views, lengths2, dropout_seed)
+            # each view's prediction regresses the OTHER view's target
+            loss = 0.5 * (byol_loss(p[:b], tgt2, frame_mask, count)
+                          + byol_loss(p[b:], tgt1, frame_mask, count))
+            loss.backward()
         grad_norm = optimizer.step()
         ema_update(model.target, model.online, pre.ema_decay)
-        return {"loss": loss.detach(), "grad_norm": grad_norm,
-                "audio_seconds": audio_lengths.sum() / sr}
+        return {"loss": _global_sum(mesh, loss.detach()),
+                "grad_norm": grad_norm,
+                "audio_seconds": _global_sum(mesh, audio_lengths.sum() / sr)}
 
     return step
 
 
+def _view_rows(mesh, rows: slice, n: int):
+    """Under a mesh, the global rows of [view 1 of the stripe; view 2 of
+    it] in one device's [view 1; view 2] batch of 2n rows (hash dropout's
+    coordinates)."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    own = torch.arange(rows.start, rows.stop)
+    return mesh.row_map(torch.cat([own, own + n]))
+
+
 def make_pretrain_step(cfg: Config, model: nn.Module, optimizer: Optimizer,
-                       frontend: Optional[MelFrontend] = None) -> Callable:
+                       frontend: Optional[MelFrontend] = None,
+                       mesh=None) -> Callable:
     """The step of ``pretrain.method``."""
     make = (make_wav2vec2_step if _method(cfg.pretrain.method) == "wav2vec2"
             else make_byol_step)
-    return make(cfg, model, optimizer, frontend)
+    return make(cfg, model, optimizer, frontend, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -217,47 +280,76 @@ class Pretrainer:
     ``pretrain.method``, metrics under ``pretrain/`` in metrics.jsonl,
     checkpoints every ``train.checkpoint_every_steps`` and at each epoch's
     end, and resume from the newest checkpoint. Runs on the CUDA device
-    unless ``device="cpu"``."""
+    unless ``device="cpu"``.
+
+    Under a mesh (``mesh=``, or ``parallel.dp * parallel.tp > 1`` over the
+    launcher's process group), as the supervised Trainer: every rank loads
+    the global batch and takes its data rank's stripe (``multihost``: each
+    node its stripe of the manifest), the model (both BYOL towers) is split
+    over the model group, rank 0 alone prints, logs and writes
+    checkpoints, and the checkpoints keep the single-device format, so a
+    run resumes under another mesh or none."""
 
     def __init__(self, cfg: Config, tokenizer: GraphemeTokenizer,
-                 logger: Optional[MetricsLogger] = None, device="cuda"):
-        if cfg.parallel.dp * cfg.parallel.tp > 1:
-            raise NotImplementedError(
-                "pretraining under a mesh (parallel.dp, parallel.tp) is not "
-                "ported yet (ROADMAP.md §1 item 5: the wav2vec2 and BYOL "
-                "steps under a mesh); pretrain on one device")
+                 logger: Optional[MetricsLogger] = None, device="cuda",
+                 mesh=None, multihost: bool = False):
         _refuse_accumulation(cfg)
         self.cfg, self.tok = cfg, tokenizer
         self.method = _method(cfg.pretrain.method)
-        self.device = resolve_device(device)
+        self.device = resolve_device(local_device(device))
+        if mesh is None and cfg.parallel.dp * cfg.parallel.tp > 1:
+            init_process_group(self.device)
+            mesh = mesh_from_config(cfg.parallel, self.device)
+        self.mesh = mesh
+        self.lead = mesh is None or mesh.rank == 0
+        self.loader_ranks, self.loaders = loader_layout(mesh, multihost)
+        if not self.lead:
+            logger = MetricsLogger(None)
         self.logger = logger or MetricsLogger(cfg.train.checkpoint_dir)
         self.dataset = ManifestDataset(cfg.data.train_manifest,
                                        cfg.audio.sample_rate,
                                        num_examples=cfg.data.num_examples)
         steps_per_epoch = max(len(self.dataset) // cfg.data.batch_size, 1)
-        self.model = build_pretrain_model(cfg, seed=cfg.train.seed).to(
-            self.device)
+        model = build_pretrain_model(cfg, seed=cfg.train.seed)
+        if mesh is not None:
+            shard_model(model, mesh, cfg.model)
+        self.model = model.to(self.device)
         self.optimizer = make_optimizer(cfg.optim, self.model.parameters(),
-                                        steps_per_epoch)
+                                        steps_per_epoch, mesh,
+                                        zero=cfg.parallel.zero)
         self.step, self.epoch = 0, 0
         self.ckpt = CheckpointManager(cfg.train.checkpoint_dir,
-                                      keep=cfg.train.keep_checkpoints)
+                                      keep=cfg.train.keep_checkpoints,
+                                      mesh=mesh)
         if cfg.train.resume and self.ckpt.latest_step() is not None:
             self.step, self.epoch = self.ckpt.restore(self.model,
                                                       self.optimizer)
-            print(f"[pretrain] resumed from step {self.step} "
-                  f"(epoch {self.epoch})")
+            self.print(f"[pretrain] resumed from step {self.step} "
+                       f"(epoch {self.epoch})")
         self.start_step = self.step
         self.train_step = make_pretrain_step(
             cfg, self.model, self.optimizer,
-            MelFrontend(cfg.audio, device=self.device))
-        print(f"[pretrain] {self.method}: params "
-              f"{param_count(self.model) / 1e6:.1f}M, device {self.device}")
+            MelFrontend(cfg.audio, device=self.device), mesh)
+        where = "" if mesh is None else (
+            f", mesh dp {mesh.dp} x tp {mesh.tp}"
+            f"{' zero' if cfg.parallel.zero else ''}"
+            f"{' seq_shard' if cfg.model.seq_shard else ''}")
+        self.print(f"[pretrain] {self.method}: params "
+                   f"{param_count(self.model) / 1e6:.1f}M a rank, device "
+                   f"{self.device}{where}")
+
+    def print(self, *args) -> None:
+        if self.lead:
+            print(*args, flush=True)
 
     def _device_batch(self, batch: Batch):
+        """The batch on the device; under a mesh, this rank's stripe."""
         to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device, non_blocking=True)
-        return to(batch.audio), to(batch.audio_lengths.astype(np.int64))
+        arrays = batch_stripe((batch.audio,
+                               batch.audio_lengths.astype(np.int64)),
+                              self.mesh, *self.loader_ranks)
+        return tuple(to(a) for a in arrays)
 
     def save(self, epoch: int) -> None:
         self.ckpt.save(self.model, self.optimizer, self.step, epoch)
@@ -268,8 +360,12 @@ class Pretrainer:
         ``step_seconds`` is the device-complete wall per step since the
         last one); a non-finite loss there raises."""
         cfg = self.cfg
+        shard = {}
+        if self.loaders > 1:    # each node reads its stripe of the manifest
+            shard = dict(shard_index=self.loader_ranks[0]
+                         // self.loader_ranks[1], shard_count=self.loaders)
         loader = BucketedLoader(self.dataset, self.tok, cfg.data,
-                                training=True)
+                                training=True, **shard)
         sr = cfg.audio.sample_rate
         done = False
         for epoch in range(self.epoch, cfg.train.num_epochs):
@@ -280,7 +376,8 @@ class Pretrainer:
                                           self.step)
                 self.step += 1
                 steps_since += 1
-                meter.update(float(batch.audio_lengths.sum()) / sr)
+                meter.update(float(batch.audio_lengths.sum()) * self.loaders
+                             / sr)
                 if (cfg.train.log_every_steps
                         and self.step % cfg.train.log_every_steps == 0):
                     scalars = {k: float(v) for k, v in metrics.items()}
@@ -294,8 +391,9 @@ class Pretrainer:
                         scalars["peak_memory_gb"] = (
                             torch.cuda.max_memory_allocated(self.device) / 1e9)
                     self.logger.log(self.step, scalars, prefix="pretrain/")
-                    print(f"[{self.method} step {self.step}] " + " ".join(
-                        f"{k}={v:.4f}" for k, v in scalars.items()))
+                    self.print(f"[{self.method} step {self.step}] "
+                               + " ".join(f"{k}={v:.4f}"
+                                          for k, v in scalars.items()))
                     t_log, steps_since = now, 0
                 if (cfg.train.checkpoint_every_steps
                         and self.step % cfg.train.checkpoint_every_steps == 0):

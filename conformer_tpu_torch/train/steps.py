@@ -30,7 +30,7 @@ from conformer_tpu_torch.audio.augment import spec_augment
 from conformer_tpu_torch.audio.mel import MelFrontend
 from conformer_tpu_torch.config import Config
 from conformer_tpu_torch.ops.ctc import ctc_loss, greedy_decode
-from conformer_tpu_torch.ops.rnnt import (rnnt_beam_search,
+from conformer_tpu_torch.ops.rnnt import (rnnt_beam_search_sharded,
                                           rnnt_greedy_decode,
                                           rnnt_loss_from_logits,
                                           rnnt_loss_scan)
@@ -216,15 +216,12 @@ def make_transducer_eval_step(cfg: Config, model: torch.nn.Module,
     ``decode.beam_width`` (``rnnt_top_k``, ``rnnt_max_symbols``,
     ``rnnt_length_norm``, ``device_scan_unroll``; never ``unk_id``), fused
     by ``lm_kwargs`` (decode/pipeline.py::device_lm_kwargs), and its
-    ``scores``. ``mesh``: as make_eval_step's (greedy only: the sharded
-    beam search is not ported)."""
+    ``scores``. ``mesh``: as make_eval_step's; the beam search then runs
+    through ``rnnt_beam_search_sharded`` on the rank's stripe, the LM
+    table's buckets split over the model group."""
     if decode not in ("greedy", "beam"):
         raise ValueError(f"transducer decode must be greedy|beam, got "
                          f"{decode!r}")
-    if mesh is not None and decode == "beam":
-        raise NotImplementedError(
-            "the RNN-T beam search under a mesh (rnnt_beam_search_sharded) "
-            "is not ported yet (ROADMAP.md §1 item 5); decode greedily")
     forward = make_forward(cfg, model, frontend)
     dc = cfg.decode
 
@@ -238,9 +235,9 @@ def make_transducer_eval_step(cfg: Config, model: torch.nn.Module,
                                   else model.greedy_fns())
         pred_init = model.predict_init(enc.shape[0], enc.device)
         if decode == "beam":
-            prefixes, plens, scores = rnnt_beam_search(
+            prefixes, plens, scores = rnnt_beam_search_sharded(
                 joint_fn, enc, enc_lengths, pred_step_fn, pred_init,
-                beam_width=dc.beam_width, top_k=dc.rnnt_top_k,
+                mesh=mesh, striped=True, beam_width=dc.beam_width, top_k=dc.rnnt_top_k,
                 max_symbols=dc.rnnt_max_symbols, max_len=cfg.data.max_tokens,
                 unk_id=unk_id, length_norm=dc.rnnt_length_norm,
                 scan_unroll=dc.device_scan_unroll, **(lm_kwargs or {}))

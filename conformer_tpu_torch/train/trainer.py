@@ -38,8 +38,8 @@ from conformer_tpu_torch.decode.pipeline import resolve_device
 from conformer_tpu_torch.models.conformer import build_model
 from conformer_tpu_torch.parallel import collectives as cc
 from conformer_tpu_torch.parallel.mesh import (batch_stripe, init_process_group,
-                                               local_device, mesh_from_config,
-                                               node_layout, shard_model)
+                                               loader_layout, local_device,
+                                               mesh_from_config, shard_model)
 from conformer_tpu_torch.text.metrics import wer
 from conformer_tpu_torch.text.tokenizer import GraphemeTokenizer
 from conformer_tpu_torch.train.checkpoint import CheckpointManager
@@ -71,16 +71,7 @@ class Trainer:
         self.lead = mesh is None or mesh.rank == 0
         # the ranks of this process's loader: (its first data index, how
         # many data ranks split its batches), and the number of loaders
-        self.loader_ranks, self.loaders = (0, 1), 1
-        if mesh is not None:
-            self.loader_ranks = (0, mesh.dp)
-            if multihost:
-                node, nodes = node_layout()
-                if mesh.dp % nodes:
-                    raise ValueError(f"dp {mesh.dp} does not split over "
-                                     f"{nodes} nodes")
-                per = mesh.dp // nodes
-                self.loader_ranks, self.loaders = (node * per, per), nodes
+        self.loader_ranks, self.loaders = loader_layout(mesh, multihost)
         if not self.lead:
             logger = MetricsLogger(None)
         self.logger = logger or MetricsLogger(cfg.train.checkpoint_dir)

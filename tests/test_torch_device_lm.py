@@ -128,11 +128,46 @@ def test_score_tokens_is_the_jax_scorer_bit_for_bit(word_arpa):
     assert got.dtype == torch.float32
     assert got.numpy().tobytes() == want.tobytes()
     assert (tok < 0).any() and np.isfinite(want).all()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        dt.score_tokens(arrays, torch.from_numpy(ctx).long(),
-                        torch.from_numpy(ctx_len).long(),
-                        torch.from_numpy(tok).long(), table.unk_logp,
-                        axis_name="model")
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_split_probe_sums_to_the_unsharded_scorer(word_arpa, monkeypatch,
+                                                  tp):
+    """Each part's local probe (what a rank of a model group of tp holds
+    before the sum), summed over the parts, gives the unsharded and the
+    JAX score_tokens bit for bit: the group's all-reduce is played by
+    summing the parts' local sums."""
+    from conformer_tpu_torch.parallel import collectives
+
+    table = dt.DeviceNgramTable.from_arpa(word_arpa)
+    jtable = jdt.DeviceNgramTable.from_arpa(word_arpa)
+    ctx, ctx_len, tok = _queries(table, seed=3)
+    args = (torch.from_numpy(ctx).long(), torch.from_numpy(ctx_len).long(),
+            torch.from_numpy(tok).long(), table.unk_logp)
+    want = np.asarray(jdt.score_tokens(
+        jtable.device_arrays(), jnp.asarray(ctx), jnp.asarray(ctx_len),
+        jnp.asarray(tok), jtable.unk_logp))
+    whole = table.device_arrays(CPU)
+    parts = [table.device_arrays(CPU, part=(i, tp)) for i in range(tp)]
+    assert parts[1].keys.shape[1] * tp == whole.keys.shape[1]
+    assert parts[1].n_slots == table.n_slots and parts[1].part == (1, tp)
+    assert torch.equal(parts[1].keys, whole.take_part(1, tp).keys)
+    local = []
+    monkeypatch.setattr(collectives, "all_reduce_",
+                        lambda t, group: local.append(t.clone()) or t)
+    for i, part in enumerate(parts):
+        dt.score_tokens(part, *args, shard=dt.TableShard(i, table.n_slots,
+                                                         "group"))
+    # every query hits on one part at most, and some hit off part 0
+    found = torch.stack([x[0] for x in local])
+    assert found.sum(0).max() == 1 and found[1:].sum() > 0
+    total = torch.stack(local).sum(0)
+    monkeypatch.setattr(collectives, "all_reduce_", lambda t, group: total)
+    for i, part in enumerate(parts):
+        got = dt.score_tokens(part, *args, shard=dt.TableShard(
+            i, table.n_slots, "group"))
+        assert got.numpy().tobytes() == want.tobytes()
+    assert dt.score_tokens(whole, *args).numpy().tobytes() == want.tobytes()
 
 
 def test_fingerprint_is_the_jax_fingerprint():

@@ -269,6 +269,36 @@ def test_beam_auto_is_the_host_beam_for_a_stream(port, arpa):
         _transcriber(port, "nonsense")
 
 
+def test_beam_auto_follows_the_mesh_for_a_stream(monkeypatch):
+    """resolve_streaming_decode / resolve_beam_backend(mesh=, streaming=)
+    against the JAX resolve_beam_backend's answers (conformer_tpu/decode/
+    pipeline.py:58-88): under a mesh a stream's beam_auto is the device
+    beam, on the CPU and on an accelerator alike; without one, the host
+    beam; a batch's is the device beam under a mesh or on an
+    accelerator."""
+    from conformer_tpu.parallel.mesh import make_mesh as j_make_mesh
+    from conformer_tpu_torch.decode.pipeline import resolve_beam_backend
+    from conformer_tpu_torch.parallel.mesh import Mesh
+
+    cfg = Config()
+    mesh = Mesh(2, 2, 0, None, None, torch.device("cpu"))
+    jmesh = j_make_mesh(dp=4, tp=2)
+    for device, backend in (("cpu", "cpu"), ("cuda", "tpu")):
+        monkeypatch.setattr(jax, "default_backend", lambda b=backend: b)
+        for stream in (False, True):
+            for m, jm in ((None, None), (mesh, jmesh)):
+                want = jpipeline.resolve_beam_backend(
+                    n_devices=1, mesh=jm, streaming=stream)
+                assert resolve_beam_backend(torch.device(device), m,
+                                            stream) == want
+    assert streaming.resolve_streaming_decode(cfg, "beam_auto", mesh) == \
+        "beam_device"
+    assert streaming.resolve_streaming_decode(cfg, "beam_auto") == "beam"
+    tcfg = cfg.override(**{"model.arch": "transducer"})
+    assert streaming.resolve_streaming_decode(tcfg, "beam_auto", mesh) == \
+        "beam"
+
+
 def test_transducer_and_device_beam_raise(port, arpa, tmp_path, capsys):
     """Once refused, the device beam streams: ``decode="beam_device"``
     (word LM, W 8) gives the JAX transcriber's texts whatever the block
