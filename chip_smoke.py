@@ -92,7 +92,9 @@ Phases, each printing one JSON line:
               share of emitting rounds and in-frame stops checked) through ``cli.infer`` and ``cli.infer
               --streaming`` (a one-chunk utterance against the offline
               decode of the same window); the greedy decode of a B 8 x
-              24 s batch timed, its kernel launches counted.
+              24 s batch (one CUDA graph a frame) against its eager run
+              bit for bit, the capturing call and a replay after an
+              encoder forward, both timed, their kernel launches counted.
 10. export  -- (run after pretrain; its cli.export processes start ahead:
               the CTC ones before serve, the transducer's after the
               transducer phase) the production Config() with conv_impl
@@ -102,10 +104,21 @@ Phases, each printing one JSON line:
               K1, K3 (24 s) and K4a counted while it runs; a tiny program
               exported on the CPU and moved to the card against the live
               model; the transducer phase's mixing checkpoint exported
-              greedy at 4 s, batch 1: the live greedy tokens. The kernels
-              phase holds every shape these programs launch
-              (export_shapes). Export seconds, program
-              bytes, program against live forward ms.
+              greedy at 4 s, batch 1: the live greedy tokens; the beam
+              programs (``--decode beam``, W 190, the word 5-gram and
+              the hotword): the CTC model's at 8 s, batch 8, against the
+              live device search on the log-probs of the logits program
+              of that bucket, the transducer's at 4 s, batch 8, against
+              the live search on the live encoder (equal rows, or a
+              near-tie under 1e-3; every row emitting, the transducer's
+              on the mixing checkpoint). Every frame loop of a program
+              is one while_loop: its graph nodes (counted after each
+              export) do not grow with the bucket (24 s holds fewer
+              extra nodes than extra frames).
+              The kernels phase holds every shape these programs launch
+              (export_shapes). Export seconds, load seconds, program
+              bytes and nodes, program against live forward ms, a beam
+              program's wall against the live search's (graph, eager).
 
 11. beam_device -- the device beam searches at the reference's operating
               point (beam 190, 8 candidates a frame, alpha 2.1, beta 9.2,
@@ -398,8 +411,10 @@ def export_shapes():
     (h, dh) or (c, k) and dtype name of its model): every shape the
     export phase's programs give the kernels, each program padded to its
     bucket: the production CTC model (conv_impl pallas) at each of
-    EXPORT_BATCHES x EXPORT_SECONDS, the transducer (conv_impl xla) at
-    TRANSDUCER_EXPORT and the tiny program moved from the CPU at
+    EXPORT_BATCHES x EXPORT_SECONDS and its beam program at
+    CTC_BEAM_EXPORT, the transducer (conv_impl xla) at TRANSDUCER_EXPORT
+    (greedy) and RNNT_BEAM_EXPORT (beam) and the tiny program moved from
+    the CPU at
     TINY_EXPORT; K3 where the frontend takes it (MelFrontend.impl_for)."""
     from conformer_tpu_torch.audio.mel import MelFrontend
 
@@ -407,7 +422,9 @@ def export_shapes():
     t_b, t_s = TRANSDUCER_EXPORT
     tiny_b, tiny_s = TINY_EXPORT
     programs = ([(ctc, b, s) for b in EXPORT_BATCHES for s in EXPORT_SECONDS]
-                + [(_transducer_cfg(), t_b, t_s), (tiny, tiny_b, tiny_s)])
+                + [(ctc, *CTC_BEAM_EXPORT), (_transducer_cfg(), t_b, t_s),
+                   (_transducer_cfg(), *RNNT_BEAM_EXPORT),
+                   (tiny, tiny_b, tiny_s)])
     k1, k4a, k3 = set(), set(), set()
     for cfg, b, seconds in programs:
         m, audio = cfg.model, cfg.audio
@@ -2552,7 +2569,7 @@ def _greedy(torch, model, cfg, enc, enc_len, max_len=None):
     """The model's greedy decode of encodings, as the eval step runs it."""
     from conformer_tpu_torch.ops.rnnt import rnnt_greedy_decode
 
-    joint_fn, pred_step_fn = model.greedy_fns()
+    joint_fn, pred_step_fn = model.frame_fns()
     return rnnt_greedy_decode(
         joint_fn, enc, enc_len, pred_step_fn,
         model.predict_init(enc.shape[0], enc.device),
@@ -2637,7 +2654,7 @@ def decode_mix(torch, model, cfg, audio, lengths) -> dict:
     (0, cap), and some emitting frame must stop on a blank."""
     enc, enc_len = _encode(torch, model, cfg, audio, lengths)
     cap, symbols = cfg.data.max_tokens, cfg.decode.rnnt_max_symbols
-    joint_fn, pred_step_fn = model.greedy_fns()
+    joint_fn, pred_step_fn = model.frame_fns()
     argmaxes = []
 
     def recording(enc_t, pred):
@@ -2645,9 +2662,11 @@ def decode_mix(torch, model, cfg, audio, lengths) -> dict:
         argmaxes.append(logits.argmax(dim=-1))
         return logits
 
+    from conformer_tpu_torch.ops import frame_graph
     from conformer_tpu_torch.ops.rnnt import rnnt_greedy_decode
 
-    with torch.inference_mode():
+    # eagerly: a CUDA graph would call recording only while it captures
+    with torch.inference_mode(), frame_graph.eager():
         _, counts = rnnt_greedy_decode(
             recording, enc, enc_len, pred_step_fn,
             model.predict_init(enc.shape[0], enc.device),
@@ -2673,9 +2692,15 @@ def decode_mix(torch, model, cfg, audio, lengths) -> dict:
 
 def greedy_case(torch, model, cfg):
     """The greedy decode of one B 8 x 24 s batch (T' 599 frames, all
-    decode.rnnt_max_symbols rounds of each) on the model's encodings: wall
-    ms (synchronised), and the CUDA kernels it launches and the device's
+    decode.rnnt_max_symbols rounds of each) on the model's encodings, as
+    the live path runs it (one CUDA graph a frame, ops/frame_graph.py)
+    and eagerly (``frame_graph.eager()``), which the capturing call and a
+    later replay (after an encoder forward has reused the freed memory)
+    must equal bit for bit: wall ms (synchronised) of each, the graph's
+    capture seconds, and the CUDA kernels each launches and the device's
     busy time, by torch.profiler."""
+    from conformer_tpu_torch.ops import frame_graph
+
     enc, enc_len = _encode(torch, model, cfg,
                            *_noise_batch(torch, 8, 24, seed=41))
     symbols = cfg.decode.rnnt_max_symbols
@@ -2684,18 +2709,31 @@ def greedy_case(torch, model, cfg):
             return _greedy(torch, model, cfg, enc, enc_len,
                            max_len=cfg.data.max_tokens)
 
+        frame_graph.clear_cache()
+        graph_out, first_ms = _run(torch, decode)
+        capture_s = frame_graph.capture_seconds()
+        _encode(torch, model, cfg, *_noise_batch(torch, 8, 24, seed=42))
+        replay_out = decode()
         ms = _wall_ms(torch, decode, iters=2)
         prof = _profiled(torch, decode)
-        _, counts = decode()
+        with frame_graph.eager():
+            eager_out, eager_ms = _run(torch, decode)
+            eager_prof = _profiled(torch, decode)
     rounds = enc.shape[1] * symbols
     return {"shape": "B=8 24 s", "frames": enc.shape[1], "rounds": rounds,
-            "ms": ms, "ms_per_round": ms / rounds,
+            "graph_equals_eager_bit_for_bit": all(
+                torch.equal(x, y) for out in (graph_out, replay_out)
+                for x, y in zip(out, eager_out)),
+            "first_call_ms": first_ms, "capture_s": capture_s,
+            "ms": ms, "ms_per_round": ms / rounds, "eager_ms": eager_ms,
             "kernel_launches": prof["kernel_launches"],
             "launches_per_round": prof["kernel_launches"] / rounds,
             "device_busy_ms": prof["device_busy_ms"],
             "profiled_wall_ms": prof["wall_ms"],
             "device_idle_share": prof["device_idle_share"],
-            "tokens_per_row": counts.tolist()}
+            "eager_kernel_launches": eager_prof["kernel_launches"],
+            "eager_device_idle_share": eager_prof["device_idle_share"],
+            "tokens_per_row": graph_out[1].tolist()}
 
 
 def phase_transducer(torch, tmp: str):
@@ -2852,7 +2890,7 @@ def phase_transducer(torch, tmp: str):
           and all(math.isfinite(s_["loss"]) and math.isfinite(s_["grad_norm"])
                   for s_ in steps)
           and step_case["ok"] and loss_case["ok"] and alpha_case["ok"]
-          and mix["ok"]
+          and mix["ok"] and greedy["graph_equals_eager_bit_for_bit"]
           and all(math.isfinite(metrics[k]) for k in ("wer", "cer", "loss"))
           and rows[0] == ["label", "prediction"]
           and len(rows) == len(VAL_SECONDS) + 1
@@ -2894,12 +2932,20 @@ EXPORT_SECONDS = (8, 24)
 # blocks for time: each program's weights and nodes (~980 MB, ~71 s to
 # export and ~36 s to load at 17) scale with it, the shapes do not.
 EXPORT_BLOCKS = 6
-# the transducer's program at batch 1 and 4 s: cut from 8 s for time (its
-# greedy rounds are unrolled, 4 a frame: 796 at 8 s took ~186 s to export
-# and ~76 s to load, 396 at 4 s ~99 s and ~41 s; at 2 s the mixing copy
-# emits nothing on this seed, which the check refuses)
+# the transducer's greedy program at batch 1 and 4 s: cut from 8 s for
+# time when the greedy rounds were unrolled (at 2 s the mixing copy emits
+# nothing on this seed, which the check refuses)
 TRANSDUCER_EXPORT = (1, 4)
 TINY_EXPORT = (2, 2)
+# the beam programs (cli.export --decode beam) at (batch, seconds), at
+# beam_device's operating point (Config()'s DecodeConfig: W 190, K 8,
+# alpha 2.1, beta 9.2, HOTWORD) with beam_device's word 5-gram; the
+# transducer's at W RNNT_BEAM_WIDTH
+CTC_BEAM_EXPORT = (8, 8)
+RNNT_BEAM_EXPORT = (8, 4)
+# a beam program's best beam may differ from the live search's only where
+# the live search's top two scores lie closer than this (a near-tie)
+TOL_EXPORT_TIE = 1e-3
 
 
 def _export_cfg():
@@ -2957,25 +3003,73 @@ def _export_checkpoint(cfg, directory: str):
     return model
 
 
+def program_nodes(out_dir: str) -> dict:
+    """Graph nodes (the top graph's and every while_loop subgraph's) of
+    each .pt2 program in ``out_dir``, read back by torch.export.load,
+    keyed by bucket seconds (the file name's)."""
+    import torch
+
+    nodes = {}
+    for name in sorted(os.listdir(out_dir)):
+        if name.endswith(".pt2"):
+            exported = torch.export.load(os.path.join(out_dir, name))
+            nodes[name[:-len(".pt2")].rsplit("_", 1)[1]] = sum(
+                len(m.graph.nodes) for m in exported.graph_module.modules()
+                if isinstance(m, torch.fx.GraphModule))
+    return nodes
+
+
+# a process of _start_export: cli.export, then the programs' graph nodes
+# into nodes.json beside them (host work, off the phases' path)
+_EXPORT_THEN_COUNT = (
+    "import json, os, sys\n"
+    "import chip_smoke\n"
+    "from conformer_tpu_torch.cli.export import main\n"
+    "main(sys.argv[2:])\n"
+    "with open(os.path.join(sys.argv[1], 'nodes.json'), 'w') as f:\n"
+    "    json.dump(chip_smoke.program_nodes(sys.argv[1]), f)\n")
+
+
 def _start_export(tmp: str, name: str, ck: str, *flags) -> None:
     out = os.path.join(tmp, name)
     log = open(os.path.join(tmp, f"{name}.log"), "w")
     proc = subprocess.Popen(
-        [sys.executable, "-m", "conformer_tpu_torch.cli.export",
+        [sys.executable, "-c", _EXPORT_THEN_COUNT, out,
          "--checkpoint-dir", ck, "--out", out, "--device", DEVICE, *flags],
         stdout=log, stderr=subprocess.STDOUT,
         cwd=os.path.dirname(os.path.abspath(__file__)))
     _EXPORTS[name] = (proc, log, out, time.perf_counter())
 
 
+def _export_lm(tmp: str) -> str:
+    """beam_device's word 5-gram (_beam_lm on the same seed), built once in
+    ``tmp`` -> its ARPA."""
+    import numpy as np
+
+    arpa = os.path.join(tmp, "lm", "lm.arpa")
+    if not os.path.exists(arpa):
+        _beam_lm(tmp, np.random.default_rng(5))
+    return arpa
+
+
+def _beam_flags(tmp: str) -> list:
+    """cli.export's flags of a beam program: the word LM and HOTWORD."""
+    return ["--decode", "beam", "--set", f"decode.lm_path={_export_lm(tmp)}",
+            "--set", f'decode.hotwords=["{HOTWORD}"]']
+
+
 def start_ctc_exports(tmp: str) -> None:
     """The CTC programs' cli.export runs (a seeded checkpoint in ``tmp``),
-    batch 1 and 8, both buckets each."""
+    batch 1 and 8, both buckets each, and the beam program at
+    CTC_BEAM_EXPORT."""
     ck = os.path.join(tmp, "ck")
     _export_checkpoint(_export_cfg(), ck)
     for b in EXPORT_BATCHES:
         _start_export(tmp, f"ctc_b{b}", ck, "--batch-size", str(b),
                       "--audio-seconds", *[str(s_) for s_ in EXPORT_SECONDS])
+    b, seconds = CTC_BEAM_EXPORT
+    _start_export(tmp, "ctc_beam", ck, "--batch-size", str(b),
+                  "--audio-seconds", str(seconds), *_beam_flags(tmp))
 
 
 def _export_transducer_ck(tmp: str) -> "tuple[str, bool]":
@@ -2991,10 +3085,15 @@ def _export_transducer_ck(tmp: str) -> "tuple[str, bool]":
 
 
 def start_transducer_export(tmp: str) -> None:
-    """The transducer's greedy program's cli.export run."""
-    t_b, t_s = TRANSDUCER_EXPORT
-    _start_export(tmp, "transducer", _export_transducer_ck(tmp)[0],
-                  "--batch-size", str(t_b), "--audio-seconds", str(t_s))
+    """The transducer's greedy and beam programs' cli.export runs."""
+    t_ck = _export_transducer_ck(tmp)[0]
+    for name, (b, seconds), flags in (
+            ("transducer", TRANSDUCER_EXPORT, ()),
+            ("transducer_beam", RNNT_BEAM_EXPORT, (
+                *_beam_flags(tmp),
+                "--set", f"decode.beam_width={RNNT_BEAM_WIDTH}"))):
+        _start_export(tmp, name, t_ck, "--batch-size", str(b),
+                      "--audio-seconds", str(seconds), *flags)
 
 
 def stop_exports() -> None:
@@ -3007,6 +3106,26 @@ def stop_exports() -> None:
     _EXPORTS.clear()
 
 
+def _beam_agreement(torch, got, live, need_tokens: bool) -> dict:
+    """A beam program's best beams (tokens, counts) against the live
+    search's (prefixes, plens, scores) on the same inputs: every row equal,
+    or where a row differs, the live search's top two scores for it within
+    TOL_EXPORT_TIE (a near-tie); with ``need_tokens`` every row of the
+    program's emits a token (two searches that emit nothing agree on
+    nothing)."""
+    tokens, counts = (x.cpu() for x in got)
+    prefixes, plens, scores = (x.cpu() for x in live)
+    rows = [i for i in range(counts.shape[0])
+            if int(counts[i]) != int(plens[i, 0])
+            or not torch.equal(tokens[i], prefixes[i, 0])]
+    gaps = {str(i): float(scores[i, 0] - scores[i, 1]) for i in rows}
+    return {"counts": counts.tolist(), "live_counts": plens[:, 0].tolist(),
+            "rows_differing": rows, "live_top_two_gaps": gaps,
+            "near_tie_limit": TOL_EXPORT_TIE, "tokens_needed": need_tokens,
+            "ok": (all(g < TOL_EXPORT_TIE for g in gaps.values())
+                   and (int(counts.min()) > 0 or not need_tokens))}
+
+
 def phase_export(torch, tmp: str):
     """The production ``Config()`` with conv_impl=pallas (seeded random
     weights, a checkpoint of cli.train's kind) exported by ``cli.export
@@ -3017,22 +3136,37 @@ def phase_export(torch, tmp: str):
     exported on the CPU and moved to the card against the live tiny model;
     the transducer phase's checkpoint (its decode checks' copy, which
     mixes blanks and emissions; run alone, seeded weights) exported greedy
-    at TRANSDUCER_EXPORT's 4 s, batch 1, against the live greedy tokens. The
-    three ``cli.export`` runs are processes of their own (tracing and
-    saving is host work, minutes for the unrolled frame loops), which
-    main() starts ahead (the CTC ones before the serve phase, the
+    at TRANSDUCER_EXPORT's 4 s, batch 1, against the live greedy tokens;
+    the beam programs (``cli.export --decode beam`` at beam_device's
+    operating point with its word 5-gram and HOTWORD): the CTC model's at
+    CTC_BEAM_EXPORT against the live device search (its CUDA graph) on the
+    log-probs of the logits program of the same bucket, the transducer's
+    at RNNT_BEAM_EXPORT (W RNNT_BEAM_WIDTH) against the live search on
+    the live encoder, each with _beam_agreement (every row emitting, the
+    transducer's where its checkpoint is the mixing copy). The five ``cli.export``
+    runs are processes of their own (tracing and saving is host work),
+    which main() starts ahead (the CTC ones before the serve phase, the
     transducer's after the transducer phase; run alone, the phase starts
-    them) and which are killed if the phase fails. Export seconds (meta.json),
-    program bytes, load seconds, and the programs' forward ms beside the
-    live forward's. -> launch counts of the programs' runs."""
+    them) and which are killed if the phase fails. Export seconds
+    (meta.json), program bytes, load seconds, graph nodes (every frame
+    loop one while_loop: the 24 s bucket holds fewer extra nodes than
+    extra frames), and the programs' walls beside the live forward's, and
+    a beam program's beside the live search's, graph and eager. -> launch
+    counts of the programs' runs."""
     from conformer_tpu_torch.config import Config
     from conformer_tpu_torch.export import ExportedModel, export_model
     from conformer_tpu_torch.models.conformer import build_model
+    from conformer_tpu_torch.ops import frame_graph
+    from conformer_tpu_torch.ops.beam_search_device import \
+        ctc_beam_search_device
     from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from conformer_tpu_torch.ops.rnnt import rnnt_beam_search
+    from conformer_tpu_torch.text.tokenizer import load_tokenizer
     from conformer_tpu_torch.train.checkpoint import CheckpointManager
     from conformer_tpu_torch.train.steps import make_eval_step, make_forward
 
     dev = torch.device(DEVICE)
+    tok = load_tokenizer("vi")
     total = {}
 
     def finish(name):
@@ -3046,11 +3180,13 @@ def phase_export(torch, tmp: str):
                                  + f.read()[-4000:])
         with open(os.path.join(out, "meta.json")) as f:
             export_s = json.load(f)["export_seconds"]
+        with open(os.path.join(out, "nodes.json")) as f:
+            nodes = json.load(f)
         t0 = time.perf_counter()
         program = ExportedModel(out, device=DEVICE)
         return program, {"export_s": export_s, "process_s": process_s,
                          "load_s": time.perf_counter() - t0,
-                         "bytes": _artifact_bytes(out)}
+                         "bytes": _artifact_bytes(out), "nodes": nodes}
 
     def counted(fn):
         reset_launch_counts()
@@ -3060,6 +3196,18 @@ def phase_export(torch, tmp: str):
             total[key] = total.get(key, 0) + n
         return out, ms, counts
 
+    def search_walls(search):
+        """The live search's walls (s): its first call (the graph's
+        capture), one graph replay and one eager run."""
+        frame_graph.clear_cache()
+        out, first_ms = _run(torch, search)
+        _, graph_ms = _run(torch, search)
+        with frame_graph.eager():
+            _, eager_ms = _run(torch, search)
+        return out, {"live_first_call_s": first_ms / 1e3,
+                     "live_graph_s": graph_ms / 1e3,
+                     "live_eager_s": eager_ms / 1e3}
+
     cfg = _export_cfg()
     n_blocks = cfg.model.n_blocks
     # the runs main() started ahead, or (the phase run alone) now
@@ -3067,11 +3215,14 @@ def phase_export(torch, tmp: str):
         start_ctc_exports(tmp)
     if "transducer" not in _EXPORTS:
         start_transducer_export(tmp)
+    arpa = _export_lm(tmp)
+    lm_set = {"decode.lm_path": arpa, "decode.hotwords": [HOTWORD]}
     # the exported checkpoint's seeded weights, rebuilt
     model = build_model(cfg.model, cfg.optim.compute_dtype, seed=0)
     t_ck, from_phase = _export_transducer_ck(tmp)
     t_b, t_s = TRANSDUCER_EXPORT
     tiny_b, tiny_s = TINY_EXPORT
+    beam_b, beam_s = CTC_BEAM_EXPORT
     try:
         # meanwhile: a tiny program exported on the CPU, moved to the card
         tcfg = _tiny_export_cfg()
@@ -3089,6 +3240,7 @@ def phase_export(torch, tmp: str):
         tiny_case = {"exported_on": tiny_meta["device"],
                      "export_s": tiny_meta["export_seconds"],
                      "bytes": _artifact_bytes(tiny_dir),
+                     "nodes": program_nodes(tiny_dir),
                      "launches": tiny_counts,
                      **_logits_agree(torch, logits, want, want_len,
                                      TOL_MODEL["float32"])}
@@ -3099,7 +3251,7 @@ def phase_export(torch, tmp: str):
 
         model = model.to(dev).eval()
         forward = make_forward(cfg, model)
-        ctc = []
+        ctc, beam_input = [], None
         for b in EXPORT_BATCHES:
             program, info = finish(f"ctc_b{b}")
             for seconds in EXPORT_SECONDS:
@@ -3124,11 +3276,44 @@ def phase_export(torch, tmp: str):
                               and counts["depthwise_conv_fwd"] == n_blocks
                               and counts["logmel_fwd"] == int(seconds >= 16))
                 ctc.append({**info, **case})
+                if (b, seconds) == CTC_BEAM_EXPORT:
+                    beam_input = (audio, lengths, torch.log_softmax(
+                        logits.float(), dim=-1), out_len)
             del program
         del model, forward
+        # every frame loop one while_loop: a program's nodes do not grow
+        # with its frames (unrolled, each frame added a copy of the LSTM
+        # step); the buckets' frontends differ by a few (K3 from 1600
+        # frames, the matmul DFT below)
+        grown = _sub_frames(cfg.audio, EXPORT_SECONDS[-1] * 16000) \
+            - _sub_frames(cfg.audio, EXPORT_SECONDS[0] * 16000)
+        rolled = all(max(c["nodes"].values()) - min(c["nodes"].values())
+                     < grown for c in ctc)
 
-        # the transducer, greedy decode baked in
+        # the CTC beam program against the live search on the log-probs
+        # of the logits program of the same bucket
+        program, info = finish("ctc_beam")
+        audio, lengths, lp, out_len = beam_input
+        (tokens, counts_), ms, b_counts = counted(
+            lambda: program(audio, lengths))
+        kw = _ctc_beam_kwargs(torch, Config().override(**lm_set), tok, dev)
+        live, walls = search_walls(
+            lambda: ctc_beam_search_device(lp, out_len, **kw))
+        ctc_beam = {**info, "batch": beam_b, "seconds": beam_s,
+                    "beam_width": kw["beam_width"], "top_k": kw["top_k"],
+                    "launches": b_counts, "program_s": ms / 1e3,
+                    "program_again_s": _run(
+                        torch, lambda: program(audio, lengths))[1] / 1e3,
+                    **walls, **_beam_agreement(torch, (tokens, counts_),
+                                               live, True)}
+        ctc_beam["ok"] = (ctc_beam["ok"]
+                          and b_counts["sincos_attention_fwd"] == n_blocks
+                          and b_counts["depthwise_conv_fwd"] == n_blocks)
+        del program
+
+        # the transducer, greedy decode and beam search baked in
         program, info = finish("transducer")
+        beam_program, beam_info = finish("transducer_beam")
     finally:
         stop_exports()
     tcfg = Config.from_json(os.path.join(t_ck, "config.json"))
@@ -3155,13 +3340,44 @@ def phase_export(torch, tmp: str):
                         and (0 < int(counts_.min()) < cap or not from_phase)
                         and t_counts["sincos_attention_fwd"]
                         == tcfg.model.n_blocks)
-    ok = all(c["ok"] for c in ctc) and tiny_case["ok"] and transducer["ok"]
-    emit({"phase": "export", "config": f"Config() production width at "
-          f"{n_blocks} blocks, conv_impl pallas, seeded random weights; "
-          "ModelConfig.tiny fp32 exported on the CPU; "
-          "configs/production_vi_transducer.json greedy",
-          "ctc": ctc, "tiny_moved_from_cpu": tiny_case,
-          "transducer_greedy": transducer, "ok": ok})
+
+    # the transducer's beam program against the live search on the live
+    # encoder (the checkpoint's config at W RNNT_BEAM_WIDTH with the LM)
+    r_cfg = tcfg.override(**lm_set,
+                          **{"decode.beam_width": RNNT_BEAM_WIDTH})
+    r_b, r_s = RNNT_BEAM_EXPORT
+    audio, lengths = _noise_batch(torch, r_b, r_s, seed=72)
+    audio, lengths = audio.to(dev), lengths.to(dev)
+    (tokens, counts_), ms, r_counts = counted(
+        lambda: beam_program(audio, lengths))
+    enc, enc_len = _encode(torch, t_model, tcfg, audio, lengths)
+    joint_fn, pred_step_fn = t_model.frame_fns()
+    r_kw = _rnnt_beam_kwargs(r_cfg, tok, dev)
+    live, walls = search_walls(lambda: rnnt_beam_search(
+        joint_fn, enc, enc_len, pred_step_fn,
+        t_model.predict_init(r_b, dev), **r_kw))
+    rnnt_beam = {**beam_info, "batch": r_b, "seconds": r_s,
+                 "beam_width": r_kw["beam_width"], "top_k": r_kw["top_k"],
+                 "launches": r_counts, "program_s": ms / 1e3,
+                 "program_again_s": _run(
+                     torch, lambda: beam_program(audio, lengths))[1] / 1e3,
+                 **walls, **_beam_agreement(torch, (tokens, counts_), live,
+                                            from_phase)}
+    rnnt_beam["ok"] = (rnnt_beam["ok"] and r_counts["sincos_attention_fwd"]
+                       == tcfg.model.n_blocks)
+    ok = (all(c["ok"] for c in ctc) and rolled and tiny_case["ok"]
+          and transducer["ok"] and ctc_beam["ok"] and rnnt_beam["ok"])
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    emit({"phase": "export", "card": smi, "config": f"Config() production "
+          f"width at {n_blocks} blocks, conv_impl pallas, seeded random "
+          "weights; ModelConfig.tiny fp32 exported on the CPU; "
+          "configs/production_vi_transducer.json greedy and beam; beams at "
+          "beam_device's operating point with its word 5-gram and HOTWORD",
+          "ctc": ctc, "nodes_grow_by_less_than_the_frames": rolled,
+          "tiny_moved_from_cpu": tiny_case, "transducer_greedy": transducer,
+          "ctc_beam": ctc_beam, "transducer_beam": rnnt_beam, "ok": ok})
     if not ok:
         raise SystemExit("export phase failed")
     return total
@@ -3511,7 +3727,7 @@ def phase_beam_device(torch, tmp: str):
         t_weights = os.path.join(tmp, "transducer_w.pt")
         torch.save(model.state_dict(), t_weights)
         model = model.to(dev).eval()
-        joint_fn, pred_step_fn = model.beam_fns()
+        joint_fn, pred_step_fn = model.frame_fns()
         dc = t_cfg.decode
         r_kw = _rnnt_beam_kwargs(t_cfg, tok, dev)
         rnnt = {"checkpoint": ck_from, "beam_width": dc.beam_width,
@@ -4143,7 +4359,7 @@ def _searches(torch, spec: dict, mesh=None) -> "tuple[dict, dict]":
     model, r_kw = _transducer_search_setup(torch, spec["t_ck"], spec["arpa"],
                                            mesh)
     enc, enc_len = (x.to(dev) for x in torch.load(spec["t_enc"]))
-    joint_fn, pred_step_fn = model.beam_fns()
+    joint_fn, pred_step_fn = model.frame_fns()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out["rnnt"] = rnnt_beam_search_sharded(

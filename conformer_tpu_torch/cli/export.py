@@ -8,9 +8,15 @@ The flags are those of ``conformer_tpu.cli.export`` plus ``--device``.
 Weights come from the newest checkpoint in ``--checkpoint-dir`` (written by
 ``conformer_tpu_torch.cli.train``, whose ``config.json`` there also sets
 the model). A CTC program gives (logits, lengths), a transducer program
-(greedy tokens, counts); ``conformer_tpu_torch.export.ExportedModel`` runs
-them. ``--decode beam`` would bake the device beam search into the
-program, which is not ported yet: it raises.
+(greedy tokens, counts); ``--decode beam`` bakes the device beam search
+(CTC or RNN-T) into each program, fused with ``decode.device_lm_path``
+(token level) or ``decode.lm_path`` and ``decode.hotwords`` (word level),
+which then gives the best beam's (tokens, counts).
+``conformer_tpu_torch.export.ExportedModel`` runs them.
+
+    python -m conformer_tpu_torch.cli.export --checkpoint-dir ckpt \
+        --out exported --decode beam --set decode.lm_path=lm/lm.arpa \
+        --set decode.beam_width=190 --set 'decode.hotwords=["XIN CHÀO"]'
 """
 
 from __future__ import annotations
@@ -31,8 +37,8 @@ def main(argv=None):
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--audio-seconds", type=float, nargs="+", default=[8.0])
     p.add_argument("--decode", choices=["logits", "beam"], default="logits",
-                   help="'beam' would bake the LM-fused device beam search "
-                        "into the program: not ported, raises")
+                   help="'beam' bakes the LM-fused device beam search into "
+                        "the program: (tokens, counts) of the best beam")
     args = p.parse_args(argv)
 
     cfg = load_config(args)
@@ -44,10 +50,6 @@ def main(argv=None):
     from conformer_tpu_torch.models.conformer import build_model
     from conformer_tpu_torch.train.checkpoint import CheckpointManager
 
-    if args.decode == "beam":
-        from conformer_tpu_torch.export import EXPORT_BEAM_NOT_PORTED
-
-        raise NotImplementedError(EXPORT_BEAM_NOT_PORTED)
     device = resolve_device(args.device)
     mgr = CheckpointManager(args.checkpoint_dir)
     if mgr.latest_step() is None:

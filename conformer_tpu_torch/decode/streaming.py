@@ -178,7 +178,7 @@ class StreamingTranscriber:
     def _decode_transducer(self, enc, enc_len, start: int):
         """Greedy tokens of frames [start:] of the one row, carrying the
         prediction network's (state, pred) on into the next window."""
-        joint_fn, pred_step_fn = self._model.greedy_fns()
+        joint_fn, pred_step_fn = self._model.frame_fns()
         ids, count, self._carry = rnnt_greedy_decode(
             joint_fn, enc, enc_len, pred_step_fn, self._carry,
             max_symbols=self.cfg.decode.rnnt_max_symbols,
@@ -237,7 +237,7 @@ class StreamingTranscriber:
         start_frames = torch.tensor([start], dtype=torch.int64,
                                     device=self.device)
         if self._transducer:        # "out" are the encodings here
-            joint_fn, pred_step_fn = self._model.beam_fns()
+            joint_fn, pred_step_fn = self._model.frame_fns()
             prefixes, plens, _, self._beams = self._device_search(
                 joint_fn, out, out_len, pred_step_fn,
                 self._model.predict_init(1, self.device),

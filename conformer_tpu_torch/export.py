@@ -12,12 +12,21 @@ Artifacts (a directory):
 
 A CTC program returns (logits (B, T', V) fp32, lengths); a transducer
 program runs the greedy decode too and returns (tokens (B, max_tokens)
-int32, counts (B,) int32), as the JAX artifact does. The kernels K1, K3 and
-K4a are ``torch.library`` custom ops (``conformer_tpu_torch::*``), so they
-are nodes of the program: it runs them on the card and their plain versions
-on the CPU. The frame loops (the CTC head's LSTM, the transducer's
-T' x max_symbols greedy rounds) are unrolled into the program.
-``ExportedModel`` loads a directory on a device of the caller's choice.
+int32, counts (B,) int32), as the JAX artifact does. With ``decode="beam"``
+a program returns the best beam's (tokens (B, max_tokens) int32, counts
+(B,) int32) of the device beam search (ops/beam_search_device.py for CTC,
+ops/rnnt.py::rnnt_beam_search for the transducer) at ``cfg.decode``'s
+width, fused with the LM of ``decode.device_lm_path`` (token level) or
+``decode.lm_path`` (word level, with ``decode.hotwords``): the n-gram,
+word-vocabulary and hotword tables are constants of the program. The
+kernels K1, K3 and K4a are ``torch.library`` custom ops
+(``conformer_tpu_torch::*``), so they are nodes of the program: it runs
+them on the card and their plain versions on the CPU. Every frame loop
+(the CTC head's LSTM, the transducer's greedy rounds, a beam search's
+frame steps and its walk back) is one ``while_loop`` node
+(ops/frame_graph.py::exported_loop), so a program's size and its trace
+and load times do not grow with its bucket. ``ExportedModel`` loads a
+directory on a device of the caller's choice.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ import gc
 import json
 import os
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,36 +43,61 @@ import torch.nn as nn
 
 from conformer_tpu_torch.audio.mel import MelFrontend
 from conformer_tpu_torch.config import Config
-from conformer_tpu_torch.decode.pipeline import resolve_device
-from conformer_tpu_torch.ops.rnnt import rnnt_greedy_decode
-
-EXPORT_BEAM_NOT_PORTED = (
-    "decode='beam' export bakes the device beam search (CTC or RNN-T) into "
-    "the program, which is not ported yet: torch.export unrolls its frame "
-    "loop (ROADMAP.md §1, item 3); export decode='logits' and run the "
-    "device search on the program's outputs")
+from conformer_tpu_torch.decode.pipeline import (device_lm_kwargs,
+                                                 resolve_device)
+from conformer_tpu_torch.ops.beam_search_device import ctc_beam_search_device
+from conformer_tpu_torch.ops.rnnt import rnnt_beam_search, rnnt_greedy_decode
 
 
 class _Program(nn.Module):
-    """audio (B, S) fp32, lengths (B,) -> the artifact's outputs."""
+    """audio (B, S) fp32, lengths (B,) -> the artifact's outputs.
+    ``beam``: the device search's settings besides the encoder's outputs
+    (its width, the tokenizer's ids, the LM kwargs), or None."""
 
-    def __init__(self, cfg: Config, model: nn.Module, frontend: MelFrontend):
+    def __init__(self, cfg: Config, model: nn.Module, frontend: MelFrontend,
+                 beam: Optional[dict] = None):
         super().__init__()
         self.cfg, self.model, self.frontend = cfg, model, frontend
+        self.beam = beam
 
     def forward(self, audio: torch.Tensor, lengths: torch.Tensor):
         mels = self.frontend(audio)
         mel_lengths = self.frontend.frame_lengths(lengths)
+        model, beam = self.model, self.beam
         if self.cfg.model.arch != "transducer":
-            return self.model(mels, mel_lengths)
-        model = self.model
+            logits, out_lengths = model(mels, mel_lengths)
+            if beam is None:
+                return logits, out_lengths
+            prefixes, plens, _ = ctc_beam_search_device(
+                torch.log_softmax(logits.float(), dim=-1), out_lengths,
+                **beam)
+            return prefixes[:, 0], plens[:, 0]
         enc, enc_lengths = model.encode(mels, mel_lengths)
-        joint_fn, pred_step_fn = model.greedy_fns()
-        return rnnt_greedy_decode(
-            joint_fn, enc, enc_lengths, pred_step_fn,
-            model.predict_init(enc.shape[0], enc.device),
-            max_symbols=self.cfg.decode.rnnt_max_symbols,
-            max_len=self.cfg.data.max_tokens)
+        joint_fn, pred_step_fn = model.frame_fns()
+        pred_init = model.predict_init(enc.shape[0], enc.device)
+        if beam is None:
+            return rnnt_greedy_decode(
+                joint_fn, enc, enc_lengths, pred_step_fn, pred_init,
+                max_symbols=self.cfg.decode.rnnt_max_symbols,
+                max_len=self.cfg.data.max_tokens)
+        prefixes, plens, _ = rnnt_beam_search(
+            joint_fn, enc, enc_lengths, pred_step_fn, pred_init, **beam)
+        return prefixes[:, 0], plens[:, 0]
+
+
+def beam_settings(cfg: Config, tokenizer, device) -> dict:
+    """The beam program's search kwargs, as the JAX export's: the width,
+    top-k and caps of ``cfg.decode`` and ``cfg.data``, the tokenizer's
+    unk id (and pad id as the CTC blank), and device_lm_kwargs's fusion
+    with the word-level fallback, the tables on ``device``."""
+    dc = cfg.decode
+    kw = dict(beam_width=dc.beam_width, unk_id=tokenizer.unk_id,
+              max_len=cfg.data.max_tokens,
+              **device_lm_kwargs(cfg, tokenizer, device, word_fallback=True))
+    if cfg.model.arch == "transducer":
+        return dict(kw, top_k=dc.rnnt_top_k, max_symbols=dc.rnnt_max_symbols,
+                    length_norm=dc.rnnt_length_norm)
+    return dict(kw, top_k=dc.device_top_k, blank_id=tokenizer.pad_id)
 
 
 def export_model(cfg: Config, model: nn.Module, out_dir: str,
@@ -72,18 +106,19 @@ def export_model(cfg: Config, model: nn.Module, out_dir: str,
                  decode: str = "logits", tokenizer=None) -> List[str]:
     """Export ``model`` (on its device, in eval mode) with its frontend, one
     program per bucket of ``audio_seconds``; -> the program files.
-    ``decode='beam'`` raises: a program with the device beam search
-    baked in is not ported. ``tokenizer`` is what the beam would need,
-    unused until then."""
-    del tokenizer
-    if decode == "beam":
-        raise NotImplementedError(EXPORT_BEAM_NOT_PORTED)
-    if decode != "logits":
+    ``decode='beam'`` bakes the LM-fused device beam search into each
+    program and needs the ``tokenizer``."""
+    if decode not in ("logits", "beam"):
         raise ValueError(f"decode must be logits|beam, got {decode!r}")
+    if decode == "beam" and tokenizer is None:
+        raise ValueError("decode='beam' export needs the tokenizer")
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
     device = next(model.parameters()).device
-    program = _Program(cfg, model.eval(), MelFrontend(cfg.audio, device))
+    beam = (beam_settings(cfg, tokenizer, device) if decode == "beam"
+            else None)
+    program = _Program(cfg, model.eval(), MelFrontend(cfg.audio, device),
+                       beam)
     sr = cfg.audio.sample_rate
     files = []
     for seconds in audio_seconds:
@@ -93,7 +128,7 @@ def export_model(cfg: Config, model: nn.Module, out_dir: str,
                               device=device))
         with torch.no_grad():
             program(*example)     # eager: builds the cached constant tables
-            gc.disable()          # tracing builds ~1e5 objects a program
+            gc.disable()          # tracing builds many objects a program
             try:
                 exported = torch.export.export(program, example)
             finally:
@@ -108,7 +143,7 @@ def export_model(cfg: Config, model: nn.Module, out_dir: str,
             "framework": "conformer_tpu_torch", "version": torch.__version__,
             "arch": arch,
             "outputs": ("tokens_counts" if arch == "transducer"
-                        else "logits_lengths"),
+                        or decode == "beam" else "logits_lengths"),
             "decode": decode, "batch_size": batch_size,
             "audio_seconds": list(audio_seconds), "sample_rate": sr,
             "vocab_size": cfg.model.vocab_size, "blank_id": 0,

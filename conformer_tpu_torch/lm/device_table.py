@@ -37,9 +37,12 @@ import torch
 from conformer_tpu_torch.models.dropout import mul32
 
 # FNV-1a based sequence fingerprint (uint32 wraparound).
-_FNV_PRIME = np.uint32(16777619)
-_FNV_BASIS = np.uint32(2166136261)
-_EMPTY = np.uint32(0)          # reserved key for empty slots
+# Python ints, not numpy scalars: one read in an exported while_loop's body
+# would become a uint32 tensor constant there, which torch.export.save
+# refuses on some versions
+FNV_PRIME = 16777619
+FNV_BASIS = 2166136261
+EMPTY = 0                      # reserved key for empty slots
 _BUCKET = 8                    # entries per bucket
 # n_buckets = pow2(ceil(entries / _LOAD)): a mean bucket load of ~_LOAD
 # entries; a bucket that overflows doubles the count, at most _MAX_GROWTH
@@ -67,11 +70,11 @@ def _bucket_layout(hashes, n_buckets: int) -> "list | None":
 
 
 def _fingerprint_np(ids: Sequence[int]) -> np.uint32:
-    h = _FNV_BASIS
+    h = np.uint32(FNV_BASIS)
     for t in ids:
         h = np.uint32((int(h) ^ (int(t) & 0xFFFF)) & 0xFFFFFFFF)
-        h = np.uint32((int(h) * int(_FNV_PRIME)) & 0xFFFFFFFF)
-    if h == _EMPTY:
+        h = np.uint32((int(h) * FNV_PRIME) & 0xFFFFFFFF)
+    if h == EMPTY:
         h = np.uint32(1)
     return h
 
@@ -369,10 +372,10 @@ _HOT_SPAN = 4
 
 
 def _fold_word_seq_np(values: Sequence[int]) -> np.uint32:
-    h = _FNV_BASIS
+    h = np.uint32(FNV_BASIS)
     for v in values:
         h = np.uint32((int(h) ^ int(v)) & 0xFFFFFFFF)
-        h = np.uint32((int(h) * int(_FNV_PRIME)) & 0xFFFFFFFF)
+        h = np.uint32((int(h) * FNV_PRIME) & 0xFFFFFFFF)
     return h
 
 
@@ -435,7 +438,7 @@ class DeviceHotwords:
 
 def fnv_fold(h: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """One FNV-1a step on 32-bit values held in int64: (h ^ v) * prime."""
-    return mul32(h ^ v, int(_FNV_PRIME))
+    return mul32(h ^ v, FNV_PRIME)
 
 
 def hotword_hit(hot: HotArrays, h1: torch.Tensor, h2: torch.Tensor
@@ -469,11 +472,11 @@ def lookup_word_ids(word: WordArrays, h1: torch.Tensor, h2: torch.Tensor
 def _fingerprint(ids: torch.Tensor) -> torch.Tensor:
     """FNV-1a over the last axis of int64 ids (..., M) -> (...,), equal to
     _fingerprint_np of each row (the low 16 bits of each id, 0 -> 1)."""
-    h = torch.full(ids.shape[:-1], int(_FNV_BASIS), dtype=torch.int64,
+    h = torch.full(ids.shape[:-1], FNV_BASIS, dtype=torch.int64,
                    device=ids.device)
     for m in range(ids.shape[-1]):
         h = fnv_fold(h, ids[..., m] & 0xFFFF)
-    return torch.where(h == int(_EMPTY), 1, h)
+    return torch.where(h == EMPTY, 1, h)
 
 
 def _probe_rows(tables: NgramTables, fps: torch.Tensor, rows: Sequence[int],

@@ -3,7 +3,9 @@
 
 The LSTM is a loop over time with the input projection hoisted out of it,
 in the compute dtype like the JAX scan (the cell state is carried in that
-dtype too). Gate order [i, f, g, o], torch's. Parameters carry
+dtype too); under ``torch.export`` the loop is one ``while_loop``
+(ops/frame_graph.py::exported_loop), so a program's size does not grow
+with its bucket. Gate order [i, f, g, o], torch's. Parameters carry
 ``nn.LSTMCell``'s names; ``bias_hh`` is a zero buffer, since the JAX cell has
 one bias only.
 
@@ -24,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from conformer_tpu_torch.models.layers import Dense, MaskedBatchNorm, swish
+from conformer_tpu_torch.ops.frame_graph import exported_loop
 from conformer_tpu_torch.parallel.collectives import (copy_to_model,
                                                       gather_from_model)
 
@@ -52,14 +55,24 @@ class LSTMLayer(nn.Module):
         b = x.shape[1]
         h = torch.zeros(b, self.hidden_dim, dtype=dt, device=x.device)
         c = torch.zeros_like(h)
-        outs = []
-        for gx in gates_x:
+        if not len(gates_x):
+            return gates_x.new_zeros(0, b, self.hidden_dim)
+
+        def cell(h, c, gx):
             i, f, g, o = torch.chunk(gx + h @ w_hh_t, 4, dim=-1)
             c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h = torch.sigmoid(o) * torch.tanh(c)
+            return torch.sigmoid(o) * torch.tanh(c), c
+
+        if torch.compiler.is_exporting():
+            def step(carry, gx, t, inputs):
+                h, c = cell(*carry, gx)
+                return (h, c), h
+
+            return exported_loop(step, (h, c), gates_x)[1]
+        outs = []
+        for gx in gates_x:
+            h, c = cell(h, c, gx)
             outs.append(h)
-        if not outs:
-            return gates_x.new_zeros(0, b, self.hidden_dim)
         return torch.stack(outs)
 
 

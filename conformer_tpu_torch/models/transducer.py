@@ -6,9 +6,10 @@ conformer_tpu/models/transducer.py).
 joint lattice, ``forward_factors`` the joint's additive halves for the
 lattice-free loss (ops/rnnt.py::rnnt_loss_scan), and ``encode``,
 ``joint_logits``, ``predict_init`` and ``predict_step`` are what the greedy
-decode and the beam search (ops/rnnt.py) step through (``greedy_fns``
-gives the last two with their weights cast once a decode; ``beam_fns`` the
-same two functions for as long as the weights are unchanged).
+decode and the beam search (ops/rnnt.py) step through (``frame_fns``
+gives the last two with their weights cast once, the same two functions
+for as long as those weights are unchanged, for the frame loops' CUDA
+graphs).
 
 The LSTM cell is flax's ``OptimizedLSTMCell``: gates [i, f, g, o], input
 kernels without a bias and recurrent kernels with one, the products and
@@ -201,24 +202,28 @@ class Transducer(nn.Module):
         """state, (B,) ids -> (state, (B, H)): advance by one token."""
         return self.prediction.step_fn()(state, self.prediction.embed(tokens))
 
-    def beam_fns(self):
-        """greedy_fns for the beam search: the same two functions come back
-        while no parameter has moved or changed (its address and version
-        counter), so that the search's CUDA graph, which reads their
-        weights by address, is captured once for them
-        (ops/frame_graph.py)."""
-        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
-        cached = self.__dict__.get("_beam_fns")
+    def frame_fns(self):
+        """-> (joint_logits, predict_step) as functions for the frame loops
+        (ops/rnnt.py: the greedy decode and the beam search), every weight
+        cast to the compute dtype once, when they are made, instead of at
+        each call (see PredictionNetwork.step_fn). The same two functions
+        come back while no parameter of the prediction network or the joint
+        has moved or changed (its address and version counter), so that a
+        loop's CUDA graph, which reads their weights by address, is captured
+        once for them (ops/frame_graph.py); under ``torch.export`` they are
+        made anew."""
+        if torch.compiler.is_exporting():
+            return self._make_frame_fns()
+        key = tuple((p.data_ptr(), p._version) for m in (self.prediction,
+                                                         self.joint)
+                    for p in m.parameters())
+        cached = self.__dict__.get("_frame_fns")
         if cached is None or cached[0] != key:
-            cached = (key, self.greedy_fns())
-            self.__dict__["_beam_fns"] = cached
+            cached = (key, self._make_frame_fns())
+            self.__dict__["_frame_fns"] = cached
         return cached[1]
 
-    def greedy_fns(self):
-        """-> (joint_logits, predict_step) as functions for
-        ops/rnnt.py::rnnt_greedy_decode, every weight cast to the compute
-        dtype once, when they are made, instead of at each call (see
-        PredictionNetwork.step_fn)."""
+    def _make_frame_fns(self):
         pred, joint = self.prediction, self.joint
         dt = pred.compute_dtype
         enc_w, enc_b, pred_w, pred_b, emb = (cast(x, dt) for x in (

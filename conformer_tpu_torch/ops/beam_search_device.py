@@ -56,9 +56,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from conformer_tpu_torch.lm.device_table import (HotArrays, NgramTables,
-                                                 TableShard, WordArrays,
-                                                 _FNV_BASIS, fnv_fold,
+from conformer_tpu_torch.lm.device_table import (FNV_BASIS, HotArrays,
+                                                 NgramTables, TableShard,
+                                                 WordArrays, fnv_fold,
                                                  hotword_hit, lookup_word_ids,
                                                  score_tokens)
 from conformer_tpu_torch.models.dropout import M32, mul32
@@ -140,8 +140,8 @@ def word_delta(f: WordFusion, ctx, ctx_len, wf1, wf2, rw1, rw2, rcount,
         # the last k completed words and this one (k = 0..3), folded
         fp1s, fp2s = [], []
         for span in range(1, 5):
-            fp1 = torch.full_like(wf1, int(_FNV_BASIS))
-            fp2 = torch.full_like(wf2, int(_FNV_BASIS))
+            fp1 = torch.full_like(wf1, FNV_BASIS)
+            fp2 = torch.full_like(wf2, FNV_BASIS)
             for j in range(3 - (span - 1), 3):
                 fp1 = fnv_fold(fp1, rw1[..., j])
                 fp2 = fnv_fold(fp2, rw2[..., j])
@@ -233,6 +233,7 @@ def ctc_beam_search_device(log_probs: torch.Tensor,
     ``scan_unroll``: frame steps a CUDA graph holds. ``lm_shard``:
     ``lm_tables`` is this rank's part of a table split over a group (the
     JAX ``lm_axis_name`` and ``lm_n_slots_global``)."""
+    refuse_exporting_a_shard(lm_shard)
     log_probs = log_probs.float()
     b, t, v = log_probs.shape
     dev = log_probs.device
@@ -287,10 +288,8 @@ def ctc_beam_search_device(log_probs: torch.Tensor,
         last, wn, lm_len = S[..., _LAST], S[..., _WN], S[..., _LM_LEN]
         lm_ctx = S[..., _CTX:]
         total = logaddexp(p_b, p_nb)                           # (B, W)
-        masked = frame.clone()
-        masked[:, blank_id] = NEG
-        if unk_id is not None:
-            masked[:, unk_id] = NEG
+        masked = frame.masked_fill(barred_tokens(v, blank_id, unk_id, dev),
+                                   NEG)
         cand_lp, cand_tok = topk_lastaxis(masked, k)           # (B, K)
         ct = cand_tok[:, None, :]
 
@@ -467,6 +466,25 @@ def shard_key(shard: Optional[TableShard]) -> tuple:
     """What of a TableShard fixes a frame step (the group goes in the
     consts)."""
     return () if shard is None else (shard.index, shard.n_slots)
+
+
+def barred_tokens(v: int, blank_id: int, unk_id: Optional[int],
+                  device) -> torch.Tensor:
+    """(V,) bool: the tokens a search never extends with (the blank and
+    the unk), for a ``masked_fill`` in the frame step (an indexed write of
+    a scalar there would be a tensor constant inside the step, which an
+    exported ``while_loop`` cannot hold)."""
+    ids = torch.arange(v, device=device)
+    barred = ids == blank_id
+    return barred if unk_id is None else barred | (ids == unk_id)
+
+
+def refuse_exporting_a_shard(shard: Optional[TableShard]) -> None:
+    """A sharded search is not exported: a program runs on one device, as
+    the JAX export has no mesh."""
+    if shard is not None and torch.compiler.is_exporting():
+        raise ValueError("a sharded search cannot be exported: export the "
+                         "search without a mesh")
 
 
 def frame_mode(shard: Optional[TableShard]) -> str:

@@ -1,5 +1,6 @@
-"""The frame loops of the device beam searches: eager on the CPU, CUDA graphs
-on the card (the port's counterpart of ``jax.jit`` over ``lax.scan``).
+"""The frame loops of the device beam searches and the greedy decode: eager
+on the CPU, CUDA graphs on the card, one ``while_loop`` under export (the
+port's counterpart of ``jax.jit`` over ``lax.scan``).
 
 ``run_frames(step, carry, frames, ...)`` runs ``carry, out = step(carry,
 frames[t], t, inputs)`` for t = 0..T-1 and returns the last carry and the
@@ -20,7 +21,10 @@ the caller's static key, the shapes and dtypes of the carry, frames and
 inputs, ``unroll``, and the identity of ``consts``: the tensors and
 functions the step reads besides its arguments (LM tables, model
 functions), which the cached graph holds and reads by address. A tensor
-const changed in place (its version counter moved) makes a new graph.
+const changed in place (its version counter moved) makes a new graph. A
+tensor the step's closure holds (or a function it calls, bar ``consts``)
+that is not in ``consts`` raises, on every device: the graph would read it
+by address after the call that made it had freed it.
 Graphs are captured and replayed under one lock, so threads that share the
 card take turns.
 
@@ -30,6 +34,10 @@ the graph against it, or when the caller passes ``graph=False``: the
 sharded searches do so for a step that sums over a gloo group, whose
 collectives go through the host (parallel/collectives.py::capturable),
 and never after a failed capture. On the CPU the loop is always eager.
+
+Under ``torch.export`` (``torch.compiler.is_exporting()``) the loop is one
+``while_loop`` node (``exported_loop``): a program holds the step once,
+whatever T, and runs it T times, on any device; a failed trace raises.
 """
 
 from __future__ import annotations
@@ -146,6 +154,55 @@ def _signature(tensors: Sequence[torch.Tensor]) -> tuple:
     return tuple((tuple(x.shape), x.dtype) for x in tensors)
 
 
+def _tensors_of(obj, out: set) -> set:
+    """The ids of the tensors in obj and the tuples, lists and dicts it
+    holds."""
+    if isinstance(obj, torch.Tensor):
+        out.add(id(obj))
+    elif isinstance(obj, (tuple, list)):
+        for x in obj:
+            _tensors_of(x, out)
+    elif isinstance(obj, dict):
+        for x in obj.values():
+            _tensors_of(x, out)
+    return out
+
+
+def check_closure(step: Callable, consts: Sequence) -> None:
+    """Raise ValueError if ``step``, or a function its closure holds (a
+    function of ``consts`` aside), closes over a tensor that ``consts``
+    does not hold."""
+    allowed = _tensors_of(tuple(consts), set())
+    skip = {id(c) for c in consts if callable(c)}
+    seen: set = set()
+
+    def walk(obj, name):
+        if id(obj) in seen or id(obj) in skip:
+            return
+        seen.add(id(obj))
+        if isinstance(obj, torch.Tensor):
+            if id(obj) not in allowed:
+                raise ValueError(
+                    f"a frame step closes over the tensor {name!r} "
+                    f"{tuple(obj.shape)} outside its consts: build it in "
+                    "the step, or pass it in inputs or consts")
+        elif isinstance(obj, (tuple, list)):
+            for x in obj:
+                walk(x, name)
+        elif isinstance(obj, dict):
+            for x in obj.values():
+                walk(x, name)
+        elif callable(obj) and getattr(obj, "__closure__", None):
+            for var, cell in zip(obj.__code__.co_freevars, obj.__closure__):
+                try:
+                    value = cell.cell_contents
+                except ValueError:         # not assigned yet
+                    continue
+                walk(value, var)
+
+    walk(step, getattr(step, "__name__", "step"))
+
+
 def run_frames(step: Step, carry: Sequence[torch.Tensor],
                frames: torch.Tensor, inputs: Sequence[torch.Tensor] = (),
                key: tuple = (), consts: Sequence = (), unroll: int = 1,
@@ -157,14 +214,55 @@ def run_frames(step: Step, carry: Sequence[torch.Tensor],
     the device and the per-call ``inputs``, and returns (the new carry,
     one tensor). ``key``: what else fixes the step (its static
     arguments); ``consts``: the tensors and functions it reads besides
-    its arguments. T must be at least 1. ``graph=False`` runs the steps
-    eagerly on the card too. Runs under inference mode (the static buffers
-    of a graph are inference tensors)."""
+    its arguments (check_closure). T must be at least 1. ``graph=False``
+    runs the steps eagerly on the card too. Runs under inference mode (the
+    static buffers of a graph are inference tensors)."""
     carry, inputs = tuple(carry), tuple(inputs)
     if frames.shape[0] < 1:
         raise ValueError("run_frames needs at least one frame")
+    if torch.compiler.is_exporting():
+        return exported_loop(step, carry, frames, inputs)
+    check_closure(step, consts)
     with torch.inference_mode():
         return _run(step, carry, frames, inputs, key, consts, unroll, graph)
+
+
+def exported_loop(step: Step, carry: Sequence[torch.Tensor],
+                  frames: torch.Tensor, inputs: Sequence[torch.Tensor] = ()
+                  ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
+    """run_frames under ``torch.export``: the frame loop as one
+    ``while_loop`` node, whatever T, so that a program's size and its
+    trace and load times do not grow with the bucket. The loop carries
+    (t, the outputs (T, ...), *carry); frame t is read with
+    ``index_select`` and step t's output written with ``index_copy``;
+    ``frames`` and ``inputs`` are closed over. The output's shape and dtype
+    come from one step traced on fake tensors outside the program."""
+    from torch._higher_order_ops import while_loop
+    from torch.fx.experimental.proxy_tensor import disable_proxy_modes_tracing
+
+    # the loop holds each carry's strides: contiguous in, contiguous out
+    carry = tuple(c.contiguous() for c in carry)
+    inputs = tuple(inputs)
+    n = frames.shape[0]
+    t0 = torch.zeros((), dtype=torch.int64, device=frames.device)
+    with disable_proxy_modes_tracing():
+        _, out0 = step(carry, frames[0], t0, inputs)
+    outs0 = torch.zeros((n,) + tuple(out0.shape), dtype=out0.dtype,
+                        device=out0.device)
+
+    def cond(t, outs, *c):
+        return t < n
+
+    def body(t, outs, *c):
+        index = t.reshape(1)
+        new, out = step(c, frames.index_select(0, index)[0], t, inputs)
+        # a carry passed through unchanged must not alias the loop's input
+        new = tuple(x.clone() if x is old else x.contiguous()
+                    for x, old in zip(new, c))
+        return (t + 1, outs.index_copy(0, index, out[None]), *new)
+
+    _, outs, *last = while_loop(cond, body, (t0, outs0, *carry))
+    return tuple(last), outs
 
 
 def _run(step, carry, frames, inputs, key, consts, unroll, graph):

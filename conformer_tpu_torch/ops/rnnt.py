@@ -32,8 +32,8 @@ gather, equal to the JAX masked reduction.
 
 ``rnnt_greedy_decode`` is the JAX decode in its static form: every frame
 runs all ``max_symbols`` rounds of joint, argmax, masked write and
-prediction step, with no read of device values on the host (a CUDA graph
-could capture it).
+prediction step, with no read of device values on the host, as one frame
+step of ops/frame_graph.py (a CUDA graph a frame on the card).
 
 ``rnnt_beam_search`` is the JAX beam search with the batch as a leading
 axis: the B x W hypotheses step through the joint and the prediction
@@ -50,13 +50,15 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_flatten, tree_unflatten
 from torch.utils.checkpoint import checkpoint
 
 from conformer_tpu_torch.lm.device_table import score_tokens
 from conformer_tpu_torch.models.dropout import M32, mul32
 from conformer_tpu_torch.ops.beam_search_device import (
-    _LOG10_TO_LN, NEG, WordFusion, frame_mode, hash_pair_order, logaddexp,
-    next_or_neg, run_heads, shard_key, split_over_mesh, word_delta)
+    _LOG10_TO_LN, NEG, WordFusion, barred_tokens, frame_mode,
+    hash_pair_order, logaddexp, next_or_neg, refuse_exporting_a_shard,
+    run_heads, shard_key, split_over_mesh, word_delta)
 from conformer_tpu_torch.ops.frame_graph import run_frames
 from conformer_tpu_torch.parallel.mesh import batch_stripe
 from conformer_tpu_torch.ops.topk import (argsort_desc, topk_lastaxis,
@@ -193,22 +195,28 @@ def rnnt_greedy_decode(joint_fn: Callable, enc: torch.Tensor,
     T * max_symbols) int32, counts (B,) int32), and with ``return_carry``
     also the final (state, pred), so that a stream carries its label
     history exactly across windows; ``start_frames`` (B,) skips each row's
-    leading frames (a window's left context). A round is a few dozen ops
-    and every frame runs ``max_symbols`` of them, so an exported program
-    holds T * max_symbols copies: the loop is written in as few ops as its
-    arithmetic allows."""
+    leading frames (a window's left context). One frame's ``max_symbols``
+    rounds are one step of ``ops/frame_graph.py::run_frames``, the
+    buffer, the count and the flattened (state, pred) its carry: eager on
+    the CPU, a CUDA graph a frame on the card (cached while ``joint_fn``
+    and ``pred_step_fn`` are the same objects: ``Transducer.frame_fns``),
+    one ``while_loop`` under export."""
     b, t, _ = enc.shape
     u = max_len or t * max_symbols
     dev = enc.device
-    if start_frames is None:
-        start_frames = torch.zeros(b, dtype=torch.int64, device=dev)
-    state, pred = pred_init
-    buf = torch.zeros(b, u, dtype=torch.int64, device=dev)
-    count = torch.zeros(b, dtype=torch.int64, device=dev)
-    pos = torch.arange(u, device=dev)[None, :]
-    for ti in range(t):
-        enc_t = enc[:, ti]
-        alive = (start_frames <= ti) & (enc_lengths > ti)
+    start = (torch.zeros(b, dtype=torch.int64, device=dev)
+             if start_frames is None else start_frames.to(dev, torch.int64))
+    n = enc_lengths.to(dev, torch.int64)
+    leaves, spec = tree_flatten(tuple(pred_init))
+    carry0 = (torch.zeros(b, u, dtype=torch.int64, device=dev),
+              torch.zeros(b, dtype=torch.int64, device=dev), *leaves)
+
+    def step(carry, enc_t, t_idx, inputs):
+        buf, count = carry[:2]
+        state, pred = tree_unflatten(list(carry[2:]), spec)
+        start_, n_ = inputs
+        alive = (start_ <= t_idx) & (n_ > t_idx)
+        pos = torch.arange(u, device=dev)[None, :]
         for _ in range(max_symbols):
             tok = joint_fn(enc_t, pred).argmax(dim=-1)
             emit = alive & (tok != blank_id) & (count < u)
@@ -221,9 +229,17 @@ def rnnt_greedy_decode(joint_fn: Callable, enc: torch.Tensor,
             state = _select(keep, new_state, state)
             pred = _select(keep, new_pred, pred)
             alive = emit
-    buf, count = buf.to(torch.int32), count.to(torch.int32)
+        return (buf, count, *tree_flatten((state, pred))[0]), count
+
+    final = carry0
+    if t:
+        final, _ = run_frames(
+            step, carry0, enc.transpose(0, 1), (start, n),
+            key=("rnnt_greedy", max_symbols, u, blank_id, spec),
+            consts=(joint_fn, pred_step_fn))
+    buf, count = final[0].to(torch.int32), final[1].to(torch.int32)
     if return_carry:
-        return buf, count, (state, pred)
+        return buf, count, tree_unflatten(list(final[2:]), spec)
     return buf, count
 
 
@@ -317,7 +333,7 @@ def rnnt_beam_search(joint_fn: Callable, enc: torch.Tensor,
     frame's finished pool, where hypotheses with the same tokens (the same
     64-bit double hash) merge by logaddexp. joint_fn(enc_t (N, D), pred
     (N, P)) -> (N, V) logits and pred_step_fn / pred_init are
-    rnnt_greedy_decode's (``Transducer.greedy_fns``, ``predict_init(B)``);
+    rnnt_greedy_decode's (``Transducer.frame_fns``, ``predict_init(B)``);
     the B x W hypotheses step as one batch of B * W rows. The frames go
     through ``ops/frame_graph.py::run_frames`` (a CUDA graph a frame step
     on the card).
@@ -332,6 +348,7 @@ def rnnt_beam_search(joint_fn: Callable, enc: torch.Tensor,
     ``start_frames`` skips each row's leading frames and ``init_beams``
     resumes a stream. ``lm_shard``: ``lm_tables`` is this rank's part of a
     table split over a group (lm/device_table.py::TableShard)."""
+    refuse_exporting_a_shard(lm_shard)
     b, t, d = enc.shape
     dev = enc.device
     w, kk = beam_width, top_k
@@ -412,10 +429,8 @@ def rnnt_beam_search(joint_fn: Callable, enc: torch.Tensor,
                 break
 
             # non-blank extensions stay active within the frame
-            masked = logp.clone()
-            masked[..., blank_id] = NEG
-            if unk_id is not None:
-                masked[..., unk_id] = NEG
+            masked = logp.masked_fill(
+                barred_tokens(logp.shape[-1], blank_id, unk_id, dev), NEG)
             cand_lp, cand_tok = topk_lastaxis(masked, kk)      # (B, W, KK)
             e_sc = a_sc[..., None] + cand_lp
             a_ctx, a_cl = a_sm[..., _CTX:], a_sm[..., _CL]

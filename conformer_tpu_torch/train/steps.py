@@ -231,8 +231,7 @@ def make_transducer_eval_step(cfg: Config, model: torch.nn.Module,
              token_lengths: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
         enc, enc_lengths = forward(audio, audio_lengths)
-        joint_fn, pred_step_fn = (model.beam_fns() if decode == "beam"
-                                  else model.greedy_fns())
+        joint_fn, pred_step_fn = model.frame_fns()
         pred_init = model.predict_init(enc.shape[0], enc.device)
         if decode == "beam":
             prefixes, plens, scores = rnnt_beam_search_sharded(

@@ -24,6 +24,7 @@ from conformer_tpu_torch.convert import block_part_to_state_dict
 from conformer_tpu_torch.models import attention as tattn
 from conformer_tpu_torch.ops.cuda import launch_counts
 from conformer_tpu_torch.ops.cuda import sincos_attention as tsa
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _inputs(b, l, h, dh, seed):

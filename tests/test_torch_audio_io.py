@@ -26,6 +26,7 @@ from conformer_tpu.audio import native as jnative
 from conformer_tpu_torch import native as native_build
 from conformer_tpu_torch.audio import flac, native
 from conformer_tpu_torch.audio import io as tio
+from torch_threads import one_torch_thread  # noqa: F401
 
 SR = 16000
 

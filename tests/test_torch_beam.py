@@ -48,6 +48,7 @@ from conformer_tpu_torch.decode.pipeline import (InferencePipeline,
                                                  resolve_beam_backend)
 from conformer_tpu_torch.lm.ngram import NgramLM, PyNgramLM, build_arpa
 from conformer_tpu_torch.text.tokenizer import load_tokenizer
+from torch_threads import one_torch_thread  # noqa: F401
 
 CORPUS = ["XIN CHÀO", "XIN CHÀO BẠN", "CẢM ƠN BẠN", "TẠM BIỆT", "XIN LỖI",
           "CHÀO BẠN"] * 5
@@ -241,13 +242,20 @@ def _reference(directory, arpa, decode="beam", **overrides):
     return tcfg, flax_to_state_dict(variables, tcfg.model), metrics, pairs
 
 
-def test_pipeline_beam_with_lm_matches_the_jax_pipeline(arpa, tmp_path_factory,
-                                                        vi):
+@pytest.fixture(scope="module")
+def jax_host_beam(arpa, tmp_path_factory):
+    """(manifest, port config, weights file, JAX metrics, JAX pairs) of the
+    JAX pipeline with decode="beam" (the LM, W 16)."""
     directory = tmp_path_factory.mktemp("beam_eval")
     manifest = _manifest(directory)
-    tcfg, state, want_metrics, want_pairs = _reference(directory, arpa)
+    tcfg, state, metrics, pairs = _reference(directory, arpa)
     weights = directory / "w.pt"
     torch.save(state, weights)
+    return manifest, tcfg, weights, metrics, pairs
+
+
+def test_pipeline_beam_with_lm_matches_the_jax_pipeline(jax_host_beam, vi):
+    manifest, tcfg, weights, want_metrics, want_pairs = jax_host_beam
     pipe = InferencePipeline(tcfg, vi, weights=str(weights), decode="beam",
                              device="cpu")
     assert pipe._beam is not None and pipe._beam._native is not None

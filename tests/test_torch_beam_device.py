@@ -26,6 +26,7 @@ from conformer_tpu.ops import beam_search_device as jbs
 from conformer_tpu_torch.lm import device_table as dt
 from conformer_tpu_torch.ops import beam_search_device as bs
 from conformer_tpu_torch.ops import frame_graph
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 TOL = 1e-4
@@ -246,3 +247,31 @@ def test_frame_graph_runs_eagerly_on_the_cpu():
     torch.testing.assert_close(acc, want[-1], rtol=0, atol=0)
     with pytest.raises(ValueError, match="at least one frame"):
         frame_graph.run_frames(step, (torch.zeros(3),), frames[:0])
+
+
+def test_a_frame_step_reads_outside_tensors_only_through_consts():
+    """A tensor that a step (or a function its closure holds) closes over
+    must be one of run_frames's consts: a CUDA graph reads it by address,
+    after the call that made it has freed it. The check runs on the CPU."""
+    frames, table = torch.arange(6.0).reshape(3, 2), torch.tensor([2.0, 3.0])
+
+    def scale(x):
+        return x * table
+
+    def step(carry, frame, t, inputs):
+        (acc,) = carry
+        acc = acc + scale(frame)
+        return (acc,), acc.clone()
+
+    def direct(carry, frame, t, inputs):
+        return (carry[0] + frame * table,), frame
+
+    for fn in (step, direct):
+        with pytest.raises(ValueError, match="'table'"):
+            frame_graph.run_frames(fn, (torch.zeros(2),), frames)
+    (acc,), _ = frame_graph.run_frames(step, (torch.zeros(2),), frames,
+                                       consts=(scale,))
+    torch.testing.assert_close(acc, frames.sum(0) * table, rtol=0, atol=0)
+    (acc,), _ = frame_graph.run_frames(direct, (torch.zeros(2),), frames,
+                                       consts=((table,),))
+    torch.testing.assert_close(acc, frames.sum(0) * table, rtol=0, atol=0)

@@ -17,6 +17,7 @@ from conformer_tpu_torch.config import Config
 from conformer_tpu_torch.convert import (flax_to_state_dict, is_scan_layout,
                                          state_dict_to_flax)
 from conformer_tpu_torch.models.conformer import Conformer
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @functools.lru_cache(maxsize=None)

@@ -39,6 +39,7 @@ from conformer_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
 from conformer_tpu_torch.data import dataset as tdata
 from conformer_tpu_torch.models.conformer import Conformer
 from conformer_tpu_torch.tools import import_reference_checkpoint as importer
+from torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB = 370   # the 'vi' tokenizer, which cli.test sets
 

@@ -41,6 +41,7 @@ from conformer_tpu_torch.models.conformer import Conformer
 from conformer_tpu_torch.ops.cuda import depthwise_conv as dc
 from conformer_tpu_torch.train.state import make_optimizer
 from conformer_tpu_torch.train.steps import make_forward, make_train_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB = 370
 SHAPES = [((2, 64, 32), 7), ((1, 100, 16), 31), ((3, 50, 8), 3)]
@@ -212,46 +213,63 @@ def _port_model(tcfg):
     return model
 
 
-def test_tiny_model_with_pallas_conv_matches_jax_logits():
-    jcfg, tcfg = _configs()
+def _unoptimised(lowered, *args):
+    """A lowered JAX function compiled with LLVM's optimisation passes off
+    (most of its compile on the CPU; they change no value compared here),
+    run on ``args``."""
+    return lowered.compile(
+        compiler_options={"xla_backend_optimization_level": 0})(*args)
+
+
+@pytest.fixture(scope="module")
+def jax_tiny():
+    """The tiny model's JAX logits and train-step metrics, its depthwise
+    conv forward and backward through the Pallas kernels in interpret
+    mode, compiled and run once a module, in set-up: the two compiles
+    side by side."""
+    jcfg, _ = _configs()
+    variables = _variables()
     audio, lengths = _batch()[:2]
+    f_args = (variables, jnp.asarray(audio), jnp.asarray(lengths))
+    tx = j_make_optimizer(jcfg.optim)
+    state = TrainState.create(variables["params"], variables["batch_stats"], tx)
+    s_args = (state, *(jnp.asarray(a) for a in _batch()),
+              jax.random.PRNGKey(0))
     with jax_pallas_interpret():
-        j_logits, j_len = jax.jit(j_make_forward(jcfg))(
-            _variables(), jnp.asarray(audio), jnp.asarray(lengths))
+        forward = jax.jit(j_make_forward(jcfg)).lower(*f_args)
+        step = j_make_train_step(jcfg, tx, donate=False).lower(*s_args)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        logits = pool.submit(_unoptimised, forward, *f_args)
+        _, metrics = _unoptimised(step, *s_args)
+        j_logits, j_len = logits.result()
+    return (np.asarray(j_logits), np.asarray(j_len),
+            {k: float(metrics[k]) for k in ("loss", "grad_norm")})
+
+
+def test_tiny_model_with_pallas_conv_matches_jax_logits(jax_tiny):
+    _, tcfg = _configs()
+    audio, lengths = _batch()[:2]
+    j_logits, j_len, _ = jax_tiny
     model = _port_model(tcfg).eval()
     assert model.encoder.blocks[0].conv.depthwise.impl == "pallas"
     t_logits, t_len = make_forward(tcfg, model)(torch.from_numpy(audio),
                                                 torch.from_numpy(lengths))
-    np.testing.assert_array_equal(t_len.numpy(), np.asarray(j_len))
-    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
+    np.testing.assert_array_equal(t_len.numpy(), j_len)
+    np.testing.assert_allclose(t_logits.numpy(), j_logits,
                                atol=1e-4, rtol=1e-4)
 
 
-def test_tiny_model_with_pallas_conv_train_step_matches_jax():
+def test_tiny_model_with_pallas_conv_train_step_matches_jax(jax_tiny):
     """One fp32 train step (dropout 0, SpecAugment off), JAX's depthwise
     conv forward and backward through its Pallas kernels in interpret mode:
     loss and grad norm to 1e-5 relative, as tests/test_torch_train.py."""
-    jcfg, tcfg = _configs()
-    variables = _variables()
-    tx = j_make_optimizer(jcfg.optim)
-    state = TrainState.create(variables["params"], variables["batch_stats"], tx)
-    batch = _batch()
-    args = (state, *(jnp.asarray(a) for a in batch), jax.random.PRNGKey(0))
-    with jax_pallas_interpret():
-        lowered = j_make_train_step(jcfg, tx, donate=False).lower(*args)
-    # XLA compiles the JAX step while the port's step runs (the two share
-    # nothing); LLVM's optimisation passes, most of that compile on the CPU,
-    # are off: they change no value compared here
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        compiling = pool.submit(
-            lowered.compile,
-            compiler_options={"xla_backend_optimization_level": 0})
-        model = _port_model(tcfg)
-        opt = make_optimizer(tcfg.optim, model.parameters())
-        metrics = make_train_step(tcfg, model, opt)(
-            *(torch.from_numpy(a) for a in batch), 0)
-        _, j_metrics = compiling.result()(*args)
-    np.testing.assert_allclose(float(metrics["loss"]),
-                               float(j_metrics["loss"]), rtol=1e-5)
+    _, tcfg = _configs()
+    j_metrics = jax_tiny[2]
+    model = _port_model(tcfg)
+    opt = make_optimizer(tcfg.optim, model.parameters())
+    metrics = make_train_step(tcfg, model, opt)(
+        *(torch.from_numpy(a) for a in _batch()), 0)
+    np.testing.assert_allclose(float(metrics["loss"]), j_metrics["loss"],
+                               rtol=1e-5)
     np.testing.assert_allclose(float(metrics["grad_norm"]),
-                               float(j_metrics["grad_norm"]), rtol=1e-5)
+                               j_metrics["grad_norm"], rtol=1e-5)

@@ -27,6 +27,7 @@ from conformer_tpu_torch.lm import device_table as dt
 from conformer_tpu_torch.ops.topk import (NEG, argsort_desc, topk_lastaxis,
                                           topk_stable)
 from conformer_tpu_torch.text.tokenizer import load_tokenizer
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 WORDS = ["XIN", "CHÀO", "BẠN", "CẢM", "ƠN", "TẠM", "BIỆT", "LỖI", "VIỆT",

@@ -15,6 +15,7 @@ from conformer_tpu.models import dropout as jd
 from conformer_tpu.ops.pallas import sincos_attention as jsa
 from conformer_tpu_torch.models import dropout as td
 from conformer_tpu_torch.ops.cuda import sincos_attention as tsa
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.5])

@@ -31,6 +31,7 @@ from conformer_tpu_torch.models.conformer import Conformer
 from conformer_tpu_torch.text.tokenizer import load_tokenizer
 from conformer_tpu_torch.train.checkpoint import CheckpointManager
 from conformer_tpu_torch.train.state import make_optimizer
+from torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB = 370
 TEXTS = ["xin chào", "Việt Nam", "một hai ba", "hôm nay trời đẹp", "bốn",

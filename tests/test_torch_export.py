@@ -12,9 +12,13 @@ and its ``torch.library`` custom ops against the JAX package on the CPU.
   largest bucket rejected, ``meta.json``'s keys;
 - ``cli.export --device cpu`` on a checkpoint of ``cli.train``'s kind;
 - the program holds the three kernels (K1, K3, K4a) as custom-op nodes, and
-  ``move_to_device_pass`` moves every constant and device argument;
+  ``move_to_device_pass`` moves every constant and device argument, those
+  of the ``while_loop`` subgraphs too;
+- the frame loops stay rolled: the CTC program's and the greedy
+  transducer program's graph nodes are as many at 2 s as at 1 s;
 - each custom op's fake (shape and dtype) against its plain version
-  (``torch.library.opcheck``); the beam export raises.
+  (``torch.library.opcheck``); ``decode="beam"`` without a tokenizer
+  raises (tests/test_torch_export_beam.py holds the beam programs).
 """
 
 import functools
@@ -47,6 +51,7 @@ from conformer_tpu_torch.ops.cuda import sincos_attention as sa
 from conformer_tpu_torch.train.checkpoint import CheckpointManager
 from conformer_tpu_torch.train.state import make_optimizer
 from conformer_tpu_torch.train.steps import make_forward
+from torch_threads import one_torch_thread  # noqa: F401
 
 SR = 16000
 VOCAB = 370
@@ -58,12 +63,11 @@ TRANSDUCER = {"model.arch": "transducer", "model.pred_embed_dim": 32,
 BLANK_BIAS = 2.0     # the random joint then mixes blanks and emissions
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+def graph_nodes(exported) -> int:
+    """Nodes of a program's graph and of every subgraph it holds (a
+    ``while_loop``'s condition and body)."""
+    return sum(len(m.graph.nodes) for m in exported.graph_module.modules()
+               if isinstance(m, torch.fx.GraphModule))
 
 
 def _jcfg(**extra):
@@ -152,7 +156,7 @@ def test_buckets_pad_up_and_reject_audio_past_the_largest(ctc):
     assert meta["framework"] == "conformer_tpu_torch"
     assert meta["outputs"] == "logits_lengths" and meta["device"] == "cpu"
     assert meta["audio_seconds"] == [1.0, 2.0] and meta["batch_size"] == 2
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(ValueError, match="needs the tokenizer"):
         export_model(cfg, model, str(root / "beam"), decode="beam")
 
 
@@ -164,30 +168,45 @@ def test_program_holds_the_kernels_and_moves_to_a_device(ctc):
     moved = move_to_device_pass(program, "meta")
     for tensor in [*moved.state_dict.values(), *moved.constants.values()]:
         assert tensor.device.type == "meta"
-    for node in moved.graph.nodes:
-        if "device" in node.kwargs:
-            assert torch.device(node.kwargs["device"]).type == "meta", node
+    graphs = [m.graph for m in moved.graph_module.modules()
+              if isinstance(m, torch.fx.GraphModule)]
+    assert len(graphs) == 3       # the LSTM head's loop: condition and body
+    for graph in graphs:
+        for node in graph.nodes:
+            if "device" in node.kwargs:
+                assert torch.device(node.kwargs["device"]).type == "meta", node
     assert any("device" in n.kwargs for n in program.graph.nodes)
+
+
+@pytest.mark.parametrize("arch", ["ctc", "transducer"])
+def test_frame_loops_stay_rolled_across_buckets(arch, ctc, transducer):
+    """As many graph nodes at 2 s as at 1 s: the LSTM head and the greedy
+    rounds are one while_loop each, not a copy a frame."""
+    files = ctc[-1] if arch == "ctc" else transducer[-1]
+    one, two = (torch.export.load(f) for f in files)
+    assert graph_nodes(one) == graph_nodes(two)
+    assert sum(n.target is torch.ops.higher_order.while_loop
+               for n in one.graph.nodes) == 1
 
 
 @pytest.fixture(scope="module")
 def transducer(tmp_path_factory):
-    """The transducer exported at 1 s, batch 2, by the port and by the JAX
-    package, from the same weights."""
+    """The transducer exported by the port at 1 and 2 s and by the JAX
+    package at 1 s, batch 2, from the same weights."""
     root = tmp_path_factory.mktemp("export_transducer")
     jcfg = _jcfg(**TRANSDUCER)
     variables = _variables(True)
     cfg, model = _port_model(jcfg, variables)
-    export_model(cfg, model, str(root / "port"), batch_size=2,
-                 audio_seconds=(1.0,))
+    files = export_model(cfg, model, str(root / "port"), batch_size=2,
+                         audio_seconds=(1.0, 2.0))
     j_export_model(jcfg, variables, str(root / "jax"), batch_size=2,
                    audio_seconds=(1.0,))
     return (ExportedModel(str(root / "port"), device="cpu"),
-            JExportedModel(str(root / "jax")), root)
+            JExportedModel(str(root / "jax")), root, files)
 
 
 def test_transducer_program_tokens_equal_the_jax_artifact(transducer):
-    exported, j_exported, root = transducer
+    exported, j_exported, root, _ = transducer
     rng = np.random.default_rng(3)
     tone = 0.4 * np.sin(2 * np.pi * 300 * np.arange(SR) / SR)
     audio = (tone + 0.3 * rng.standard_normal((2, SR))).astype(np.float32)
@@ -203,15 +222,21 @@ def test_transducer_program_tokens_equal_the_jax_artifact(transducer):
         assert json.load(f)["outputs"] == "tokens_counts"
 
 
-def test_cli_export_on_a_port_checkpoint(ctc, tmp_path, capsys):
+def _checkpoint(cfg, model, ck):
+    """A checkpoint of cli.train's kind (step 4) of ``model`` in ``ck``."""
     from conformer_tpu_torch.cli.common import save_config
+
+    CheckpointManager(str(ck)).save(
+        model, make_optimizer(cfg.optim, model.parameters()), step=4)
+    save_config(cfg, str(ck))
+
+
+def test_cli_export_on_a_port_checkpoint(ctc, tmp_path, capsys):
     from conformer_tpu_torch.cli.export import main
 
     _, _, _, cfg, model, _ = ctc
     ck = tmp_path / "ck"
-    CheckpointManager(str(ck)).save(
-        model, make_optimizer(cfg.optim, model.parameters()), step=4)
-    save_config(cfg, str(ck))
+    _checkpoint(cfg, model, ck)
     out = tmp_path / "out"
     files = main(["--checkpoint-dir", str(ck), "--out", str(out),
                   "--device", "cpu", "--batch-size", "1",
@@ -226,15 +251,45 @@ def test_cli_export_on_a_port_checkpoint(ctc, tmp_path, capsys):
         want, _ = model(*_mels(cfg, np.pad(audio, ((0, 0), (0, SR - 9000))),
                                lengths))
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        main(["--checkpoint-dir", str(ck), "--out", str(out), "--device",
-              "cpu", "--decode", "beam"])
     with pytest.raises(SystemExit, match="no checkpoint"):
         main(["--checkpoint-dir", str(tmp_path / "none"), "--out", str(out),
               "--device", "cpu"])
     with mock.patch.object(torch.cuda, "is_available", lambda: False):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ExportedModel(str(out))
+
+
+def test_cli_export_beam_on_a_port_checkpoint(ctc, tmp_path, capsys):
+    """``cli.export --decode beam --device cpu``: the program's best beam
+    equals the device search on the live model's log-probs."""
+    from conformer_tpu_torch.cli.export import main
+    from conformer_tpu_torch.ops.beam_search_device import (
+        ctc_beam_search_device)
+
+    _, _, _, cfg, model, _ = ctc
+    ck = tmp_path / "ck"
+    _checkpoint(cfg, model, ck)
+    out = tmp_path / "beam"
+    files = main(["--checkpoint-dir", str(ck), "--out", str(out),
+                  "--device", "cpu", "--batch-size", "2",
+                  "--audio-seconds", "1", "--decode", "beam",
+                  "--set", "decode.beam_width=4",
+                  "--set", "data.max_tokens=16"])
+    assert [os.path.basename(f) for f in files] == ["model_b2_1s.pt2"]
+    assert "exported step 4" in capsys.readouterr().out
+    with open(out / "meta.json") as f:
+        meta = json.load(f)
+    assert meta["decode"] == "beam" and meta["outputs"] == "tokens_counts"
+    audio, lengths = _audio(seed=6)
+    tokens, counts = ExportedModel(str(out), device="cpu")(audio, lengths)
+    with torch.no_grad():
+        logits, out_len = model(*_mels(
+            cfg, np.pad(audio, ((0, 0), (0, SR - audio.shape[1]))), lengths))
+    prefixes, plens, _ = ctc_beam_search_device(
+        torch.log_softmax(logits, -1), out_len, beam_width=4,
+        top_k=cfg.decode.device_top_k, unk_id=369, max_len=16)
+    assert torch.equal(counts, plens[:, 0]) and int(counts.max()) > 0
+    assert torch.equal(tokens, prefixes[:, 0])
 
 
 def _mels(cfg, audio, lengths):

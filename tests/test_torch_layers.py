@@ -24,6 +24,7 @@ from conformer_tpu_torch.models.position import relative_positional_encoding
 from conformer_tpu_torch.ops import ctc as tctc
 from conformer_tpu_torch.ops.rel_shift import rel_shift, rel_shift_reference
 from conformer_tpu_torch.utils import masking as tm
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

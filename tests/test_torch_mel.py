@@ -17,6 +17,7 @@ from conformer_tpu_torch.audio import mel as tmel
 from conformer_tpu_torch.config import AudioConfig
 from conformer_tpu_torch.ops.cuda import launch_counts
 from conformer_tpu_torch.ops.cuda.mel_frontend import logmel_fwd, logmel_plain
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _audio(shape, seed=0, amp=0.1):

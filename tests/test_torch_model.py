@@ -27,6 +27,7 @@ from conformer_tpu_torch.convert import flax_to_state_dict
 from conformer_tpu_torch.models.conformer import Conformer
 from conformer_tpu_torch.text.tokenizer import load_tokenizer
 from conformer_tpu_torch.train.steps import make_eval_step, make_forward
+from torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB = 370   # the 'vi' tokenizer
 

@@ -108,6 +108,7 @@ from conformer_tpu_torch.models.conformer import build_model
 from conformer_tpu_torch.ops.cuda import sincos_attention as tsa
 from conformer_tpu_torch.parallel import mesh as tmesh
 from conformer_tpu_torch.train.pretrain import build_pretrain_model
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = Path(__file__).resolve().parent / "torch_parallel_world.py"
@@ -286,9 +287,26 @@ def _jax_step(over_items):
     return jcfg, tx, j_make_train_step(jcfg, tx, donate=False)
 
 
+_COMPILED: dict = {}
+
+
+def _meshless(over_items, step, state, args):
+    """The meshless step compiled once per config and batch shape, LLVM's
+    optimisation passes off (most of the compile on the CPU; they change
+    no value compared here)."""
+    key = (over_items, tuple((np.shape(a), np.asarray(a).dtype.str)
+                             for a in args))
+    if key not in _COMPILED:
+        lowered = step.lower(state, *args, jax.random.PRNGKey(5))
+        _COMPILED[key] = lowered.compile(
+            compiler_options={"xla_backend_optimization_level": 0})
+    return _COMPILED[key]
+
+
 def _jax_run(over, weights, batch, steps, mesh=None):
     """-> losses, and (params, batch_stats) as numpy after each step."""
-    jcfg, tx, step = _jax_step(tuple(sorted(over.items())))
+    over_items = tuple(sorted(over.items()))
+    jcfg, tx, step = _jax_step(over_items)
     variables = state_dict_to_flax(
         weights, Config.from_dict(jcfg.to_dict()).model,
         scan=jcfg.model.use_scan_layers)
@@ -305,6 +323,8 @@ def _jax_run(over, weights, batch, steps, mesh=None):
             opt_state=make_opt_state_shardings(mesh, state.opt_state,
                                                state.params, tp_enabled=True)))
         args = jax.device_put(args, shard_batch_tree(mesh, args))
+    else:
+        step = _meshless(over_items, step, state, args)
     losses, states = [], []
     for _ in range(steps):
         if mesh is not None:

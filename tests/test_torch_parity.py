@@ -15,6 +15,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 REF = "/root/reference"
 

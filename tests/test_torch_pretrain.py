@@ -25,6 +25,7 @@ CPU, at the tiny config of tests/test_pretrain.py (2 blocks, d_model 64,
   without a GPU it raises, and ``optim.accum_steps > 1`` is refused.
 """
 
+import concurrent.futures
 import csv
 import functools
 from unittest import mock
@@ -58,6 +59,7 @@ from conformer_tpu_torch.models.wav2vec2 import (Wav2Vec2Pretrain,
                                                  sample_mask_spans)
 from conformer_tpu_torch.train import pretrain as tpretrain
 from conformer_tpu_torch.train.state import make_optimizer
+from torch_threads import one_torch_thread  # noqa: F401
 
 LR = 1e-3
 
@@ -301,16 +303,24 @@ def _byol_tower_reference(train: bool):
     return mels, lengths, towers
 
 
+def _byol_references():
+    for train in (False, True):
+        _byol_tower_reference(train)
+    _byol_step_reference()
+
+
 @pytest.fixture(scope="module")
 def jax_reference():
     """Compiles and runs the JAX side of the forward and step comparisons
-    once per module, in set-up (the cached functions hold the results)."""
-    _w2v_forward_reference()
-    for train in (False, True):
-        _byol_tower_reference(train)
-    for impl in ("all", "sampled"):
-        _w2v_step_reference(impl)
-    _byol_step_reference()
+    once per module, in set-up (the cached functions hold the results):
+    BYOL's in a thread beside wav2vec2's, whose steps catch their Gumbel
+    draws through a patched jax.random.gumbel, one at a time."""
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        byol = pool.submit(_byol_references)
+        _w2v_forward_reference()
+        for impl in ("all", "sampled"):
+            _w2v_step_reference(impl)
+        byol.result()
 
 
 def test_wav2vec2_forward_matches_jax(jax_reference):
@@ -395,6 +405,14 @@ def _assert_params_close(got: dict, want: dict, what: str):
     assert worst <= 5e-3 * LR, (what, worst)
 
 
+def _unoptimised(step, *args):
+    """A jitted JAX step compiled with LLVM's optimisation passes off (most
+    of its compile on the CPU; they change no value compared here), run
+    on ``args``."""
+    return step.lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})(*args)
+
+
 @functools.lru_cache(maxsize=None)
 def _w2v_step_reference(impl: str):
     """JAX's wav2vec2 step from its init state, with the draws it made: the
@@ -415,10 +433,10 @@ def _w2v_step_reference(impl: str):
 
     rng = jax.random.PRNGKey(0)
     with mock.patch.object(jax.random, "gumbel", spy):
-        new_state, metrics = jpretrain.make_wav2vec2_step(
-            jcfg, tx, donate=False)(state, jnp.asarray(audio),
-                                    jnp.asarray(lengths), rng,
-                                    jpretrain.gumbel_temperature_at(jcfg, 0))
+        new_state, metrics = _unoptimised(
+            jpretrain.make_wav2vec2_step(jcfg, tx, donate=False), state,
+            jnp.asarray(audio), jnp.asarray(lengths), rng,
+            jpretrain.gumbel_temperature_at(jcfg, 0))
         metrics = _np_tree(metrics)
     assert len(caught) == 1
     mask_key, _, neg_key, _ = jax.random.split(jax.random.fold_in(rng, 0), 4)
@@ -482,8 +500,9 @@ def _byol_step_reference():
             state.target_params),
         target_batch_stats=_randomize_stats(state.target_batch_stats, 13))
     before = _np_tree(state)
-    new_state, metrics = jpretrain.make_byol_step(jcfg, tx, donate=False)(
-        state, *(jnp.asarray(x) for x in _audio()), jax.random.PRNGKey(0))
+    new_state, metrics = _unoptimised(
+        jpretrain.make_byol_step(jcfg, tx, donate=False), state,
+        *(jnp.asarray(x) for x in _audio()), jax.random.PRNGKey(0))
     return before, _np_tree(new_state), _np_tree(metrics)
 
 
@@ -599,14 +618,6 @@ TINY = ["--set", "model.n_blocks=2", "--set", "model.d_model=64",
         "--set", "pretrain.num_vars=16", "--set", "pretrain.predictor_hidden=64"]
 
 
-@pytest.fixture
-def one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
-
 def _path_manifest(tmp_path):
     """Unlabelled WAVs in a manifest with a ``path`` column alone."""
     rng = np.random.default_rng(3)
@@ -624,7 +635,7 @@ def _path_manifest(tmp_path):
 
 @pytest.mark.parametrize("method", ["wav2vec2", "byol"])
 def test_cli_pretrain_resumes_and_train_starts_from_its_encoder(
-        method, tmp_path, one_thread):
+        method, tmp_path):
     from conformer_tpu_torch.cli import pretrain as cli_pretrain
     from conformer_tpu_torch.cli import train as cli_train
 

@@ -27,20 +27,10 @@ from conformer_tpu_torch.audio.flac import write_flac
 from conformer_tpu_torch.cli import pseudo_label
 from conformer_tpu_torch.config import Config
 from conformer_tpu_torch.convert import flax_to_state_dict
+from torch_threads import one_torch_thread  # noqa: F401
 
 SECONDS = [0.9, 1.4, 0.6, 1.7, 1.1, 0.8]
 RATES = [16000, 8000, 16000, 16000, 8000, 16000]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny model's many small ops (an LSTM step a frame) lose most of
-    their time to intra-op threads spinning against the other test
-    workers: one thread while this module runs."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _read(path):

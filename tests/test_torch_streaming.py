@@ -41,23 +41,13 @@ from conformer_tpu_torch.decode.pipeline import InferencePipeline
 from conformer_tpu_torch.decode.streaming import StreamingTranscriber
 from conformer_tpu_torch.models.conformer import Conformer
 from conformer_tpu_torch.text.tokenizer import load_tokenizer
+from torch_threads import one_torch_thread  # noqa: F401
 
 SR = 16000
 # One window shape for every JAX run (1 s of context + 1 s chunks): one
 # compile per decode mode.
 CHUNK_S, CONTEXT_S = 1.0, 1.0
 SECONDS = {"single": 0.8, "multi": 2.3, "long": 3.2}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tiny model's many small ops (an LSTM step a frame) lose most of
-    their time to intra-op threads spinning against the other test
-    workers: one thread while this module runs."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _audio(seconds, seed=0):

@@ -47,6 +47,7 @@ from conformer_tpu_torch.ops.ctc import ctc_loss
 from conformer_tpu_torch.text.tokenizer import load_tokenizer
 from conformer_tpu_torch.train.state import lr_at_step, make_optimizer
 from conformer_tpu_torch.train.steps import make_train_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB = 370
 
@@ -214,16 +215,20 @@ def _variables():
 @functools.lru_cache(maxsize=None)
 def _train_setup(accum: int):
     """(JAX config, port config, flax variables, JAX step outputs) for one
-    step; cached, the flax step jitted once per accumulation count (scanned
-    blocks: the quickest compile)."""
+    step; cached, the flax step compiled once per accumulation count
+    (scanned blocks: the quickest compile)."""
     jcfg, tcfg = _configs(accum)
     jcfg = jcfg.override(**{"model.use_scan_layers": True})
     variables = _variables()
     tx = j_make_optimizer(jcfg.optim)
     state = TrainState.create(variables["params"], variables["batch_stats"], tx)
-    batch = _batch()
-    new_state, metrics = j_make_train_step(jcfg, tx, donate=False)(
-        state, *(jnp.asarray(x) for x in batch), jax.random.PRNGKey(0))
+    args = (state, *(jnp.asarray(x) for x in _batch()),
+            jax.random.PRNGKey(0))
+    # LLVM's optimisation passes off: most of the compile on the CPU, and
+    # they change no value compared here
+    new_state, metrics = j_make_train_step(jcfg, tx, donate=False).lower(
+        *args).compile(
+            compiler_options={"xla_backend_optimization_level": 0})(*args)
     out = jax.tree_util.tree_map(np.asarray, (new_state.params,
                                               new_state.batch_stats, metrics))
     return jcfg, tcfg, variables, out
@@ -399,17 +404,7 @@ TINY = ["--set", "model.n_blocks=2", "--set", "model.d_model=64",
         "--set", "train.num_epochs=10"]
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op thread: the tiny CLI run is seconds alone but crawls
-    when six test workers' thread pools share the cores."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
-
-def test_cli_train_on_cpu_checkpoints_and_resumes(tmp_path, one_thread):
+def test_cli_train_on_cpu_checkpoints_and_resumes(tmp_path):
     from conformer_tpu_torch.cli.train import main
 
     manifest = _manifest(tmp_path)

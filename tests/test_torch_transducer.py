@@ -29,6 +29,7 @@ mixes blanks and emissions, and the greedy decode's choices are not all
 the same token.
 """
 
+import concurrent.futures
 import csv
 import functools
 import io
@@ -69,6 +70,7 @@ from conformer_tpu_torch.ops import rnnt
 from conformer_tpu_torch.text.tokenizer import load_tokenizer
 from conformer_tpu_torch.train.state import make_optimizer
 from conformer_tpu_torch.train.steps import make_train_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 SR = 16000
 VOCAB = 370
@@ -76,16 +78,6 @@ BLANK_BIAS = 2.0
 OVERRIDES = {"model.arch": "transducer", "model.pred_embed_dim": 32,
              "model.pred_hidden_dim": 32, "model.joint_dim": 32,
              "optim.compute_dtype": "float32"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Many small ops (a prediction step a symbol): one intra-op thread
-    while this module runs, against the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jcfg(**extra):
@@ -449,7 +441,7 @@ def test_scan_loss_is_the_same_in_chunks():
 
 def _decode_both(start=None, max_len=None, carry=False, fns=False):
     """The port's decode (through joint_logits and predict_step, or with
-    ``fns`` through greedy_fns) and the JAX decode on the same encodings."""
+    ``fns`` through frame_fns) and the JAX decode on the same encodings."""
     bound, model = _bound(), _port_model()
     mels, mel_lengths = _mels(t=81)
     enc, enc_len = bound.encode(mels, mel_lengths)
@@ -461,7 +453,7 @@ def _decode_both(start=None, max_len=None, carry=False, fns=False):
     with torch.no_grad():
         t_enc, t_len = model.encode(torch.from_numpy(mels),
                                     torch.from_numpy(mel_lengths))
-        joint_fn, pred_step_fn = (model.greedy_fns() if fns else
+        joint_fn, pred_step_fn = (model.frame_fns() if fns else
                                   (model.joint_logits, model.predict_step))
         out = rnnt.rnnt_greedy_decode(
             joint_fn, t_enc, t_len, pred_step_fn,
@@ -517,19 +509,27 @@ TRAIN = {"augment.enabled": False, "optim.learning_rate": 1e-3,
 
 @pytest.fixture(scope="module")
 def jax_train_steps():
-    """impl -> the JAX step's metrics (compiled once each)."""
-    out = {}
-    for impl in ("scan", "lattice"):
+    """impl -> the JAX step's metrics (compiled once each, unoptimised,
+    the two side by side)."""
+    variables = _variables()
+
+    def run(impl):
         jcfg = _jcfg(**TRAIN, **{"model.rnnt_loss_impl": impl})
         tx = j_make_optimizer(jcfg.optim)
-        variables = _variables()
         state = TrainState.create(variables["params"],
                                   variables["batch_stats"], tx)
-        _, metrics = j_make_train_step(jcfg, tx, donate=False)(
-            state, *(jnp.asarray(x) for x in _batch()),
-            jax.random.PRNGKey(0))
-        out[impl] = jax.tree_util.tree_map(float, metrics)
-    return out
+        args = (state, *(jnp.asarray(x) for x in _batch()),
+                jax.random.PRNGKey(0))
+        # LLVM's optimisation passes off: most of the compile on the CPU,
+        # and they change no value compared here
+        _, metrics = j_make_train_step(jcfg, tx, donate=False).lower(
+            *args).compile(
+                compiler_options={"xla_backend_optimization_level": 0})(*args)
+        return jax.tree_util.tree_map(float, metrics)
+
+    impls = ("scan", "lattice")
+    with concurrent.futures.ThreadPoolExecutor(len(impls)) as pool:
+        return dict(zip(impls, pool.map(run, impls)))
 
 
 @pytest.mark.parametrize("impl", ["scan", "lattice"])

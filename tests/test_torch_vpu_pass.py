@@ -18,6 +18,7 @@ from jax.experimental import pallas as pl
 
 from conformer_tpu_torch.ops.cuda.vpu_pass import OPS, vpu_pass
 from conformer_tpu_torch.tools import bench_vpu_pass as bench
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ROWS, COLS, GRID, N = 8, 199, 2, 3
