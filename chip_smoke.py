@@ -40,6 +40,20 @@ Phases, each printing one JSON line:
               forward, and one train step (dropout 0.1, SpecAugment, remat),
               once through the kernels, once through their plain versions;
               and an fp32 forward of both conv_impls on the same weights.
+   tools   -- the port's measuring tools (conformer_tpu_torch/tools/) at
+              Config()'s width: ``trace_step`` on the train step (B 8 x
+              24 s, conv_impl pallas, 2 traced steps), where K1-drop, K2,
+              K3, K4a and K4b must each show time in its own group, and on
+              the transducer train step, the wav2vec2 and BYOL steps, the
+              forward with the device CTC beam (K1) and the transducer's
+              device beam, each a busy share in (0, 1] and a group table;
+              in every traced window each kernel group's launches equal
+              the wrappers' counts times the kernels a call launches
+              (expected_group_launches); ``profile_step`` at B 8 x 8 s
+              (every component a wall and a device time);
+              ``sweep_streaming`` over 16 s (chunk 2 s / context 6 s and
+              1 s / 2 s, greedy: RTF and divergence); ``bench_audio_io``
+              on the host (2 files x 10 s).
 4. serve   -- WAV files of 3, 8, 16 and 24 s transcribed through
               ``conformer_tpu_torch.cli.infer.main(... --device cuda)`` in
               two batches; per-batch latency, RTF and the kernels' launch
@@ -196,7 +210,7 @@ import tempfile
 import time
 from unittest import mock
 
-PHASES = ("build", "kernels", "tolerance", "model", "serve", "train",
+PHASES = ("build", "kernels", "tolerance", "model", "tools", "serve", "train",
           "evaluate", "tiny", "stream", "transducer", "beam_device",
           "pretrain", "export", "parallel")
 OPTIONAL_PHASES = ("profile",)
@@ -3398,7 +3412,7 @@ RNNT_BEAM_WIDTH = 190
 # threads of the CPU search's process, beside the card's runs
 CPU_BEAM_THREADS = 4
 # frames of the profiled CTC runs (a third of them for the RNN-T)
-PROFILE_FRAMES = 60
+PROFILE_FRAMES = 30
 
 
 def _beam_texts(tok, prefixes, plens):
@@ -4993,24 +5007,150 @@ def _pretrain_agreement(torch, tmp: str, spec: dict, ranks: list,
                    and transfer["end_step"] == 1)}
 
 
+# ---------------------------------------------------------------------------
+# tools: the port's measuring tools at the production width
+# ---------------------------------------------------------------------------
+
+# trace_step on the train step: B 8 x 24 s, conv_impl pallas (K3 at 2401 mel
+# frames, K4a/K4b), 2 traced steps; its window must show these groups
+TOOLS_TRAIN = ["--mode", "train", "--arch", "ctc", "--batch", "8",
+               "--audio-s", "24", "--conv", "pallas", "--steps", "2"]
+TOOLS_TRAIN_GROUPS = ("K1-drop", "K2", "K3", "K4a", "K4b")
+# the other modes, once each: (argv, groups that must show time); the
+# forward before the device CTC beam runs K1 without dropout
+TOOLS_MODES = (
+    (["--mode", "train", "--arch", "transducer", "--batch", "8",
+      "--audio-s", "8", "--steps", "1"], ("K1-drop", "K2")),
+    (["--mode", "pretrain", "--batch", "8", "--audio-s", "8", "--steps",
+      "1"], ("K1-drop", "K2")),
+    (["--mode", "pretrain_byol", "--batch", "8", "--audio-s", "8",
+      "--steps", "1"], ("K1", "K1-drop", "K2")),
+    (["--mode", "beam_device", "--batch", "8", "--audio-s", "8", "--steps",
+      "1"], ("K1",)),
+    (["--mode", "transducer_beam", "--batch", "8", "--audio-s", "4",
+      "--steps", "1"], ("K1",)))
+TOOLS_PROFILE = ["--batch", "8", "--audio-s", "8", "--attn", "pallas"]
+TOOLS_SWEEPS = (["--total-s", "16", "--chunks", "2", "--contexts", "6"],
+                ["--total-s", "16", "--chunks", "1", "--contexts", "2"])
+TOOLS_AUDIO = ["--files", "2", "--seconds", "10", "--repeats", "1"]
+
+
+def expected_group_launches(counts: dict) -> dict:
+    """The wrappers' launch counts over a traced window -> the kernels each
+    of trace_step's port groups must hold: a K1 call launches one kernel
+    (hopper::fwd_kernel<DROP> or general::fwd_kernel), a K2 call four
+    (q_pass, k_pass, da_pass, dwh_pass) or, general, five (q_pass, k_pass,
+    da_pass, dwh_partial, dwh_reduce), K3 and K4a one, K4b one (the window
+    kernel) or two (dwconv_dw_partial_kernel, dwconv_dw_reduce_kernel), K5
+    one. The general kernels' launches with dropout are not counted apart,
+    so where there are any only the hopper pair's sum is known."""
+    fwd, drop = counts["sincos_attention_fwd"], \
+        counts["sincos_attention_fwd_dropout"]
+    fwd_general = counts["sincos_attention_fwd_general"]
+    bwd, bwd_general = counts["sincos_attention_bwd"], \
+        counts["sincos_attention_bwd_general"]
+    dw, dw_window = counts["depthwise_conv_dw"], \
+        counts["depthwise_conv_dw_window"]
+    out = ({"K1": fwd - drop, "K1-drop": drop} if fwd_general == 0
+           else {"K1 + K1-drop": fwd - fwd_general})
+    out.update({"K1 general": fwd_general, "K2": 4 * (bwd - bwd_general),
+                "K2 general": 5 * bwd_general, "K3": counts["logmel_fwd"],
+                "K4a": counts["depthwise_conv_fwd"],
+                "K4b": dw_window + 2 * (dw - dw_window),
+                "K5": counts["vpu_pass"]})
+    return out
+
+
+def _traced_groups(report: dict, must_show) -> dict:
+    """A trace_step report -> its port groups' launches against the
+    wrappers' counts, the groups that must show time, and the totals."""
+    groups = {g["group"]: g for g in report["groups"]}
+    launches = lambda g: groups.get(g, {}).get("launches", 0)
+    want = expected_group_launches(report["wrapper_launches"])
+    got = {g: (launches("K1") + launches("K1-drop") if g == "K1 + K1-drop"
+               else launches(g)) for g in want}
+    shown = {g: groups.get(g, {}).get("ms", 0.0) for g in must_show}
+    t = report["totals"]
+    return {"mode": report["mode"], "totals": t,
+            "groups": report["groups"],
+            "top": [{k: (v[:100] if k == "name" else v)
+                     for k, v in row.items()} for row in report["top"][:10]],
+            "group_launches": got, "expected_launches": want,
+            "must_show_ms": shown,
+            "ok": (got == want and all(ms > 0 for ms in shown.values())
+                   and 0 < t["busy_share"] <= 1 and bool(report["groups"]))}
+
+
+def phase_tools(torch):
+    """-> the kernels' launches in the tools' runs: the traced windows
+    (each counted by the trace tool) and the profile and sweep runs."""
+    from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from conformer_tpu_torch.tools import (bench_audio_io, profile_step,
+                                           sweep_streaming, trace_step)
+
+    total = {}
+
+    def add(counts: dict) -> None:
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+
+    traces = []
+    for argv, must_show in [(TOOLS_TRAIN, TOOLS_TRAIN_GROUPS), *TOOLS_MODES]:
+        t0 = time.perf_counter()
+        report = trace_step.main(argv + ["--top", "15"])
+        shutil.rmtree(report["trace_dir"], ignore_errors=True)
+        add(report["wrapper_launches"])
+        traces.append({**_traced_groups(report, must_show),
+                       "seconds": time.perf_counter() - t0})
+    reset_launch_counts()
+    profile = profile_step.main(TOOLS_PROFILE)
+    add(launch_counts())
+    reset_launch_counts()
+    sweeps = [row for argv in TOOLS_SWEEPS
+              for row in sweep_streaming.main(argv)]
+    add(launch_counts())
+    audio = bench_audio_io.main(TOOLS_AUDIO)
+    for row in sweeps:
+        row.pop("text", None)
+    profile_ok = all(
+        profile[c]["wall_ms"] > 0 and profile[c]["device_ms"] is not None
+        and math.isfinite(profile[c]["device_ms"]) and profile[c]["device_ms"]
+        > 0 for c in profile_step.COMPONENTS)
+    pairs = [r for r in sweeps if "chunk_s" in r]
+    sweep_ok = (len(pairs) == len(TOOLS_SWEEPS) and all(
+        r.get("rtf", 0) > 0 and "divergence_cer_vs_offline" in r
+        for r in pairs))
+    audio_ok = all(v > 0 and math.isfinite(v) for v in audio.values())
+    ok = (all(t["ok"] for t in traces) and profile_ok and sweep_ok
+          and audio_ok)
+    emit({"phase": "tools", "config": "Config() bf16, seeded weights",
+          "trace_step": traces, "profile_step": {**profile,
+                                                 "argv": TOOLS_PROFILE},
+          "sweep_streaming": sweeps, "bench_audio_io": audio,
+          "profile_ok": profile_ok, "sweep_ok": sweep_ok,
+          "audio_ok": audio_ok, "ok": ok})
+    if not ok:
+        raise SystemExit("tools phase failed")
+    return total
+
+
 def _profiled(torch, fn):
     """-> (host wall ms, device busy ms, kernel rows) of one fn() call."""
     from torch.profiler import ProfilerActivity, profile
 
+    from conformer_tpu_torch.tools.trace_step import kernel_rows
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone: the host's ops add no kernel row, and
+    # an eager beam's tens of thousands of them take longer to
+    # post-process than its kernels (tools/trace_step.py records both)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # Kernel rows only: an aten op's row repeats the time of the kernels it
-    # launched, the port's own kernels have no aten op above them, and a
-    # range annotation (the optimizer's step) spans kernels already counted.
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)
-              and not e.key.startswith("Optimizer.")]
+    # the device's own rows, as the trace tool counts them
+    events = kernel_rows(prof.key_averages())
     total_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:15]
@@ -5027,11 +5167,27 @@ def _profiled(torch, fn):
                           if "conv" in e.key.lower()]}
 
 
+def _trace_case(torch, fn) -> dict:
+    """One warm call of fn(i), then one traced, read by the trace tool:
+    its totals (span, union-busy, idle share, launches), groups and top
+    kernels, and the wrappers' counts over the window."""
+    from conformer_tpu_torch.tools import trace_step
+
+    with tempfile.TemporaryDirectory() as d:
+        counts = trace_step.trace_window(fn, 1, d, torch.device(DEVICE),
+                                         warmup=1)
+        rep = trace_step.report(d, top=10, quiet=True)
+    return {**rep["totals"], "groups": rep["groups"],
+            "top": [{**k, "name": k["name"][:100]} for k in rep["top"]],
+            "wrapper_launches": {k: n for k, n in counts.items() if n}}
+
+
 def phase_profile(torch):
     """One bf16 forward (serving) and one bf16 train step (dropout 0.1,
     SpecAugment, remat, Adam) of Config() at B = 8, 8 s and 24 s, warm,
     with the depthwise conv through F.conv1d (conv_impl xla) and through K4
-    (pallas); and the pretrain phase's steps (PRETRAIN_CASES)."""
+    (pallas); and the pretrain phase's steps (PRETRAIN_CASES); each traced
+    and read by ``tools/trace_step.py``."""
     from conformer_tpu_torch.config import Config
     from conformer_tpu_torch.models.conformer import Conformer, init_weights
     from conformer_tpu_torch.train.state import make_optimizer
@@ -5049,19 +5205,16 @@ def phase_profile(torch):
             audio, lengths = _noise_batch(torch, 8, seconds, seed=seconds)
             tokens, token_lengths = _tokens(torch, 8, 60, seed=seconds)
             args = [x.to(dev) for x in (audio, lengths, tokens, token_lengths)]
-            forward(*args[:2])
-            out[f"{impl}_forward_{seconds}s"] = _profiled(
-                torch, lambda: forward(*args[:2]))
-            train(*args, 0)
-            out[f"{impl}_train_step_{seconds}s"] = _profiled(
-                torch, lambda: train(*args, 1))
+            out[f"{impl}_forward_{seconds}s"] = _trace_case(
+                torch, lambda i: forward(*args[:2]))
+            out[f"{impl}_train_step_{seconds}s"] = _trace_case(
+                torch, lambda i: train(*args, i))
         del model, forward, train
     for method, seconds, conv_impl in PRETRAIN_CASES:
         _, model, step, audio, lengths = _pretrain_setup(torch, method,
                                                          seconds, conv_impl)
-        step(audio, lengths, 0)
-        out[f"{method}_{conv_impl}_step_{seconds}s"] = _profiled(
-            torch, lambda: step(audio, lengths, 1))
+        out[f"{method}_{conv_impl}_step_{seconds}s"] = _trace_case(
+            torch, lambda i: step(audio, lengths, i))
         del model, step
     emit({"phase": "profile", "config": "Config() bf16, B=8, conv_impl "
           "xla and pallas; PRETRAIN_CASES", **out})
@@ -5111,9 +5264,10 @@ def main(argv=None) -> int:
         entries, launches = timed("kernels", phase_kernels, torch)
     if "tolerance" in phases:
         timed("tolerance", phase_tolerance, torch)
-    if "model" in phases:
-        for key, n in timed("model", phase_model, torch).items():
-            launches[key] = launches.get(key, 0) + n
+    for name, run in (("model", phase_model), ("tools", phase_tools)):
+        if name in phases:
+            for key, n in timed(name, run, torch).items():
+                launches[key] = launches.get(key, 0) + n
     # one directory each, under one root: the export phase exports the
     # transducer phase's checkpoint. Its cli.export runs start ahead and
     # trace on the host's other cores while the phases in between run: the

@@ -339,6 +339,8 @@ def decode_flac_bytes(raw: bytes) -> Tuple[np.ndarray, int]:
             raise ValueError("invalid sample-rate code")
         br.bits(8)  # header CRC-8 (covered by the frame CRC-16 below)
 
+        if ch_asgn > 10:
+            raise ValueError("reserved channel assignment")
         frame_ch = ch_asgn + 1 if ch_asgn < 8 else 2
         if frame_ch != channels:
             raise ValueError("frame/stream channel mismatch")
@@ -607,7 +609,8 @@ def encode_flac_bytes(signal: np.ndarray, sample_rate: int,
     """Encode PCM -> a FLAC stream (bytes).
 
     `signal`: float in [-1, 1] ((samples,) or (channels, samples)) — quantized
-    to `bits_per_sample` — or an integer array taken as raw sample values.
+    to `bits_per_sample` — or an integer array taken as raw sample values,
+    which must fit `bits_per_sample` (ValueError otherwise).
     `subframe`: auto | constant | verbatim | fixed0..fixed4 | lpc.
     `stereo`: independent | left_side | right_side | mid_side (stereo only).
     """
@@ -630,6 +633,10 @@ def encode_flac_bytes(signal: np.ndarray, sample_rate: int,
         ints = np.clip(np.round(sig * full), -full, full - 1).astype(np.int64)
     else:
         ints = sig.astype(np.int64)
+        lo, hi = -(1 << (bps - 1)), (1 << (bps - 1)) - 1
+        if ints.size and (ints.min() < lo or ints.max() > hi):
+            raise ValueError(f"integer samples outside [{lo}, {hi}] do not "
+                             f"fit {bps} bits per sample")
     if stereo != "independent" and channels != 2:
         raise ValueError("stereo decorrelation requires 2 channels")
 

@@ -361,6 +361,7 @@ static bool decode_file(const char* path, FlacData* out, bool header_only) {
     else if (sr_code == 15) return false;
     br.bits(8);  // header CRC-8 (covered by the frame CRC-16 check below)
 
+    if (ch_asgn > 10) return false;                 // reserved assignments
     int frame_ch = ch_asgn < 8 ? (int)ch_asgn + 1 : 2;
     if (frame_ch != nch) return false;
     int bps;

@@ -21,7 +21,8 @@ SPIN_CYCLES = 50_000_000
 def device_ms(fn: Callable[[], object], iters: int = 20,
               warmup: int = 3) -> float:
     """Mean device time of ``fn()`` in ms over ``iters`` back-to-back calls,
-    after ``warmup`` calls."""
+    after ``warmup`` calls. Calls that launch more kernels than the spin
+    covers, or than the launch queue holds, time the host's pace too."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -34,3 +35,9 @@ def device_ms(fn: Callable[[], object], iters: int = 20,
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sync(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

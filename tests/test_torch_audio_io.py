@@ -128,6 +128,77 @@ def test_a_corrupt_flac_raises_the_jax_error(tmp_path):
         native.read_flac(str(path))
 
 
+@pytest.mark.parametrize("bps", [8, 16, 24])
+def test_the_encoder_refuses_integers_outside_bits_per_sample(bps):
+    """An integer sample past [-2^(bps-1), 2^(bps-1) - 1] raises, where the
+    JAX encoder masks it to bps bits and the stream decodes as another
+    signal (40000 at 16 bits as -0.7793); the edge values round-trip."""
+    lo, hi = -(1 << (bps - 1)), (1 << (bps - 1)) - 1
+    edges = np.array([lo, hi, 0, -1, 1, hi, lo] * 4, np.int64)
+    raw = flac.encode_flac_bytes(edges, SR, bits_per_sample=bps)
+    want = (edges / float(1 << (bps - 1))).astype(np.float32)
+    for decoded in (flac.decode_flac_bytes(raw)[0],
+                    jflac.decode_flac_bytes(raw)[0]):
+        np.testing.assert_array_equal(decoded, want)
+    for bad in (hi + 1, lo - 1, 40000 * (1 << (bps - 8))):
+        ints = edges.copy()
+        ints[3] = bad
+        with pytest.raises(ValueError, match="outside"):
+            flac.encode_flac_bytes(ints, SR, bits_per_sample=bps)
+        with pytest.raises(ValueError, match="outside"):
+            flac.encode_flac_bytes(ints.astype(np.int32), SR,
+                                   bits_per_sample=bps)
+        wrapped = jflac.decode_flac_bytes(
+            jflac.encode_flac_bytes(ints, SR, bits_per_sample=bps))[0]
+        assert wrapped[3] != np.float32(bad / float(1 << (bps - 1)))
+        assert abs(float(wrapped[3])) <= 1.0
+    # the float path still clips
+    loud = flac.decode_flac_bytes(flac.encode_flac_bytes(
+        np.array([2.0, -2.0, 0.5]), SR, bits_per_sample=bps))[0]
+    np.testing.assert_array_equal(loud, np.float32([hi, lo, 1 << (bps - 2)])
+                                  / np.float32(1 << (bps - 1)))
+
+
+def _with_channel_code(raw: bytes, code: int) -> bytes:
+    """The one-frame stream ``raw`` with its frame header's channel
+    assignment set to ``code``, the header's CRC-8 and the frame's CRC-16
+    recomputed, so that no checksum is what rejects it."""
+    out = bytearray(raw)
+    start = 4 + 4 + 34                        # fLaC, STREAMINFO's header, body
+    assert out[start] == 0xFF and out[start + 1] & 0xFC == 0xF8
+    bs_code, sr_code = out[start + 2] >> 4, out[start + 2] & 0xF
+    out[start + 3] = (code << 4) | (out[start + 3] & 0xF)
+    crc8 = start + 4 + 1                      # frame 0: a one-byte number
+    crc8 += {6: 1, 7: 2}.get(bs_code, 0) + {12: 1, 13: 2, 14: 2}.get(sr_code,
+                                                                    0)
+    out[crc8] = flac._crc8(bytes(out[start:crc8]))
+    out[-2:] = flac._crc16(bytes(out[start:-2])).to_bytes(2, "big")
+    return bytes(out)
+
+
+@pytest.mark.parametrize("code", [11, 12, 13, 14, 15])
+def test_both_decoders_refuse_a_reserved_channel_assignment(tmp_path, code):
+    """Channel codes 11-15 are reserved: the port's Python and native
+    decoders raise, where the JAX Python decoder reads the frame as two
+    independent channels."""
+    ints = _pcm(2, 16, n=1000)
+    raw = flac.encode_flac_bytes(ints, SR, block_size=1024)
+    good = _with_channel_code(raw, 1)         # independent stereo: as written
+    assert good == raw
+    bad = _with_channel_code(raw, code)
+    path = tmp_path / "reserved.flac"
+    path.write_bytes(bad)
+    with pytest.raises(ValueError, match="reserved channel assignment"):
+        flac.decode_flac_bytes(bad)
+    with pytest.raises(ValueError, match="reserved channel assignment"):
+        tio.read_flac(str(path))
+    with pytest.raises(ValueError, match="unreadable FLAC"):
+        native.read_flac(str(path))
+    got, sr = jflac.decode_flac_bytes(bad)
+    assert sr == SR
+    np.testing.assert_array_equal(got, (ints / 32768.0).astype(np.float32))
+
+
 def _id3(body: bytes, size: int = 21) -> bytes:
     tag = b"ID3\x04\x00\x00" + bytes([0, 0, 0, size]) + b"\x00" * size
     return tag + body
