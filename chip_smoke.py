@@ -271,6 +271,13 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def gpu_name_and_limit() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of fn() in ms, by CUDA events over `iters` calls
     queued behind a spin kernel (``tools.timing.device_ms``), so that a
@@ -1589,8 +1596,38 @@ def _write_manifest(tmp: str, name: str, seconds, seed: int):
     return manifest, paths
 
 
+def _save_report(runs: list, steps: list) -> dict:
+    """The train phase's checkpoint writes: every save written whole (its
+    bytes and write seconds recorded), the newest three kept, and the step
+    seconds of the steps that followed a save (its snapshot and the write
+    beside them) against the other steps."""
+    saves = [e for r in runs for e in r["saves"]]
+    firsts = {r["start_step"] + 1 for r in runs}
+    after = {e["step"] + 1 for e in saves}
+    pick = lambda keep: [s_["step_seconds"] for s_ in steps
+                         if s_["step"] not in firsts and keep(s_["step"])]
+    want = [["ckpt_00000002.pt", "ckpt_00000004.pt"],
+            ["ckpt_00000002.pt", "ckpt_00000004.pt", "ckpt_00000006.pt"]]
+    listed = [[n for n in r["checkpoints"] if n.startswith("ckpt_")]
+              for r in runs]
+    # every 2 steps and at each epoch's end (2 steps an epoch: so twice a
+    # step, the second waiting for the first's write)
+    ok = (listed == want
+          and [e["step"] for e in saves] == [2, 2, 4, 4, 6, 6]
+          and all(e.get("bytes", 0) > 0 and "write_s" in e for e in saves))
+    return {"bytes": max(e.get("bytes", 0) for e in saves),
+            "saves": saves,
+            "step_seconds_after_a_save": pick(lambda n: n in after),
+            "step_seconds_other": pick(lambda n: n not in after),
+            "checkpoints": listed, "ok": ok}
+
+
 def phase_train(torch, tmp: str):
-    """-> launch counts of the two driven runs."""
+    """-> launch counts of the two driven runs. Also reports the
+    asynchronous checkpoint writes: each save's bytes, the seconds it held
+    the training thread and the seconds its write took on the writer's
+    thread, and the step seconds of the steps a save ran in against the
+    others (each run's first step, which builds, aside)."""
     from conformer_tpu_torch.cli import train
     from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
@@ -1617,7 +1654,8 @@ def phase_train(torch, tmp: str):
                      "launches": counts,
                      "launches_per_step": {k: v / max(steps, 1)
                                            for k, v in counts.items()},
-                     "checkpoints": sorted(os.listdir(ck))})
+                     "checkpoints": sorted(os.listdir(ck)),
+                     "saves": list(trainer.ckpt.log)})
     with open(os.path.join(ck, "metrics.jsonl"), encoding="utf8") as f:
         records = [json.loads(ln) for ln in f]
     steps = [{"step": r["step"], "loss": r["train/ctc_loss"],
@@ -1627,6 +1665,7 @@ def phase_train(torch, tmp: str):
               "audio_s_per_s": r["train/audio_seconds"] / r["train/step_seconds"],
               "peak_memory_gb": r.get("train/peak_memory_gb")}
              for r in records if "train/ctc_loss" in r]
+    saves = _save_report(runs, steps)
     n_blocks = 17
     ok = (runs[0]["start_step"] == 0 and runs[0]["end_step"] == 4
           and runs[1]["start_step"] == 4 and runs[1]["end_step"] == 6
@@ -1637,10 +1676,13 @@ def phase_train(torch, tmp: str):
                   and r["launches_per_step"]["sincos_attention_fwd_dropout"]
                   == 2 * n_blocks
                   and r["launches_per_step"]["sincos_attention_bwd"] == n_blocks
-                  and r["launches"]["logmel_fwd"] > 0 for r in runs))
+                  and r["launches"]["logmel_fwd"] > 0 for r in runs)
+          and saves["ok"])
     emit({"phase": "train", "config": "Config() production (dropout 0.1 "
           "hash, SpecAugment, remat, bf16, Adam), B=8, 7.5 s and 23.5 s WAVs",
           "runs": runs, "steps": steps, "ok": ok})
+    emit({"phase": "train_checkpoints", "card": gpu_name_and_limit(),
+          **saves})
     if not ok:
         raise SystemExit("train phase failed")
     return total
@@ -1871,9 +1913,17 @@ def phase_evaluate(torch, tmp: str):
 
 def phase_tiny(torch, tmp: str):
     """ModelConfig.tiny (d_model 64, 2 heads of 32, kernel 7, LSTM 80,
-    attention_impl pallas, bf16) trained for 2 steps through ``cli.train``
-    and served through ``cli.infer``, both with ``--device cuda``; every
-    attention launch goes to the general kernels. -> launch counts."""
+    attention_impl pallas, bf16) trained for 2 steps through ``cli.train``,
+    then that checkpoint served through ``cli.infer --checkpoint-dir`` (its
+    config.json, the step-2 checkpoint) on a parquet manifest of 8 of the
+    WAVs, both with ``--device cuda``; every attention launch goes to the
+    general kernels. -> launch counts."""
+    import contextlib
+    import io
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
     from conformer_tpu_torch.cli import infer, train
     from conformer_tpu_torch.config import Config, ModelConfig
     from conformer_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
@@ -1888,6 +1938,11 @@ def phase_tiny(torch, tmp: str):
     cfg.to_json(config)
     manifest, paths = _write_manifest(tmp, "tiny", TRAIN_SECONDS, seed=3)
     ck = os.path.join(tmp, "ck_tiny")
+    served = [*paths[:4], *paths[-4:]]
+    parquet = os.path.join(tmp, "tiny_serve.parquet")
+    pq.write_table(pa.table({"path": served}), parquet)
+    out_csv = os.path.join(tmp, "tiny_served.csv")
+    said = io.StringIO()
     runs, total = {}, {}
     for name, fn in (
             ("train", lambda: train.main(
@@ -1897,11 +1952,14 @@ def phase_tiny(torch, tmp: str):
                  "--set", "train.log_every_steps=1",
                  "--set", "train.num_epochs=100"])),
             ("serve", lambda: infer.main(
-                ["--audio", *paths[:4], *paths[-4:], "--config", config,
-                 "--device", DEVICE, "--batch-size", "8"]))):
+                ["--manifest", parquet, "--checkpoint-dir", ck,
+                 "--device", DEVICE, "--batch-size", "8",
+                 "--output", out_csv]))):
         reset_launch_counts()
         t0 = time.perf_counter()
-        out = fn()
+        with contextlib.redirect_stdout(said if name == "serve"
+                                        else sys.stdout):
+            out = fn()
         runs[name] = {"wall_s": time.perf_counter() - t0,
                       "launches": launch_counts()}
         for key, n in runs[name]["launches"].items():
@@ -1911,9 +1969,14 @@ def phase_tiny(torch, tmp: str):
     with open(os.path.join(ck, "metrics.jsonl"), encoding="utf8") as f:
         losses = [json.loads(ln)["train/ctc_loss"] for ln in f
                   if "train/ctc_loss" in ln]
+    print(said.getvalue(), end="", flush=True)
+    with open(out_csv, newline="", encoding="utf8") as f:
+        served_rows = [r["path"] for r in csv.DictReader(f)]
+    restored = f"restored step 2 from {ck}" in said.getvalue()
     t, s_ = runs["train"]["launches"], runs["serve"]["launches"]
     n_blocks = model.n_blocks
     ok = (variant == "general" and steps == 2 and len(losses) == 2
+          and restored and served_rows == served
           and all(math.isfinite(x) for x in losses)
           and t["sincos_attention_fwd"] == 2 * n_blocks
           and t["sincos_attention_fwd_general"] == 2 * n_blocks
@@ -1923,8 +1986,10 @@ def phase_tiny(torch, tmp: str):
           == n_blocks)
     emit({"phase": "tiny", "config": "ModelConfig.tiny(370): 2 blocks, "
           "d_model 64, 2 heads (dh 32), kernel 7, LSTM 80, pallas attention, "
-          "bf16; train 16 WAVs (7.5 s, 23.5 s) for 2 steps, serve 8",
-          "variant": variant, "losses": losses, "runs": runs, "ok": ok})
+          "bf16; train 16 WAVs (7.5 s, 23.5 s) for 2 steps, serve 8 from "
+          "the step-2 checkpoint and a parquet manifest",
+          "variant": variant, "losses": losses, "restored_step_2": restored,
+          "runs": runs, "ok": ok})
     if not ok:
         raise SystemExit("tiny phase failed")
     return total
@@ -2833,7 +2898,7 @@ def phase_transducer(torch, tmp: str):
         rows = list(csv.reader(f))
     # the decode checks' copy of the checkpoint (mixing_copy, on the
     # validation rows and the stream's one-chunk utterance in its window),
-    # in ck_mixed/ for the export phase and as a state dict for cli.infer
+    # in ck_mixed/ for cli.infer and the export phase
     latest = sorted(n for n in os.listdir(ck) if n.endswith(".pt"))[-1]
     payload = torch.load(os.path.join(ck, latest), map_location="cpu")
     cfg_json = os.path.join(ck, "config.json")
@@ -2867,20 +2932,18 @@ def phase_transducer(torch, tmp: str):
     os.makedirs(ck_mixed)
     shutil.copy(cfg_json, ck_mixed)
     torch.save(payload, os.path.join(ck_mixed, latest))
-    weights = os.path.join(tmp, "w.pt")
-    torch.save(payload["model"], weights)
     serve_csv = os.path.join(tmp, "served.csv")
     driven("serve", lambda: infer.main(
-        ["--config", cfg_json, "--weights", weights, "--audio", *val_paths,
+        ["--checkpoint-dir", ck_mixed, "--audio", *val_paths,
          "--device", DEVICE, "--batch-size", "8", "--output", serve_csv]))
     with open(serve_csv, newline="", encoding="utf8") as f:
         served = list(csv.DictReader(f))
     stream_text, stream_s = driven("stream", lambda: _infer_text(
-        ["--config", cfg_json, "--weights", weights, "--audio", short_wav,
+        ["--checkpoint-dir", ck_mixed, "--audio", short_wav,
          "--device", DEVICE, "--streaming", "--output",
          os.path.join(tmp, "stream.csv")]))
     pipe = InferencePipeline(Config.from_json(cfg_json), load_tokenizer("vi"),
-                             weights=weights, device=DEVICE)
+                             checkpoint_dir=ck_mixed, device=DEVICE)
     offline_text = pipe.transcribe_batch(window,
                                          np.array([len(signals[-1])]))[0]
     greedy = greedy_case(torch, pipe.model, pipe.cfg)
@@ -3011,8 +3074,9 @@ def _export_checkpoint(cfg, directory: str):
     from conformer_tpu_torch.train.state import make_optimizer
 
     model = build_model(cfg.model, cfg.optim.compute_dtype, seed=0)
-    CheckpointManager(directory).save(
-        model, make_optimizer(cfg.optim, model.parameters()), step=0)
+    mgr = CheckpointManager(directory)
+    mgr.save(model, make_optimizer(cfg.optim, model.parameters()), step=0)
+    mgr.close()
     save_config(cfg, directory)
     return model
 
@@ -3381,9 +3445,7 @@ def phase_export(torch, tmp: str):
                        == tcfg.model.n_blocks)
     ok = (all(c["ok"] for c in ctc) and rolled and tiny_case["ok"]
           and transducer["ok"] and ctc_beam["ok"] and rnnt_beam["ok"])
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = gpu_name_and_limit()
     emit({"phase": "export", "card": smi, "config": f"Config() production "
           f"width at {n_blocks} blocks, conv_impl pallas, seeded random "
           "weights; ModelConfig.tiny fp32 exported on the CPU; "
@@ -3528,8 +3590,9 @@ def _transducer_ck(torch, tmp: str):
     model = build_model(cfg.model, cfg.optim.compute_dtype, seed=0).to(DEVICE)
     mixing_copy(torch, model, cfg, [_noise_batch(torch, 8, 8, seed=81)])
     ck = os.path.join(tmp, "ck_mixed")
-    CheckpointManager(ck).save(
-        model, make_optimizer(cfg.optim, model.parameters()), step=0)
+    mgr = CheckpointManager(ck)
+    mgr.save(model, make_optimizer(cfg.optim, model.parameters()), step=0)
+    mgr.close()
     save_config(cfg, ck)
     return ck, "seeded weights, mixing copy"
 
@@ -3738,8 +3801,6 @@ def phase_beam_device(torch, tmp: str):
         model = build_model(t_cfg.model, t_cfg.optim.compute_dtype,
                             seed=None)
         CheckpointManager(ck).restore(model)
-        t_weights = os.path.join(tmp, "transducer_w.pt")
-        torch.save(model.state_dict(), t_weights)
         model = model.to(dev).eval()
         joint_fn, pred_step_fn = model.frame_fns()
         dc = t_cfg.decode
@@ -3789,13 +3850,12 @@ def phase_beam_device(torch, tmp: str):
         wavfile.write(wav8, 16000, (audio[: 8 * 16000] * 32767).astype(
             np.int16))
         r_offline, r_offline_s = driven("rnnt_infer", lambda: _infer_text(
-            ["--audio", wav8, "--config", os.path.join(ck, "config.json"),
-             "--weights", t_weights, "--device", DEVICE, "--decode", "beam",
-             *wide, "--output", os.path.join(tmp, "rnnt_infer.csv")]))
-        r_stream, r_stream_s = driven("rnnt_stream", lambda: _infer_text(
-            ["--audio", wav8, "--config", os.path.join(ck, "config.json"),
-             "--weights", t_weights, "--device", DEVICE, "--streaming",
+            ["--audio", wav8, "--checkpoint-dir", ck, "--device", DEVICE,
              "--decode", "beam", *wide, "--output",
+             os.path.join(tmp, "rnnt_infer.csv")]))
+        r_stream, r_stream_s = driven("rnnt_stream", lambda: _infer_text(
+            ["--audio", wav8, "--checkpoint-dir", ck, "--device", DEVICE,
+             "--streaming", "--decode", "beam", *wide, "--output",
              os.path.join(tmp, "rnnt_stream.csv")]))
         rnnt.update(test=r_test, infer_text=r_offline,
                     infer_wall_s=r_offline_s, stream_text=r_stream,
@@ -3839,9 +3899,7 @@ def phase_beam_device(torch, tmp: str):
                   for s_ in RNNT_BEAM_SECONDS)
           and runs["test_lm_auto"]["launches"]["sincos_attention_fwd"] > 0
           and runs["rnnt_test"]["launches"]["sincos_attention_fwd"] > 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = gpu_name_and_limit()
     emit({"phase": "beam_device", "card": smi, "config":
           "Config() and configs/production_vi_transducer.json, "
           "DecodeConfig's operating point, word LM from cli.create_lm",
@@ -5301,10 +5359,7 @@ def main(argv=None) -> int:
     if "profile" in phases:
         timed("profile", phase_profile, torch)
     emit({"phase_seconds": walls})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(gpu_name_and_limit().splitlines()[0], flush=True)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,7 @@ Output is time-major ``(..., n_frames, n_mels)``.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -187,3 +188,10 @@ class MelFrontend:
     def frame_lengths(self, sample_lengths: torch.Tensor) -> torch.Tensor:
         """Valid frame count per utterance."""
         return sample_lengths // self.cfg.hop_length + 1
+
+
+@functools.lru_cache(maxsize=4)
+def default_frontend(device="cuda", **audio_kwargs) -> MelFrontend:
+    """A shared frontend of ``AudioConfig(**audio_kwargs)`` on ``device``
+    (the card unless the caller asks for the CPU)."""
+    return MelFrontend(AudioConfig(**audio_kwargs), device=device)

@@ -36,6 +36,17 @@ def add_mesh_args(p: argparse.ArgumentParser) -> None:
                         "stripe of the manifest")
 
 
+def refuse_mesh(args: argparse.Namespace, cli: str) -> None:
+    """The JAX CLIs take ``--dp``/``--tp``/``--multihost`` everywhere but
+    build a mesh only in train, test and pretrain; the others run on one
+    device. The port's take the flags too, and refuse a mesh rather than
+    ignore one."""
+    if max(args.dp, 1) * args.tp > 1 or args.multihost:
+        raise SystemExit(f"{cli} runs on one device; --dp, --tp and "
+                         "--multihost are for cli.train, cli.test and "
+                         "cli.pretrain")
+
+
 def setup_mesh(args: argparse.Namespace, device):
     """-> the (dp, tp) mesh over the launcher's ranks, or None for one rank
     (counterpart of the JAX setup_mesh). One process per rank, as

@@ -17,14 +17,17 @@ from __future__ import annotations
 import argparse
 import os
 
-from conformer_tpu_torch.cli.common import (add_common_args, load_config,
-                                            load_tokenizer_from_args)
+from conformer_tpu_torch.cli.common import (add_common_args, add_mesh_args,
+                                            load_config,
+                                            load_tokenizer_from_args,
+                                            refuse_mesh)
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     add_common_args(p)
+    add_mesh_args(p)
     p.add_argument("--text", required=True,
                    help="input corpus, one sentence per line")
     p.add_argument("--out", required=True, help="output directory")
@@ -34,6 +37,7 @@ def main(argv=None) -> None:
                         "sequences (decode.device_lm_path)")
     p.add_argument("--token-order", type=int, default=5)
     args = p.parse_args(argv)
+    refuse_mesh(args, "cli.create_lm")
 
     cfg = load_config(args)
     tok = load_tokenizer_from_args(args, cfg)

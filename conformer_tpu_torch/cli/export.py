@@ -23,8 +23,10 @@ from __future__ import annotations
 
 import argparse
 
-from conformer_tpu_torch.cli.common import (add_common_args, load_config,
-                                            load_tokenizer_from_args)
+from conformer_tpu_torch.cli.common import (add_common_args, add_mesh_args,
+                                            load_config,
+                                            load_tokenizer_from_args,
+                                            refuse_mesh)
 
 
 def main(argv=None):
@@ -32,6 +34,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     add_common_args(p)
+    add_mesh_args(p)
     p.add_argument("--checkpoint-dir", required=True)
     p.add_argument("--out", required=True)
     p.add_argument("--batch-size", type=int, default=1)
@@ -40,6 +43,7 @@ def main(argv=None):
                    help="'beam' bakes the LM-fused device beam search into "
                         "the program: (tokens, counts) of the best beam")
     args = p.parse_args(argv)
+    refuse_mesh(args, "cli.export")
 
     cfg = load_config(args)
     tokenizer = load_tokenizer_from_args(args, cfg)

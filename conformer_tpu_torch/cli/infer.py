@@ -1,21 +1,25 @@
-"""Transcribe audio files or a CSV manifest with greedy decoding or a beam
-search fused with an n-gram LM (``--lm lm.arpa --decode beam``: the host
-search; ``--decode beam_device``: the device search), on the GPU unless
-``--device cpu`` is given.
+"""Transcribe audio files or a CSV or parquet manifest with greedy decoding
+or a beam search fused with an n-gram LM (``--lm lm.arpa --decode beam``:
+the host search; ``--decode beam_device``: the device search), on the GPU
+unless ``--device cpu`` is given.
 
     python -m conformer_tpu_torch.cli.infer --audio a.wav b.flac --weights w.pt
-    python -m conformer_tpu_torch.cli.infer --manifest batch.csv --output out.csv
+    python -m conformer_tpu_torch.cli.infer --audio a.wav --checkpoint-dir ck
+    python -m conformer_tpu_torch.cli.infer --manifest m.parquet --output out.csv
     python -m conformer_tpu_torch.cli.infer --audio long.wav --streaming
 
-``--weights`` takes a state dict written by ``conformer_tpu_torch.convert``;
-without it the model has seeded random weights. ``--decode auto`` is greedy
-without an LM and ``beam_auto`` with one, which offline on the GPU means the
-device beam search (through CUDA graphs) and for ``--streaming`` the host
-beam search; a transducer runs its RNN-T beam search for any beam mode.
-``--streaming`` feeds
-each file through a ``StreamingTranscriber`` (decode/streaming.py) in chunks
-of ``--stream-chunk-seconds`` with ``--stream-context-seconds`` of left
-context.
+``--checkpoint-dir`` restores the newest checkpoint of a training run (and
+reads its ``config.json`` unless ``--config`` is given); ``--weights``
+takes a state dict written by ``conformer_tpu_torch.convert``; with neither
+the model has seeded random weights. A manifest has a ``path`` column; with
+``start`` and ``end`` columns (seconds) and no ``--audio``, each row is that
+segment of its file. ``--decode auto`` is greedy without an LM and
+``beam_auto`` with one, which offline on the GPU means the device beam
+search (through CUDA graphs) and for ``--streaming`` the host beam search;
+a transducer runs its RNN-T beam search for any beam mode. ``--streaming``
+feeds each file through a ``StreamingTranscriber`` (decode/streaming.py) in
+chunks of ``--stream-chunk-seconds`` with ``--stream-context-seconds`` of
+left context.
 """
 
 from __future__ import annotations
@@ -23,21 +27,10 @@ from __future__ import annotations
 import argparse
 import csv
 
-from conformer_tpu_torch.cli.common import (add_common_args, load_config,
-                                            lm_decode,
-                                            load_tokenizer_from_args)
-
-
-def read_manifest(path: str):
-    """CSV with a ``path`` column (and optional ``start``/``end`` seconds)
-    -> (paths, segments or None)."""
-    with open(path, newline="", encoding="utf8") as f:
-        rows = list(csv.DictReader(f))
-    paths = [r["path"] for r in rows]
-    segments = None
-    if rows and "start" in rows[0] and "end" in rows[0]:
-        segments = [(float(r["start"]), float(r["end"])) for r in rows]
-    return paths, segments
+from conformer_tpu_torch.cli.common import (add_common_args, add_mesh_args,
+                                            load_config, lm_decode,
+                                            load_tokenizer_from_args,
+                                            refuse_mesh)
 
 
 def main(argv=None):
@@ -46,11 +39,17 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     add_common_args(p)
+    add_mesh_args(p)
     p.add_argument("--audio", nargs="*", default=[], help="audio file(s)")
     p.add_argument("--manifest", default=None,
-                   help="CSV manifest with a path column")
-    p.add_argument("--weights", default=None,
-                   help="torch state dict (see conformer_tpu_torch.convert)")
+                   help="CSV or parquet manifest with a path column")
+    source = p.add_mutually_exclusive_group()
+    source.add_argument("--checkpoint-dir", default=None,
+                        help="restore the newest checkpoint of this "
+                             "training directory")
+    source.add_argument("--weights", default=None,
+                        help="torch state dict (see "
+                             "conformer_tpu_torch.convert)")
     p.add_argument("--decode", choices=["auto", "greedy", "beam",
                                         "beam_device", "beam_auto"],
                    default="auto")
@@ -69,6 +68,7 @@ def main(argv=None):
     p.add_argument("--stream-chunk-seconds", type=float, default=2.0)
     p.add_argument("--stream-context-seconds", type=float, default=6.0)
     args = p.parse_args(argv)
+    refuse_mesh(args, "cli.infer")
 
     if not args.audio and not args.manifest:
         raise SystemExit("need --audio files or --manifest")
@@ -86,15 +86,19 @@ def main(argv=None):
     # streaming decodes in its transcriber; the pipeline then only holds
     # the model
     pipe = InferencePipeline(cfg, tokenizer, weights=args.weights,
+                             checkpoint_dir=args.checkpoint_dir,
                              decode="greedy" if args.streaming else decode,
                              device=args.device)
     paths = list(args.audio)
     segments = None
     if args.manifest:
-        manifest_paths, manifest_segments = read_manifest(args.manifest)
-        if manifest_segments is not None and not paths:
-            segments = manifest_segments
-        paths.extend(manifest_paths)
+        from conformer_tpu_torch.data.dataset import load_manifest
+
+        rows = load_manifest(args.manifest)
+        if rows and {"start", "end"} <= set(rows[0]) and not paths:
+            # one row per (path, start, end) span of a recording
+            segments = [(r["start"], r["end"]) for r in rows]
+        paths.extend(r["path"] for r in rows)
 
     if args.streaming:
         from conformer_tpu_torch.audio.io import load_audio

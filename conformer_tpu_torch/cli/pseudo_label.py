@@ -27,9 +27,10 @@ import csv
 
 import numpy as np
 
-from conformer_tpu_torch.cli.common import (add_common_args, lm_decode,
-                                            load_config,
-                                            load_tokenizer_from_args)
+from conformer_tpu_torch.cli.common import (add_common_args, add_mesh_args,
+                                            lm_decode, load_config,
+                                            load_tokenizer_from_args,
+                                            refuse_mesh)
 
 TRANSDUCER_NOT_SUPPORTED = (
     "pseudo-labelling needs a CTC model: its confidence is the mean of the "
@@ -42,6 +43,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     add_common_args(p)
+    add_mesh_args(p)
     p.add_argument("--manifest", required=True, help="CSV with a path column")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--weights", default=None,
@@ -54,6 +56,7 @@ def main(argv=None) -> int:
                    help="drop utterances whose mean frame log-prob is lower")
     p.add_argument("--batch-size", type=int, default=8)
     args = p.parse_args(argv)
+    refuse_mesh(args, "cli.pseudo_label")
 
     cfg = load_config(args)
     if cfg.model.arch == "transducer":

@@ -57,9 +57,10 @@ from typing import List
 
 import numpy as np
 
-from conformer_tpu_torch.cli.common import (add_common_args, lm_decode,
-                                            load_config,
-                                            load_tokenizer_from_args)
+from conformer_tpu_torch.cli.common import (add_common_args, add_mesh_args,
+                                            lm_decode, load_config,
+                                            load_tokenizer_from_args,
+                                            refuse_mesh)
 
 
 def batch_rungs(max_batch: int) -> List[int]:
@@ -506,6 +507,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     add_common_args(p)
+    add_mesh_args(p)
     p.add_argument("--weights", default=None,
                    help="torch state dict (see conformer_tpu_torch.convert)")
     p.add_argument("--checkpoint-dir", default=None,
@@ -543,7 +545,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--stream-ttl", type=float, default=300.0,
                    help="idle seconds before a streaming session is reaped")
     p.add_argument("--max-stream-sessions", type=int, default=64)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    refuse_mesh(args, "cli.serve")
+    return args
 
 
 def make_server(args: argparse.Namespace) -> ThreadingHTTPServer:

@@ -152,8 +152,9 @@ def main(argv=None) -> None:
         "model.lstm_hidden_dim": args.lstm_hidden})
     model = build_model(cfg.model, cfg.optim.compute_dtype, seed=None)
     model.load_state_dict(convert_state_dict(sd, cfg.model))
-    CheckpointManager(args.out_dir, keep=1).save(
-        model, make_optimizer(cfg.optim, model.parameters()), step=0)
+    mgr = CheckpointManager(args.out_dir, keep=1)
+    mgr.save(model, make_optimizer(cfg.optim, model.parameters()), step=0)
+    mgr.close()
     save_config(cfg, args.out_dir)
     print(f"[import] {len(sd)} reference tensors -> {args.out_dir}")
 

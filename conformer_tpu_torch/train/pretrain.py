@@ -355,10 +355,19 @@ class Pretrainer:
         self.ckpt.save(self.model, self.optimizer, self.step, epoch)
 
     def fit(self) -> None:
-        """Train until ``train.num_steps`` or ``train.num_epochs``. Device
+        """Train until ``train.num_steps`` or ``train.num_epochs``, then
+        wait for the last checkpoint's write (on a raise too). Device
         values are read only at log points (which synchronise, so
         ``step_seconds`` is the device-complete wall per step since the
         last one); a non-finite loss there raises."""
+        try:
+            self._fit()
+        except BaseException:
+            self.ckpt.wait(barrier=False)   # this rank alone may have raised
+            raise
+        self.ckpt.wait()
+
+    def _fit(self) -> None:
         cfg = self.cfg
         shard = {}
         if self.loaders > 1:    # each node reads its stripe of the manifest

@@ -251,6 +251,16 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def fit(self) -> None:
+        """Train, then wait for the last checkpoint's write (on a raise
+        too, so no write is left half done)."""
+        try:
+            self._fit()
+        except BaseException:
+            self.ckpt.wait(barrier=False)   # this rank alone may have raised
+            raise
+        self.ckpt.wait()
+
+    def _fit(self) -> None:
         cfg = self.cfg
         train_ds = ManifestDataset(cfg.data.train_manifest,
                                    cfg.audio.sample_rate,

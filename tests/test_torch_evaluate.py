@@ -113,8 +113,9 @@ def test_cli_test_on_cpu_restores_the_checkpoint_and_writes_results(
     model = Conformer(tcfg.model, "float32")
     model.load_state_dict(state)
     ck = tmp_path / "ck"
-    CheckpointManager(str(ck)).save(
-        model, make_optimizer(tcfg.optim, model.parameters()), step=3)
+    mgr = CheckpointManager(str(ck))
+    mgr.save(model, make_optimizer(tcfg.optim, model.parameters()), step=3)
+    mgr.close()
     save_config(tcfg, str(ck))
     results = tmp_path / "results.csv"
     metrics = main(["--manifest", str(directory / "eval.csv"),

@@ -226,8 +226,9 @@ def _checkpoint(cfg, model, ck):
     """A checkpoint of cli.train's kind (step 4) of ``model`` in ``ck``."""
     from conformer_tpu_torch.cli.common import save_config
 
-    CheckpointManager(str(ck)).save(
-        model, make_optimizer(cfg.optim, model.parameters()), step=4)
+    mgr = CheckpointManager(str(ck))
+    mgr.save(model, make_optimizer(cfg.optim, model.parameters()), step=4)
+    mgr.close()
     save_config(cfg, str(ck))
 
 

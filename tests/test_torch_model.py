@@ -151,3 +151,109 @@ def test_cli_infer_on_cpu(tmp_path):
     j_tokens, j_counts = j_greedy_decode(j_logits, j_len, unk_id=jtok.unk_id)
     want = jtok.collapsed_ids_to_text(np.asarray(j_tokens[0]), int(j_counts[0]))
     assert rows[3] == [paths[2], want]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_wav_text(n: int) -> str:
+    """The JAX forward's greedy text of ``_audio(1)``'s row ``n % 2`` as
+    written to a 16-bit WAV (one compile: padded to the batch's length)."""
+    jcfg, _, variables, _ = _pair(True, "pallas")
+    audio, lengths = _audio(1)
+    k = int(lengths[n % 2])
+    sig = np.zeros((1, audio.shape[1]), np.float32)
+    sig[0, :k] = (audio[n % 2, :k] * 32767).astype(np.int16) / 32768.0
+    jtok = j_load_tokenizer("vi")
+    j_logits, j_len = jax.jit(j_make_forward(jcfg))(
+        variables, jnp.asarray(sig), jnp.asarray([k], jnp.int32))
+    j_tokens, j_counts = j_greedy_decode(j_logits, j_len, unk_id=jtok.unk_id)
+    return jtok.collapsed_ids_to_text(np.asarray(j_tokens[0]), int(j_counts[0]))
+
+
+def test_cli_infer_serves_a_checkpoint_dir_from_a_parquet_manifest(tmp_path,
+                                                                   capsys):
+    """A training directory (a checkpoint of the JAX variables carried by
+    convert.py, and config.json) is all cli.infer needs: no --config. Its
+    texts are the JAX forward's."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from conformer_tpu_torch.cli.common import save_config
+    from conformer_tpu_torch.cli.infer import main
+    from conformer_tpu_torch.train.checkpoint import CheckpointManager
+    from conformer_tpu_torch.train.state import make_optimizer
+
+    _, tcfg, _, model = _pair(True, "pallas")
+    ck = tmp_path / "ck"
+    mgr = CheckpointManager(str(ck))
+    mgr.save(model, make_optimizer(tcfg.optim, model.parameters()), step=2)
+    mgr.close()
+    save_config(tcfg, str(ck))
+    audio, lengths = _audio(1)
+    paths = []
+    for i in range(3):
+        p = tmp_path / f"a{i}.wav"
+        n = int(lengths[i % 2])
+        wavfile.write(p, 16000, (audio[i % 2, :n] * 32767).astype(np.int16))
+        paths.append(str(p))
+    manifest = tmp_path / "m.parquet"
+    pq.write_table(pa.table({"path": paths}), manifest)
+    out_csv = tmp_path / "out.csv"
+    main(["--manifest", str(manifest), "--checkpoint-dir", str(ck),
+          "--device", "cpu", "--batch-size", "2", "--output", str(out_csv)])
+    said = capsys.readouterr().out
+    assert f"restored step 2 from {ck}" in said and "config.json" in said
+    with open(out_csv, newline="", encoding="utf8") as f:
+        rows = list(csv.reader(f))
+    assert rows == [["path", "prediction"]] + [
+        [p, _jax_wav_text(i)] for i, p in enumerate(paths)]
+    with pytest.raises(SystemExit):         # one source of weights
+        main(["--audio", paths[0], "--checkpoint-dir", str(ck),
+              "--weights", str(tmp_path / "w.pt"), "--device", "cpu"])
+
+
+@pytest.mark.parametrize("fmt", ["csv", "parquet"])
+def test_cli_infer_reads_segment_manifests_as_the_jax_cli_does(tmp_path,
+                                                               monkeypatch,
+                                                               fmt):
+    """The same (path, start, end) manifest reaches transcribe_files as the
+    same paths and segments in both CLIs (their pipelines replaced by a
+    recorder; the JAX one's module is never imported, which takes long)."""
+    import sys
+    import types
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from conformer_tpu.cli import infer as j_infer
+
+    from conformer_tpu_torch.cli import infer as t_infer
+    from conformer_tpu_torch.decode import pipeline as t_pipeline
+
+    calls = []
+
+    class Recorder:
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def transcribe_files(self, paths, batch_size=8, channel=None,
+                             segments=None):
+            calls.append((list(paths), segments))
+            return [""] * len(paths)
+
+    monkeypatch.setitem(sys.modules, "conformer_tpu.decode.pipeline",
+                        types.SimpleNamespace(InferencePipeline=Recorder))
+    monkeypatch.setattr(t_pipeline, "InferencePipeline", Recorder)
+    table = {"path": [str(tmp_path / f"call{i}.wav") for i in (0, 0, 1)],
+             "start": [0.0, 2.5, 0.25], "end": [2.5, 6.75, 3.0],
+             "text": ["A", "B", "C"]}
+    manifest = tmp_path / f"m.{fmt}"
+    if fmt == "parquet":
+        pq.write_table(pa.table(table), manifest)
+    else:
+        with open(manifest, "w", newline="", encoding="utf8") as f:
+            w = csv.writer(f)
+            w.writerow(list(table))
+            w.writerows(zip(*table.values()))
+    j_infer.main(["--manifest", str(manifest)])
+    t_infer.main(["--manifest", str(manifest), "--device", "cpu"])
+    want = (table["path"], list(zip(table["start"], table["end"])))
+    assert calls == [want, want]

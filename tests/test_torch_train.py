@@ -450,3 +450,171 @@ def test_cli_train_refuses_a_missing_gpu_and_unported_options(monkeypatch,
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         main(base + ["--device", "cpu", "--init-encoder-from",
                      str(tmp_path / "pre")])
+
+
+# ---------------------------------------------------------------------------
+# Asynchronous checkpoints
+# ---------------------------------------------------------------------------
+
+class _Tiny(torch.nn.Module):
+    """Parameters, BatchNorm statistics and Adam moments, all of which a
+    train step changes in place."""
+
+    def __init__(self):
+        super().__init__()
+        self.lin = torch.nn.Linear(6, 4)
+        self.norm = torch.nn.BatchNorm1d(4)
+
+    def forward(self, x):
+        return self.norm(self.lin(x))
+
+
+def _tiny_step(model, optimizer, seed):
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (5, 6)).astype(np.float32))
+    optimizer.zero_grad()
+    model.train()
+    model(x).square().mean().backward()
+    optimizer.step()
+
+
+def _tiny_trained(seed=0):
+    torch.manual_seed(seed)
+    model = _Tiny()
+    optimizer = make_optimizer(OptimConfig(), model.parameters())
+    _tiny_step(model, optimizer, seed)
+    return model, optimizer
+
+
+def _state(model, optimizer):
+    """Every tensor of the model's and the optimizer's state, copied."""
+    opt = optimizer.state_dict()
+    out = {f"model.{k}": v.clone() for k, v in model.state_dict().items()}
+    for i, entry in opt["opt"]["state"].items():
+        out.update({f"opt.{i}.{k}": torch.as_tensor(v).clone()
+                    for k, v in entry.items()})
+    out["count"] = torch.tensor(opt["count"])
+    return out
+
+
+def _gated_save(monkeypatch):
+    """Make torch.save wait for the returned event, so that a write is
+    still in flight while the test goes on."""
+    import threading
+
+    gate = threading.Event()
+    real = torch.save
+
+    def save(*args, **kwargs):
+        gate.wait(10)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "save", save)
+    return gate
+
+
+def test_checkpoint_is_a_snapshot_of_the_state_at_the_save(tmp_path,
+                                                          monkeypatch):
+    from conformer_tpu_torch.train.checkpoint import CheckpointManager
+
+    model, optimizer = _tiny_trained()
+    gate = _gated_save(monkeypatch)
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    want = _state(model, optimizer)
+    mgr.save(model, optimizer, step=1)
+    assert not list((tmp_path / "ck").glob("ckpt_*.pt"))   # not yet written
+    _tiny_step(model, optimizer, 1)     # every tensor changes in place
+    moved = _state(model, optimizer)
+    assert all(not torch.equal(moved[k], want[k]) for k in want
+               if not k.endswith("num_batches_tracked"))
+    gate.set()
+    mgr.wait()
+    fresh, fresh_opt = _tiny_trained(seed=5)
+    assert mgr.restore(fresh, fresh_opt) == (1, 0)
+    got = _state(fresh, fresh_opt)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+
+
+def test_checkpoint_keeps_the_newest_n_and_reads_wait_for_the_write(
+        tmp_path, monkeypatch):
+    from conformer_tpu_torch.train.checkpoint import CheckpointManager
+
+    model, optimizer = _tiny_trained()
+    mgr = CheckpointManager(str(tmp_path / "ck"), keep=2)
+    for step in (1, 2, 3, 4):
+        mgr.save(model, optimizer, step=step, epoch=step // 2)
+    mgr.wait()
+    assert mgr.steps() == [3, 4]
+    assert [e["step"] for e in mgr.log] == [1, 2, 3, 4]
+    assert all(e["bytes"] > 0 and e["write_s"] >= 0 for e in mgr.log)
+    # a read right after a save waits for that write
+    gate = _gated_save(monkeypatch)
+    mgr.save(model, optimizer, step=5, epoch=3)
+    import threading
+
+    threading.Timer(0.2, gate.set).start()
+    assert mgr.latest_step() == 5
+    mgr.save(model, optimizer, step=6, epoch=3)
+    assert mgr.restore(_tiny_trained()[0]) == (6, 3)
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == \
+        ["ckpt_00000005.pt", "ckpt_00000006.pt"]
+
+
+def test_a_failed_checkpoint_write_raises_and_leaves_no_file(tmp_path):
+    import shutil
+
+    from conformer_tpu_torch.train.checkpoint import CheckpointManager
+
+    model, optimizer = _tiny_trained()
+    ck = tmp_path / "ck"
+    mgr = CheckpointManager(str(ck))
+    shutil.rmtree(ck)          # the write has nowhere to go
+    mgr.save(model, optimizer, step=1)
+    with pytest.raises(RuntimeError, match="writing a checkpoint"):
+        mgr.wait()
+    mgr.wait()                 # raised once
+    mgr.save(model, optimizer, step=2)
+    with pytest.raises(RuntimeError, match="writing a checkpoint"):
+        mgr.save(model, optimizer, step=3)      # the next save raises it
+    ck.mkdir()
+    mgr.save(model, optimizer, step=4)
+    mgr.close()
+    assert sorted(p.name for p in ck.iterdir()) == ["ckpt_00000004.pt"]
+
+
+def test_trainer_waits_for_its_last_write_also_when_it_raises(tmp_path,
+                                                             monkeypatch):
+    """cli.train returns with every write on disk (torch.save held back so
+    the writes are in flight when the loop ends), resumes from them, and a
+    loop that raises still leaves only whole files."""
+    import threading
+
+    from conformer_tpu_torch.cli.train import main
+    from conformer_tpu_torch.train.trainer import Trainer
+
+    manifest = _manifest(tmp_path)
+    ck = tmp_path / "ck"
+    argv = ["--train-manifest", manifest, "--checkpoint-dir", str(ck),
+            "--device", "cpu", *TINY]
+    gate = _gated_save(monkeypatch)
+    threading.Timer(0.3, gate.set).start()
+    first = main(argv + ["--set", "train.num_steps=2"])
+    assert [e["step"] for e in first.ckpt.log] == [1, 2, 2]
+    assert all("write_s" in e for e in first.ckpt.log)
+    assert sorted(p.name for p in ck.glob("ckpt_*")) == \
+        ["ckpt_00000001.pt", "ckpt_00000002.pt"]
+
+    def save_then_raise(self):
+        self.step += 1
+        self.save(0)
+        raise ValueError("stop")
+
+    gate.clear()
+    threading.Timer(0.3, gate.set).start()
+    monkeypatch.setattr(Trainer, "_fit", save_then_raise)
+    with pytest.raises(ValueError, match="stop"):
+        main(argv + ["--set", "train.num_steps=3"])
+    assert sorted(p.name for p in ck.glob("ckpt_*")) == \
+        ["ckpt_00000001.pt", "ckpt_00000002.pt", "ckpt_00000003.pt"]
