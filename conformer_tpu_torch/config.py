@@ -351,8 +351,9 @@ class TrainConfig:
     # of the reference's unused EarlyStopping (reference: manager.py:51-77).
     early_stop_patience: int = 0
     early_stop_metric: str = "loss"    # 'loss' or 'wer' (both minimized)
-    # Write a jax.profiler trace for steps [profile_start, profile_start+count)
-    # into <checkpoint_dir>/profile (0 count disables).
+    # Write a torch.profiler trace, with the spans of utils/spans.py, for
+    # steps [profile_start, profile_start+count) into
+    # <checkpoint_dir>/profile/trace.json (0 count disables).
     profile_start_step: int = 10
     profile_num_steps: int = 0
     # PRNG implementation for dropout/augment keys. 'rbg' (TPU hardware RNG)

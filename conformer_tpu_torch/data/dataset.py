@@ -29,6 +29,7 @@ from __future__ import annotations
 import csv
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Iterable, Iterator, List, Optional, Tuple
@@ -38,6 +39,7 @@ import numpy as np
 from conformer_tpu_torch.audio.io import load_audio
 from conformer_tpu_torch.config import DataConfig
 from conformer_tpu_torch.text.tokenizer import GraphemeTokenizer
+from conformer_tpu_torch.utils.spans import span
 
 _FLOAT_COLUMNS = ("start", "end")
 
@@ -111,6 +113,11 @@ class BucketedLoader:
     Groups utterances by duration into `cfg.bucket_boundaries_s` buckets; each
     emitted batch is padded to its bucket's sample count. Utterances longer
     than the last boundary are clipped to `cfg.max_audio_s`.
+
+    Two counters, cumulative over the loader's epochs: ``wait_s``, the
+    seconds the consumer was blocked on the prefetch queue, and ``busy_s``,
+    the loader threads' working seconds summed over the threads (each
+    file's read, decode and resample, and each batch's assembly).
     """
 
     def __init__(self, dataset: ManifestDataset, tokenizer: GraphemeTokenizer,
@@ -126,6 +133,8 @@ class BucketedLoader:
         # small validation set spread over many buckets would otherwise
         # yield zero batches and NaN metrics.
         self.drop_remainder = cfg.drop_remainder and training
+        self.wait_s = self.busy_s = 0.0
+        self._busy_lock = threading.Lock()
         self.indices = np.arange(shard_index, len(dataset), shard_count)
         sr = dataset.sample_rate
         self.boundaries = [int(b * sr) for b in cfg.bucket_boundaries_s]
@@ -158,7 +167,14 @@ class BucketedLoader:
                 return i
         return len(self.boundaries) - 1
 
+    def _add_busy(self, t0: float) -> None:
+        """Add the time since ``t0`` to ``busy_s`` under one lock, so that
+        the reader threads lose no count."""
+        with self._busy_lock:
+            self.busy_s += time.perf_counter() - t0
+
     def _make_batch(self, items: List[Tuple[np.ndarray, str]], bucket: int) -> Batch:
+        t0 = time.perf_counter()
         size = self.boundaries[bucket]
         b = len(items)
         audio = np.zeros((b, size), dtype=np.float32)
@@ -170,8 +186,10 @@ class BucketedLoader:
             audio_lengths[i] = n
             texts.append(text)
         tokens, token_lengths = self.tok.encode_batch(texts, max_len=self.cfg.max_tokens)
-        return Batch(audio, audio_lengths, tokens.astype(np.int32),
-                     token_lengths.astype(np.int32), texts)
+        batch = Batch(audio, audio_lengths, tokens.astype(np.int32),
+                      token_lengths.astype(np.int32), texts)
+        self._add_busy(t0)
+        return batch
 
     def _load_items(self, order: Iterable[int]) -> Iterator[Tuple[np.ndarray, str]]:
         """Load rows in manifest order; unreadable files are skipped (they
@@ -181,18 +199,25 @@ class BucketedLoader:
         workers = max(self.cfg.num_workers, 0)
         if workers <= 1:
             for idx in order:
+                t0 = time.perf_counter()
                 try:
-                    yield self.ds[int(idx)]
+                    item = self.ds[int(idx)]
                 except Exception:
                     continue
+                finally:
+                    self._add_busy(t0)
+                yield item
             return
         skip = object()
 
         def load(idx):
+            t0 = time.perf_counter()
             try:
                 return self.ds[int(idx)]
             except Exception:
                 return skip
+            finally:
+                self._add_busy(t0)
 
         from collections import deque
 
@@ -259,7 +284,10 @@ class BucketedLoader:
         t = threading.Thread(target=producer, daemon=True)
         t.start()
         while True:
-            item = q.get()
+            t0 = time.perf_counter()
+            with span("loader.wait"):
+                item = q.get()
+            self.wait_s += time.perf_counter() - t0
             if item is stop:
                 break
             if isinstance(item, BaseException):

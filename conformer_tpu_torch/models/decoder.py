@@ -29,6 +29,7 @@ from conformer_tpu_torch.models.layers import Dense, MaskedBatchNorm, swish
 from conformer_tpu_torch.ops.frame_graph import exported_loop
 from conformer_tpu_torch.parallel.collectives import (copy_to_model,
                                                       gather_from_model)
+from conformer_tpu_torch.utils.spans import span
 
 
 class LSTMLayer(nn.Module):
@@ -92,8 +93,9 @@ class LSTMDecoder(nn.Module):
         """(B, L, d_model) -> (B, L, vocab) unnormalised logits."""
         group = None if self.mesh is None else self.mesh.model_group
         x = x.transpose(0, 1)
-        for layer in self.lstm:
-            x = layer(x, group if self.lstm_split else None)
+        with span("model.lstm_head"):
+            for layer in self.lstm:
+                x = layer(x, group if self.lstm_split else None)
         x = swish(x)
         x = self.norm(x, mask=None if frame_mask is None else frame_mask.T,
                       use_running_average=not self.training)

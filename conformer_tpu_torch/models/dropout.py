@@ -22,6 +22,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from conformer_tpu_torch.utils.spans import span
+
 _AXIS_MULTS = (0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F, 0x01000193,
                0x61C88647, 0x9E3779B9)
 M32 = 0xFFFFFFFF
@@ -114,8 +116,13 @@ class Dropout(nn.Module):
             return x
         if self.impl == "prng":
             return F.dropout(x, self.rate, training=True)
-        keep = hash_keep(x.shape, seed_words, self.rate, x.device, offsets)
-        # the scale is rounded to x's dtype first, as jnp.asarray(.., x.dtype)
-        scale = torch.tensor(1.0 / (1.0 - self.rate), dtype=x.dtype).item()
-        return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype,
-                                                        device=x.device))
+        with span("model.dropout"):
+            keep = hash_keep(x.shape, seed_words, self.rate, x.device,
+                             offsets)
+            # the scale is rounded to x's dtype first, as
+            # jnp.asarray(.., x.dtype)
+            scale = torch.tensor(1.0 / (1.0 - self.rate),
+                                 dtype=x.dtype).item()
+            return torch.where(keep, x * scale,
+                               torch.zeros((), dtype=x.dtype,
+                                           device=x.device))

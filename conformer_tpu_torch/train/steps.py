@@ -35,6 +35,7 @@ from conformer_tpu_torch.ops.rnnt import (rnnt_beam_search_sharded,
                                           rnnt_loss_from_logits,
                                           rnnt_loss_scan)
 from conformer_tpu_torch.train.state import Optimizer
+from conformer_tpu_torch.utils.spans import span
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
@@ -105,33 +106,38 @@ def make_train_step(cfg: Config, model: torch.nn.Module, optimizer: Optimizer,
     def step(audio: torch.Tensor, audio_lengths: torch.Tensor,
              tokens: torch.Tensor, token_lengths: torch.Tensor,
              step_index: int) -> Dict[str, torch.Tensor]:
-        model.train()
-        gen = step_generator(cfg.train.seed, step_index)
-        with torch.no_grad():
-            mels = frontend(audio)
-        mel_lengths = frontend.frame_lengths(audio_lengths)
-        b = audio.shape[0]
-        if mesh is None:
-            mels = spec_augment(gen, mels, cfg.augment, mel_lengths)
-        else:
-            off = mesh.batch_offset(b)
-            mels = spec_augment(gen, mels, cfg.augment, mel_lengths,
-                                slice(off, off + b), b * mesh.dp)
-        seeds = torch.randint(0, 2 ** 62, (accum,), generator=gen).tolist()
-        if b % accum:
-            raise ValueError(f"batch {b} does not split into {accum} "
-                             "micro-batches")
-        m = b // accum
-        optimizer.zero_grad()
-        loss_sum = torch.zeros((), device=audio.device)
+        with span("train.forward"):
+            model.train()
+            gen = step_generator(cfg.train.seed, step_index)
+            with torch.no_grad():
+                mels = frontend(audio)
+            mel_lengths = frontend.frame_lengths(audio_lengths)
+            b = audio.shape[0]
+            if mesh is None:
+                mels = spec_augment(gen, mels, cfg.augment, mel_lengths)
+            else:
+                off = mesh.batch_offset(b)
+                mels = spec_augment(gen, mels, cfg.augment, mel_lengths,
+                                    slice(off, off + b), b * mesh.dp)
+            seeds = torch.randint(0, 2 ** 62, (accum,),
+                                  generator=gen).tolist()
+            if b % accum:
+                raise ValueError(f"batch {b} does not split into {accum} "
+                                 "micro-batches")
+            m = b // accum
+            optimizer.zero_grad()
+            loss_sum = torch.zeros((), device=audio.device)
         for i in range(accum):
             sl = slice(i * m, (i + 1) * m)
-            loss = loss_fn(model, mels[sl], mel_lengths[sl], tokens[sl],
-                           token_lengths[sl], seeds[i],
-                           _global_count(mesh, token_lengths[sl]))
-            (loss / accum).backward()
+            with span("train.forward"):
+                loss = loss_fn(model, mels[sl], mel_lengths[sl], tokens[sl],
+                               token_lengths[sl], seeds[i],
+                               _global_count(mesh, token_lengths[sl]))
+            with span("train.backward"):
+                (loss / accum).backward()
             loss_sum = loss_sum + loss.detach()
-        grad_norm = optimizer.step()
+        with span("train.optimizer"):
+            grad_norm = optimizer.step()
         if mesh is not None:
             sums = mesh.data_count(torch.stack([loss_sum / accum,
                                                 audio_lengths.sum() / sr]))

@@ -24,6 +24,7 @@ greedily and gathers the tokens, so WER covers the whole set.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Iterable, Optional
@@ -47,6 +48,7 @@ from conformer_tpu_torch.train.logging import EarlyStopping, MetricsLogger, Thro
 from conformer_tpu_torch.train.pretrain import init_encoder_from
 from conformer_tpu_torch.train.state import make_optimizer, param_count
 from conformer_tpu_torch.train.steps import make_eval_step, make_train_step
+from conformer_tpu_torch.utils import spans
 
 
 def _refuse_unported(cfg: Config) -> None:
@@ -141,12 +143,25 @@ class Trainer:
     def save(self, epoch: int) -> None:
         self.ckpt.save(self.model, self.optimizer, self.step, epoch)
 
+    def _write_profile(self, window: contextlib.ExitStack, prof,
+                       prof_dir: str) -> None:
+        """Close the profiler window and its spans, and write its trace."""
+        self._sync()
+        window.close()
+        os.makedirs(prof_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(prof_dir, "trace.json"))
+        self.print("[trainer] wrote profiler trace")
+
     def train_epoch(self, loader: Iterable[Batch], epoch: int,
                     val_fn=None) -> float:
         """One epoch. The step loop reads device values only at log points
         (which synchronise, so ``step_seconds`` there is the device-complete
         wall time since the previous log point, per step); a non-finite loss
-        raises.
+        raises. Steps ``train.profile_start_step`` on, for
+        ``train.profile_num_steps``, run under ``torch.profiler`` with the
+        spans on (utils/spans.py); the trace goes to
+        ``<checkpoint_dir>/profile/trace.json``, also when the epoch ends
+        inside the window.
 
         val_fn(step): optional mid-epoch validation hook, called every
         cfg.train.val_every_steps steps."""
@@ -158,52 +173,55 @@ class Trainer:
         if cfg.train.profile_num_steps and self.lead:
             prof_dir = os.path.join(cfg.train.checkpoint_dir, "profile")
         t_log, steps_since = time.perf_counter(), 0
-        for batch in loader:
-            args = self._device_batch(batch)
-            if prof_dir is not None and prof is None \
-                    and self.step == cfg.train.profile_start_step:
-                prof = torch.profiler.profile()
-                prof.__enter__()
-            metrics = self.train_step(*args, self.step)
-            self.step += 1
-            steps_since += 1
-            device_losses.append(metrics["loss"])
-            meter.update(float(batch.audio_lengths.sum()) * self.loaders / sr)
-            if prof is not None and self.step == (cfg.train.profile_start_step
-                                                  + cfg.train.profile_num_steps):
-                self._sync()
-                prof.__exit__(None, None, None)
-                os.makedirs(prof_dir, exist_ok=True)
-                prof.export_chrome_trace(os.path.join(prof_dir, "trace.json"))
-                prof, prof_dir = None, None
-                self.print("[trainer] wrote profiler trace")
-            if cfg.train.log_every_steps and self.step % cfg.train.log_every_steps == 0:
-                loss = float(metrics["loss"])          # synchronises
-                now = time.perf_counter()
-                if not np.isfinite(loss):
-                    raise FloatingPointError(f"non-finite loss at step {self.step}")
-                record = {"ctc_loss": loss,
-                          "grad_norm": float(metrics["grad_norm"]),
-                          "step_seconds": (now - t_log) / steps_since,
-                          "audio_seconds": float(metrics["audio_seconds"]),
-                          **meter.snapshot()}
-                if self.device.type == "cuda":
-                    record["peak_memory_gb"] = (
-                        torch.cuda.max_memory_allocated(self.device) / 1e9)
-                self.logger.log(self.step, record, prefix="train/")
-                self.print(f"[step {self.step}] loss={loss:.4f} "
-                           f"audio_s/s={record['audio_seconds_per_s']:.1f}")
-                t_log, steps_since = now, 0
-            if (cfg.train.checkpoint_every_steps
-                    and self.step % cfg.train.checkpoint_every_steps == 0):
-                self.save(epoch)
-            if (val_fn is not None and cfg.train.val_every_steps
-                    and self.step % cfg.train.val_every_steps == 0):
-                val_fn(self.step)
-            if cfg.train.num_steps and self.step >= cfg.train.num_steps:
-                break
-        if prof is not None:
-            prof.__exit__(None, None, None)
+        window = contextlib.ExitStack()     # closed on a raise too
+        with window:
+            for batch in loader:
+                args = self._device_batch(batch)
+                if prof_dir is not None and prof is None \
+                        and self.step == cfg.train.profile_start_step:
+                    prof = window.enter_context(torch.profiler.profile())
+                    window.enter_context(spans.on())
+                metrics = self.train_step(*args, self.step)
+                self.step += 1
+                steps_since += 1
+                device_losses.append(metrics["loss"])
+                meter.update(float(batch.audio_lengths.sum()) * self.loaders
+                             / sr)
+                if prof is not None and self.step == (
+                        cfg.train.profile_start_step
+                        + cfg.train.profile_num_steps):
+                    self._write_profile(window, prof, prof_dir)
+                    prof, prof_dir = None, None
+                if (cfg.train.log_every_steps
+                        and self.step % cfg.train.log_every_steps == 0):
+                    loss = float(metrics["loss"])          # synchronises
+                    now = time.perf_counter()
+                    if not np.isfinite(loss):
+                        raise FloatingPointError(
+                            f"non-finite loss at step {self.step}")
+                    record = {"ctc_loss": loss,
+                              "grad_norm": float(metrics["grad_norm"]),
+                              "step_seconds": (now - t_log) / steps_since,
+                              "audio_seconds": float(metrics["audio_seconds"]),
+                              **meter.snapshot()}
+                    if self.device.type == "cuda":
+                        record["peak_memory_gb"] = (
+                            torch.cuda.max_memory_allocated(self.device)
+                            / 1e9)
+                    self.logger.log(self.step, record, prefix="train/")
+                    self.print(f"[step {self.step}] loss={loss:.4f} "
+                               f"audio_s/s={record['audio_seconds_per_s']:.1f}")
+                    t_log, steps_since = now, 0
+                if (cfg.train.checkpoint_every_steps
+                        and self.step % cfg.train.checkpoint_every_steps == 0):
+                    self.save(epoch)
+                if (val_fn is not None and cfg.train.val_every_steps
+                        and self.step % cfg.train.val_every_steps == 0):
+                    val_fn(self.step)
+                if cfg.train.num_steps and self.step >= cfg.train.num_steps:
+                    break
+            if prof is not None:        # the epoch ended inside the window
+                self._write_profile(window, prof, prof_dir)
         losses = (torch.stack(device_losses).double().cpu().numpy()
                   if device_losses else np.zeros(0))
         if losses.size and not np.isfinite(losses).all():
